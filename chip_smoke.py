@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``clonos_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written Hopper kernel from ``clonos_tpu_torch/ops/csrc``
+at first use, holds it against its plain PyTorch version at the main
+path's shapes, drives the job of ``bench.py``'s headline ("bench-allround":
+8 sources -> keyBy -> 8 tumbling windows -> keyBy -> 8 reduces -> 8
+sinks, 128 records per source subtask per step, 997 keys, edge capacity
+1024) on the card, checks the card run against a CPU run of the same
+blocks, and kills and recovers a window subtask and a reduce subtask
+against a golden run. Every phase raises on failure, so the script exits
+non-zero. Without a CUDA card it exits non-zero before any phase runs.
+
+Phases:
+  1. device line and kernel build;
+  2. kernel vs plain version on the card, bit for bit, with times;
+  3. the card's run of two blocks equals the CPU's, bit for bit; a third
+     block on the card under torch.profiler (where the time goes);
+  4. the main path: 3 epochs + 256 steps, counting kernel launches;
+  5. recovery of window subtask (1, 1) and reduce subtask (2, 3),
+     each bit-identical to the golden run.
+
+The last two lines are the kernels JSON line (before it, the card's name
+and power limit) and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+PAR = 8
+BATCH = 128
+VOCAB = 997
+NUM_KEY_GROUPS = 64
+EDGE_CAPACITY = 1024
+STEPS_PER_EPOCH = 1024
+BLOCK_STEPS = 512
+WINDOW_SIZE = 256
+EXTRA_STEPS = 256
+DETS_PER_STEP = 4
+LOG_CAPACITY = 1 << (2 * STEPS_PER_EPOCH * DETS_PER_STEP).bit_length()
+RING_STEPS = 1 << (2 * STEPS_PER_EPOCH - 1).bit_length()
+SEED = 5
+WINDOW_KILL = (1, 1)       # (vertex, subtask)
+REDUCE_KILL = (2, 3)
+
+#: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and the
+#: non-tensor-core 32-bit rate that bounds scalar int32 adds.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+REDUCTIONS = (
+    "reductions from bench.py's bench-allround job: logical_time=True; "
+    f"window_size={WINDOW_SIZE} (bench: 1<<30, never fires); "
+    f"steps_per_epoch={STEPS_PER_EPOCH} (bench: 4096); "
+    f"block_steps={BLOCK_STEPS}; log_capacity={LOG_CAPACITY}; "
+    f"inflight_ring_steps={RING_STEPS}; max_epochs=16; seed={SEED}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build_job():
+    from clonos_tpu_torch.api.environment import StreamEnvironment
+    env = StreamEnvironment(name="bench-allround",
+                            num_key_groups=NUM_KEY_GROUPS,
+                            default_edge_capacity=EDGE_CAPACITY)
+    (env.synthetic_source(vocab=VOCAB, batch_size=BATCH, parallelism=PAR)
+        .key_by()
+        .window_count(num_keys=VOCAB, window_size=WINDOW_SIZE, name="window")
+        .key_by()
+        .reduce(num_keys=VOCAB, name="reduce")
+        .sink())
+    return env.build()
+
+
+def runner_kw():
+    return dict(steps_per_epoch=STEPS_PER_EPOCH, log_capacity=LOG_CAPACITY,
+                max_epochs=16, inflight_ring_steps=RING_STEPS,
+                block_steps=BLOCK_STEPS, logical_time=True, seed=SEED)
+
+
+#: the device phases 3-5 drive (the card; a CPU rehearsal may reset it)
+DEVICE = "cuda"
+
+
+def sync():
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+# --- phase 1 ----------------------------------------------------------------
+
+def device_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_build() -> float:
+    from clonos_tpu_torch.ops import cuda_build
+    from clonos_tpu_torch.ops import histogram as hist
+    t0 = time.monotonic()
+    hist._lib()
+    build_s = time.monotonic() - t0
+    info = cuda_build.BUILD_INFO.get(hist._SOURCE, {})
+    log(f"[build] {hist._SOURCE}: {build_s:.3f} s "
+        f"(nvcc {info.get('seconds', 0.0):.3f} s) -> "
+        f"{cuda_build.library_path(hist._SOURCE)}")
+    for line in str(info.get("log", "")).splitlines()[-8:]:
+        log(f"[build] {line}")
+    log(f"[build] shared-memory budget per block: "
+        f"{hist.smem_budget(torch.device('cuda'))} bytes")
+    return build_s
+
+
+# --- phase 2 ----------------------------------------------------------------
+
+#: (label, R, B, nk, counts): the main path's shapes
+MAIN_SHAPES = (
+    ("route", 512, PAR * BATCH, PAR * EDGE_CAPACITY, True),
+    ("route", 512, PAR * BATCH, PAR * EDGE_CAPACITY, False),
+    ("window", 512 * PAR, EDGE_CAPACITY, VOCAB, False),
+    ("lane", 512, PAR * BATCH, EDGE_CAPACITY, True),
+    ("lane", 512, PAR * BATCH, EDGE_CAPACITY, False),
+)
+#: ragged and out-of-range cases, the last past the shared-memory budget
+EDGE_SHAPES = (
+    ("ragged", 37, 100, VOCAB, True),
+    ("ragged", 37, 300, VOCAB, False),
+    ("global", 37, 100, 70000, True),
+    ("global", 37, 300, 70000, False),
+)
+
+
+def _inputs(r, b, nk, seed, dev):
+    rng = np.random.RandomState(seed)
+    keys = rng.randint(-3, nk + 4, (r, b)).astype(np.int32)
+    vals = rng.randint(-1000, 1000, (r, b)).astype(np.int32)
+    valid = rng.rand(r, b) < 0.7
+    return tuple(torch.from_numpy(a).to(dev) for a in (keys, vals, valid))
+
+
+def _time_ms(fn, iters=20) -> float:
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=20):
+    """Device time per call of the kernels ``fn`` launches whose name holds
+    ``hist_``, from torch.profiler's CUPTI trace; None when the trace
+    shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    from torch.autograd import DeviceType
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "hist_" in ev.key:
+            total_us += float(getattr(ev, "device_time_total", 0.0)
+                              or getattr(ev, "cuda_time_total", 0.0))
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def _bound(r, b, nk, counts, kept):
+    """Least time on the card: inputs read once (keys, vals int32, valid
+    bool), outputs written once; one int32 add per kept record per
+    output. Returns (ms, "bytes" | "operations")."""
+    nbytes = r * b * 9 + r * nk * 4 * (2 if counts else 1)
+    ops = kept * (2 if counts else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels():
+    from clonos_tpu_torch.ops import histogram as hist
+    dev = torch.device("cuda")
+    rows = []
+    for i, (label, r, b, nk, counts) in enumerate(MAIN_SHAPES + EDGE_SHAPES):
+        keys, vals, valid = _inputs(r, b, nk, 100 + i, dev)
+        s_k, c_k = hist.keyed_hist_cuda(keys, vals, valid, nk, counts)
+        s_p, c_p = hist.keyed_hist_plain(keys, vals, valid, nk, counts)
+        sync()
+        same = torch.equal(s_k, s_p) and (
+            (c_k is None and c_p is None) or torch.equal(c_k, c_p))
+        err = int((s_k.to(torch.int64) - s_p.to(torch.int64)).abs().max())
+        if counts:
+            err = max(err, int((c_k.to(torch.int64)
+                                - c_p.to(torch.int64)).abs().max()))
+        if not same:
+            raise AssertionError(
+                f"keyed_hist kernel != plain at {label} R={r} B={b} nk={nk} "
+                f"counts={counts}: max abs err {err}")
+        row = dict(label=label, R=r, B=b, nk=nk, counts=counts,
+                   bit_identical=True, max_abs_err=err)
+        if label in ("route", "window", "lane"):
+            kept_mask = valid & (keys >= 0) & (keys < nk)
+            kept = int(kept_mask.sum())
+            # Library yardstick: torch's scatter_add_ on the same inputs,
+            # dropped records pointed at a spare slot (index prep untimed).
+            idx = torch.where(
+                kept_mask, torch.arange(r, device=dev)[:, None] * nk
+                + keys.to(torch.int64), r * nk).reshape(-1)
+            v = vals.reshape(-1)
+            one = kept_mask.to(torch.int32).reshape(-1)
+            out_s = torch.zeros(r * nk + 1, dtype=torch.int32, device=dev)
+            out_c = torch.zeros(r * nk + 1, dtype=torch.int32, device=dev)
+
+            def library():
+                out_s.zero_().scatter_add_(0, idx, v)
+                if counts:
+                    out_c.zero_().scatter_add_(0, idx, one)
+
+            row["ms"] = _time_ms(
+                lambda: hist.keyed_hist_cuda(keys, vals, valid, nk, counts))
+            # CUDA events over back-to-back launches include the host's
+            # ctypes launch cost where it exceeds the kernel's; the
+            # profiler's device time is the kernel alone.
+            row["device_ms"] = _device_ms(
+                lambda: hist.keyed_hist_cuda(keys, vals, valid, nk, counts))
+            row["plain_ms"] = _time_ms(
+                lambda: hist.keyed_hist_plain(keys, vals, valid, nk, counts))
+            row["library_ms"] = _time_ms(library)
+            row["bound_ms"], row["bound_by"] = _bound(r, b, nk, counts, kept)
+        rows.append(row)
+        log(f"[kernel] {json.dumps(row)}")
+    return rows
+
+
+def kernels_line(rows, launches):
+    src = "clonos_tpu_torch/ops/csrc/keyed_hist.cu"
+    out = []
+    for name, counts, replaces, head in (
+            ("keyed_hist", True,
+             "clonos_tpu/ops/histogram.py:34 (_hist_kernel, launched at :112)",
+             "route"),
+            ("keyed_hist_sums", False,
+             "clonos_tpu/ops/histogram.py:56 (_hist_kernel_sums, launched "
+             "at :103)", "window")):
+        mine = [r for r in rows if r["counts"] == counts and "ms" in r]
+        top = next(r for r in mine if r["label"] == head)
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["counts"] == counts),
+            "ms": top["ms"], "kernel_ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "shape": {k: top[k] for k in ("R", "B", "nk")},
+            "bit_identical": all(r["bit_identical"] for r in rows
+                                 if r["counts"] == counts),
+            "device_ms": top["device_ms"],
+            "shapes": [{k: r[k] for k in ("label", "R", "B", "nk", "ms",
+                                          "device_ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by")}
+                       for r in mine]})
+    return {"kernels": out}
+
+
+# --- phase 3 ----------------------------------------------------------------
+
+def phase_card_vs_cpu():
+    from clonos_tpu_torch.runtime import executor as ex
+    from clonos_tpu_torch.utils.tree import tree_leaves
+    rng = np.random.RandomState(SEED)
+    kw = dict(log_capacity=LOG_CAPACITY, max_epochs=16,
+              inflight_ring_steps=RING_STEPS)
+    devs = {"card": DEVICE, "cpu": "cpu"}
+    jobs = {k: ex.CompiledJob(build_job(), **kw) for k in devs}
+    carries = {k: jobs[k].init_carry(devs[k]) for k in devs}
+    t0 = time.monotonic()
+    for blk in range(2):
+        times = np.arange(blk * BLOCK_STEPS, (blk + 1) * BLOCK_STEPS,
+                          dtype=np.int32)
+        rngs = rng.randint(0, 2 ** 31, BLOCK_STEPS).astype(np.int32)
+        outs = {}
+        for k, d in devs.items():
+            t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=d)
+            bi = ex.BlockInputs(t(times), t(rngs), t(0),
+                                t(blk * BLOCK_STEPS))
+            carries[k], outs[k] = jobs[k].run_block(carries[k], bi)
+        for vid in outs["cpu"].sinks:
+            for a, b in zip(outs["card"].sinks[vid], outs["cpu"].sinks[vid]):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(
+                        f"sink {vid} of block {blk}: card != CPU")
+        for e in outs["cpu"].dropped:
+            if not torch.equal(outs["card"].dropped[e].cpu(),
+                               outs["cpu"].dropped[e]):
+                raise AssertionError(f"edge {e} drops: card != CPU")
+    la = tree_leaves(ex.canonical_carry(carries["card"]))
+    lb = tree_leaves(ex.canonical_carry(carries["cpu"]))
+    if len(la) != len(lb):
+        raise AssertionError("carry structures differ")
+    for i, (a, b) in enumerate(zip(la, lb)):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"carry leaf {i}: card != CPU")
+    records = int(carries["cpu"].record_counts.sum())
+    log(f"[card-vs-cpu] 2 blocks x {BLOCK_STEPS} steps: {len(la)} carry "
+        f"leaves and every sink batch bit-identical "
+        f"({records} records consumed; {time.monotonic() - t0:.1f} s)")
+    if torch.device(DEVICE).type == "cuda":
+        t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=DEVICE)
+        bi = ex.BlockInputs(
+            t(np.arange(2 * BLOCK_STEPS, 3 * BLOCK_STEPS)),
+            t(rng.randint(0, 2 ** 31, BLOCK_STEPS)), t(0),
+            t(2 * BLOCK_STEPS))
+        profile_block(jobs["card"], carries["card"], bi)
+
+
+def profile_block(job, carry, binputs):
+    """One steady block on the card under torch.profiler: the block's wall
+    time, the device's busy and idle share over it, device time by layer
+    (the executor's record_function ranges) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    layers = ("op", "route", "inflight-ring", "causal-log", "replicas")
+    is_layer = lambda name: name.split(":")[0] in layers
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        job.run_block(carry, binputs)
+        sync()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = prof.events()
+    # Device-side events are kernels, memsets/copies and the device spans
+    # of the record_function ranges (user annotations), which are not
+    # work of their own.
+    work = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not is_layer(e.name)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    by_layer = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and is_layer(e.name):
+            by_layer[e.name] = round(by_layer.get(e.name, 0.0)
+                                     + e.device_time_total / 1e3, 4)
+    spans = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and is_layer(e.name):
+            spans[e.name] = round(spans.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3, 4)
+    by_kernel = {}
+    for e in work:
+        ms, n = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[profile] one {BLOCK_STEPS}-step block on the card: wall "
+        f"{wall_ms:.3f} ms (profiler on), device busy {busy_ms:.3f} ms, "
+        f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, {len(work)} "
+        f"device operations")
+    log(f"[profile] device ms by layer (kernels launched by torch ops "
+        f"inside the range): {json.dumps(by_layer)}")
+    log(f"[profile] device span by layer (first to last device event, "
+        f"gaps included): {json.dumps(spans)}")
+    log("[profile] top device operations (ms, count): " + json.dumps(
+        [[name[:70], round(ms, 4), n] for name, (ms, n) in top]))
+
+
+# --- phases 4 and 5 ---------------------------------------------------------
+
+def _source_records(runner) -> int:
+    rc = runner.executor.carry.record_counts
+    return int(rc[:PAR].sum())
+
+
+def _assert_same(golden, faulted, what):
+    from clonos_tpu_torch.runtime.executor import canonical_carry
+    from clonos_tpu_torch.utils.tree import tree_leaves
+    la = tree_leaves(canonical_carry(golden.executor.carry))
+    lb = tree_leaves(canonical_carry(faulted.executor.carry))
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: carry structures differ")
+    for i, (a, b) in enumerate(zip(la, lb)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(
+                f"{what}: recovered carry leaf {i} != golden")
+
+
+def phase_main_path(dev_line):
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    golden = ClusterRunner(build_job(), device=DEVICE, **runner_kw())
+    sync()
+    keyed_hist.launches = 0
+    keyed_hist.launches_counts = 0
+    epoch_s = []
+    epoch_records = []
+    for _ in range(3):
+        r0 = _source_records(golden)
+        t0 = time.monotonic()
+        golden.run_epoch()
+        sync()
+        epoch_s.append(time.monotonic() - t0)
+        epoch_records.append(_source_records(golden) - r0)
+    for _ in range(EXTRA_STEPS):
+        golden.step()
+    sync()
+    launches = {"keyed_hist": keyed_hist.launches_counts,
+                "keyed_hist_sums": (keyed_hist.launches
+                                    - keyed_hist.launches_counts)}
+    if keyed_hist.launches == 0 or min(launches.values()) == 0:
+        raise AssertionError(f"main path launched no kernel: {launches}")
+    violations = golden.executor.check_overflow()
+    if violations:
+        raise AssertionError(f"overflow on the main path: {violations}")
+    fired = int(golden.executor.carry.record_counts[3 * PAR:].sum())
+    if fired == 0:
+        raise AssertionError("no window fired into the sinks")
+    rates = [n / s for n, s in zip(epoch_records, epoch_s)]
+    log(f"[main-path] launches {json.dumps(launches)}; epoch seconds "
+        f"{[round(s, 4) for s in epoch_s]}; source records per epoch "
+        f"{epoch_records}; steady epochs (2, 3): "
+        f"{sum(epoch_records[1:]) / sum(epoch_s[1:]):.1f} records/s "
+        f"(reading, not a claim; {dev_line}); all epochs "
+        f"{[round(x, 1) for x in rates]}; sink records {fired}")
+    return golden, launches
+
+
+def phase_recovery(golden):
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    faulted = ClusterRunner(build_job(), device=DEVICE, **runner_kw())
+    for _ in range(3):
+        faulted.run_epoch()
+    for _ in range(EXTRA_STEPS):
+        faulted.step()
+    readings = []
+    for n, (vid, sub) in enumerate((WINDOW_KILL, REDUCE_KILL)):
+        if n:
+            for r in (golden, faulted):
+                r.run_epoch()
+                for _ in range(EXTRA_STEPS):
+                    r.step()
+        flat = faulted.job.subtask_base(vid) + sub
+        faulted.inject_failure([flat])
+        sync()
+        keyed_hist.launches = 0
+        report = faulted.recover()
+        sync()
+        report.results[0].verify()
+        _assert_same(golden, faulted, f"vertex {vid} subtask {sub}")
+        reading = dict(vertex=vid, subtask=sub, flat=flat,
+                       steps_replayed=report.steps_replayed,
+                       records_replayed=report.records_replayed,
+                       determinants_replayed=report.determinants_replayed,
+                       emitted=int(report.results[0].emit_counts.sum()),
+                       recovery_ms=report.recovery_ms,
+                       kernel_launches=keyed_hist.launches)
+        if report.steps_replayed != EXTRA_STEPS or \
+                report.records_replayed == 0:
+            raise AssertionError(f"recovery replayed nothing: {reading}")
+        readings.append(reading)
+        log(f"[recovery] bit-identical to golden: {json.dumps(reading)}")
+    if readings[0]["kernel_launches"] == 0:
+        raise AssertionError("window recovery launched no kernel")
+    return readings
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 2
+    import clonos_tpu_torch  # noqa: F401  (fails outside the repo)
+    t_all = time.monotonic()
+    dev_line = device_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {dev_line} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {kind}")
+    log(f"[config] 8 sources -> keyBy -> 8 windows -> keyBy(static) -> 8 "
+        f"reduces -> 8 sinks; batch {BATCH}, vocab {VOCAB}, key groups "
+        f"{NUM_KEY_GROUPS}, edge capacity {EDGE_CAPACITY}")
+    log(f"[config] {REDUCTIONS}")
+    phase_build()
+    rows = phase_kernels()
+    phase_card_vs_cpu()
+    golden, launches = phase_main_path(dev_line)
+    phase_recovery(golden)
+    log(f"[done] {time.monotonic() - t_all:.1f} s")
+    print(json.dumps(kernels_line(rows, launches)))
+    print(dev_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

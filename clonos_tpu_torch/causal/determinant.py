@@ -1,0 +1,213 @@
+"""Determinant schema: packed fixed-width int32 rows.
+
+The port's own copy of the parts of ``clonos_tpu/causal/determinant.py``
+this slice uses (that module is numpy-only; the port imports nothing of
+the reference package). One determinant is one ``int32[NUM_LANES]`` row:
+
+    lane 0: tag
+    lane 1: record_count   (0 for the per-step sync determinants)
+    lanes 2..7: payload    (64-bit values split hi/lo across two lanes)
+
+Tag numbering matches the reference (Determinant.java:20-35).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import ClassVar, Dict, Sequence, Tuple, Type
+
+import numpy as np
+
+ORDER = 0
+TIMESTAMP = 1
+RNG = 2
+SERIALIZABLE = 3
+TIMER_TRIGGER = 4
+SOURCE_CHECKPOINT = 5
+IGNORE_CHECKPOINT = 6
+BUFFER_BUILT = 7
+SCALE = 8
+
+NUM_LANES = 8
+LANE_TAG = 0
+LANE_RC = 1
+LANE_P = 2  # first payload lane
+ROW_DTYPE = np.int32
+
+_I32_MASK = 0xFFFFFFFF
+
+
+def split64(v: int) -> Tuple[int, int]:
+    """Split a signed 64-bit int into (hi, lo) signed 32-bit lane values."""
+    u = v & 0xFFFFFFFFFFFFFFFF
+    return _tosigned((u >> 32) & _I32_MASK), _tosigned(u & _I32_MASK)
+
+
+def join64(hi: int, lo: int) -> int:
+    u = ((hi & _I32_MASK) << 32) | (lo & _I32_MASK)
+    return u - (1 << 64) if u >= (1 << 63) else u
+
+
+def _tosigned(u: int) -> int:
+    return u - (1 << 32) if u >= (1 << 31) else u
+
+
+@dataclasses.dataclass(frozen=True)
+class Determinant:
+    """Base: host-side view of one packed row."""
+
+    TAG: ClassVar[int] = -1
+
+    def pack(self) -> np.ndarray:
+        row = np.zeros(NUM_LANES, dtype=ROW_DTYPE)
+        row[LANE_TAG] = self.TAG
+        row[LANE_RC] = getattr(self, "record_count", 0)
+        payload = self._payload()
+        for p in payload:
+            # A value that does not fit a 32-bit lane would corrupt the log
+            # silently; 64-bit fields are split by _payload via split64.
+            if not (-(1 << 31) <= p < (1 << 32)):
+                raise ValueError(
+                    f"{type(self).__name__} payload value {p} does not fit "
+                    f"a 32-bit lane")
+        row[LANE_P:LANE_P + len(payload)] = np.array(
+            [_tosigned(p & _I32_MASK) for p in payload], dtype=np.int64
+        ).astype(ROW_DTYPE)
+        return row
+
+    def _payload(self) -> Sequence[int]:
+        return ()
+
+    @classmethod
+    def unpack(cls, row: np.ndarray) -> "Determinant":
+        tag = int(row[LANE_TAG])
+        sub = _TAG_TO_CLASS.get(tag)
+        if sub is None:
+            raise ValueError(f"unknown determinant tag {tag}")
+        return sub._from_row(row)
+
+    @classmethod
+    def _from_row(cls, row: np.ndarray) -> "Determinant":
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class OrderDeterminant(Determinant):
+    """Which input channel the superstep's consumed batch came from."""
+
+    TAG: ClassVar[int] = ORDER
+    channel: int = 0
+
+    def _payload(self):
+        return (self.channel,)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(channel=int(row[LANE_P]))
+
+
+@dataclasses.dataclass(frozen=True)
+class TimestampDeterminant(Determinant):
+    """A causal-time read."""
+
+    TAG: ClassVar[int] = TIMESTAMP
+    timestamp: int = 0
+
+    def _payload(self):
+        return split64(self.timestamp)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(timestamp=join64(int(row[LANE_P]), int(row[LANE_P + 1])))
+
+
+@dataclasses.dataclass(frozen=True)
+class RNGDeterminant(Determinant):
+    """A host-side random draw."""
+
+    TAG: ClassVar[int] = RNG
+    value: int = 0
+
+    def _payload(self):
+        return (self.value,)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(value=int(row[LANE_P]))
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceCheckpointDeterminant(Determinant):
+    """A checkpoint-trigger arrival at a source, replayed at record_count."""
+
+    TAG: ClassVar[int] = SOURCE_CHECKPOINT
+    record_count: int = 0
+    checkpoint_id: int = 0
+    timestamp: int = 0
+    checkpoint_type: int = 0
+    storage_ref: int = 0
+
+    def _payload(self):
+        chi, clo = split64(self.checkpoint_id)
+        thi, tlo = split64(self.timestamp)
+        return (chi, clo, thi, tlo, self.checkpoint_type, self.storage_ref)
+
+    @classmethod
+    def _from_row(cls, row):
+        p = [int(row[LANE_P + i]) for i in range(6)]
+        return cls(record_count=int(row[LANE_RC]),
+                   checkpoint_id=join64(p[0], p[1]),
+                   timestamp=join64(p[2], p[3]),
+                   checkpoint_type=p[4], storage_ref=p[5])
+
+
+@dataclasses.dataclass(frozen=True)
+class IgnoreCheckpointDeterminant(Determinant):
+    """Skip a checkpoint a failed task never acked."""
+
+    TAG: ClassVar[int] = IGNORE_CHECKPOINT
+    record_count: int = 0
+    checkpoint_id: int = 0
+
+    def _payload(self):
+        return split64(self.checkpoint_id)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(record_count=int(row[LANE_RC]),
+                   checkpoint_id=join64(int(row[LANE_P]),
+                                        int(row[LANE_P + 1])))
+
+
+@dataclasses.dataclass(frozen=True)
+class BufferBuiltDeterminant(Determinant):
+    """Output batch cut: how many records went into an emitted batch."""
+
+    TAG: ClassVar[int] = BUFFER_BUILT
+    num_records: int = 0
+
+    def _payload(self):
+        return (self.num_records,)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(num_records=int(row[LANE_P]))
+
+
+_TAG_TO_CLASS: Dict[int, Type[Determinant]] = {
+    ORDER: OrderDeterminant,
+    TIMESTAMP: TimestampDeterminant,
+    RNG: RNGDeterminant,
+    SOURCE_CHECKPOINT: SourceCheckpointDeterminant,
+    IGNORE_CHECKPOINT: IgnoreCheckpointDeterminant,
+    BUFFER_BUILT: BufferBuiltDeterminant,
+}
+
+
+def sync_anchors(rows: np.ndarray) -> np.ndarray:
+    """Indices of per-step sync-block anchors in a packed row stream:
+    TIMESTAMP rows with a ZERO record-count stamp (async rows carry a
+    nonzero stamp so they can't masquerade as step anchors)."""
+    rows = np.asarray(rows)
+    return np.where((rows[:, LANE_TAG] == TIMESTAMP)
+                    & (rows[:, LANE_RC] == 0))[0]

@@ -1,0 +1,53 @@
+"""Carrying state across packages: the reference's ``JobCarry`` (or
+``LeanSnapshot``) as numpy arrays in, the port's carry out — and back.
+
+The reference side hands its carry over as a tree of numpy arrays, e.g.
+``jax.tree_util.tree_map(np.asarray, carry)``; the NamedTuples there have
+the same field names and order as the port's, so the conversion is by
+structure. Both packages can then start from one state and be compared.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from clonos_tpu_torch.api.records import RecordBatch
+from clonos_tpu_torch.causal.log import ThreadLogState
+from clonos_tpu_torch.inflight.log import EdgeLogState
+from clonos_tpu_torch.runtime.executor import JobCarry, LeanSnapshot
+
+_PORT_TYPES: Dict[str, type] = {
+    cls.__name__: cls for cls in (JobCarry, LeanSnapshot, RecordBatch,
+                                  ThreadLogState, EdgeLogState)}
+
+
+def carry_from_numpy(tree: Any, device) -> Any:
+    """A tree of numpy arrays (NamedTuples matched by class name and
+    fields, tuples, lists, dicts) as the port's tensors on ``device``."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        cls = _PORT_TYPES.get(type(tree).__name__)
+        if cls is None or tuple(cls._fields) != tuple(tree._fields):
+            raise TypeError(f"no port counterpart for {type(tree).__name__}"
+                            f"{tuple(tree._fields)}")
+        return cls(*(carry_from_numpy(x, device) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(carry_from_numpy(x, device) for x in tree)
+    if isinstance(tree, dict):
+        return {k: carry_from_numpy(x, device) for k, x in tree.items()}
+    arr = np.array(tree, copy=True)
+    return torch.from_numpy(arr).to(device)
+
+
+def carry_to_numpy(carry: Any) -> Any:
+    """The port's carry (any tree of tensors) as numpy arrays, same
+    structure."""
+    if isinstance(carry, tuple) and hasattr(carry, "_fields"):
+        return type(carry)(*(carry_to_numpy(x) for x in carry))
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(carry_to_numpy(x) for x in carry)
+    if isinstance(carry, dict):
+        return {k: carry_to_numpy(x) for k, x in carry.items()}
+    return carry.detach().cpu().numpy()

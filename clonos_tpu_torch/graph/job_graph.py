@@ -1,0 +1,120 @@
+"""Job graph: the topology handed to the executor (port of
+``clonos_tpu/graph/job_graph.py``). Vertices carry an operator and a
+parallelism; edges carry the partition strategy and the receive capacity
+per downstream subtask per superstep."""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import List
+
+from clonos_tpu_torch.api.operators import Operator
+from clonos_tpu_torch.graph.vertex_info import VertexGraphInformation
+
+
+class PartitionType(enum.Enum):
+    FORWARD = "forward"      # 1:1, same parallelism
+    HASH = "hash"            # keyBy: key-group routing
+    REBALANCE = "rebalance"  # deterministic round-robin
+    BROADCAST = "broadcast"  # every record to every subtask
+
+
+@dataclasses.dataclass
+class JobVertex:
+    """One logical operator instance in the DAG."""
+
+    vertex_id: int
+    name: str
+    operator: Operator
+    parallelism: int
+
+
+@dataclasses.dataclass
+class JobEdge:
+    """Directed edge with exchange semantics; ``capacity`` is the receive
+    buffer per downstream subtask per superstep (overflow drops)."""
+
+    src: int
+    dst: int
+    partition: PartitionType
+    capacity: int
+
+
+@dataclasses.dataclass
+class JobGraph:
+    """The deployable topology."""
+
+    vertices: List[JobVertex] = dataclasses.field(default_factory=list)
+    edges: List[JobEdge] = dataclasses.field(default_factory=list)
+    name: str = "job"
+    num_key_groups: int = 128
+    sharing_depth: int = -1
+
+    def add_vertex(self, name: str, operator: Operator,
+                   parallelism: int) -> JobVertex:
+        v = JobVertex(len(self.vertices), name, operator, parallelism)
+        self.vertices.append(v)
+        return v
+
+    def add_edge(self, src: JobVertex, dst: JobVertex,
+                 partition: PartitionType, capacity: int) -> JobEdge:
+        if partition == PartitionType.FORWARD and \
+                src.parallelism != dst.parallelism:
+            raise ValueError(
+                f"FORWARD edge requires equal parallelism: "
+                f"{src.name}({src.parallelism}) -> "
+                f"{dst.name}({dst.parallelism})")
+        e = JobEdge(src.vertex_id, dst.vertex_id, partition, capacity)
+        self.edges.append(e)
+        return e
+
+    def in_edges(self, vertex_id: int) -> List[int]:
+        return [i for i, e in enumerate(self.edges) if e.dst == vertex_id]
+
+    def out_edges(self, vertex_id: int) -> List[int]:
+        return [i for i, e in enumerate(self.edges) if e.src == vertex_id]
+
+    def topo_order(self) -> List[int]:
+        """Topologically sorted vertex ids (smallest ready id first)."""
+        indeg = {v.vertex_id: 0 for v in self.vertices}
+        for e in self.edges:
+            indeg[e.dst] += 1
+        ready = sorted(v for v, d in indeg.items() if d == 0)
+        order: List[int] = []
+        while ready:
+            u = ready.pop(0)
+            order.append(u)
+            for i in self.out_edges(u):
+                d = self.edges[i].dst
+                indeg[d] -= 1
+                if indeg[d] == 0:
+                    ready.append(d)
+            ready.sort()
+        if len(order) != len(self.vertices):
+            raise ValueError("job graph has a cycle")
+        return order
+
+    def graph_info(self, vertex_id: int) -> VertexGraphInformation:
+        return VertexGraphInformation(
+            vertex=vertex_id,
+            num_vertices=len(self.vertices),
+            edges=tuple((e.src, e.dst) for e in self.edges),
+            parallelism=tuple(v.parallelism for v in self.vertices),
+        )
+
+    def total_subtasks(self) -> int:
+        return sum(v.parallelism for v in self.vertices)
+
+    def subtask_base(self, vertex_id: int) -> int:
+        """Global flat index of (vertex, subtask 0) in the stacked-log
+        layout (all subtasks of all vertices, in vertex-id order)."""
+        return sum(v.parallelism for v in self.vertices[:vertex_id])
+
+    def validate(self) -> None:
+        self.topo_order()
+        for v in self.vertices:
+            if len(self.in_edges(v.vertex_id)) > 1:
+                raise ValueError(
+                    f"vertex {v.name}: more than one input edge (two-input "
+                    f"operators come with a later slice of the port)")

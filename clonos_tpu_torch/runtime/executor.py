@@ -1,0 +1,652 @@
+"""Block executor: the whole job advanced K supersteps at a time.
+
+Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, spill,
+host feeds and async-append batching, which come with later slices).
+
+- Every vertex's subtasks are a ``[P]`` dim of its state and batches.
+- A superstep advances every vertex by one batch: vertex v consumes the
+  batch its upstream routed in the previous superstep (depth-1 edge
+  buffers).
+- Supersteps run in blocks of K: each vertex processes a ``[K, P, B]``
+  stack (``Operator.process_block``), each exchange routes the whole
+  stack, and the causal log, its replicas and the in-flight rings take one
+  bulk append per block. Per-step semantics are exact: block == stepwise.
+- The per-superstep determinants (TIMESTAMP, RNG, ORDER, BUFFER_BUILT) are
+  built for the whole block as one ``[L, K*4, lanes]`` tensor and appended
+  to the stacked log and its replicas before the block's outputs are
+  returned (the piggyback guarantee).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from clonos_tpu_torch import device as _device
+from clonos_tpu_torch.api.operators import BlockContext, HostFeedSource
+from clonos_tpu_torch.api.records import RecordBatch, empty
+from clonos_tpu_torch.causal import determinant as det
+from clonos_tpu_torch.causal import log as clog
+from clonos_tpu_torch.causal import replication as rep
+from clonos_tpu_torch.graph.job_graph import JobGraph, PartitionType
+from clonos_tpu_torch.inflight import log as ifl
+from clonos_tpu_torch.parallel import routing
+from clonos_tpu_torch.utils.tree import tree_map
+
+#: determinants appended per subtask per superstep, in this fixed order:
+#: TIMESTAMP, RNG, ORDER, BUFFER_BUILT.
+DETS_PER_STEP = 4
+
+
+class StepInputs(NamedTuple):
+    """Host-fed inputs for one superstep (the single-step API)."""
+
+    time: torch.Tensor
+    rng_bits: torch.Tensor
+
+
+class BlockInputs(NamedTuple):
+    """Host-fed inputs for a block of K supersteps."""
+
+    times: torch.Tensor       # int32[K]
+    rng_bits: torch.Tensor    # int32[K]
+    epoch: torch.Tensor       # int32 scalar
+    step0: torch.Tensor       # int32 scalar (global step index)
+
+
+class JobCarry(NamedTuple):
+    """The complete device-resident job state (field order as the
+    reference's ``JobCarry``)."""
+
+    op_states: Tuple[Any, ...]               # per-vertex operator state
+    edge_bufs: Tuple[RecordBatch, ...]       # per-edge routed batch
+    rr_offsets: Tuple[torch.Tensor, ...]     # per-edge [1] round-robin
+    record_counts: torch.Tensor              # int32[L] consumed per subtask
+    logs: clog.ThreadLogState                # stacked [L, cap, lanes]
+    out_rings: Tuple[ifl.EdgeLogState, ...]  # per producing vertex
+    replicas: clog.ThreadLogState            # stacked [R, cap, lanes]
+
+
+class LeanSnapshot(NamedTuple):
+    """What a checkpoint persists: operator state, the depth-1 edge
+    buffers and offsets — logs and rings only by their fence heads."""
+
+    op_states: Tuple[Any, ...]
+    edge_bufs: Tuple[RecordBatch, ...]
+    rr_offsets: Tuple[torch.Tensor, ...]
+    record_counts: torch.Tensor
+    log_heads: torch.Tensor                  # int32[L]
+    ring_heads: Tuple[torch.Tensor, ...]
+
+
+class StepOutputs(NamedTuple):
+    sinks: Dict[int, RecordBatch]            # vertex_id -> [P, cap]
+    dropped: Dict[int, torch.Tensor]         # edge index -> [P_dst]
+    consumed: torch.Tensor                   # int32[L]
+
+
+class BlockOutputs(NamedTuple):
+    sinks: Dict[int, RecordBatch]            # vertex_id -> [K, P, cap]
+    dropped: Dict[int, torch.Tensor]         # edge index -> [K, P_dst]
+    consumed: torch.Tensor                   # int32[K, L]
+
+
+@dataclasses.dataclass
+class CompiledJob:
+    """A job graph lowered to (init_carry, run_block) functions."""
+
+    job: JobGraph
+    log_capacity: int = 1 << 14
+    max_epochs: int = 64
+    inflight_ring_steps: int = 64
+    replication_factor: int = -1
+
+    def __post_init__(self):
+        self.job.validate()
+        self.topo = self.job.topo_order()
+        self.L = self.job.total_subtasks()
+        self.feed_vertices = [v.vertex_id for v in self.job.vertices
+                              if isinstance(v.operator, HostFeedSource)]
+        if self.feed_vertices:
+            raise NotImplementedError(
+                "host-fed sources come with a later slice of the port")
+        self.plan = rep.ReplicationPlan.from_job(
+            self.job, self.job.sharing_depth,
+            replication_factor=self.replication_factor)
+        self._owner_idx: Dict[str, torch.Tensor] = {}
+        self.ring_vertices = [v.vertex_id for v in self.job.vertices
+                              if self.job.out_edges(v.vertex_id)]
+        self.ring_index = {vid: i for i, vid in enumerate(self.ring_vertices)}
+        # HASH edges whose producer emits statically-keyed slots get a
+        # compile-time gather plan instead of the dynamic exchange; the
+        # edge capacity widens (to a multiple of 128) to fit the densest
+        # target, unless that would exceed 4x the request.
+        self.static_route: Dict[int, routing.StaticRoutePlan] = {}
+        for eidx, e in enumerate(self.job.edges):
+            if e.partition != PartitionType.HASH:
+                continue
+            sk = self.job.vertices[e.src].operator.static_out_keys()
+            if sk is None:
+                continue
+            src_p = self.job.vertices[e.src].parallelism
+            dst_p = self.job.vertices[e.dst].parallelism
+            need = routing.static_hash_capacity(
+                sk, src_p, dst_p, self.job.num_key_groups)
+            if need > max(4 * e.capacity, 1024):
+                continue
+            if need > e.capacity:
+                e.capacity = -(-need // 128) * 128
+            plan = routing.plan_static_hash(
+                sk, src_p, dst_p, self.job.num_key_groups, e.capacity)
+            if len(plan.drop_p):
+                raise RuntimeError(
+                    f"static plan for edge {eidx} still has "
+                    f"{len(plan.drop_p)} overflow slots at capacity "
+                    f"{e.capacity}")
+            self.static_route[eidx] = plan
+
+    def owner_idx(self, dev: torch.device) -> torch.Tensor:
+        key = str(dev)
+        if key not in self._owner_idx:
+            self._owner_idx[key] = self.plan.owner_index(dev)
+        return self._owner_idx[key]
+
+    def consumer_slot_keys(self, vid: int) -> Optional[np.ndarray]:
+        """Static per-slot input keys of vertex ``vid`` ([P, cap], -1 =
+        unmapped), when its single input edge is statically routed."""
+        ins = self.job.in_edges(vid)
+        if len(ins) == 1 and ins[0] in self.static_route:
+            return self.static_route[ins[0]].slot_keys
+        return None
+
+    def vertex_out_capacity(self, vid: int) -> int:
+        v = self.job.vertices[vid]
+        if v.operator.out_capacity is not None:
+            return v.operator.out_capacity
+        ins = self.job.in_edges(vid)
+        if ins:
+            return self.job.edges[ins[0]].capacity
+        return 1
+
+    def init_carry(self, device="cuda") -> JobCarry:
+        dev = _device.resolve(device)
+        op_states = tuple(v.operator.init_state(v.parallelism, dev)
+                          for v in self.job.vertices)
+        edge_bufs = tuple(
+            empty((self.job.vertices[e.dst].parallelism, e.capacity), dev)
+            for e in self.job.edges)
+        rr = tuple(torch.zeros((1,), dtype=torch.int32, device=dev)
+                   for _ in self.job.edges)
+        logs = clog.v_create(self.L, self.log_capacity, self.max_epochs, dev)
+        out_rings = tuple(
+            ifl.create(self.inflight_ring_steps,
+                       self.job.vertices[vid].parallelism,
+                       self.vertex_out_capacity(vid), self.max_epochs, dev)
+            for vid in self.ring_vertices)
+        replicas = rep.create_replicas(self.plan, self.log_capacity,
+                                       self.max_epochs, dev)
+        return JobCarry(op_states, edge_bufs, rr,
+                        torch.zeros((self.L,), dtype=torch.int32, device=dev),
+                        logs, out_rings, replicas)
+
+    def run_block(self, carry: JobCarry, binputs: BlockInputs
+                  ) -> Tuple[JobCarry, BlockOutputs]:
+        """Advance K supersteps. The in-flight rings of ``carry`` are
+        updated in place (see ``inflight.log.append_block``); everything
+        else is returned fresh."""
+        job = self.job
+        K = binputs.times.shape[0]
+        dev = carry.record_counts.device
+        if DETS_PER_STEP * K > self.log_capacity:
+            raise ValueError(
+                f"block of {K} steps appends {DETS_PER_STEP * K} determinant"
+                f" rows > log capacity {self.log_capacity}")
+        if K > self.inflight_ring_steps:
+            raise ValueError(
+                f"block of {K} steps exceeds in-flight ring "
+                f"({self.inflight_ring_steps} steps)")
+        op_states = list(carry.op_states)
+        rr_offsets = list(carry.rr_offsets)
+        out_rings = list(carry.out_rings)
+        new_edge_bufs = list(carry.edge_bufs)
+        routed: Dict[int, RecordBatch] = {}
+        sinks: Dict[int, RecordBatch] = {}
+        dropped: Dict[int, torch.Tensor] = {}
+        consumed_parts: Dict[int, torch.Tensor] = {}
+        emit_parts: Dict[int, torch.Tensor] = {}
+
+        def shifted(eidx: int) -> RecordBatch:
+            # Depth-1 pipeline: block step k consumes the upstream's routed
+            # output of step k-1; step 0 the carried edge buffer.
+            return RecordBatch(*(torch.cat([b[None], r[:-1]], dim=0)
+                                 for r, b in zip(routed[eidx],
+                                                 carry.edge_bufs[eidx])))
+
+        for vid in self.topo:
+            v = job.vertices[vid]
+            p = v.parallelism
+            in_edges = job.in_edges(vid)
+            bctx = BlockContext(
+                times=binputs.times, rng_bits=binputs.rng_bits,
+                epoch=binputs.epoch, step0=binputs.step0,
+                subtask=torch.arange(p, dtype=torch.int32, device=dev))
+            if in_edges:
+                ins = shifted(in_edges[0])
+                consumed = ins.count()
+            else:
+                ins = empty((K, p, self.vertex_out_capacity(vid)), dev)
+                consumed = None
+            slot_keys = self.consumer_slot_keys(vid)
+            # record_function ranges name the layers in a profiler trace.
+            with record_function(f"op:{v.name}"):
+                if slot_keys is not None and hasattr(
+                        v.operator, "process_block_static_keys"):
+                    state, out = v.operator.process_block_static_keys(
+                        op_states[vid], ins, bctx, slot_keys)
+                else:
+                    state, out = v.operator.process_block(op_states[vid],
+                                                          ins, bctx)
+            if consumed is None:
+                # Generators "consume" what they emit.
+                consumed = out.count()
+            op_states[vid] = state
+            if in_edges and not job.out_edges(vid):
+                sinks[vid] = out
+            consumed_parts[vid] = consumed
+            emit_parts[vid] = out.count()                         # [K, P]
+
+            for eidx in job.out_edges(vid):
+                with record_function(f"route:{eidx}"):
+                    r, d = self._route_edge(eidx, out, rr_offsets)
+                routed[eidx] = r
+                dropped[eidx] = d
+                new_edge_bufs[eidx] = RecordBatch(*(x[-1] for x in r))
+
+            if vid in self.ring_index:
+                # In-flight logging of the producer's raw output block;
+                # consumers re-derive their inputs by re-running the
+                # deterministic exchange during replay.
+                ri = self.ring_index[vid]
+                with record_function("inflight-ring"):
+                    out_rings[ri] = ifl.append_block(out_rings[ri], out)
+
+        emits_all = torch.cat([emit_parts[v.vertex_id]
+                               for v in job.vertices], dim=1)      # [K, L]
+        consumed_all = torch.cat([consumed_parts[v.vertex_id]
+                                  for v in job.vertices], dim=1)
+        with record_function("causal-log"):
+            rows = self._det_rows(binputs, emits_all)              # [L, 4K, 8]
+            logs = clog.v_append_full(carry.logs, rows)
+        with record_function("replicas"):
+            if self.plan.num_replicas > 0:
+                # The same determinants land in every downstream replica
+                # before any of this block's outputs become visible.
+                replicas = clog.v_append_full(carry.replicas,
+                                              rows[self.owner_idx(dev)])
+            else:
+                replicas = carry.replicas
+        new_carry = JobCarry(
+            tuple(op_states), tuple(new_edge_bufs), tuple(rr_offsets),
+            carry.record_counts + consumed_all.sum(dim=0, dtype=torch.int32),
+            logs, tuple(out_rings), replicas)
+        return new_carry, BlockOutputs(sinks, dropped, consumed_all)
+
+    def _route_edge(self, eidx: int, out: RecordBatch,
+                    rr_offsets: List[torch.Tensor]
+                    ) -> Tuple[RecordBatch, torch.Tensor]:
+        """Route a producer's ``[K, P, cap]`` block over edge ``eidx``;
+        a REBALANCE edge advances its entry of ``rr_offsets``."""
+        job = self.job
+        e = job.edges[eidx]
+        dst_p = job.vertices[e.dst].parallelism
+        if eidx in self.static_route:
+            return self.static_route[eidx].apply(out)
+        if e.partition == PartitionType.HASH:
+            return routing.route_hash_block(out, dst_p, job.num_key_groups,
+                                            e.capacity)
+        if e.partition == PartitionType.FORWARD:
+            return routing.route_forward_block(out, e.capacity)
+        if e.partition == PartitionType.REBALANCE:
+            counts = out.count().sum(dim=1, dtype=torch.int32)
+            offs = (rr_offsets[eidx][0]
+                    + torch.cumsum(counts, 0, dtype=torch.int32)
+                    - counts)                                     # exclusive
+            rr_offsets[eidx] = ((rr_offsets[eidx]
+                                 + counts.sum(dtype=torch.int32)) % dst_p)
+            return routing.route_rebalance_block(out, dst_p, e.capacity,
+                                                 offs)
+        return routing.route_broadcast_block(out, dst_p, e.capacity)
+
+    def _det_rows(self, binputs: BlockInputs, emits_all: torch.Tensor
+                  ) -> torch.Tensor:
+        """The block's packed determinant rows ``[L, K*4, lanes]``."""
+        K = binputs.times.shape[0]
+        dev = emits_all.device
+        times = binputs.times.to(torch.int32)
+        rows = torch.zeros((self.L, K, DETS_PER_STEP, det.NUM_LANES),
+                           dtype=torch.int32, device=dev)
+        rows[:, :, 0, det.LANE_TAG] = det.TIMESTAMP
+        rows[:, :, 0, det.LANE_P] = torch.where(times < 0, -1, 0)
+        rows[:, :, 0, det.LANE_P + 1] = times
+        rows[:, :, 1, det.LANE_TAG] = det.RNG
+        rows[:, :, 1, det.LANE_P] = binputs.rng_bits.to(torch.int32)
+        rows[:, :, 2, det.LANE_TAG] = det.ORDER
+        rows[:, :, 3, det.LANE_TAG] = det.BUFFER_BUILT
+        rows[:, :, 3, det.LANE_P] = emits_all.T
+        return rows.reshape(self.L, K * DETS_PER_STEP, det.NUM_LANES)
+
+    def superstep(self, carry: JobCarry, inputs: StepInputs
+                  ) -> Tuple[JobCarry, StepOutputs]:
+        """One superstep (a K=1 block)."""
+        dev = carry.record_counts.device
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        binputs = BlockInputs(times=inputs.time.reshape(1),
+                              rng_bits=inputs.rng_bits.reshape(1),
+                              epoch=z, step0=z)
+        carry, outs = self.run_block(carry, binputs)
+        return carry, StepOutputs(
+            sinks={vid: RecordBatch(*(x[0] for x in b))
+                   for vid, b in outs.sinks.items()},
+            dropped={e: d[0] for e, d in outs.dropped.items()},
+            consumed=outs.consumed[0])
+
+
+def _canon_log(state: clog.ThreadLogState) -> clog.ThreadLogState:
+    """Zero a stack of logs' ring rows outside [tail, head) and epoch slots
+    outside the live epoch range: the logically-dead storage two
+    equivalent runs may disagree on."""
+    L = state.head.shape[0]
+    dev = state.head.device
+    cap = state.capacity
+    ar = torch.arange(cap, dtype=torch.int32, device=dev)
+    lidx = torch.arange(L, device=dev)[:, None]
+    pos = ((state.tail[:, None] + ar[None, :]) & (cap - 1)).to(torch.int64)
+    live = torch.zeros((L, cap), dtype=torch.bool, device=dev)
+    live[lidx.expand(L, cap), pos] = ar[None, :] < (state.head
+                                                    - state.tail)[:, None]
+    m = state.max_epochs
+    eidx = torch.arange(m, dtype=torch.int32, device=dev)
+    lo = torch.maximum(state.epoch_base, state.latest_epoch - m + 1)
+    e_abs = lo[:, None] + eidx[None, :]
+    live_e = torch.zeros((L, m), dtype=torch.bool, device=dev)
+    live_e[lidx.expand(L, m), (e_abs % m).to(torch.int64)] = \
+        e_abs <= state.latest_epoch[:, None]
+    return state._replace(
+        rows=torch.where(live[:, :, None], state.rows, 0),
+        epoch_starts=torch.where(live_e, state.epoch_starts, 0))
+
+
+def _canon_ring(state: ifl.EdgeLogState) -> ifl.EdgeLogState:
+    S = state.ring_steps
+    dev = state.head.device
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    pos = ((state.tail + ar) & (S - 1)).to(torch.int64)
+    live = torch.zeros((S,), dtype=torch.bool, device=dev)
+    live[pos] = ar < (state.head - state.tail)
+    lv = live[:, None, None]
+    m = state.max_epochs
+    eidx = torch.arange(m, dtype=torch.int32, device=dev)
+    lo = torch.maximum(state.epoch_base, state.latest_epoch - m + 1)
+    live_e = torch.zeros((m,), dtype=torch.bool, device=dev)
+    live_e[((lo + eidx) % m).to(torch.int64)] = lo + eidx <= \
+        state.latest_epoch
+    return state._replace(
+        keys=torch.where(lv, state.keys, 0),
+        values=torch.where(lv, state.values, 0),
+        timestamps=torch.where(lv, state.timestamps, 0),
+        valid=state.valid & lv,
+        epoch_starts=torch.where(live_e, state.epoch_starts, 0))
+
+
+def canonical_carry(carry: JobCarry) -> JobCarry:
+    """The carry with all logically-dead storage zeroed — the equality
+    domain of the bit-identical-recovery property."""
+    return carry._replace(
+        logs=_canon_log(carry.logs),
+        replicas=_canon_log(carry.replicas),
+        out_rings=tuple(_canon_ring(r) for r in carry.out_rings))
+
+
+class CausalTimeSource:
+    """Host clock for the live path: int32 millis since executor start,
+    recorded in every task's log as TIMESTAMP determinants."""
+
+    def __init__(self):
+        self._t0 = _time.monotonic()
+
+    def now(self) -> int:
+        return int((_time.monotonic() - self._t0) * 1000) & 0x7FFFFFFF
+
+
+class LogicalTimeSource:
+    """Deterministic causal time: 1 ms per superstep, read as the absolute
+    step index about to be stamped."""
+
+    def __init__(self, executor: "LocalExecutor"):
+        self._ex = executor
+
+    def now(self) -> int:
+        return len(self._ex.step_input_history) & 0x7FFFFFFF
+
+
+class LocalExecutor:
+    """Single-process job driver: owns the compiled job, the carry, the
+    causal time/RNG sources and the epoch loop. ``device`` defaults to
+    ``"cuda"`` and raises without a card."""
+
+    def __init__(self, job: JobGraph, steps_per_epoch: int = 16,
+                 log_capacity: int = 1 << 14, max_epochs: int = 64,
+                 inflight_ring_steps: int = 64,
+                 block_steps: Optional[int] = None,
+                 replication_factor: int = -1,
+                 seed: int = 0, logical_time: bool = False,
+                 device="cuda"):
+        self.device = _device.resolve(device)
+        self.compiled = CompiledJob(job, log_capacity=log_capacity,
+                                    max_epochs=max_epochs,
+                                    inflight_ring_steps=inflight_ring_steps,
+                                    replication_factor=replication_factor)
+        self.job = job
+        self.steps_per_epoch = steps_per_epoch
+        self.block_steps = min(block_steps or 512, steps_per_epoch,
+                               inflight_ring_steps)
+        self.time_source = (LogicalTimeSource(self) if logical_time
+                            else CausalTimeSource())
+        self._seed = seed
+        self._rng = np.random.RandomState(seed)
+        self.epoch_id = 0
+        self.step_in_epoch = 0
+        #: (flat, epoch) -> async rows appended in that epoch's roll gap
+        #: (after the roll, before its first step); recovery subtracts it
+        #: when re-deriving epoch start offsets from TIMESTAMP anchors.
+        self.roll_gap_async: Dict[Tuple[int, int], int] = {}
+        #: (flat, epoch) -> all async rows appended in that epoch.
+        self.async_counts: Dict[Tuple[int, int], int] = {}
+        #: supersteps actually executed
+        self._steps_executed = 0
+        self.step_input_history: List[Tuple[int, int]] = []
+        # Epoch 0 starts at log offset 0 for every log.
+        self.carry = self._roll(self.compiled.init_carry(self.device), 0)
+
+    @property
+    def plan(self) -> rep.ReplicationPlan:
+        return self.compiled.plan
+
+    def _roll(self, carry: JobCarry, e: int) -> JobCarry:
+        """Epoch fence: stamp the new epoch's start offset on every log,
+        replica and in-flight ring."""
+        replicas = carry.replicas
+        if self.compiled.plan.num_replicas > 0:
+            replicas = rep.sync_replica_epochs(replicas, e)
+        return carry._replace(
+            logs=clog.v_start_epoch(carry.logs, e),
+            out_rings=tuple(ifl.start_epoch(el, e)
+                            for el in carry.out_rings),
+            replicas=replicas)
+
+    def _trunc(self, carry: JobCarry, e: int) -> JobCarry:
+        replicas = carry.replicas
+        if self.compiled.plan.num_replicas > 0:
+            replicas = clog.v_truncate(replicas, e)
+        return carry._replace(
+            logs=clog.v_truncate(carry.logs, e),
+            out_rings=tuple(ifl.truncate(el, e) for el in carry.out_rings),
+            replicas=replicas)
+
+    def _next_block_inputs(self, k: int) -> BlockInputs:
+        times = np.empty((k,), np.int32)
+        rngs = np.empty((k,), np.int32)
+        for i in range(k):
+            t = self.time_source.now()
+            r = int(self._rng.randint(0, 2 ** 31, dtype=np.int64))
+            times[i], rngs[i] = t, r
+            self.step_input_history.append((t, r))
+        i32 = lambda x: torch.as_tensor(x, dtype=torch.int32,
+                                        device=self.device)
+        return BlockInputs(
+            times=i32(times), rng_bits=i32(rngs), epoch=i32(self.epoch_id),
+            step0=i32(len(self.step_input_history) - k))
+
+    def _run_block(self, k: int) -> BlockOutputs:
+        self.carry, outs = self.compiled.run_block(
+            self.carry, self._next_block_inputs(k))
+        self.step_in_epoch += k
+        self._steps_executed += k
+        return outs
+
+    def step(self) -> StepOutputs:
+        """Run one superstep (a K=1 block)."""
+        outs = self._run_block(1)
+        return StepOutputs(
+            sinks={vid: RecordBatch(*(x[0] for x in b))
+                   for vid, b in outs.sinks.items()},
+            dropped={e: d[0] for e, d in outs.dropped.items()},
+            consumed=outs.consumed[0])
+
+    def run_epoch(self) -> Optional[BlockOutputs]:
+        """Run the rest of the current epoch in blocks, then roll the
+        epoch (the checkpoint fence). Returns the last block's outputs."""
+        outs = None
+        while self.step_in_epoch < self.steps_per_epoch:
+            outs = self._run_block(min(
+                self.block_steps, self.steps_per_epoch - self.step_in_epoch))
+        self.epoch_id += 1
+        self.step_in_epoch = 0
+        self.carry = self._roll(self.carry, self.epoch_id)
+        return outs
+
+    def notify_checkpoint_complete(self, epoch: int) -> None:
+        """Truncate determinant and in-flight logs for epochs <= ``epoch``."""
+        self.carry = self._trunc(self.carry, epoch)
+        self.roll_gap_async = {k: v for k, v in self.roll_gap_async.items()
+                               if k[1] > epoch}
+        self.async_counts = {k: v for k, v in self.async_counts.items()
+                             if k[1] > epoch}
+
+    def _health_vector(self, carry: JobCarry) -> torch.Tensor:
+        """Packed int32 health flags, the total record count and the
+        per-task log heads — one device value, one host read."""
+        logs = carry.logs
+        cap = self.compiled.log_capacity
+        flags = [
+            (logs.head - logs.tail > cap).any(),
+            clog.epoch_index_overflowed(logs).any(),
+            clog.near_offset_wrap(logs).any(),
+        ]
+        for el in carry.out_rings:
+            flags.append(ifl.overflowed(el))
+        if self.compiled.plan.num_replicas > 0:
+            flags.append((carry.replicas.head - carry.replicas.tail
+                          > cap).any())
+        else:
+            flags.append(torch.zeros((), dtype=torch.bool,
+                                     device=self.device))
+        vec = torch.stack([f.to(torch.int32) for f in flags])
+        return torch.cat([vec, carry.record_counts.sum(
+            dtype=torch.int32).reshape(1), carry.logs.head])
+
+    def health_vector(self) -> np.ndarray:
+        return self._health_vector(self.carry).cpu().numpy()
+
+    def overflow_messages(self, vec: np.ndarray) -> List[str]:
+        """Decode :meth:`health_vector` flags into violation strings."""
+        out = []
+        if vec[0]:
+            out.append("causal log ring overflow (appends clobbered "
+                       "un-truncated determinants)")
+        if vec[1]:
+            out.append("causal log epoch index overflow (> max_epochs "
+                       "un-truncated epochs)")
+        if vec[2]:
+            out.append("causal log absolute offsets near int32 wrap "
+                       "(rebase required)")
+        for i in range(len(self.carry.out_rings)):
+            if vec[3 + i]:
+                out.append(f"in-flight ring of vertex "
+                           f"{self.compiled.ring_vertices[i]} overflowed")
+        if vec[3 + len(self.carry.out_rings)]:
+            out.append("replica log ring overflow")
+        return out
+
+    def check_overflow(self) -> List[str]:
+        """Overflow guards to heed at every epoch roll; empty = healthy."""
+        return self.overflow_messages(self.health_vector())
+
+    def global_record_stamp(self) -> int:
+        """Monotone nonzero stamp for async rows (1 + supersteps run)."""
+        return self._steps_executed + 1
+
+    def append_async_many(self, flat_subtasks: Sequence[int],
+                          d: det.Determinant) -> None:
+        """Append one determinant row to several subtask logs and every
+        replica of each, between blocks (checkpoint broadcasts)."""
+        row = d.pack().copy()
+        if row[det.LANE_RC] == 0 and row[det.LANE_TAG] in (det.TIMESTAMP,
+                                                           det.RNG):
+            row[det.LANE_RC] = self.global_record_stamp()
+        for f in flat_subtasks:
+            k = (f, self.epoch_id)
+            if self.step_in_epoch == 0:
+                # Roll-gap append: belongs to the NEW epoch though it
+                # precedes the epoch's first TIMESTAMP anchor.
+                self.roll_gap_async[k] = self.roll_gap_async.get(k, 0) + 1
+            self.async_counts[k] = self.async_counts.get(k, 0) + 1
+        L = self.compiled.L
+        rows1 = np.zeros((L, 1, det.NUM_LANES), np.int32)
+        counts = np.zeros((L,), np.int32)
+        rows1[list(flat_subtasks), 0] = row
+        counts[list(flat_subtasks)] = 1
+        rows_t = torch.from_numpy(rows1).to(self.device)
+        counts_t = torch.from_numpy(counts).to(self.device)
+        c = self.carry
+        replicas = c.replicas
+        if self.compiled.plan.num_replicas > 0:
+            oi = self.compiled.owner_idx(self.device)
+            replicas = clog.v_append(replicas, rows_t[oi], counts_t[oi])
+        self.carry = c._replace(logs=clog.v_append(c.logs, rows_t, counts_t),
+                                replicas=replicas)
+
+    def lean_snapshot(self) -> LeanSnapshot:
+        """The fence snapshot: deep copies (the live carry's rings are
+        updated in place by later blocks)."""
+        c = self.carry
+        cp = lambda t: tree_map(lambda x: x.clone(), t)
+        return LeanSnapshot(
+            op_states=cp(c.op_states), edge_bufs=cp(c.edge_bufs),
+            rr_offsets=cp(c.rr_offsets), record_counts=cp(c.record_counts),
+            log_heads=c.logs.head.clone(),
+            ring_heads=tuple(r.head.clone() for r in c.out_rings))
+
+    def restore(self, carry, epoch_id: int) -> None:
+        """Adopt a checkpointed carry (tensors or numpy arrays) at an
+        epoch boundary; leaves are copied onto this executor's device."""
+        self.carry = tree_map(
+            lambda x: torch.as_tensor(np.asarray(x) if not isinstance(
+                x, torch.Tensor) else x).to(self.device).clone(), carry)
+        self.epoch_id = epoch_id
+        self.step_in_epoch = 0

@@ -1,0 +1,40 @@
+"""Minimal pytree helpers over the containers the port's carries use:
+NamedTuples, tuples, lists and dicts of tensors (or numpy arrays).
+
+Dict leaves are visited in sorted-key order, the order ``jax.tree_util``
+flattens dicts in, so flattened carries of the two packages line up."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf-wise over ``tree`` (and same-shaped ``rest``)."""
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, t, *(r[i] for r in rest))
+                            for i, t in enumerate(tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in deterministic order (dict keys sorted)."""
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if tree is None:
+        return []
+    return [tree]

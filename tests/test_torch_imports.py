@@ -1,0 +1,65 @@
+"""PyTorch port, package rules: every module of ``clonos_tpu_torch`` imports
+without pulling in ``jax`` or any ``clonos_tpu`` module (checked in a fresh
+interpreter, since this test process has both loaded), and the entry
+points default to the card: without one they raise instead of running on
+the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from clonos_tpu_torch.api.environment import StreamEnvironment
+from clonos_tpu_torch.runtime.cluster import ClusterRunner
+from clonos_tpu_torch.runtime.executor import CompiledJob, LocalExecutor
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import clonos_tpu_torch
+names = ["clonos_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(clonos_tpu_torch.__path__,
+                                          "clonos_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "clonos_tpu" or m.startswith("clonos_tpu."))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference_package():
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    count, bad = (proc.stdout.splitlines() + [""])[:2]
+    assert int(count) >= 20          # every module of the slice was walked
+    assert bad == "", f"port pulled in {bad}"
+
+
+def _job():
+    env = StreamEnvironment(name="imports", num_key_groups=8)
+    (env.synthetic_source(vocab=7, batch_size=4, parallelism=2)
+        .key_by().window_count(num_keys=7, window_size=4).sink())
+    return env.build()
+
+
+@pytest.mark.parametrize("entry", ["LocalExecutor", "ClusterRunner",
+                                   "init_carry"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "LocalExecutor":
+            LocalExecutor(_job())
+        elif entry == "ClusterRunner":
+            ClusterRunner(_job())
+        else:
+            CompiledJob(_job()).init_carry()
