@@ -9,9 +9,10 @@ path's shapes, drives the job of ``bench.py``'s headline ("bench-allround":
 8 sources -> keyBy -> 8 tumbling windows -> keyBy -> 8 reduces -> 8
 sinks, 128 records per source subtask per step, 997 keys, edge capacity
 1024) on the card, checks the card run against a CPU run of the same
-blocks, and kills and recovers a window subtask and a reduce subtask
-against a golden run. Every phase raises on failure, so the script exits
-non-zero. Without a CUDA card it exits non-zero before any phase runs.
+blocks, runs the local-recovery protocol against a golden run, and seals
+audit ledgers on the card and on the CPU. Every phase raises on failure,
+so the script exits non-zero. Without a CUDA card it exits non-zero
+before any phase runs.
 
 Phases:
   1. device line and kernel build;
@@ -19,11 +20,18 @@ Phases:
   3. the card's run of two blocks equals the CPU's, bit for bit; a third
      block on the card under torch.profiler (where the time goes);
   4. the main path: 3 epochs + 256 steps, counting kernel launches;
-  5. recovery of window subtask (1, 1) and reduce subtask (2, 3),
-     each bit-identical to the golden run.
+  5. recovery, each bit-identical to the golden run that follows the
+     same schedule: one subtask of every vertex class (source, window,
+     reduce, sink), a window with the reduce it feeds, a window with a
+     sink, a recovery across an open epoch whose checkpoint is pending,
+     and a failover drill; the window recovery takes the device-resident
+     determinant stream and its synchronising calls are counted;
+  6. the audit: ledgers sealed on the card and on the CPU over phase 3's
+     job and step count are equal, and a recovery on the card validates
+     against its ledger.
 
-The last two lines are the kernels JSON line (before it, the card's name
-and power limit) and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernels JSON line, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -49,8 +58,6 @@ DETS_PER_STEP = 4
 LOG_CAPACITY = 1 << (2 * STEPS_PER_EPOCH * DETS_PER_STEP).bit_length()
 RING_STEPS = 1 << (2 * STEPS_PER_EPOCH - 1).bit_length()
 SEED = 5
-WINDOW_KILL = (1, 1)       # (vertex, subtask)
-REDUCE_KILL = (2, 3)
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and the
 #: non-tensor-core 32-bit rate that bounds scalar int32 adds.
@@ -165,10 +172,10 @@ def _time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=20):
+def _device_ms(fn, name_part="hist_", iters=20):
     """Device time per call of the kernels ``fn`` launches whose name holds
-    ``hist_``, from torch.profiler's CUPTI trace; None when the trace
-    shows no device time."""
+    ``name_part`` (every kernel for None), from torch.profiler's CUPTI
+    trace; None when the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
@@ -180,7 +187,8 @@ def _device_ms(fn, iters=20):
     from torch.autograd import DeviceType
     total_us = 0.0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and "hist_" in ev.key:
+        if ev.device_type == DeviceType.CUDA and (
+                name_part is None or name_part in ev.key):
             total_us += float(getattr(ev, "device_time_total", 0.0)
                               or getattr(ev, "cuda_time_total", 0.0))
     return total_us / 1e3 / iters if total_us > 0 else None
@@ -246,13 +254,18 @@ def phase_kernels():
             row["plain_ms"] = _time_ms(
                 lambda: hist.keyed_hist_plain(keys, vals, valid, nk, counts))
             row["library_ms"] = _time_ms(library)
+            # Every kernel the library call launches (fill + scatter).
+            row["library_device_ms"] = _device_ms(library, None)
             row["bound_ms"], row["bound_by"] = _bound(r, b, nk, counts, kept)
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
     return rows
 
 
-def kernels_line(rows, launches):
+def kernels_line(rows, by_path):
+    """The kernels JSON line; ``launches`` is the main path's count and
+    ``launches_by_path`` holds every path's, each counted from 0 just
+    before its path ran."""
     src = "clonos_tpu_torch/ops/csrc/keyed_hist.cu"
     out = []
     for name, counts, replaces, head in (
@@ -266,7 +279,9 @@ def kernels_line(rows, launches):
         top = next(r for r in mine if r["label"] == head)
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": by_path["main"][name],
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["counts"] == counts),
             "ms": top["ms"], "kernel_ms": top["ms"],
@@ -279,8 +294,8 @@ def kernels_line(rows, launches):
             "device_ms": top["device_ms"],
             "shapes": [{k: r[k] for k in ("label", "R", "B", "nk", "ms",
                                           "device_ms", "plain_ms",
-                                          "library_ms", "bound_ms",
-                                          "bound_by")}
+                                          "library_ms", "library_device_ms",
+                                          "bound_ms", "bound_by")}
                        for r in mine]})
     return {"kernels": out}
 
@@ -446,44 +461,212 @@ def phase_main_path(dev_line):
     return golden, launches
 
 
-def phase_recovery(golden):
+#: one kill per vertex class, then two connected pairs, each ``(label,
+#: [(vertex, subtask), ...])``, killed EXTRA_STEPS past a completed fence
+KILLS = (
+    ("source", [(0, 2)]),
+    ("window", [(1, 1)]),
+    ("reduce", [(2, 3)]),
+    ("sink", [(3, 5)]),
+    ("window+reduce", [(1, 4), (2, 6)]),
+    ("window+sink", [(1, 2), (3, 1)]),
+)
+#: killed EXTRA_STEPS into the epoch after a pending checkpoint
+PENDING_KILL = ("window, checkpoint pending", [(1, 5)])
+
+
+def _advance(runners, complete=True):
+    for r in runners:
+        r.run_epoch(complete_checkpoint=complete)
+        for _ in range(EXTRA_STEPS):
+            r.step()
+
+
+def _mirror_ignore(golden, flats):
+    """The decision recovery takes for a pending checkpoint, applied to
+    the run that never failed: its healthy logs record the same
+    IGNORE_CHECKPOINT rows at the same stamp, so the two stay comparable
+    leaf for leaf."""
+    from clonos_tpu_torch.causal import determinant as det
+    healthy = [f for f in range(golden.job.total_subtasks())
+               if f not in flats]
+    for cid in golden.coordinator.ignore_unacked_for(set(flats)):
+        golden.executor.append_async_many(
+            healthy, det.IgnoreCheckpointDeterminant(
+                record_count=golden.executor.global_record_stamp(),
+                checkpoint_id=cid))
+
+
+def _counted(fn, count_syncs=False):
+    """Run ``fn`` with the kernel's launch counts at 0 just before it;
+    returns (result, {kernel: launches}, synchronising calls or None)."""
     from clonos_tpu_torch.ops.histogram import keyed_hist
+    sync()
+    keyed_hist.launches = 0
+    keyed_hist.launches_counts = 0
+    syncs = None
+    if count_syncs and torch.device(DEVICE).type == "cuda":
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # (The mode's one-time "prototype feature" notice is not a sync.)
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+    else:
+        out = fn()
+    sync()
+    counts = {"keyed_hist": keyed_hist.launches_counts,
+              "keyed_hist_sums": (keyed_hist.launches
+                                  - keyed_hist.launches_counts)}
+    return out, counts, syncs
+
+
+def _recover(golden, faulted, label, kills, dev_line, count_syncs=False,
+             mirror=False):
+    flats = [faulted.job.subtask_base(v) + s for v, s in kills]
+    faulted.inject_failure(flats)
+    report, launches, syncs = _counted(faulted.recover, count_syncs)
+    if mirror:
+        _mirror_ignore(golden, flats)
+    _assert_same(golden, faulted, label)
+    if report.records_replayed <= 0 or report.steps_replayed <= 0:
+        raise AssertionError(f"{label}: recovery replayed nothing")
+    reading = dict(
+        vertex_class=label, flats=flats,
+        from_epoch=report.from_epoch,
+        steps_replayed=report.steps_replayed,
+        records_replayed=report.records_replayed,
+        determinants_replayed=report.determinants_replayed,
+        ignored_checkpoints=list(report.ignored_checkpoints),
+        recovery_ms=round(report.recovery_ms, 3),
+        phase_ms={k: round(v, 3) for k, v in report.phase_ms.items()},
+        kernel_launches=launches, device=dev_line)
+    if syncs is not None:
+        reading["synchronising_calls"] = syncs
+    log(f"[recovery] bit-identical to golden: {json.dumps(reading)}")
+    return report, reading, launches
+
+
+def phase_recovery(golden, dev_line):
+    """Every vertex class, two connected failures, a recovery across an
+    open epoch whose checkpoint is pending, and a failover drill — each
+    against the golden run, which follows the same schedule."""
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.runtime.executor import canonical_carry
+    from clonos_tpu_torch.utils.tree import tree_leaves
     faulted = ClusterRunner(build_job(), device=DEVICE, **runner_kw())
     for _ in range(3):
         faulted.run_epoch()
     for _ in range(EXTRA_STEPS):
         faulted.step()
     readings = []
-    for n, (vid, sub) in enumerate((WINDOW_KILL, REDUCE_KILL)):
+    total = {"keyed_hist": 0, "keyed_hist_sums": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    for n, (label, kills) in enumerate(KILLS):
         if n:
-            for r in (golden, faulted):
-                r.run_epoch()
-                for _ in range(EXTRA_STEPS):
-                    r.step()
-        flat = faulted.job.subtask_base(vid) + sub
-        faulted.inject_failure([flat])
-        sync()
-        keyed_hist.launches = 0
-        report = faulted.recover()
-        sync()
-        report.results[0].verify()
-        _assert_same(golden, faulted, f"vertex {vid} subtask {sub}")
-        reading = dict(vertex=vid, subtask=sub, flat=flat,
-                       steps_replayed=report.steps_replayed,
-                       records_replayed=report.records_replayed,
-                       determinants_replayed=report.determinants_replayed,
-                       emitted=int(report.results[0].emit_counts.sum()),
-                       recovery_ms=report.recovery_ms,
-                       kernel_launches=keyed_hist.launches)
-        if report.steps_replayed != EXTRA_STEPS or \
-                report.records_replayed == 0:
-            raise AssertionError(f"recovery replayed nothing: {reading}")
+            _advance((golden, faulted))
+        report, reading, launches = _recover(
+            golden, faulted, label, kills, dev_line,
+            count_syncs=label == "window")
+        add(launches)
         readings.append(reading)
-        log(f"[recovery] bit-identical to golden: {json.dumps(reading)}")
-    if readings[0]["kernel_launches"] == 0:
-        raise AssertionError("window recovery launched no kernel")
-    return readings
+        if report.steps_replayed != EXTRA_STEPS:
+            raise AssertionError(f"{label}: replayed "
+                                 f"{report.steps_replayed} steps")
+        if label == "window":
+            mgr = report.managers[0]
+            if mgr.plan.det_device is None or mgr.plan.det_rows.shape[0]:
+                raise AssertionError(
+                    "window recovery did not take the device-resident "
+                    "determinant stream")
+            if min(launches.values()) == 0:
+                raise AssertionError(
+                    f"window recovery launched no kernel: {launches}")
+    # A checkpoint left pending: the kill lands EXTRA_STEPS into the next
+    # epoch, recovery ignores it and replays from the older fence.
+    for r in (golden, faulted):
+        r.run_epoch()
+    older = faulted.standbys.latest.checkpoint_id + 1
+    _advance((golden, faulted), complete=False)
+    label, kills = PENDING_KILL
+    report, reading, launches = _recover(golden, faulted, label, kills,
+                                         dev_line, mirror=True)
+    add(launches)
+    readings.append(reading)
+    if report.from_epoch != older or report.ignored_checkpoints != (
+            older,) or report.steps_replayed != STEPS_PER_EPOCH + \
+            EXTRA_STEPS:
+        raise AssertionError(f"pending-checkpoint recovery: {reading}")
+    # The failover drill: one subtask of every class, failed together.
+    _advance((golden, faulted))
+    before = [x.clone() for x in
+              tree_leaves(canonical_carry(faulted.executor.carry))]
+    secs, launches, _ = _counted(faulted.failover_drill)
+    add(launches)
+    after = tree_leaves(canonical_carry(faulted.executor.carry))
+    if any(not torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError("failover drill changed the canonical carry")
+    _assert_same(golden, faulted, "after the drill")
+    drill = dict(vertex_class="drill (one subtask of every class)",
+                 flats=[faulted.job.subtask_base(v.vertex_id)
+                        for v in faulted.job.vertices],
+                 drill_ms=round(secs * 1e3, 3), kernel_launches=launches,
+                 device=dev_line)
+    log(f"[recovery] drill left the carry unchanged: {json.dumps(drill)}")
+    readings.append(drill)
+    if min(total.values()) == 0:
+        raise AssertionError(f"recovery paths launched no kernel: {total}")
+    return readings, total
+
+
+# --- phase 6 ----------------------------------------------------------------
+
+def phase_audit(dev_line):
+    """Phase 3's job and step count (2 x BLOCK_STEPS) with the audit on,
+    on the card and on the CPU: the two sealed ledgers are equal. Then a
+    kill and recovery on the card, validated against its ledger."""
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = dict(runner_kw(), steps_per_epoch=BLOCK_STEPS)
+    card = ClusterRunner(build_job(), device=DEVICE, audit=True, **kw)
+    cpu = ClusterRunner(build_job(), device="cpu", audit=True, **kw)
+    seal_ms = {}
+    for complete in (True, False):
+        for name, r in (("card", card), ("cpu", cpu)):
+            r.run_epoch(complete_checkpoint=complete)
+            seal_ms.setdefault(name, []).append(round(
+                r.last_fence_phases["fence.digest-seal"], 3))
+    lc = card.coordinator.read_ledger()
+    lp = cpu.coordinator.read_ledger()
+    problems = diff_ledgers(lp, lc)
+    if problems or len(lc) != 2:
+        raise AssertionError(f"card ledger != CPU ledger: {problems}")
+    for _ in range(EXTRA_STEPS):
+        card.step()
+    flat = card.job.subtask_base(1) + 1
+    card.inject_failure([flat])
+    report, launches, _ = _counted(card.recover)
+    stats = card.last_audit.stats
+    if stats != {"match": 1, "divergence": 0, "missing": 0}:
+        raise AssertionError(f"audit after recovery: {stats}")
+    if min(launches.values()) == 0:
+        raise AssertionError(
+            f"audited window recovery launched no kernel: {launches}")
+    log(f"[audit] card ledger == CPU ledger over epochs "
+        f"{[e['epoch'] for e in lc]} ({sum(e['records'] for e in lc)} "
+        f"records); seal ms per epoch {json.dumps(seal_ms)}; recovery of "
+        f"flat {flat} from epoch {report.from_epoch}: validator {stats}, "
+        f"audit {report.phase_ms.get('audit', 0.0):.3f} ms, kernel "
+        f"launches {json.dumps(launches)}; {dev_line}")
+    return launches
 
 
 def main() -> int:
@@ -505,9 +688,12 @@ def main() -> int:
     rows = phase_kernels()
     phase_card_vs_cpu()
     golden, launches = phase_main_path(dev_line)
-    phase_recovery(golden)
+    _, recovery_launches = phase_recovery(golden, dev_line)
+    audit_launches = phase_audit(dev_line)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
-    print(json.dumps(kernels_line(rows, launches)))
+    print(json.dumps(kernels_line(rows, {
+        "main": launches, "recovery": recovery_launches,
+        "audit_recovery": audit_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Determinant schema: packed fixed-width int32 rows.
 
 The port's own copy of the parts of ``clonos_tpu/causal/determinant.py``
-this slice uses (that module is numpy-only; the port imports nothing of
+the port uses (that module is numpy-only; the port imports nothing of
 the reference package). One determinant is one ``int32[NUM_LANES]`` row:
 
     lane 0: tag
@@ -27,6 +27,12 @@ SOURCE_CHECKPOINT = 5
 IGNORE_CHECKPOINT = 6
 BUFFER_BUILT = 7
 SCALE = 8
+
+NUM_TAGS = 9
+TAG_NAMES = (
+    "ORDER", "TIMESTAMP", "RNG", "SERIALIZABLE", "TIMER_TRIGGER",
+    "SOURCE_CHECKPOINT", "IGNORE_CHECKPOINT", "BUFFER_BUILT", "SCALE",
+)
 
 NUM_LANES = 8
 LANE_TAG = 0
@@ -137,6 +143,27 @@ class RNGDeterminant(Determinant):
 
 
 @dataclasses.dataclass(frozen=True)
+class TimerTriggerDeterminant(Determinant):
+    """A processing-time timer firing, replayed at record_count."""
+
+    TAG: ClassVar[int] = TIMER_TRIGGER
+    record_count: int = 0
+    callback_id: int = 0
+    timestamp: int = 0
+
+    def _payload(self):
+        hi, lo = split64(self.timestamp)
+        return (self.callback_id, hi, lo)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(record_count=int(row[LANE_RC]),
+                   callback_id=int(row[LANE_P]),
+                   timestamp=join64(int(row[LANE_P + 1]),
+                                    int(row[LANE_P + 2])))
+
+
+@dataclasses.dataclass(frozen=True)
 class SourceCheckpointDeterminant(Determinant):
     """A checkpoint-trigger arrival at a source, replayed at record_count."""
 
@@ -198,10 +225,16 @@ _TAG_TO_CLASS: Dict[int, Type[Determinant]] = {
     ORDER: OrderDeterminant,
     TIMESTAMP: TimestampDeterminant,
     RNG: RNGDeterminant,
+    TIMER_TRIGGER: TimerTriggerDeterminant,
     SOURCE_CHECKPOINT: SourceCheckpointDeterminant,
     IGNORE_CHECKPOINT: IgnoreCheckpointDeterminant,
     BUFFER_BUILT: BufferBuiltDeterminant,
 }
+
+
+def to_bytes(rows: np.ndarray) -> bytes:
+    """Wire/digest serialization: contiguous little-endian int32 rows."""
+    return np.ascontiguousarray(np.asarray(rows).astype("<i4")).tobytes()
 
 
 def sync_anchors(rows: np.ndarray) -> np.ndarray:

@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from clonos_tpu_torch.causal.determinant import NUM_LANES
+from clonos_tpu_torch.device import scalar as _i32
 from clonos_tpu_torch.utils.tree import tree_map
 
 
@@ -43,10 +44,6 @@ class ThreadLogState(NamedTuple):
     @property
     def max_epochs(self) -> int:
         return self.epoch_starts.shape[-1]
-
-
-def _i32(x, dev) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
 
 def v_create(n: int, capacity: int, max_epochs: int,
@@ -146,13 +143,11 @@ def append_full(state: ThreadLogState, rows: torch.Tensor) -> ThreadLogState:
 def v_start_epoch(state: ThreadLogState, epoch_id) -> ThreadLogState:
     """Record the epoch -> offset index entry for a newly started epoch
     on every log of the stack."""
-    dev = state.head.device
-    e = _i32(epoch_id, dev)
-    slot = int(e) % state.max_epochs
+    e = int(epoch_id)
     starts = state.epoch_starts.clone()
-    starts[:, slot] = state.head
+    starts[:, e % state.max_epochs] = state.head
     return state._replace(epoch_starts=starts,
-                          latest_epoch=torch.maximum(state.latest_epoch, e))
+                          latest_epoch=state.latest_epoch.clamp(min=e))
 
 
 def start_epoch(state: ThreadLogState, epoch_id) -> ThreadLogState:

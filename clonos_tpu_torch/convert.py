@@ -1,5 +1,6 @@
 """Carrying state across packages: the reference's ``JobCarry`` (or
-``LeanSnapshot``) as numpy arrays in, the port's carry out — and back.
+``LeanSnapshot``, or a ``CompletedCheckpoint`` holding one) as numpy
+arrays in, the port's carry out — and back.
 
 The reference side hands its carry over as a tree of numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, carry)``; the NamedTuples there have
@@ -50,4 +51,19 @@ def carry_to_numpy(carry: Any) -> Any:
         return type(carry)(carry_to_numpy(x) for x in carry)
     if isinstance(carry, dict):
         return {k: carry_to_numpy(x) for k, x in carry.items()}
-    return carry.detach().cpu().numpy()
+    if isinstance(carry, torch.Tensor):
+        return carry.detach().cpu().numpy()
+    return np.asarray(carry)
+
+
+def checkpoint_from_numpy(ckpt: Any, device) -> Any:
+    """A reference ``CompletedCheckpoint`` whose carry (a ``LeanSnapshot``
+    or ``JobCarry``) is a tree of numpy arrays, e.g.
+    ``dataclasses.replace(ckpt, carry=jax.tree_util.tree_map(np.asarray,
+    ckpt.carry))``, as the port's ``CompletedCheckpoint`` on ``device``."""
+    from clonos_tpu_torch.runtime.checkpoint import CompletedCheckpoint
+    return CompletedCheckpoint(
+        checkpoint_id=int(ckpt.checkpoint_id),
+        carry=carry_from_numpy(ckpt.carry, device),
+        wall_time=float(ckpt.wall_time),
+        size_bytes=int(getattr(ckpt, "size_bytes", 0) or 0))

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from clonos_tpu_torch.api.records import RecordBatch
+from clonos_tpu_torch.device import scalar as _i32
 
 
 class EdgeLogState(NamedTuple):
@@ -122,17 +123,14 @@ def slice_steps_at(state: EdgeLogState, abs_step, max_out: int
     clamp: slots before the tail come back as whatever the ring holds
     there — the caller masks them (recovery's replay windows start one
     slot before the fence)."""
-    start = torch.as_tensor(abs_step, dtype=torch.int32,
-                            device=state.head.device)
-    return _gather_steps(state, start, max_out)[0]
+    return _gather_steps(state, _i32(abs_step, state.head.device),
+                         max_out)[0]
 
 
 def slice_steps(state: EdgeLogState, abs_step, max_out: int
                 ) -> Tuple[RecordBatch, torch.Tensor, torch.Tensor]:
     """Gather up to ``max_out`` retained steps from ``abs_step``:
     ``(stacked RecordBatch [max_out, P, cap], count, start)``."""
-    start = torch.maximum(torch.as_tensor(abs_step, dtype=torch.int32,
-                                          device=state.head.device),
-                          state.tail)
+    start = torch.maximum(_i32(abs_step, state.head.device), state.tail)
     batch, count = _gather_steps(state, start, max_out)
     return batch, count, start

@@ -1,90 +1,229 @@
-"""Single-process cluster with failure injection and local recovery.
+"""Cluster runner: failure detection, standby management, causal recovery.
 
-Port of the quick-start surface of ``clonos_tpu/runtime/cluster.py``:
-``run_epoch`` (run to the fence, checkpoint in memory, complete it,
-truncate), ``step``, ``inject_failure`` and ``recover`` for one failed
-subtask of a keyed vertex with a single input edge (a window or a
-reduce). Recovery restores the checkpointed operator row, takes the
-failed subtask's determinants from its downstream replicas, re-routes the
-upstream in-flight ring into the failed lane, replays through
-:class:`~clonos_tpu_torch.causal.recovery.LogReplayer`, verifies every
-output cut, and patches back the operator row, the log row, the ring lane
-and the record count — bit-identical to a run that never failed.
+Port of ``clonos_tpu/runtime/cluster.py`` — the control plane tying the
+executor, the checkpoint coordinator, the replication plan and the
+recovery FSM together:
 
-Source and sink failures, concurrent failures, the recovery FSM, durable
-checkpoints and standby bootstrap come with later slices.
+- ``HeartbeatMonitor``: deadline-based liveness;
+- ``StandbyPool``: the latest completed checkpoint standbys restore from;
+- ``ClusterRunner``: the sequential epoch fence (health read, audit seal,
+  ledger, checkpoint trigger, source fence determinants, completion) and
+  the full local-recovery protocol for any set of failed subtasks, in
+  topological order: ignore the checkpoints the dead never acked, back
+  off, rebuild each failed subtask from the last completed checkpoint
+  plus determinant replay, patch it into the live carry, rebuild the
+  replica rows it held, and close with one packed device read that
+  checks every deferred assert. An upstream's rebuilt ring lane feeds its
+  downstream's replay in the same call (connected failures).
+
+Failure model: the unit of loss is a subtask's device state — its
+operator-state row, its causal-log row, the replica rows it holds for
+others and its lane of its vertex's in-flight ring. Healthy subtasks are
+never rolled back; the proof obligation is that the patched carry equals
+a never-failed run on the canonical (logically live) state
+(``executor.canonical_carry``).
+
+Not ported yet, each refused loudly where reached: standby bootstrap on a
+new host, the overlapped finalize and the pipelined fence, asynchronous
+checkpoint writes, the shared routed-window cache, spill, incremental
+checkpoints, host feeds, two-input operators, transactional sinks and
+timer services.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import List, Optional, Sequence, Set, Tuple
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from clonos_tpu_torch import device as _device
+from clonos_tpu_torch.api.operators import HostFeedSource
 from clonos_tpu_torch.api.records import RecordBatch
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.causal import log as clog
 from clonos_tpu_torch.causal import recovery as rec
-from clonos_tpu_torch.causal.replication import merge_determinant_responses
+from clonos_tpu_torch.causal.epoch import EpochTracker
 from clonos_tpu_torch.graph.job_graph import JobGraph, PartitionType
 from clonos_tpu_torch.inflight import log as ifl
+from clonos_tpu_torch.obs import audit as _audit
 from clonos_tpu_torch.parallel import routing
+from clonos_tpu_torch.runtime import checkpoint as cp
 from clonos_tpu_torch.runtime.executor import (DETS_PER_STEP, JobCarry,
                                                LeanSnapshot, LocalExecutor)
 from clonos_tpu_torch.utils.tree import tree_map
 
 
-class OverflowError_(RuntimeError):
-    """A log or ring overflowed: recovery state was clobbered."""
+class HeartbeatMonitor:
+    """Deadline-based liveness tracking. ``clock`` is injectable."""
+
+    def __init__(self, subtasks: Sequence[int], timeout_s: float = 5.0,
+                 clock=_time.monotonic):
+        self._clock = clock
+        self.timeout_s = timeout_s
+        self._last: Dict[int, float] = {s: clock() for s in subtasks}
+        self._dead: Set[int] = set()
+
+    def beat(self, subtask: int) -> None:
+        if subtask not in self._dead:
+            self._last[subtask] = self._clock()
+
+    def beat_all_except(self, dead: Set[int]) -> None:
+        now = self._clock()
+        for s in self._last:
+            if s not in dead and s not in self._dead:
+                self._last[s] = now
+
+    def mark_dead(self, subtask: int) -> None:
+        self._dead.add(subtask)
+
+    def expired(self) -> List[int]:
+        now = self._clock()
+        return sorted(s for s, t in self._last.items()
+                      if s not in self._dead and now - t > self.timeout_s)
+
+    def revive(self, subtask: int) -> None:
+        self._dead.discard(subtask)
+        self._last[subtask] = self._clock()
+
+
+class StandbyPool:
+    """Holds the state standbys restore from: the latest completed
+    checkpoint, refreshed on every completion."""
+
+    def __init__(self):
+        self.latest: Optional[cp.CompletedCheckpoint] = None
+
+    def on_completed_checkpoint(self, ckpt: cp.CompletedCheckpoint) -> None:
+        # Monotonic: a stale completion never regresses the restore point.
+        if self.latest is None \
+                or ckpt.checkpoint_id >= self.latest.checkpoint_id:
+            self.latest = ckpt
+
+    def has_state(self) -> bool:
+        return self.latest is not None
 
 
 @dataclasses.dataclass
 class RecoveryReport:
+    """What one failure's recovery did."""
+
     failed_subtasks: Tuple[int, ...]
     from_epoch: int
     steps_replayed: int
     determinants_replayed: int
     records_replayed: int
+    ignored_checkpoints: Tuple[int, ...]
     recovery_ms: float
-    results: Tuple[rec.ReplayResult, ...] = ()
+    managers: Tuple[rec.RecoveryManager, ...]
+    #: wall ms per recovery phase (restore / fetch_determinants / inputs /
+    #: replay / patch / replica_rebuild / finalize.* / audit)
+    phase_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: True for failover rehearsals (failover_drill): not in ``reports``
+    drill: bool = False
+    #: bytes the shard-local restore moved (failed subtasks' checkpoint
+    #: rows, determinant streams, replayed input windows) ...
+    restore_bytes: int = 0
+    #: ... against the whole checkpoint a global rollback would reload
+    checkpoint_bytes: int = 0
+
+    @property
+    def results(self) -> Tuple[rec.ReplayResult, ...]:
+        return tuple(m.result for m in self.managers)
+
+
+class OverflowError_(RuntimeError):
+    """An un-checkpointed log/ring overflow was detected: recovery state
+    was clobbered and the control plane must not keep running."""
 
 
 class ClusterRunner:
-    """Drives epochs; at every fence takes a lean snapshot, completes the
-    checkpoint and truncates the logs and rings."""
+    """Single-process cluster with failure injection. Drives epochs; at
+    every epoch fence triggers a checkpoint, collects acks from healthy
+    subtasks, and on completion truncates logs and refreshes standbys."""
 
     def __init__(self, job: JobGraph, steps_per_epoch: int = 8,
+                 heartbeat_timeout_s: float = 5.0,
+                 checkpoint_dir: Optional[str] = None,
                  recovery_block_steps: Optional[int] = None,
+                 audit: Optional[bool] = None,
                  device="cuda", **executor_kw):
         self.job = job
         self.executor = LocalExecutor(job, steps_per_epoch=steps_per_epoch,
                                       device=device, **executor_kw)
         self.device = self.executor.device
-        self.plan = self.executor.compiled.plan
+        compiled = self.executor.compiled
+        self.plan = compiled.plan
+        storage: cp.CheckpointStorage = (
+            cp.FileCheckpointStorage(checkpoint_dir) if checkpoint_dir
+            else cp.InMemoryCheckpointStorage())
+        self.coordinator = cp.CheckpointCoordinator(
+            storage, num_subtasks=job.total_subtasks(),
+            base_interval_steps=steps_per_epoch)
+        self.standbys = StandbyPool()
+        self.coordinator.subscribe_completed_state(
+            self.standbys.on_completed_checkpoint)
+        self.coordinator.subscribe_completion(
+            self.executor.notify_checkpoint_complete)
+        self.heartbeats = HeartbeatMonitor(
+            range(job.total_subtasks()), timeout_s=heartbeat_timeout_s)
         self.failed: Set[int] = set()
         self.global_step = 0
         #: epoch -> global step at its start
-        self._fence_step = {0: 0}
-        #: (checkpoint id, snapshot) of the latest completed checkpoint
-        self.latest_checkpoint: Optional[Tuple[int, LeanSnapshot]] = None
+        self._fence_step: Dict[int, int] = {0: 0}
         self.reports: List[RecoveryReport] = []
+        #: fence.* wall ms of the last fence
+        self.last_fence_phases: Dict[str, float] = {}
+        # Exactly-once audit: audit=None inherits the process-global
+        # stance, and the divergence policy always does; the default
+        # NullAuditor reads and writes nothing.
+        self._audit_layout = tuple(
+            (v.vertex_id, v.parallelism) for v in job.vertices)
+        stance = _audit.get_auditor()
+        if audit is None:
+            audit = stance.enabled
+        self.auditor: _audit.NullAuditor = (
+            _audit.Auditor(on_divergence=stance.on_divergence)
+            if audit else _audit.NullAuditor())
+        self.audit_stats = {"epochs-sealed": 0, "epochs-validated": 0,
+                            "divergences": 0}
+        #: the validator of the last audited recovery (its ``events``)
+        self.last_audit: Optional[rec.AuditValidator] = None
+        self._last_records_total = 0
+        #: checkpoint id -> np [L] log heads at that fence, from the fence
+        #: health read (recovery reads them here, not from the device)
+        self._ck_log_heads: Dict[int, np.ndarray] = {}
+        #: host mirror of the in-flight ring offsets: heads advance one per
+        #: superstep, tails move only at checkpoint completion. Recovery's
+        #: coverage decisions read it; the device bounds are checked
+        #: against it in recovery's final packed read.
+        self._ring_tail_mirror = 0
+        self._ring_mirror_valid = True
+        self._bounds_cache: Optional[Dict[int, Tuple[int, int]]] = None
+        self.coordinator.subscribe_completion(self._update_ring_mirror)
+        self.epoch_tracker = EpochTracker()
+        self.coordinator.subscribe_completion(
+            self.epoch_tracker.notify_checkpoint_complete)
+        #: source subtasks log SOURCE_CHECKPOINT at every trigger
         self._source_flats = [
             job.subtask_base(v.vertex_id) + s
             for v in job.vertices if not job.in_edges(v.vertex_id)
             for s in range(v.parallelism)]
-        compiled = self.executor.compiled
         self._recovery_ch = min(
             recovery_block_steps or self.executor.block_steps,
             compiled.inflight_ring_steps,
             compiled.log_capacity // DETS_PER_STEP)
 
-    # --- live path ----------------------------------------------------------
+    # --- steady state --------------------------------------------------------
 
-    def run_epoch(self) -> None:
-        """Run to the next epoch fence, checkpoint and complete it."""
+    def run_epoch(self, complete_checkpoint: bool = True) -> None:
+        """Run to the next epoch fence and trigger its checkpoint.
+        ``complete_checkpoint=False`` leaves it pending (no acks): logs and
+        rings keep accumulating across epochs, and a failure before the
+        next completion replays from the older checkpoint."""
         if self.failed:
             raise rec.RecoveryError(
                 f"cannot run with failed subtasks {sorted(self.failed)}; "
@@ -93,31 +232,106 @@ class ClusterRunner:
         closed = ex.epoch_id
         n = ex.steps_per_epoch - ex.step_in_epoch
         ex.run_epoch()
+        t_fence = _time.monotonic()
         self.global_step += n
         self._fence_step[ex.epoch_id] = self.global_step
-        violations = ex.check_overflow()
-        if violations:
-            raise OverflowError_("; ".join(violations))
-        snap = ex.lean_snapshot()
-        # Every source logs the checkpoint-trigger arrival (after the
-        # snapshot, so the checkpointed log heads stay at the fence).
-        if self._source_flats:
-            t_ms = (ex.step_input_history[-1][0]
-                    if ex.step_input_history else 0)
-            ex.append_async_many(
-                self._source_flats, det.SourceCheckpointDeterminant(
-                    record_count=ex.global_record_stamp(),
-                    checkpoint_id=closed, timestamp=t_ms))
-        self.latest_checkpoint = (closed, snap)
-        ex.notify_checkpoint_complete(closed)
+        self.heartbeats.beat_all_except(self.failed)
+        self._run_fence_tail_inline(closed, complete_checkpoint, t_fence)
 
     def step(self) -> None:
         if self.failed:
             raise rec.RecoveryError("failed subtasks present; recover() first")
         self.executor.step()
         self.global_step += 1
+        self.heartbeats.beat_all_except(self.failed)
 
-    # --- failure injection --------------------------------------------------
+    def _absorb_fence_health(self, closed: int, vec: np.ndarray) -> int:
+        """Fold one fence's health vector into the host mirrors: the
+        heads at this fence ARE checkpoint ``closed``'s log heads. Returns
+        the epoch's record delta."""
+        nf = 4 + len(self.executor.carry.out_rings)
+        total_records = int(vec[nf])
+        self._ck_log_heads[closed] = vec[nf + 1:].astype(np.int64)
+        while len(self._ck_log_heads) > 128:
+            self._ck_log_heads.pop(next(iter(self._ck_log_heads)))
+        delta = total_records - self._last_records_total
+        self._last_records_total = total_records
+        return delta
+
+    def _seal_and_trigger(self, closed: int, phases: Dict[str, float]
+                          ) -> None:
+        """Audit seal over the closed epoch's causal surface, ledger
+        append, checkpoint trigger over the lean fence snapshot."""
+        ex = self.executor
+        if self.auditor.enabled:
+            t = _time.monotonic()
+            dg = _audit.digest_epoch_window(
+                closed, ex.epoch_window(closed), layout=self._audit_layout)
+            self.auditor.seal(dg)
+            phases["fence.digest-seal"] = (_time.monotonic() - t) * 1e3
+            t = _time.monotonic()
+            self.coordinator.record_ledger(dg.to_entry())
+            phases["fence.ledger-write"] = (_time.monotonic() - t) * 1e3
+            self.epoch_tracker.notify_epoch_sealed(closed, dg)
+            self.audit_stats["epochs-sealed"] += 1
+        t = _time.monotonic()
+        self.coordinator.trigger(closed, ex.lean_snapshot(),
+                                 async_write=False, owned=True)
+        phases["fence.snapshot"] = (_time.monotonic() - t) * 1e3
+
+    def _append_source_fence_determinant(self, closed: int,
+                                         phases: Dict[str, float]) -> None:
+        """Every source logs the checkpoint-trigger arrival — after the
+        lean snapshot, so the checkpointed log heads stay at the fence
+        (the rows belong to the new epoch)."""
+        if not self._source_flats:
+            return
+        ex = self.executor
+        t_ms = ex.step_input_history[-1][0] if ex.step_input_history else 0
+        t = _time.monotonic()
+        ex.append_async_many(
+            self._source_flats, det.SourceCheckpointDeterminant(
+                record_count=ex.global_record_stamp(),
+                checkpoint_id=closed, timestamp=t_ms))
+        phases["fence.source-append"] = (_time.monotonic() - t) * 1e3
+
+    def _run_fence_tail_inline(self, closed: int, complete_checkpoint: bool,
+                               t_fence: float) -> None:
+        """The strict fence order: one health read (overflow flags, record
+        total, fence log heads), audit seal + ledger + trigger, source
+        fence determinants, then completion (which truncates)."""
+        ex = self.executor
+        phases: Dict[str, float] = {}
+        t = _time.monotonic()
+        vec = ex.health_vector()
+        phases["fence.health-read"] = (_time.monotonic() - t) * 1e3
+        delta = self._absorb_fence_health(closed, vec)
+        violations = ex.overflow_messages(vec)
+        if violations:
+            raise OverflowError_("; ".join(violations))
+        self.epoch_tracker.inc_record_count(delta)
+        self.epoch_tracker.start_new_epoch(ex.epoch_id)
+        self._seal_and_trigger(closed, phases)
+        self._append_source_fence_determinant(closed, phases)
+        if complete_checkpoint:
+            self.coordinator.ack_all(closed)
+        phases["fence-tail"] = (_time.monotonic() - t_fence) * 1e3
+        self.last_fence_phases = phases
+
+    def _update_ring_mirror(self, completed_epoch: int) -> None:
+        """Checkpoint-completion hook: advance the host ring-tail mirror
+        to the completed epoch's end fence (as ``ifl.truncate`` does). A
+        completion whose fence the runner never saw invalidates it."""
+        f = self._fence_step.get(completed_epoch + 1)
+        if f is None:
+            self._ring_mirror_valid = False
+        else:
+            self._ring_tail_mirror = max(self._ring_tail_mirror, f)
+        # Recovery restores only from the latest completed checkpoint.
+        self._ck_log_heads = {k: v for k, v in self._ck_log_heads.items()
+                              if k >= completed_epoch}
+
+    # --- failure injection ---------------------------------------------------
 
     def _vertex_of(self, flat: int) -> Tuple[int, int]:
         for v in self.job.vertices:
@@ -134,6 +348,7 @@ class ClusterRunner:
         c = ex.carry
         for flat in flat_subtasks:
             self.failed.add(flat)
+            self.heartbeats.mark_dead(flat)
             vid, sub = self._vertex_of(flat)
             fresh = clog.create(compiled.log_capacity, compiled.max_epochs,
                                 self.device)
@@ -149,8 +364,7 @@ class ClusterRunner:
             held = self.plan.replicas_held_by(flat)
             replicas = c.replicas
             if held:
-                idx = torch.tensor(held, dtype=torch.int64,
-                                   device=self.device)
+                idx = _device.upload(np.asarray(held, np.int64), self.device)
                 replicas = tree_map(lambda s, fr: put(s, idx, fr),
                                     c.replicas, fresh)
             rings = list(c.out_rings)
@@ -167,100 +381,555 @@ class ClusterRunner:
                            record_counts=put(c.record_counts, flat, 0))
         ex.carry = c
 
-    # --- recovery -----------------------------------------------------------
+    def detect_failures(self) -> List[int]:
+        return self.heartbeats.expired()
 
-    def recover(self) -> RecoveryReport:
-        """Recover the one failed subtask (a keyed vertex with one input
-        edge and downstream holders of its log) bit-identically."""
+    # --- recovery ------------------------------------------------------------
+
+    def recover(self, drill: bool = False,
+                overlap_finalize: Optional[bool] = None) -> RecoveryReport:
+        """Run the causal-recovery protocol for all failed subtasks, in
+        topological order, with a sequential finalize (one packed read,
+        its deferred asserts, revive, then the audit validator).
+
+        ``drill=True`` (failover rehearsal) runs the identical replay but
+        makes none of the failure-handling decisions: pending checkpoints
+        are not ignored, no IGNORE_CHECKPOINT determinants are logged and
+        the checkpoint interval is not backed off — so the job state is
+        unchanged afterwards."""
+        if overlap_finalize:
+            raise rec.RecoveryError(
+                "the overlapped recovery finalize comes with a later slice "
+                "of the port; recover() runs the sequential finalize")
         if not self.failed:
             raise rec.RecoveryError("no failed subtasks")
-        if len(self.failed) != 1:
+        if not self.standbys.has_state():
             raise rec.RecoveryError(
-                f"one failed subtask per recover() in this port; got "
-                f"{sorted(self.failed)}")
-        if self.latest_checkpoint is None:
-            raise rec.RecoveryError(
-                "no completed checkpoint to restore from")
-        t0 = _time.monotonic()
-        (flat,) = tuple(self.failed)
-        vid, sub = self._vertex_of(flat)
-        v = self.job.vertices[vid]
-        in_edges = self.job.in_edges(vid)
-        if len(in_edges) != 1 or not self.job.out_edges(vid):
-            raise rec.RecoveryError(
-                f"subtask {flat}: only vertices with one input edge and a "
-                f"downstream consumer recover in this port (source and sink "
-                f"recovery come with a later slice)")
+                "no completed checkpoint to restore standbys from")
         ex = self.executor
         compiled = ex.compiled
-        ckpt_id, snap = self.latest_checkpoint
-        from_epoch = ckpt_id + 1
+        for flat in self.failed:
+            v = self.job.vertices[self._vertex_of(flat)[0]]
+            if isinstance(v.operator, HostFeedSource) \
+                    or len(self.job.in_edges(v.vertex_id)) > 1:
+                raise rec.RecoveryError(
+                    f"subtask {flat}: recovery of host-fed and two-input "
+                    f"vertices comes with a later slice of the port")
+        t0 = _time.monotonic()
+        topo_pos = {vid: i for i, vid in enumerate(compiled.topo)}
+        failed = tuple(sorted(
+            self.failed, key=lambda f: (topo_pos[self._vertex_of(f)[0]], f)))
+
+        # Ignore checkpoints the dead never acked; back off the interval;
+        # healthy tasks log the ignore decision.
+        ignored: Tuple[int, ...] = ()
+        if not drill:
+            ignored = tuple(self.coordinator.ignore_unacked_for(set(failed)))
+            self.coordinator.backoff()
+            healthy = [f for f in range(self.job.total_subtasks())
+                       if f not in self.failed]
+            for cid in ignored:
+                ex.append_async_many(healthy, det.IgnoreCheckpointDeterminant(
+                    record_count=ex.global_record_stamp(),
+                    checkpoint_id=cid))
+
+        ckpt = self.standbys.latest
+        from_epoch = ckpt.checkpoint_id + 1
         fence = self._fence_step[from_epoch]
         n_steps = self.global_step - fence
-        carry = ex.carry
+        snap: LeanSnapshot = self._on_device(ckpt.carry)
+        restore_bytes = 0
+        checkpoint_bytes = (int(ckpt.size_bytes or 0)
+                            or cp.carry_nbytes(ckpt.carry))
+        phases: Dict[str, float] = {}
 
-        # Determinant request to every surviving holder of the log.
-        holders = [r for r, (o, h) in enumerate(self.plan.pairs)
-                   if o == flat and h not in self.failed]
-        if not holders and n_steps > 0:
-            raise rec.RecoveryError(
-                f"subtask {flat}: no surviving replica holds its "
-                f"determinant log")
-        responses = []
-        for r in holders:
-            one = tree_map(lambda x: x[r], carry.replicas)
-            buf, count, start = clog.get_determinants(
-                one, from_epoch, compiled.log_capacity)
-            responses.append((buf[:int(count)].cpu().numpy(), int(start)))
-        rows, start = merge_determinant_responses(responses)
+        def _clock(name: str, since: float) -> float:
+            now = _time.monotonic()
+            phases[name] = phases.get(name, 0.0) + (now - since) * 1e3
+            return now
 
-        input_steps = self._replay_inputs(carry, snap, in_edges[0], sub,
-                                          fence, n_steps)
-        slot_keys = compiled.consumer_slot_keys(vid)
-        replayer = rec.LogReplayer(
-            v.operator, v.parallelism, block_steps=self._recovery_ch,
-            in_slot_keys=(slot_keys[sub:sub + 1]
-                          if slot_keys is not None else None))
-        plan = rec.ReplayPlan(
-            vertex_id=vid, subtask=sub, flat_subtask=flat,
-            from_epoch=from_epoch, input_steps=input_steps, det_rows=rows,
-            det_start=start, checkpoint_op_state=snap.op_states[vid],
-            n_steps=n_steps)
-        result = replayer.replay(plan, self.device)
-        result.verify()
-        rebuilt = result.rebuilt_log_rows
-        if not np.array_equal(rebuilt, rows[:rebuilt.shape[0]]):
-            raise rec.RecoveryError(
-                f"subtask {flat}: replayed determinant stream diverges "
-                f"from the recovered log")
-        carry = self._patch(carry, snap, vid, sub, flat, result, rebuilt,
-                            from_epoch, fence, n_steps)
-        # Replica rows the failed subtask held: replicas equal their
-        # owner's log by construction, so copy the owner's row.
-        held = self.plan.replicas_held_by(flat)
-        if held:
-            ri = torch.tensor(held, dtype=torch.int64, device=self.device)
-            oi = torch.tensor([self.plan.pairs[r][0] for r in held],
-                              dtype=torch.int64, device=self.device)
+        patched = ex.carry
+        nrings = len(patched.out_rings)
+        bounds_dev = (torch.stack([torch.stack([el.tail, el.head])
+                                   for el in patched.out_rings])
+                      if nrings else None)
+        if self._ring_mirror_valid:
+            # Heads advance once per executed superstep.
+            self._bounds_cache = {
+                ri: (self._ring_tail_mirror, ex._steps_executed)
+                for ri in range(nrings)}
+        else:
+            barr = (bounds_dev.cpu().numpy() if nrings
+                    else np.zeros((0, 2), np.int32))
+            self._bounds_cache = {ri: (int(barr[ri, 0]), int(barr[ri, 1]))
+                                  for ri in range(nrings)}
+        tp = _clock("restore", t0)
+
+        # ---- phase A: determinant metadata for every failed subtask ----
+        # Dispatch every device parse/meta up front, then pay at most ONE
+        # host read. Subtasks whose cleanness the host derives itself (no
+        # async rows since the fence, fence heads in hand) skip even that:
+        # their metadata becomes deferred asserts in the final read.
+        ck_heads = self._ck_log_heads.get(ckpt.checkpoint_id)
+        prep: Dict[int, Dict[str, Any]] = {}
+        slow_reads: List[Tuple[int, str, torch.Tensor]] = []
+        for flat in failed:
+            vid_a, _ = self._vertex_of(flat)
+            holders_a = [(r, h) for r, (o, h) in enumerate(self.plan.pairs)
+                         if o == flat and h not in self.failed]
+            p: Dict[str, Any] = {"holders": holders_a}
+            eligible = (bool(holders_a) and n_steps > 0
+                        and self.job.vertices[vid_a].operator.replay_pad_safe
+                        and n_steps <= self._pad_steps())
+            if eligible:
+                t_d, r_d, e_d, small_d = self._device_parse(
+                    patched.replicas, holders_a[0][0], from_epoch)
+                p["det_device"] = (t_d, r_d, e_d)
+                p["small_d"] = small_d
+            if holders_a:
+                p["meta_d"] = self._fetch_meta(
+                    patched.replicas, [r for r, _ in holders_a], from_epoch)
+            p["fast"] = (eligible and ck_heads is not None
+                         and ex.async_rows_since(flat, from_epoch) == 0)
+            if not p["fast"]:
+                for kind in ("small", "meta"):
+                    if f"{kind}_d" in p:
+                        slow_reads.append((flat, kind, p[f"{kind}_d"]))
+            prep[flat] = p
+        slow_vals: Dict[Tuple[int, str], np.ndarray] = {}
+        if slow_reads:
+            packed = torch.cat([d.reshape(-1).to(torch.int32)
+                                for _f, _k, d in slow_reads]).cpu().numpy()
+            off = 0
+            for flat, kind, d in slow_reads:
+                slow_vals[(flat, kind)] = packed[off:off + d.numel()] \
+                    .reshape(tuple(d.shape))
+                off += d.numel()
+        tp = _clock("fetch_determinants", tp)
+
+        managers: List[rec.RecoveryManager] = []
+        total_dets = 0
+        total_records = 0
+        for flat in failed:
+            vid, sub = self._vertex_of(flat)
+            v = self.job.vertices[vid]
+            mgr = rec.RecoveryManager(vid, sub, flat,
+                                      self._make_replayer(vid, sub))
+            managers.append(mgr)
+            in_edges = self.job.in_edges(vid)
+            out_edges = self.job.out_edges(vid)
+            # FSM: standby -> connections re-established + state restored.
+            mgr.notify_start_recovery(in_edges, out_edges)
+            mgr.notify_state_restoration_complete()
+            for e in in_edges:
+                mgr.notify_new_input_channel(e)
+            for e in out_edges:
+                mgr.notify_new_output_channel(e)
+
+            p = prep[flat]
+            holders = p["holders"]
+            fast = p["fast"]
+            synthesized = False
+            if not holders and n_steps > 0:
+                if out_edges:
+                    raise rec.RecoveryError(
+                        f"subtask {flat}: no surviving replica holds its "
+                        f"determinant log (sharing depth / replication "
+                        f"factor too shallow for this failure pattern)")
+                # Pure sink: nobody replicates its log. Its inputs replay
+                # exactly from the upstream ring; its step inputs are
+                # re-synthesized from the input ledger.
+                synthesized = True
+            r_best = None
+            det_device = None
+            clean_n = None
+            clean_start = 0
+            if fast:
+                # Zero async rows since the fence: the log holds exactly
+                # n_steps sync blocks from the checkpointed head.
+                det_device = p["det_device"]
+                clean_n, clean_start = (DETS_PER_STEP * n_steps,
+                                        int(ck_heads[flat]))
+                r_best = holders[0][0]
+                mgr.expect_determinant_responses(1)
+                mgr.notify_determinant_response(
+                    np.zeros((0, det.NUM_LANES), np.int32), clean_start)
+            elif holders:
+                # Holders are bit-identical replicas by construction: when
+                # their metadata agrees, pull one body (or none, when the
+                # device parse says the stream is pure sync rows).
+                meta = slow_vals[(flat, "meta")]
+                consistent = (len(np.unique(meta[:, 0])) == 1
+                              and len(np.unique(meta[:, 1])) == 1)
+                if consistent and (flat, "small") in slow_vals:
+                    cnt_s, start_s, nanch, cleanflag = (
+                        int(x) for x in slow_vals[(flat, "small")])
+                    if cleanflag and nanch == n_steps:
+                        det_device = p["det_device"]
+                        clean_n, clean_start = cnt_s, start_s
+                        mgr.expect_determinant_responses(1)
+                        mgr.notify_determinant_response(
+                            np.zeros((0, det.NUM_LANES), np.int32), start_s)
+                if det_device is None:
+                    use = [holders[0]] if consistent else holders
+                    mgr.expect_determinant_responses(len(use))
+                    for j, (r, _h) in enumerate(use):
+                        mgr.notify_determinant_response(
+                            self._fetch_rows(patched.replicas, r, from_epoch,
+                                             int(meta[j, 0])),
+                            int(meta[j, 1]))
+                # A consistent replica's device bytes restore the log.
+                r_best = holders[0][0] if consistent else None
+            else:
+                mgr.expect_determinant_responses(0)
+            if synthesized:
+                rows = self._synthesize_det_rows(fence, n_steps)
+                start = (int(ck_heads[flat]) if ck_heads is not None
+                         else int(snap.log_heads[flat]))
+            elif det_device is not None:
+                rows = np.zeros((0, det.NUM_LANES), np.int32)
+                start = clean_start
+            else:
+                rows, start = mgr.merged_determinants()
+            total_dets += clean_n if clean_n is not None else len(rows)
+            tp = _clock("fetch_determinants", tp)
+
+            # Lost inputs: the checkpointed edge buffer + the upstream
+            # ring re-routed into this lane. An upstream lane zeroed by a
+            # connected failure was rebuilt earlier in this loop.
+            input_steps = (self._replay_inputs(patched, snap, in_edges[0],
+                                               sub, fence, n_steps)
+                           if in_edges else None)
+            tp = _clock("inputs", tp)
+
+            plan = rec.ReplayPlan(
+                vertex_id=vid, subtask=sub, flat_subtask=flat,
+                from_epoch=from_epoch, input_steps=input_steps,
+                det_rows=rows, det_start=start,
+                checkpoint_op_state=snap.op_states[vid],
+                n_steps=n_steps, verify_outputs=not synthesized,
+                det_device=det_device)
+            restore_bytes += rec.plan_restore_nbytes(plan)
+            # Fast path: dispatch only; verification and the consumed
+            # total ride the final packed read.
+            result = mgr.run_replay(plan, self.device, defer_sync=fast)
+            if not result.deferred:
+                total_records += result.records_replayed
+            tp = _clock("replay", tp)
+
+            rebuilt = np.asarray(result.rebuilt_log_rows)
+            if not synthesized and not result.rebuilt_is_view \
+                    and not np.array_equal(rebuilt,
+                                           rows[:rebuilt.shape[0]]):
+                raise rec.RecoveryError(
+                    f"subtask {flat}: replayed determinant stream diverges "
+                    f"from the recovered log")
+            patched = self._patch(
+                patched, snap, vid, sub, flat, result, rebuilt, from_epoch,
+                fence, n_steps, replica_src=r_best, det_n=clean_n,
+                clean_sync=det_device is not None,
+                ck_head=(int(ck_heads[flat]) if ck_heads is not None
+                         else None))
+            tp = _clock("patch", tp)
+
+        # Replica rows the revived subtasks held: replicas equal their
+        # owner's log by construction, so copy the owner's (possibly just
+        # restored) row — one batched scatter for the whole set.
+        rs, os_ = [], []
+        for flat in failed:
+            for r in self.plan.replicas_held_by(flat):
+                rs.append(r)
+                os_.append(self.plan.pairs[r][0])
+        if rs:
+            ri_d = _device.upload(np.asarray(rs, np.int64), self.device)
+            oi_d = _device.upload(np.asarray(os_, np.int64), self.device)
 
             def copy_rows(s, lg):
                 s = s.clone()
-                s[ri] = lg[oi]
+                s[ri_d] = lg[oi_d]
                 return s
 
-            carry = carry._replace(replicas=tree_map(
-                copy_rows, carry.replicas, carry.logs))
-        ex.carry = carry
+            patched = patched._replace(replicas=tree_map(
+                copy_rows, patched.replicas, patched.logs))
+        ex.carry = patched
+        self._bounds_cache = None
+        tp = _clock("replica_rebuild", tp)
+
+        # ---- final packed read: completion barrier + deferred asserts ----
+        # One device->host copy closes the protocol: the restored log
+        # heads, the ring bounds recovery routed against, and for every
+        # fast-path subtask its parse/meta metadata, its output-cut flag
+        # and its consumed total. Dispatched last, it is also the barrier.
+        fast_mgrs = [m for m in managers if prep[m.flat_subtask]["fast"]]
+        pieces = [torch.stack([patched.logs.head[f] for f in failed])
+                  .to(torch.int32)]
+        if nrings:
+            pieces.append(bounds_dev.reshape(-1).to(torch.int32))
+        for m in fast_mgrs:
+            pf = prep[m.flat_subtask]
+            pieces += [pf["small_d"].to(torch.int32),
+                       pf["meta_d"].reshape(-1).to(torch.int32),
+                       m.result.verify_ok_d.to(torch.int32).reshape(1),
+                       m.result.consumed_d.to(torch.int32).reshape(1)]
+        t_fin = tp
+        arr = torch.cat(pieces).cpu().numpy()
+        tp = _clock("finalize.barrier-read", tp)
+        total_records += self._verify_final(
+            arr, failed, nrings, fast_mgrs, prep, ck_heads, n_steps)
+        tp = _clock("finalize.state-verify", tp)
+        phases["finalize"] = (tp - t_fin) * 1e3
+        for flat in failed:
+            self.heartbeats.revive(flat)
         self.failed.clear()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if not drill:
+            self.coordinator.reset_interval()
+        if self.auditor.enabled:
+            # Recompute every replayed closed epoch's digest from the
+            # patched carry against the sealed ledger; the abort policy
+            # raises before the job resumes.
+            validator = rec.AuditValidator(
+                ex, self.coordinator.read_ledger(),
+                on_divergence=self.auditor.on_divergence)
+            self.last_audit = validator
+            try:
+                validator.validate(range(from_epoch, ex.epoch_id))
+            finally:
+                self.audit_stats["epochs-validated"] += \
+                    validator.stats["match"]
+                self.audit_stats["divergences"] += \
+                    validator.stats["divergence"]
+                _clock("audit", tp)
         report = RecoveryReport(
-            failed_subtasks=(flat,), from_epoch=from_epoch,
-            steps_replayed=n_steps, determinants_replayed=len(rows),
-            records_replayed=result.records_replayed,
-            recovery_ms=(_time.monotonic() - t0) * 1e3, results=(result,))
-        self.reports.append(report)
+            failed_subtasks=failed, from_epoch=from_epoch,
+            steps_replayed=n_steps, determinants_replayed=total_dets,
+            records_replayed=total_records, ignored_checkpoints=ignored,
+            recovery_ms=(_time.monotonic() - t0) * 1e3,
+            managers=tuple(managers), phase_ms=phases, drill=drill,
+            restore_bytes=restore_bytes, checkpoint_bytes=checkpoint_bytes)
+        if not drill:
+            self.reports.append(report)
         return report
+
+    def _verify_final(self, arr: np.ndarray, failed: Tuple[int, ...],
+                      nrings: int, fast_mgrs, prep, ck_heads,
+                      n_steps: int) -> int:
+        """The final read's deferred asserts. Returns the fast-path
+        subtasks' consumed records."""
+        ex = self.executor
+        off = len(failed)
+        heads_after = arr[:off]
+        if nrings:
+            bounds = arr[off:off + 2 * nrings].reshape(nrings, 2)
+            off += 2 * nrings
+            if self._ring_mirror_valid:
+                want = (self._ring_tail_mirror, ex._steps_executed)
+                for ri in range(nrings):
+                    got = (int(bounds[ri, 0]), int(bounds[ri, 1]))
+                    if got != want:
+                        raise rec.RecoveryError(
+                            f"ring {ri}: host bound mirror {want} diverges "
+                            f"from device bounds {got} — recovery routed "
+                            f"against wrong coverage; state suspect")
+        want_n = DETS_PER_STEP * n_steps
+        records = 0
+        for m in fast_mgrs:
+            flat = m.flat_subtask
+            ck_head = int(ck_heads[flat])
+            small = tuple(int(x) for x in arr[off:off + 4])
+            off += 4
+            nh = len(prep[flat]["holders"])
+            meta = arr[off:off + 2 * nh].reshape(nh, 2)
+            off += 2 * nh
+            ok, consumed = int(arr[off]), int(arr[off + 1])
+            off += 2
+            if small != (want_n, ck_head, n_steps, 1):
+                raise rec.RecoveryError(
+                    f"subtask {flat}: host-derived clean stream (n={want_n},"
+                    f" start={ck_head}, anchors={n_steps}) contradicted by "
+                    f"device parse {list(small)} — async-row ledger or "
+                    f"fence-head cache is wrong; state suspect")
+            for j in range(nh):
+                if (int(meta[j, 0]), int(meta[j, 1])) != (want_n, ck_head):
+                    raise rec.RecoveryError(
+                        f"subtask {flat}: replica holder {j} metadata "
+                        f"{meta[j].tolist()} disagrees with ({want_n}, "
+                        f"{ck_head}) — replicas inconsistent")
+            head = int(heads_after[failed.index(flat)])
+            if head != ck_head + want_n:
+                raise rec.RecoveryError(
+                    f"subtask {flat}: restored log head {head} != fence "
+                    f"head {ck_head} + {want_n} rows")
+            if not ok:
+                try:
+                    m.result.verify()
+                except rec.RecoveryError as err:
+                    raise rec.RecoveryError(f"subtask {flat}: {err}") \
+                        from None
+                raise rec.RecoveryError(
+                    f"subtask {flat}: device verify flag tripped but host "
+                    f"recheck passed — flag/stream mismatch")
+            m.result.records_replayed = consumed
+            records += consumed
+        return records
+
+    def failover_drill(self, flats: Optional[Sequence[int]] = None
+                       ) -> float:
+        """Rehearse a failover end to end and return its wall seconds:
+        inject a failure, run the full recovery protocol, and rely on
+        bit-identical recovery to leave the canonical state unchanged.
+        Default drill set: one subtask of every vertex class, failed
+        together. A set that would leave some log without a surviving
+        replica holder is refused BEFORE any state is zeroed."""
+        if self.failed:
+            raise rec.RecoveryError("cannot drill with real failures "
+                                    "pending")
+        if not self.standbys.has_state():
+            raise rec.RecoveryError(
+                "failover_drill needs a completed checkpoint")
+        t0 = _time.monotonic()
+        fence = self._fence_step[self.standbys.latest.checkpoint_id + 1]
+        if self.global_step == fence:
+            warnings.warn(
+                "failover_drill at an epoch fence replays zero steps; "
+                "run it mid-epoch so the chunked replay path executes")
+        if flats is None:
+            flats = [self.job.subtask_base(v.vertex_id)
+                     for v in self.job.vertices]
+        flats = list(flats)
+        if self.global_step > fence:
+            fset = set(flats)
+            for flat in flats:
+                vid, _ = self._vertex_of(flat)
+                if not self.job.out_edges(vid):
+                    continue       # sinks synthesize; no holder needed
+                if not any(o == flat and h not in fset
+                           for (o, h) in self.plan.pairs):
+                    raise rec.RecoveryError(
+                        f"failover_drill: subtask {flat} would have no "
+                        f"surviving determinant replica under drill set "
+                        f"{sorted(fset)} — drill fewer subtasks at once "
+                        f"or deepen sharing/replication")
+            n_steps = self.global_step - fence
+            if n_steps > self.executor.compiled.inflight_ring_steps:
+                raise rec.RecoveryError(
+                    f"failover_drill: {n_steps} steps since the last "
+                    f"completed checkpoint exceed the in-flight ring "
+                    f"({self.executor.compiled.inflight_ring_steps} "
+                    f"steps); spill comes with a later slice")
+        self.inject_failure(flats)
+        self.recover(drill=True)
+        return _time.monotonic() - t0
+
+    # --- recovery helpers ----------------------------------------------------
+
+    def _on_device(self, tree):
+        """A checkpointed snapshot's leaves as tensors on this runner's
+        device (file storage holds numpy)."""
+        def leaf(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(self.device)
+            return _device.upload(np.asarray(x), self.device)
+
+        return tree_map(leaf, tree)
+
+    def _pad_steps(self) -> int:
+        ch = self._recovery_ch
+        return -(-self.executor.compiled.inflight_ring_steps // ch) * ch
+
+    def _make_replayer(self, vid: int, sub: int) -> rec.LogReplayer:
+        v = self.job.vertices[vid]
+        slot_keys = self.executor.compiled.consumer_slot_keys(vid)
+        return rec.LogReplayer(
+            v.operator, v.parallelism, block_steps=self._recovery_ch,
+            in_slot_keys=(slot_keys[sub:sub + 1]
+                          if slot_keys is not None else None),
+            pad_steps=self.executor.compiled.inflight_ring_steps)
+
+    def _fetch_meta(self, replicas: clog.ThreadLogState, rs: List[int],
+                    from_epoch: int) -> torch.Tensor:
+        """Device ``[h, 2]`` (count, start) of each holder's response —
+        dispatch only."""
+        cap = self.executor.compiled.log_capacity
+        out = []
+        for r in rs:
+            one = tree_map(lambda x: x[r], replicas)
+            off = clog.epoch_start_offset(one, from_epoch)
+            out.append(torch.stack([(one.head - off).clamp(0, cap), off]))
+        return torch.stack(out)
+
+    def _fetch_rows(self, replicas: clog.ThreadLogState, r: int,
+                    from_epoch: int, count: int) -> np.ndarray:
+        """One holder's determinant rows from ``from_epoch`` on, on the
+        host (the slow path)."""
+        one = tree_map(lambda x: x[r], replicas)
+        buf, _, _ = clog.get_determinants(
+            one, from_epoch, self.executor.compiled.log_capacity)
+        return buf[:count].cpu().numpy()
+
+    def _device_parse(self, replicas: clog.ThreadLogState, r: int,
+                      from_epoch: int):
+        """Parse a replica's determinant stream on the device: locate the
+        per-step sync anchors, extract the time/RNG/expected-cut lanes
+        (padded to the replayer's fixed stream length) and report whether
+        the stream is clean (pure sync rows, exact layout) as ``small =
+        [count, start, anchors, clean]``. Dispatch only: the anchor index
+        is an int32 cumsum rank scattered into a ``[maxn + 1]`` buffer
+        whose spare slot takes every non-anchor (no data-dependent
+        shape, so no host sync)."""
+        cap = self.executor.compiled.log_capacity
+        maxn = self._pad_steps()
+        k = DETS_PER_STEP
+        dev = self.device
+        one = tree_map(lambda x: x[r], replicas)
+        buf, count, start = clog.get_determinants(one, from_epoch, cap)
+        tags = buf[:, det.LANE_TAG]
+        ar = torch.arange(cap, dtype=torch.int32, device=dev)
+        cond = ((ar < count) & (tags == det.TIMESTAMP)
+                & (buf[:, det.LANE_RC] == 0))
+        n_anchors = cond.sum(dtype=torch.int32)
+        rank = torch.cumsum(cond.to(torch.int32), 0, dtype=torch.int32) - 1
+        slot = torch.where(cond & (rank < maxn), rank, maxn).to(torch.int64)
+        ids = torch.full((maxn + 1,), cap - k, dtype=torch.int32,
+                         device=dev).scatter(0, slot, ar)[:maxn]
+        amask = torch.arange(maxn, dtype=torch.int32, device=dev) < n_anchors
+        # Reads past the buffer clamp to its last row (as XLA gathers do).
+        at = lambda j: (ids + j).clamp(max=cap - 1).to(torch.int64)
+        layout = (~amask | ((buf[at(1), det.LANE_TAG] == det.RNG)
+                            & (buf[at(2), det.LANE_TAG] == det.ORDER)
+                            & (buf[at(3), det.LANE_TAG]
+                               == det.BUFFER_BUILT))).all()
+        clean = layout & (count == n_anchors * k)
+        last = (n_anchors - 1).clamp(min=0).to(torch.int64).reshape(1)
+        t_raw = buf[at(0), det.LANE_P + 1]
+        r_raw = buf[at(1), det.LANE_P]
+        times = torch.where(amask, t_raw, t_raw[last])
+        rngs = torch.where(amask, r_raw, r_raw[last])
+        expected = torch.where(amask, buf[at(3), det.LANE_P], 0)
+        small = torch.stack([count.to(torch.int32), start.to(torch.int32),
+                             n_anchors, clean.to(torch.int32)])
+        return times, rngs, expected, small
+
+    def _synthesize_det_rows(self, fence_global: int,
+                             n_steps: int) -> np.ndarray:
+        """A sink's per-step determinant rows rebuilt from the executor's
+        step-input ledger (BUFFER_BUILT payloads are placeholders the
+        replayer fills)."""
+        hist = self.executor.step_input_history[fence_global:
+                                                fence_global + n_steps]
+        if len(hist) < n_steps:
+            raise rec.RecoveryError("step-input ledger shorter than the "
+                                    "lost step range")
+        rows = np.zeros((n_steps * DETS_PER_STEP, det.NUM_LANES), np.int32)
+        for i, (t, r) in enumerate(hist):
+            base = i * DETS_PER_STEP
+            rows[base, det.LANE_TAG] = det.TIMESTAMP
+            rows[base, det.LANE_P] = -1 if t < 0 else 0
+            rows[base, det.LANE_P + 1] = t
+            rows[base + 1, det.LANE_TAG] = det.RNG
+            rows[base + 1, det.LANE_P] = r
+            rows[base + 2, det.LANE_TAG] = det.ORDER
+            rows[base + 3, det.LANE_TAG] = det.BUFFER_BUILT
+        return rows
 
     def _replay_inputs(self, carry: JobCarry, snap: LeanSnapshot, eidx: int,
                        sub: int, fence: int, n_steps: int
@@ -271,17 +940,20 @@ class ClusterRunner:
 
         Windows are uniform ``[ch]`` steps: window i covers absolute steps
         ``[fence-1+i*ch, fence-1+(i+1)*ch)``; slot 0 of window 0 is the
-        dead pre-fence slot, masked and replaced by the edge buffer."""
+        dead pre-fence slot, masked and replaced by the edge buffer.
+        Coverage comes from the host bound mirror; the round-robin cursor
+        stays on the device."""
         if n_steps <= 0:
             return []
         e = self.job.edges[eidx]
         compiled = self.executor.compiled
         dst_p = self.job.vertices[e.dst].parallelism
         ch = self._recovery_ch
-        el = carry.out_rings[compiled.ring_index[e.src]]
-        tail, head = int(el.tail), int(el.head)
+        ri = compiled.ring_index[e.src]
+        el = carry.out_rings[ri]
+        tail, head = self._bounds_cache[ri]
         ring_lo = max(tail, head - el.ring_steps)
-        rr = int(snap.rr_offsets[eidx][0])
+        rr = snap.rr_offsets[eidx][0].to(torch.int32)
         need = n_steps
         lead = 1
         idx = torch.arange(ch, dtype=torch.int32, device=self.device)
@@ -315,7 +987,7 @@ class ClusterRunner:
             else:
                 lane = routing.route_broadcast_block_lane(raw, sub,
                                                           e.capacity)
-            rr += int(raw.count().sum())
+            rr = rr + raw.count().sum(dtype=torch.int32)
             need -= ch
             lead = 0
             if i == 0:
@@ -328,19 +1000,34 @@ class ClusterRunner:
     def _patch(self, carry: JobCarry, snap: LeanSnapshot, vid: int,
                sub: int, flat: int, result: rec.ReplayResult,
                det_rows: np.ndarray, from_epoch: int, fence: int,
-               n_steps: int) -> JobCarry:
-        """Graft the rebuilt subtask back into the live carry."""
+               n_steps: int, replica_src: Optional[int] = None,
+               det_n: Optional[int] = None, clean_sync: bool = False,
+               ck_head: Optional[int] = None) -> JobCarry:
+        """Graft the rebuilt subtask back into the live carry: operator
+        row, log row (from a consistent replica's device bytes, else
+        uploaded rows), record count, and its lane of its ring.
+
+        ``clean_sync``: the stream is pure sync blocks, so the anchors
+        are exactly ``i * DETS_PER_STEP`` and ``det_n`` is its row count."""
         compiled = self.executor.compiled
-        ck_head = int(snap.log_heads[flat])
-        n = det_rows.shape[0]
+        dev = self.device
+        cap = compiled.log_capacity
+        if ck_head is None:
+            ck_head = int(snap.log_heads[flat])
+        n = det_rows.shape[0] if det_n is None else det_n
+        if clean_sync:
+            ts_pos = np.arange(n // DETS_PER_STEP,
+                               dtype=np.int64) * DETS_PER_STEP
+        elif n > 0:
+            ts_pos = det.sync_anchors(det_rows)
+        else:
+            ts_pos = np.zeros((0,), np.int64)
         # The epoch->offset index died with the task; rebuild it from the
         # fence-step ledger. Sync blocks anchor at TIMESTAMP rows; rows
         # appended in an epoch's roll gap belong to the new epoch.
-        ts_pos = (det.sync_anchors(det_rows) if n > 0
-                  else np.zeros((0,), np.int64))
         me = compiled.max_epochs
         starts = np.zeros((me,), np.int32)
-        mask = np.zeros((me,), bool)
+        mask = np.zeros((me,), np.int32)
         latest = 0
         for e in range(from_epoch, self.executor.epoch_id + 1):
             if e not in self._fence_step:
@@ -354,18 +1041,23 @@ class ClusterRunner:
             else:
                 off = ck_head + n - gap
             starts[e % me] = off
-            mask[e % me] = True
+            mask[e % me] = 1
             latest = max(latest, e)
-        dev = self.device
-        restored = clog.create(compiled.log_capacity, me, dev)
-        base = torch.tensor(ck_head, dtype=torch.int32, device=dev)
-        restored = restored._replace(head=base, tail=base)
-        if n > 0:
+        restored = clog.create(cap, me, dev)
+        base = _device.scalar(ck_head, dev)
+        restored = restored._replace(head=base, tail=base.clone())
+        if replica_src is not None:
+            # The replayed stream was verified equal to the recovered one,
+            # so the replica's device bytes ARE the restored log.
+            one = tree_map(lambda x: x[replica_src], carry.replicas)
+            buf, _, _ = clog.get_determinants(one, from_epoch, cap)
+            restored = clog.append(restored, buf, n)
+        elif n > 0:
             restored = clog.append(restored,
-                                   torch.from_numpy(det_rows).to(dev), n)
+                                   _device.upload(det_rows[:n], dev), n)
+        index = _device.upload(np.stack([starts, mask]), dev)
         restored = restored._replace(
-            epoch_starts=torch.where(torch.from_numpy(mask).to(dev),
-                                     torch.from_numpy(starts).to(dev),
+            epoch_starts=torch.where(index[1] > 0, index[0],
                                      restored.epoch_starts),
             latest_epoch=restored.latest_epoch.clamp(min=latest),
             epoch_base=restored.epoch_base.clamp(min=from_epoch))
@@ -378,28 +1070,33 @@ class ClusterRunner:
         ops = list(carry.op_states)
         ops[vid] = tree_map(lambda live, new: put(live, sub, new[0]),
                             ops[vid], result.op_state)
-        rc = snap.record_counts[flat] + result.records_replayed
+        # A deferred replay's consumed total stays on the device.
+        rc = snap.record_counts[flat] + (
+            result.consumed_d if result.deferred
+            else result.records_replayed)
         carry = carry._replace(
             op_states=tuple(ops),
             logs=tree_map(lambda s, r: put(s, flat, r), carry.logs,
                           restored),
             record_counts=put(carry.record_counts, flat, rc))
         # Rebuild the failed producer's lane of its in-flight ring from the
-        # replayed outputs, at their original steps (only the last
+        # replayed outputs at their original steps (only the last
         # ring_steps replayed steps fit). Written in place: the ring
-        # belongs to the live carry being patched.
+        # belongs to the live carry being patched, and a later consumer
+        # in this recovery reads the rebuilt lane.
         if vid in compiled.ring_index and result.out_chunks is not None:
             el = carry.out_rings[compiled.ring_index[vid]]
             keep_from = fence + n_steps - min(n_steps, el.ring_steps)
             step = fence
             for chunk in result.out_chunks:
                 m = chunk.keys.shape[0]
-                steps = torch.arange(step, step + m, device=dev)
-                keep = steps >= keep_from
-                pos = steps[keep] & (el.ring_steps - 1)
-                for ring_f, chunk_f in zip(
-                        (el.keys, el.values, el.timestamps, el.valid),
-                        chunk):
-                    ring_f[pos, sub] = chunk_f[keep]
+                a = max(step, keep_from)
+                if step + m > a:
+                    pos = torch.arange(a, step + m, dtype=torch.int64,
+                                       device=dev) & (el.ring_steps - 1)
+                    for ring_f, chunk_f in zip(
+                            (el.keys, el.values, el.timestamps, el.valid),
+                            chunk):
+                        ring_f[pos, sub] = chunk_f[a - step:]
                 step += m
         return carry

@@ -403,6 +403,65 @@ def _canon_ring(state: ifl.EdgeLogState) -> ifl.EdgeLogState:
         epoch_starts=torch.where(live_e, state.epoch_starts, 0))
 
 
+def _window_bounds(starts: torch.Tensor, head: torch.Tensor, epoch: int
+                   ) -> torch.Tensor:
+    """``[..., 2]`` (start, end) offsets of one closed epoch in a log or
+    ring (a stack or one): an end not stamped yet (below the start) is
+    the head."""
+    me = starts.shape[-1]
+    s = starts[..., epoch % me]
+    t = starts[..., (epoch + 1) % me]
+    return torch.stack([s, torch.where(t < s, head, t)], dim=-1)
+
+
+def _slice_log_window(logs: clog.ThreadLogState, bounds: np.ndarray
+                      ) -> torch.Tensor:
+    """Every log's rows ``[start, end)`` (host ``bounds[L, 2]``), gathered
+    on the device and concatenated in flat order: ``[sum(n), lanes]``."""
+    cap = logs.capacity
+    flat = np.concatenate([np.full(int(e - s), f, np.int64)
+                           for f, (s, e) in enumerate(bounds)] or
+                          [np.zeros(0, np.int64)])
+    pos = np.concatenate([np.arange(s, e, dtype=np.int64) & (cap - 1)
+                          for s, e in bounds] or [np.zeros(0, np.int64)])
+    dev = logs.rows.device
+    return logs.rows[_device.upload(flat, dev), _device.upload(pos, dev)]
+
+
+def _ring_window_total(el: ifl.EdgeLogState, bounds: torch.Tensor
+                       ) -> torch.Tensor:
+    """The valid records in one ring's steps ``[start, end)`` (device
+    ``bounds[2]``), counted on the device: int32 ``[1]``."""
+    rel = (torch.arange(el.ring_steps, dtype=torch.int32,
+                        device=bounds.device) - bounds[0]) \
+        & (el.ring_steps - 1)
+    per_step = el.valid.sum(dim=(1, 2), dtype=torch.int32)
+    return torch.where(rel < bounds[1] - bounds[0], per_step, 0).sum(
+        dtype=torch.int32).reshape(1)
+
+
+def _slice_ring_window(el: ifl.EdgeLogState, lo: int, hi: int, n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ring's steps ``[lo, hi)`` compacted on the device into its
+    ``n`` valid records, int32 ``[3, n]`` (keys, values, timestamps) in
+    step, lane, slot order, and the per-step counts ``[steps]`` that cut
+    them back into steps. Each record's slot is its int32 ``cumsum`` rank;
+    invalid ones land in a spare slot past the end, so no shape depends
+    on the data (a boolean mask would sync)."""
+    pos = torch.arange(int(lo), int(hi), dtype=torch.int64,
+                       device=el.head.device) & (el.ring_steps - 1)
+    m = el.valid[pos]
+    flat_m = m.reshape(-1)
+    dest = torch.where(flat_m, torch.cumsum(flat_m, 0, dtype=torch.int32)
+                       - 1, int(n)).to(torch.int64)
+    recs = torch.stack([el.keys[pos], el.values[pos], el.timestamps[pos]]
+                       ).reshape(3, -1).to(torch.int32)
+    out = torch.zeros((3, int(n) + 1), dtype=torch.int32,
+                      device=el.head.device)
+    out.scatter_(1, dest.expand(3, -1), recs)
+    return out[:, :int(n)], m.sum(dim=(1, 2), dtype=torch.int32)
+
+
 def canonical_carry(carry: JobCarry) -> JobCarry:
     """The carry with all logically-dead storage zeroed — the equality
     domain of the bit-identical-recovery property."""
@@ -600,6 +659,66 @@ class LocalExecutor:
     def global_record_stamp(self) -> int:
         """Monotone nonzero stamp for async rows (1 + supersteps run)."""
         return self._steps_executed + 1
+
+    def async_rows_since(self, flat_subtask: int, from_epoch: int) -> int:
+        """How many async determinant rows this task's log holds in epochs
+        >= ``from_epoch`` (host ledger — no device read)."""
+        return sum(v for (f, e), v in self.async_counts.items()
+                   if f == flat_subtask and e >= from_epoch)
+
+    def epoch_window(self, epoch: int) -> Dict[str, Any]:
+        """Host snapshot of one CLOSED epoch's causal surface — the single
+        extraction path behind the audit digests (``obs/audit.py``): the
+        live seal at the fence and the recovery-time recompute both read
+        through here, so their chain chunk boundaries agree.
+
+        Returns ``{"logs": {flat: int32 rows[n, NUM_LANES]}, "rings":
+        {vid: [(keys, values, timestamps) per step]}}`` — every task's
+        determinant rows of the epoch and, per output ring, each step's
+        valid records in (lane, slot) order. The epoch's steps are sliced
+        and compacted on the device; the data crosses to the host in one
+        copy after one small read of the window bounds and each ring's
+        count of valid records."""
+        c = self.carry
+        rings = [(vid, c.out_rings[ri])
+                 for vid, ri in sorted(self.compiled.ring_index.items())]
+        L = self.compiled.L
+        ring_bounds = [_window_bounds(el.epoch_starts, el.head, epoch)
+                       for _, el in rings]
+        small = torch.cat(
+            [_window_bounds(c.logs.epoch_starts, c.logs.head,
+                            epoch).reshape(-1)]
+            + [torch.cat([b, _ring_window_total(el, b)])
+               for b, (_, el) in zip(ring_bounds, rings)]
+        ).cpu().numpy().astype(np.int64)
+        bounds = small[:2 * L].reshape(L, 2)
+        pieces = [_slice_log_window(c.logs, bounds).reshape(-1)]
+        ring_counts = []
+        for i, (_, el) in enumerate(rings):
+            lo, hi, n = small[2 * L + 3 * i:2 * L + 3 * i + 3]
+            recs, counts = _slice_ring_window(el, lo, hi, n)
+            pieces += [counts, recs.reshape(-1)]
+            ring_counts.append(counts.shape[0])
+        flat = torch.cat([p.to(torch.int32) for p in pieces]).cpu().numpy()
+        n_log = bounds[:L, 1] - bounds[:L, 0]
+        rows = flat[:int(n_log.sum()) * det.NUM_LANES].reshape(
+            -1, det.NUM_LANES)
+        off = rows.size
+        cuts = np.concatenate([[0], np.cumsum(n_log)])
+        logs = {f: rows[cuts[f]:cuts[f + 1]] for f in range(L)}
+        out_rings: Dict[int, list] = {}
+        for (vid, _), n_steps in zip(rings, ring_counts):
+            counts = flat[off:off + n_steps].astype(np.int64)
+            off += n_steps
+            n = int(counts.sum())
+            recs = flat[off:off + 3 * n].reshape(3, n)
+            off += 3 * n
+            at = np.concatenate([[0], np.cumsum(counts)])
+            out_rings[vid] = [(recs[0, at[s]:at[s + 1]],
+                               recs[1, at[s]:at[s + 1]],
+                               recs[2, at[s]:at[s + 1]])
+                              for s in range(n_steps)]
+        return {"logs": logs, "rings": out_rings}
 
     def append_async_many(self, flat_subtasks: Sequence[int],
                           d: det.Determinant) -> None:

@@ -1,6 +1,7 @@
-"""PyTorch port, package rules: every module of ``clonos_tpu_torch`` imports
-without pulling in ``jax`` or any ``clonos_tpu`` module (checked in a fresh
-interpreter, since this test process has both loaded), and the entry
+"""PyTorch port, package rules: every module of ``clonos_tpu_torch``, and
+``chip_smoke``, imports without pulling in ``jax`` or any ``clonos_tpu``
+module (checked in a fresh interpreter, since this test process has both
+loaded), and the entry
 points default to the card: without one they raise instead of running on
 the CPU."""
 
@@ -25,6 +26,7 @@ names = ["clonos_tpu_torch"] + [
                                           "clonos_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "clonos_tpu" or m.startswith("clonos_tpu."))
@@ -40,7 +42,7 @@ def test_port_imports_neither_jax_nor_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 20          # every module of the slice was walked
+    assert int(count) >= 33          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
 
 

@@ -137,9 +137,35 @@ def test_corrupted_output_cut_fails_verification():
         runner.recover()
 
 
-def test_recover_refuses_source_and_sink_subtasks():
-    runner = ClusterRunner(_port_flagship(), device="cpu", **KW)
-    runner.run_epoch()
-    runner.inject_failure([0])                    # a source subtask
-    with pytest.raises(RecoveryError, match="later slice"):
+def _chain(parallelism=1):
+    env = StreamEnvironment(name="drill-bad", num_key_groups=4,
+                            default_edge_capacity=16)
+    (env.synthetic_source(vocab=7, batch_size=2, parallelism=parallelism)
+        .key_by().window_count(num_keys=7, window_size=1 << 30,
+                               parallelism=parallelism)
+        .sink(parallelism=parallelism))
+    return env.build()
+
+
+def test_recover_refuses_a_log_without_surviving_holder():
+    # The reference's one refusal (tests/test_recovery.py:314): a failure
+    # set that leaves some log with no surviving replica holder. A drill
+    # of such a set is refused before any state is zeroed.
+    kw = dict(steps_per_epoch=4, log_capacity=128, max_epochs=8,
+              inflight_ring_steps=16, seed=3)
+    runner = ClusterRunner(_chain(), device="cpu", **kw)
+    runner.run_epoch(complete_checkpoint=True)
+    runner.run_epoch(complete_checkpoint=False)
+    before = [x.clone() for x in tree_leaves(runner.executor.carry)]
+    with pytest.raises(RecoveryError, match="no surviving determinant"):
+        runner.failover_drill()        # default set = every vertex class
+    after = tree_leaves(runner.executor.carry)
+    assert len(before) == len(after)
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)       # raw bytes untouched
+    assert not runner.failed and runner.reports == []
+    # A real failure of the window and the one sink holding its log.
+    runner.inject_failure([1, 2])
+    with pytest.raises(RecoveryError, match="no surviving replica"):
         runner.recover()
+    assert runner.failed == {1, 2}
