@@ -28,7 +28,18 @@ Phases:
      determinant stream and its synchronising calls are counted;
   6. the audit: ledgers sealed on the card and on the CPU over phase 3's
      job and step count are equal, and a recovery on the card validates
-     against its ledger.
+     against its ledger;
+  7. the overlapped runtime at phase 4's widths, with the audit on and
+     checkpoints on disk, each against its sequential control: (a) the
+     pipelined fence (``overlap_epoch=True``, latency markers every 64
+     steps) equals the sequential fence leaf for leaf and ledger for
+     ledger, and its capture windows make no synchronising call; (b) a
+     window kill while a fence tail is in flight; (c) the overlapped
+     recovery finalize against ``overlap_finalize=False`` on the same
+     failure, across a pending checkpoint; (d) two window subtasks failed
+     together, sharing routed windows; (e) ``bootstrap_standby`` of the
+     whole job from the durable checkpoint and mirror rows of the
+     control's logs, equal to it at the fence and one epoch on.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -37,8 +48,11 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -96,8 +110,10 @@ def runner_kw():
                 block_steps=BLOCK_STEPS, logical_time=True, seed=SEED)
 
 
-#: the device phases 3-5 drive (the card; a CPU rehearsal may reset it)
+#: the device phases 3-7 drive (the card; a CPU rehearsal may reset it)
 DEVICE = "cuda"
+#: phase 7's checkpoint directories go here (listed in .gitignore)
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
 def sync():
@@ -497,6 +513,30 @@ def _mirror_ignore(golden, flats):
                 checkpoint_id=cid))
 
 
+#: "file:line" of every synchronising call _sync_count has caught
+SYNC_SITES = []
+
+
+def _sync_count(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``;
+    returns (result, synchronising calls) — (result, None) off the card.
+    Where each call came from is appended to ``SYNC_SITES``."""
+    if torch.device(DEVICE).type != "cuda":
+        return fn(), None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # (The mode's one-time "prototype feature" notice is not a sync.)
+    sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    SYNC_SITES.extend(sites)
+    return out, len(sites)
+
+
 def _counted(fn, count_syncs=False):
     """Run ``fn`` with the kernel's launch counts at 0 just before it;
     returns (result, {kernel: launches}, synchronising calls or None)."""
@@ -504,20 +544,7 @@ def _counted(fn, count_syncs=False):
     sync()
     keyed_hist.launches = 0
     keyed_hist.launches_counts = 0
-    syncs = None
-    if count_syncs and torch.device(DEVICE).type == "cuda":
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        # (The mode's one-time "prototype feature" notice is not a sync.)
-        syncs = sum("called a synchronizing" in str(w.message)
-                    for w in caught)
-    else:
-        out = fn()
+    out, syncs = _sync_count(fn) if count_syncs else (fn(), None)
     sync()
     counts = {"keyed_hist": keyed_hist.launches_counts,
               "keyed_hist_sums": (keyed_hist.launches
@@ -669,6 +696,284 @@ def phase_audit(dev_line):
     return launches
 
 
+# --- phase 7 ----------------------------------------------------------------
+
+#: finalize.* keys of the reference's recover(), per finalize mode
+FINALIZE_KEYS = {
+    True: {"finalize", "finalize.barrier-read", "finalize.state-verify",
+           "finalize.overlap-saved"},
+    False: {"finalize", "finalize.barrier-read", "finalize.state-verify"}}
+#: phase 7's kills: a window subtask while a fence tail is in flight; a
+#: window with the reduce it feeds across a pending checkpoint; two
+#: window subtasks together (they share routed windows)
+TAIL_KILL = [(1, 3)]
+FINALIZE_KILL = [(1, 6), (2, 0)]
+PAIR_KILL = [(1, 2), (1, 5)]
+
+
+def _flats(runner, kills):
+    return [runner.job.subtask_base(v) + s for v, s in kills]
+
+
+def _runner7(root, tag, overlap, audit=True):
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    return ClusterRunner(build_job(), device=DEVICE, audit=audit,
+                         latency_marker_every=64, overlap_epoch=overlap,
+                         checkpoint_dir=os.path.join(root, tag),
+                         **runner_kw())
+
+
+def _fence_schedule(r):
+    """3 completed epochs, 1 pending, drained: source records/s over it."""
+    r0 = _source_records(r)
+    t0 = time.monotonic()
+    for complete in (True, True, True, False):
+        r.run_epoch(complete_checkpoint=complete)
+    r.drain_fence()
+    sync()
+    return (_source_records(r) - r0) / (time.monotonic() - t0)
+
+
+def phase_headline_fence(dev_line, root):
+    """The headline's fence (audit off): fresh pipelined and sequential
+    runners in turns (pipelined, sequential, sequential, pipelined), each
+    through :func:`_fence_schedule`; each pair ends leaf-equal."""
+    rates = {True: [], False: []}
+    first = last = None
+    for i, overlap in enumerate((True, False, False, True)):
+        r = _runner7(root, f"headline{i}", overlap, audit=False)
+        rates[overlap].append(_fence_schedule(r))
+        r.coordinator.storage._close_ledger()
+        if first is None:
+            first = r
+        else:
+            _assert_same(first, r, f"headline fence, run {i}")
+        last = r
+    log("[overlap] headline fence (audit off), pipelined == sequential: "
+        + json.dumps(dict(
+            source_records_per_s={
+                "pipelined": [round(x, 1) for x in rates[True]],
+                "sequential": [round(x, 1) for x in rates[False]]},
+            fence_phases_pipelined={k: round(v, 3) for k, v in
+                                    last.last_fence_phases.items()},
+            fence_overlap_saved_total_ms=round(
+                last.fence_overlap_saved_total_ms, 3),
+            device=dev_line)))
+
+
+def phase_overlap(dev_line, root):
+    """The overlapped runtime at phase 4's widths, each piece against its
+    sequential control: (a) the pipelined fence, (b) a kill while a fence
+    tail is in flight, (c) the overlapped finalize against
+    ``overlap_finalize=False``, (d) two window subtasks failed together
+    (the route cache), (e) ``bootstrap_standby`` of the whole job."""
+    from clonos_tpu_torch.causal.recovery import AuditValidator
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    ovl = _runner7(root, "ovl", True)     # pipelined, killed
+    seq = _runner7(root, "seq", False)    # sequential control, never killed
+    fin = _runner7(root, "fin", False)    # killed, sequential finalize
+    by_path = {}
+    t_part = time.monotonic()
+
+    def seconds():
+        nonlocal t_part
+        now = time.monotonic()
+        out, t_part = round(now - t_part, 3), now
+        return out
+
+    # (a) the pipelined fence, 3 completed epochs then 1 pending; every
+    # capture window runs under the sync-debug mode.
+    syncs = []
+    begin = ovl._begin_fence_tail
+    ovl._begin_fence_tail = lambda *a: syncs.append(
+        _sync_count(lambda: begin(*a))[1])
+    rates = {}
+    ovl_phases = []
+    join = ovl._join_fence_tail
+
+    def joined():
+        join()
+        if ovl.last_fence_phases:
+            ovl_phases.append(dict(ovl.last_fence_phases))
+    ovl._join_fence_tail = joined
+    rates["pipelined"], by_path["pipelined"], _ = _counted(
+        lambda: _fence_schedule(ovl))
+    ovl._begin_fence_tail = begin
+    ovl._join_fence_tail = join
+    rates["sequential"] = _fence_schedule(seq)
+    _fence_schedule(fin)
+    _assert_same(seq, ovl, "(a) pipelined fence vs sequential")
+    problems = diff_ledgers(seq.coordinator.read_ledger(),
+                            ovl.coordinator.read_ledger())
+    if problems or len(ovl.coordinator.read_ledger()) != 4:
+        raise AssertionError(f"(a) ledger diff: {problems}")
+    if torch.device(DEVICE).type == "cuda" and any(syncs):
+        raise AssertionError(f"(a) capture windows synchronised: {syncs} "
+                             f"at {SYNC_SITES}")
+    if min(by_path["pipelined"].values()) == 0:
+        raise AssertionError(f"(a) no kernel launch: {by_path}")
+    snap = ovl.metrics.snapshot()
+    lat = snap[f"job.{ovl.job.name}.latency-ms"]
+    rnd = lambda d: {k: round(v, 3) for k, v in d.items()}
+    log("[overlap] (a) pipelined fence == sequential control (canonical "
+        "carry, ledger diff []): " + json.dumps(dict(
+            capture_window_syncs=syncs,
+            fence_phases_pipelined=[rnd(p) for p in ovl_phases],
+            fence_phases_sequential=rnd(seq.last_fence_phases),
+            fence_overlap_saved_total_ms=round(
+                ovl.fence_overlap_saved_total_ms, 3),
+            source_records_per_s={k: round(v, 1)
+                                  for k, v in rates.items()},
+            latency_markers=dict(count=lat["count"], p50_ms=lat["p50"],
+                                 p99_ms=lat["p99"]),
+            kernel_launches=by_path["pipelined"], seconds=seconds(),
+            device=dev_line)))
+
+    # (b) a kill while the fence tail is in flight: the kill joins the
+    # tail (its checkpoint completes) and ignores (a)'s pending one.
+    pending = ovl.executor.epoch_id - 1
+    for r in (ovl, seq, fin):
+        r.run_epoch(complete_checkpoint=True)
+        for _ in range(EXTRA_STEPS):
+            r.step()
+    if not ovl.fence_tail_in_flight():
+        raise AssertionError("(b) no fence tail in flight at the kill")
+    flats = _flats(ovl, TAIL_KILL)
+    ovl.inject_failure(flats)
+    rep = ovl.recover()
+    for r in (seq, fin):
+        _mirror_ignore(r, flats)
+    _assert_same(seq, ovl, "(b) kill mid fence tail")
+    if rep.steps_replayed != EXTRA_STEPS \
+            or rep.ignored_checkpoints != (pending,):
+        raise AssertionError(f"(b) replayed {rep.steps_replayed} steps, "
+                             f"ignored {rep.ignored_checkpoints}")
+    log("[overlap] (b) kill mid fence tail == control: " + json.dumps(dict(
+        flats=flats, steps_replayed=rep.steps_replayed,
+        ignored_checkpoints=list(rep.ignored_checkpoints),
+        recovery_ms=round(rep.recovery_ms, 3), phase_ms=rnd(rep.phase_ms),
+        seconds=seconds(), device=dev_line)))
+
+    # (c) overlapped finalize vs the sequential finalize, same failure,
+    # across a pending checkpoint (the audit validator replays an epoch).
+    for r in (ovl, seq, fin):
+        r.run_epoch(complete_checkpoint=False)
+        for _ in range(EXTRA_STEPS):
+            r.step()
+    flats = _flats(ovl, FINALIZE_KILL)
+    ovl.inject_failure(flats)
+    fin.inject_failure(flats)
+    rep_o, by_path["overlap_recovery"], _ = _counted(ovl.recover)
+    rep_s = fin.recover(overlap_finalize=False)
+    _mirror_ignore(seq, flats)
+    _assert_same(seq, ovl, "(c) overlapped finalize")
+    _assert_same(seq, fin, "(c) sequential finalize")
+    epochs = range(rep_o.from_epoch, ovl.executor.epoch_id)
+    entries = [AuditValidator(r.executor, []).recompute_entries(epochs)
+               for r in (ovl, fin)]
+    problems = diff_ledgers(entries[1], entries[0])
+    if problems or not entries[0]:
+        raise AssertionError(f"(c) recomputed entries diff: {problems}")
+    for r, rep, overlap in ((ovl, rep_o, True), (fin, rep_s, False)):
+        keys = {k for k in rep.phase_ms if k.startswith("finalize")}
+        if keys != FINALIZE_KEYS[overlap]:
+            raise AssertionError(f"(c) finalize keys {sorted(keys)}")
+        if r.last_audit.stats != {"match": 1, "divergence": 0,
+                                  "missing": 0}:
+            raise AssertionError(f"(c) audit {r.last_audit.stats}")
+    if min(by_path["overlap_recovery"].values()) == 0:
+        raise AssertionError(f"(c) no kernel launch: {by_path}")
+
+    def residual(pm):
+        subs = sum(v for k, v in pm.items() if k.startswith("finalize.")
+                   and k != "finalize.overlap-saved")
+        return round(subs - pm.get("finalize.overlap-saved", 0.0)
+                     - pm["finalize"], 3)
+    log("[overlap] (c) overlapped finalize == sequential finalize == "
+        "control (recomputed entries diff []): " + json.dumps(dict(
+            flats=flats, steps_replayed=rep_o.steps_replayed,
+            ignored_checkpoints=list(rep_o.ignored_checkpoints),
+            overlapped=dict(recovery_ms=round(rep_o.recovery_ms, 3),
+                            phase_ms=rnd(rep_o.phase_ms),
+                            attribution_residual_ms=residual(
+                                rep_o.phase_ms)),
+            sequential=dict(recovery_ms=round(rep_s.recovery_ms, 3),
+                            phase_ms=rnd(rep_s.phase_ms),
+                            attribution_residual_ms=residual(
+                                rep_s.phase_ms)),
+            kernel_launches=by_path["overlap_recovery"],
+            seconds=seconds(), device=dev_line)))
+
+    # (d) two window subtasks failed together share routed windows.
+    for r in (ovl, seq, fin):
+        r.run_epoch(complete_checkpoint=True)
+        for _ in range(EXTRA_STEPS):
+            r.step()
+    flats = _flats(ovl, PAIR_KILL)
+    ovl.inject_failure(flats)
+    fin.inject_failure(flats)
+    rep_o, by_path["route_cache"], _ = _counted(ovl.recover)
+    fin.recover(overlap_finalize=False)
+    _assert_same(seq, ovl, "(d) window pair")
+    _assert_same(seq, fin, "(d) window pair, sequential finalize")
+    hits = (ovl._route_cache_hits, fin._route_cache_hits)
+    if min(hits) <= 0:
+        raise AssertionError(f"(d) route cache hits {hits}")
+    if min(by_path["route_cache"].values()) == 0:
+        raise AssertionError(f"(d) no kernel launch: {by_path}")
+    ovl.drain_fence()
+    problems = diff_ledgers(seq.coordinator.read_ledger(),
+                            ovl.coordinator.read_ledger())
+    if problems:
+        raise AssertionError(f"(b)-(d) ledger diff: {problems}")
+    log("[overlap] (d) window pair == control: " + json.dumps(dict(
+        flats=flats, route_cache_hits=hits[0],
+        recovery_ms=round(rep_o.recovery_ms, 3),
+        phase_ms=rnd(rep_o.phase_ms),
+        kernel_launches=by_path["route_cache"], seconds=seconds(),
+        device=dev_line)))
+    for r in (ovl, seq, fin):
+        r.coordinator.storage._close_ledger()
+    del ovl, fin
+
+    # (e) bootstrap_standby of the whole job from the durable checkpoint
+    # and mirror rows read from the control's logs at a fence.
+    seq.run_epoch(complete_checkpoint=False)
+    logs = seq.executor.carry.logs
+    rows, heads, tails = (x.cpu().numpy() for x in (logs.rows, logs.head,
+                                                      logs.tail))
+    cap = rows.shape[1]
+    mirror = {f: (rows[f][np.arange(int(tails[f]), int(heads[f]))
+                          & (cap - 1)], int(tails[f]))
+              for f in range(rows.shape[0])}
+    standby_dir = os.path.join(root, "standby")
+    shutil.copytree(os.path.join(root, "seq"), standby_dir)
+    (rebuilt, rep_b), by_path["bootstrap"], _ = _counted(
+        lambda: ClusterRunner.bootstrap_standby(
+            build_job(), standby_dir, mirror, device=DEVICE, **runner_kw()))
+    _assert_same(seq, rebuilt, "(e) bootstrap at the mirrored fence")
+    if rep_b.steps_replayed != STEPS_PER_EPOCH:
+        raise AssertionError(f"(e) replayed {rep_b.steps_replayed}")
+    if min(by_path["bootstrap"].values()) == 0:
+        raise AssertionError(f"(e) no kernel launch: {by_path}")
+    for r in (seq, rebuilt):
+        r.run_epoch(complete_checkpoint=True)
+    _assert_same(seq, rebuilt, "(e) one epoch after the bootstrap")
+    for r in (seq, rebuilt):
+        r.coordinator.storage._close_ledger()
+    log("[overlap] (e) bootstrap_standby == dead runner at its fence and "
+        "one epoch on: " + json.dumps(dict(
+            subtasks=len(mirror), from_epoch=rep_b.from_epoch,
+            steps_replayed=rep_b.steps_replayed,
+            records_replayed=rep_b.records_replayed,
+            recovery_ms=round(rep_b.recovery_ms, 3),
+            phase_ms=rnd(rep_b.phase_ms),
+            kernel_launches=by_path["bootstrap"], seconds=seconds(),
+            device=dev_line)))
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -690,10 +995,17 @@ def main() -> int:
     golden, launches = phase_main_path(dev_line)
     _, recovery_launches = phase_recovery(golden, dev_line)
     audit_launches = phase_audit(dev_line)
+    del golden
+    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=SCRATCH)
+    try:
+        phase_headline_fence(dev_line, root)
+        overlap_launches = phase_overlap(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
-        "audit_recovery": audit_launches})))
+        "audit_recovery": audit_launches, **overlap_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from clonos_tpu_torch import device as _device
+
 
 class RecordBatch(NamedTuple):
     """Fixed-capacity struct-of-arrays batch. Leading dims are arbitrary
@@ -39,8 +41,10 @@ def empty(shape, device) -> RecordBatch:
 
 
 def make(keys, values=None, timestamps=None, capacity=None,
-         device="cpu") -> RecordBatch:
-    """Host-side constructor from numpy/lists, padded to ``capacity``."""
+         device="cuda") -> RecordBatch:
+    """Host-side constructor from numpy/lists, padded to ``capacity``, on
+    ``device`` (the card by default; raises without one)."""
+    device = _device.resolve(device)
     keys = np.asarray(keys, np.int32)
     values = np.asarray(values if values is not None
                         else np.ones_like(keys), np.int32)

@@ -103,6 +103,15 @@ class AuditValidator:
                         f"did not reproduce the original execution")
         return stats
 
+    def recompute_entries(self, epochs: Sequence[int]) -> List[dict]:
+        """The given epochs' digests recomputed from the current carry, as
+        ledger entries, without validating them: what ``diff_ledgers``
+        compares across two recovery modes."""
+        from clonos_tpu_torch.obs import audit as _audit
+        return [_audit.digest_epoch_window(
+                    int(e), self.executor.epoch_window(int(e))).to_entry()
+                for e in epochs]
+
 
 @dataclasses.dataclass
 class ReplayPlan:

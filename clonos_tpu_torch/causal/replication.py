@@ -14,6 +14,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from clonos_tpu_torch import device as _device
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.causal import log as clog
 from clonos_tpu_torch.graph.job_graph import JobGraph
@@ -54,8 +55,10 @@ class ReplicationPlan:
         return len(self.pairs)
 
     def owner_index(self, device) -> torch.Tensor:
-        return torch.tensor([o for o, _ in self.pairs], dtype=torch.int64,
-                            device=device)
+        """Owner flat id of every replica row, on ``device`` (uploaded
+        without a host sync)."""
+        return _device.upload(np.asarray([o for o, _ in self.pairs],
+                                         np.int64), device)
 
     def replicas_held_by(self, holder_flat: int) -> List[int]:
         """Replica row indices held by one subtask."""

@@ -1,10 +1,14 @@
-"""Device selection for the port's entry points, and host-to-device
-uploads that do not stall the host."""
+"""Device selection for the port's entry points, and host-device copies
+that do not stall the host."""
 
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import numpy as np
 import torch
+
+from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 def resolve(device="cuda") -> torch.device:
@@ -39,3 +43,43 @@ def scalar(x, device, dtype=torch.int32) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.full((), int(x), dtype=dtype, device=device)
+
+
+class HostCopy:
+    """A tree of tensors (or numpy arrays) on its way to the host.
+
+    Made on the thread that queued the tensors' work: each CUDA leaf is
+    copied into pinned host memory with ``non_blocking=True`` behind that
+    work on the current stream, and one event marks the copies done; CPU
+    tensors and numpy arrays are copied at once. :meth:`wait` may run on
+    any thread: it waits for that event alone (never for work queued
+    after it, and it queues no work of its own) and returns the tree as
+    numpy arrays. The sources stay referenced until then."""
+
+    def __init__(self, tree: Any):
+        self._sources: Optional[Any] = tree
+        self._event = None
+
+        def start(x):
+            if not isinstance(x, torch.Tensor):
+                return np.array(x, copy=True)
+            x = x.detach()
+            if x.device.type != "cuda":
+                return x.clone()
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            return host
+
+        self._host = tree_map(start, tree)
+        cuda = [x for x in tree_leaves(tree)
+                if isinstance(x, torch.Tensor) and x.device.type == "cuda"]
+        if cuda:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(cuda[0].device))
+
+    def wait(self) -> Any:
+        if self._event is not None:
+            self._event.synchronize()
+        self._sources = None
+        return tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor)
+                        else x, self._host)

@@ -1,16 +1,23 @@
 """Checkpoint coordination: epoch fences, snapshots, truncation, standby
-push, the audit ledger (port of ``clonos_tpu/runtime/checkpoint.py``,
-synchronous writes only).
+push, the audit ledger (port of ``clonos_tpu/runtime/checkpoint.py``).
 
 - A checkpoint IS an epoch fence: the coordinator triggers at superstep
   boundaries, so the lockstep superstep is the aligned barrier.
 - In-memory storage keeps the fence snapshot's device tensors (the
   executor's ``lean_snapshot`` is a deep copy, so holding it is a
   consistent snapshot with no device-to-host copy); file storage pickles
-  a numpy tree (``convert.carry_to_numpy``).
-- Completion truncates the causal and in-flight logs back to the fence
-  and pushes the completed state to the standbys; a pending checkpoint a
-  dead task never acked is ignored and never completes.
+  a numpy tree.
+- Writes are asynchronous by default: a writer thread per trigger, the
+  storage serialised by ``_writer_lock`` and the pending/ignored/completed
+  books by ``_state_lock``. The snapshot's device-to-host copy is started
+  on the triggering thread (``device.HostCopy``) and the writer only waits
+  for it, so a writer never queues CUDA work behind later blocks.
+- Completion (all acks in, snapshot durable) has exactly one completer,
+  whichever thread gets there first: it fsyncs the ledger, marks the
+  checkpoint complete, truncates the causal and in-flight logs back to
+  the fence, pushes the completed state to the standbys and compacts the
+  ledger below the fence. A pending checkpoint a dead task never acked is
+  ignored and never completes.
 - The per-epoch audit ledger lives next to the checkpoints; a file
   storage writes ``ledger.jsonl`` in the reference's line format (one
   ``json.dumps(entry, sort_keys=True)`` line per sealed epoch).
@@ -22,13 +29,14 @@ import dataclasses
 import json
 import os
 import pickle
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from clonos_tpu_torch.convert import carry_to_numpy
+from clonos_tpu_torch.device import HostCopy
 from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -69,6 +77,12 @@ class CheckpointStorage:
         but only fully-acked checkpoints are restore points."""
         with open(self._path(checkpoint_id) + ".done", "wb"):
             pass
+
+    def completed_ids(self) -> List[int]:
+        """Ids of the fully acked checkpoints storage holds (a standby
+        host tells restore points from triggered-only snapshots here)."""
+        return sorted(c for c in self.list_ids()
+                      if os.path.exists(self._path(c) + ".done"))
 
     # --- epoch audit ledger (in memory by default) ---------------------------
 
@@ -118,6 +132,9 @@ class InMemoryCheckpointStorage(CheckpointStorage):
 
     def mark_complete(self, checkpoint_id: int) -> None:
         self._complete.add(checkpoint_id)
+
+    def completed_ids(self) -> List[int]:
+        return sorted(self._complete & set(self._store))
 
 
 class FileCheckpointStorage(CheckpointStorage):
@@ -272,7 +289,12 @@ class CheckpointCoordinator:
     ``num_subtasks`` flat subtask ids are expected to ack. In the single-
     program executor all healthy subtasks ack at the fence in one call;
     the per-subtask ledger exists so the failure path can leave a pending
-    checkpoint un-acked and ignore it, as the reference does."""
+    checkpoint un-acked and ignore it, as the reference does.
+
+    Thread safety: the caller's thread, a pipelined fence worker and the
+    writer threads all reach ``_maybe_complete``; ``_state_lock`` guards
+    the books (never held while calling listeners or storage) and
+    ``_writer_lock`` every storage call."""
 
     def __init__(self, storage: CheckpointStorage,
                  num_subtasks: int,
@@ -292,6 +314,21 @@ class CheckpointCoordinator:
         self._completed_ids: List[int] = []
         self._listeners: List[Callable[[CompletedCheckpoint], None]] = []
         self._complete_listeners: List[Callable[[int], None]] = []
+        self._writer_lock = threading.Lock()
+        self._state_lock = threading.Lock()
+        self._async_threads: List[threading.Thread] = []
+        #: ``fn(kind, **fields)`` on every protocol transition (trigger /
+        #: ack / complete / ignore / discard); completion may fire them on
+        #: a writer thread, so keep them cheap and host-only.
+        self.transition_observers: List[Callable[..., None]] = []
+        self._trigger_wall: Dict[int, float] = {}     # cid -> trigger time
+        #: cid -> trigger-to-complete seconds (the runner's
+        #: ``checkpoint.trigger-to-complete-ms`` histogram reads it)
+        self.completion_latency_s: Dict[int, float] = {}
+
+    def _observe(self, kind: str, **fields) -> None:
+        for fn in self.transition_observers:
+            fn(kind, **fields)
 
     # --- listener registration ----------------------------------------------
 
@@ -308,104 +345,170 @@ class CheckpointCoordinator:
     # --- trigger / ack / complete -------------------------------------------
 
     def trigger(self, checkpoint_id: int, carry,
-                async_write: bool = False, owned: bool = False) -> None:
+                async_write: bool = True, owned: bool = False) -> None:
         """Fence checkpoint ``checkpoint_id`` over ``carry`` (the state
-        exactly at the epoch boundary), written synchronously.
-        ``owned=True`` promises nothing else will mutate the buffers (e.g.
-        ``lean_snapshot``'s deep copy); otherwise device-kept storage
-        copies them."""
-        if async_write:
-            raise NotImplementedError(
-                "asynchronous checkpoint writes come with a later slice of "
-                "the port")
-        if checkpoint_id in self._ignored:
-            return
-        self._pending[checkpoint_id] = set(range(self.num_subtasks))
+        exactly at the epoch boundary). With ``async_write`` a writer
+        thread makes it durable (:meth:`drain` waits for it).
+
+        Durable storage gets a numpy tree: the device-to-host copy starts
+        here, on the calling thread, behind the work that produced the
+        carry (or ``carry`` is a ``device.HostCopy`` the caller started,
+        as the pipelined fence does on its main thread). Device-kept
+        storage holds the tensors; ``owned=True`` promises nothing else
+        will mutate them (``lean_snapshot``'s deep copy), otherwise they
+        are cloned here."""
+        with self._state_lock:
+            if checkpoint_id in self._ignored:
+                return
+            self._pending[checkpoint_id] = set(range(self.num_subtasks))
+            self._trigger_wall[checkpoint_id] = time.time()
+        self._observe("trigger", cid=checkpoint_id)
+        snap_start = time.monotonic()
         if self.storage.wants_host:
-            carry = carry_to_numpy(carry)
+            if not isinstance(carry, HostCopy):
+                carry = HostCopy(carry)
         elif not owned:
             carry = tree_map(_copy_leaf, carry)
-        self.storage.write(CompletedCheckpoint(
-            checkpoint_id=checkpoint_id, carry=carry,
-            wall_time=time.monotonic(), size_bytes=carry_nbytes(carry)))
-        self._maybe_complete(checkpoint_id)
+
+        def _write():
+            host = carry.wait() if isinstance(carry, HostCopy) else carry
+            ckpt = CompletedCheckpoint(
+                checkpoint_id=checkpoint_id, carry=host,
+                wall_time=snap_start, size_bytes=carry_nbytes(host))
+            with self._writer_lock:
+                self.storage.write(ckpt)
+            self._maybe_complete(checkpoint_id)
+
+        if async_write:
+            t = threading.Thread(target=_write, name="checkpoint-writer",
+                                 daemon=True)
+            self._async_threads.append(t)
+            t.start()
+        else:
+            _write()
 
     def ack(self, checkpoint_id: int, subtask: int) -> None:
-        missing = self._pending.get(checkpoint_id)
-        if missing is None:
-            return
-        missing.discard(subtask)
+        with self._state_lock:
+            missing = self._pending.get(checkpoint_id)
+            if missing is None:
+                return
+            missing.discard(subtask)
+        self._observe("ack", cid=checkpoint_id, subtask=subtask)
         self._maybe_complete(checkpoint_id)
 
     def ack_all(self, checkpoint_id: int,
                 except_subtasks: Tuple[int, ...] = ()) -> None:
-        missing = self._pending.get(checkpoint_id)
-        if missing is None:
-            return
-        missing.intersection_update(except_subtasks)
+        with self._state_lock:
+            missing = self._pending.get(checkpoint_id)
+            if missing is None:
+                return
+            acked = missing - set(except_subtasks)
+            missing.intersection_update(except_subtasks)
+        for subtask in sorted(acked):
+            self._observe("ack", cid=checkpoint_id, subtask=subtask)
         self._maybe_complete(checkpoint_id)
 
     def discard_pending_through(self, checkpoint_id: int) -> List[int]:
         """Abandon every pending checkpoint at or below ``checkpoint_id``
         (superseded fences that must never complete late). Returns the
         abandoned ids."""
-        cids = sorted(c for c in self._pending if c <= checkpoint_id)
+        with self._state_lock:
+            cids = sorted(c for c in self._pending if c <= checkpoint_id)
+            for cid in cids:
+                self._ignored.add(cid)
+                del self._pending[cid]
         for cid in cids:
-            self._ignored.add(cid)
-            del self._pending[cid]
+            self._observe("discard", cid=cid)
         return cids
 
     def _maybe_complete(self, checkpoint_id: int) -> None:
-        if self._pending.get(checkpoint_id):
-            return
-        if checkpoint_id not in self._pending:
-            return
+        with self._state_lock:
+            if self._pending.get(checkpoint_id):
+                return
         try:
-            ckpt = self.storage.read(checkpoint_id)
+            with self._writer_lock:
+                ckpt = self.storage.read(checkpoint_id)
         except (KeyError, FileNotFoundError):
-            return
-        del self._pending[checkpoint_id]
-        self._completed_ids.append(checkpoint_id)
+            return      # not durable yet: the writer completes it
+        # The atomic check-and-remove elects exactly one completer.
+        with self._state_lock:
+            if checkpoint_id not in self._pending:
+                return
+            del self._pending[checkpoint_id]
+            self._completed_ids.append(checkpoint_id)
+            trig = self._trigger_wall.pop(checkpoint_id, None)
+        self._observe("complete", cid=checkpoint_id)
         # A durable completion marker never outruns the sealed entries it
         # certifies.
-        self.storage.flush_ledger()
-        try:
-            self.storage.mark_complete(checkpoint_id)
-        except NotImplementedError:
-            pass
+        with self._writer_lock:
+            self.storage.flush_ledger()
+            try:
+                self.storage.mark_complete(checkpoint_id)
+            except NotImplementedError:
+                pass
+        if trig is not None:
+            with self._state_lock:
+                self.completion_latency_s[checkpoint_id] = time.time() - trig
+                while len(self.completion_latency_s) > 64:
+                    del self.completion_latency_s[
+                        min(self.completion_latency_s)]
         for fn in self._complete_listeners:
             fn(checkpoint_id)
         for fn in self._listeners:
             fn(ckpt)
         self._retain()
-        self.storage.compact_ledger(checkpoint_id)
+        # Completion == truncation time: collapse re-sealed ledger
+        # duplicates below this fence.
+        with self._writer_lock:
+            self.storage.compact_ledger(checkpoint_id)
 
     def _retain(self) -> None:
-        while len(self._completed_ids) > self.max_retained:
-            self.storage.delete(self._completed_ids.pop(0))
+        with self._state_lock:
+            old = []
+            while len(self._completed_ids) > self.max_retained:
+                old.append(self._completed_ids.pop(0))
+        for cid in old:
+            with self._writer_lock:
+                self.storage.delete(cid)
+
+    def drain(self) -> None:
+        """Wait for every asynchronous write started so far."""
+        while self._async_threads:
+            self._async_threads.pop(0).join()
 
     # --- epoch audit ledger --------------------------------------------------
 
     def record_ledger(self, entry: dict) -> None:
         """Persist one sealed epoch digest next to the checkpoints."""
-        self.storage.write_ledger(entry)
+        with self._writer_lock:
+            self.storage.write_ledger(entry)
 
     def read_ledger(self) -> List[dict]:
         """All persisted ledger entries in append order (duplicates
         resolve last-wins at the consumer)."""
-        return self.storage.read_ledger()
+        with self._writer_lock:
+            return self.storage.read_ledger()
 
     # --- failure-path hooks --------------------------------------------------
+
+    def mark_ignored(self, checkpoint_ids) -> None:
+        """Adopt replayed IGNORE_CHECKPOINT decisions (standby bootstrap):
+        these ids never trigger or complete here."""
+        with self._state_lock:
+            self._ignored.update(checkpoint_ids)
 
     def ignore_unacked_for(self, failed_subtasks: Set[int]) -> List[int]:
         """A task died: any pending checkpoint still missing one of its
         acks can never complete — mark it ignored. Returns the ignored
         ids (broadcast as IGNORE_CHECKPOINT determinants)."""
-        dead = [cid for cid, missing in self._pending.items()
-                if missing & set(failed_subtasks)]
+        with self._state_lock:
+            dead = [cid for cid, missing in self._pending.items()
+                    if missing & set(failed_subtasks)]
+            for cid in dead:
+                self._ignored.add(cid)
+                del self._pending[cid]
         for cid in dead:
-            self._ignored.add(cid)
-            del self._pending[cid]
+            self._observe("ignore", cid=cid)
         return sorted(dead)
 
     def backoff(self) -> int:
@@ -426,8 +529,12 @@ class CheckpointCoordinator:
 
     @property
     def latest_completed_id(self) -> Optional[int]:
-        return self._completed_ids[-1] if self._completed_ids else None
+        with self._state_lock:
+            return self._completed_ids[-1] if self._completed_ids else None
 
     def latest_completed(self) -> Optional[CompletedCheckpoint]:
         cid = self.latest_completed_id
-        return None if cid is None else self.storage.read(cid)
+        if cid is None:
+            return None
+        with self._writer_lock:
+            return self.storage.read(cid)

@@ -23,9 +23,15 @@ never rolled back; the proof obligation is that the patched carry equals
 a never-failed run on the canonical (logically live) state
 (``executor.canonical_carry``).
 
-Not ported yet, each refused loudly where reached: standby bootstrap on a
-new host, the overlapped finalize and the pipelined fence, asynchronous
-checkpoint writes, the shared routed-window cache, spill, incremental
+Overlapped runtime, each with its sequential control behind a switch:
+the pipelined epoch fence (``overlap_epoch``; the fence tail drains on a
+worker thread while the next epoch computes), asynchronous checkpoint
+writes, the overlapped recovery finalize (``overlap_recovery``), standby-
+host bootstrap (``bootstrap_standby``), latency markers and the metrics
+registry they feed, and the routed-window cache shared by one vertex's
+failed subtasks.
+
+Not ported yet, each refused loudly where reached: spill, incremental
 checkpoints, host feeds, two-input operators, transactional sinks and
 timer services.
 """
@@ -33,9 +39,11 @@ timer services.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time as _time
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -54,6 +62,7 @@ from clonos_tpu_torch.parallel import routing
 from clonos_tpu_torch.runtime import checkpoint as cp
 from clonos_tpu_torch.runtime.executor import (DETS_PER_STEP, JobCarry,
                                                LeanSnapshot, LocalExecutor)
+from clonos_tpu_torch.utils import metrics as met
 from clonos_tpu_torch.utils.tree import tree_map
 
 
@@ -107,6 +116,50 @@ class StandbyPool:
         return self.latest is not None
 
 
+class LatencyMarkers:
+    """Latency markers through the causal RNG: a step is a marker step
+    when its recorded RNG draw is divisible by ``every``, so a recovered
+    task re-derives the same schedule. A record emitted at source step
+    ``s`` reaches the sink at step ``s + depth`` (the depth-1 superstep
+    pipeline), so a marker's latency is the causal-time delta between
+    those two steps' inputs. Feeds the ``latency-ms`` histogram."""
+
+    def __init__(self, runner: "ClusterRunner", every: int):
+        self.runner = runner
+        self.every = every
+        job = runner.job
+        # Pipeline depth: the longest source -> sink path in edges.
+        depth = {v.vertex_id: 0 for v in job.vertices}
+        for vid in job.topo_order():
+            for e in job.in_edges(vid):
+                depth[vid] = max(depth[vid], depth[job.edges[e].src] + 1)
+        self.depth = max(depth.values()) if depth else 0
+        self.hist = runner.metrics.group(
+            f"job.{job.name}").histogram("latency-ms")
+        self._seen = 0
+        #: the newest ``(source step, latency)`` pairs behind the histogram
+        self.samples: List[Tuple[int, float]] = []
+        self.max_samples = 8192
+
+    @staticmethod
+    def schedule(rngs, every: int):
+        """Marker steps of an rng-draw stream."""
+        return [i for i, r in enumerate(rngs) if r % every == 0]
+
+    def observe(self) -> None:
+        hist = self.runner.executor.step_input_history
+        upto = len(hist) - self.depth
+        for s in range(self._seen, max(upto, 0)):
+            t, r = hist[s]
+            if r % self.every == 0:
+                lat = hist[s + self.depth][0] - t
+                self.hist.update(lat)
+                self.samples.append((s, float(lat)))
+        if len(self.samples) > self.max_samples:
+            del self.samples[:len(self.samples) - self.max_samples]
+        self._seen = max(self._seen, upto, 0)
+
+
 @dataclasses.dataclass
 class RecoveryReport:
     """What one failure's recovery did."""
@@ -143,13 +196,21 @@ class OverflowError_(RuntimeError):
 class ClusterRunner:
     """Single-process cluster with failure injection. Drives epochs; at
     every epoch fence triggers a checkpoint, collects acks from healthy
-    subtasks, and on completion truncates logs and refreshes standbys."""
+    subtasks, and on completion truncates logs and refreshes standbys.
+
+    ``overlap_epoch`` (default False, the strict order) selects the
+    pipelined fence for :meth:`run_epoch`; ``overlap_recovery`` (default
+    True) the overlapped finalize for :meth:`recover`. The other setting
+    of each is the sequential control, reached only through the switch."""
 
     def __init__(self, job: JobGraph, steps_per_epoch: int = 8,
                  heartbeat_timeout_s: float = 5.0,
                  checkpoint_dir: Optional[str] = None,
                  recovery_block_steps: Optional[int] = None,
+                 latency_marker_every: Optional[int] = None,
                  audit: Optional[bool] = None,
+                 overlap_recovery: bool = True,
+                 overlap_epoch: bool = False,
                  device="cuda", **executor_kw):
         self.job = job
         self.executor = LocalExecutor(job, steps_per_epoch=steps_per_epoch,
@@ -157,6 +218,19 @@ class ClusterRunner:
         self.device = self.executor.device
         compiled = self.executor.compiled
         self.plan = compiled.plan
+        self.overlap_recovery = overlap_recovery
+        self.overlap_epoch = overlap_epoch
+        #: the in-flight fence tail (pipelined fence): None, or a dict with
+        #: the worker thread, the captured handles and its results. Joined
+        #: at the next fence, before a kill, a recovery or a drain.
+        self._fence_tail: Optional[dict] = None
+        #: fence.* wall ms of the last sequential or joined fence, with
+        #: "fence-tail" (the wall the epoch waited) and, pipelined only,
+        #: "fence.overlap-saved" (sum(fence.*) - overlap-saved ==
+        #: fence-tail); the sequential control never writes that key
+        self.last_fence_phases: Dict[str, float] = {}
+        self.fence_overlap_saved_total_ms = 0.0
+        self._fence_headroom_checked = False
         storage: cp.CheckpointStorage = (
             cp.FileCheckpointStorage(checkpoint_dir) if checkpoint_dir
             else cp.InMemoryCheckpointStorage())
@@ -171,12 +245,31 @@ class ClusterRunner:
         self.heartbeats = HeartbeatMonitor(
             range(job.total_subtasks()), timeout_s=heartbeat_timeout_s)
         self.failed: Set[int] = set()
+        #: the last epoch whose fence tail sealed (-1 before the first)
+        self.last_sealed_epoch = -1
         self.global_step = 0
         #: epoch -> global step at its start
         self._fence_step: Dict[int, int] = {0: 0}
         self.reports: List[RecoveryReport] = []
-        #: fence.* wall ms of the last fence
-        self.last_fence_phases: Dict[str, float] = {}
+        # Metrics (names and value shapes as the reference's registry).
+        self.metrics = met.MetricRegistry()
+        g = self.metrics.group(f"job.{job.name}")
+        self._mgroup = g
+        self._m_steps = g.counter("supersteps")
+        self._m_records = g.meter("records-per-sec")
+        self._m_epochs = g.counter("epochs")
+        g.gauge("checkpoint.latest-bytes",
+                lambda: (self.standbys.latest.size_bytes
+                         if self.standbys.latest else 0))
+        self._m_recovery_ms = g.histogram("recovery.duration-ms")
+        self._m_recovered_records = g.counter("recovery.records-replayed")
+        self._m_epoch_steps_ms = g.histogram("epoch.steps-ms")
+        self._m_epoch_fence_ms = g.histogram("epoch.fence-ms")
+        self._m_ckpt_latency_ms = g.histogram(
+            "checkpoint.trigger-to-complete-ms")
+        self.coordinator.subscribe_completion(
+            lambda cid: self._m_ckpt_latency_ms.update(
+                self.coordinator.completion_latency_s.get(cid, 0.0) * 1e3))
         # Exactly-once audit: audit=None inherits the process-global
         # stance, and the divergence policy always does; the default
         # NullAuditor reads and writes nothing.
@@ -188,14 +281,24 @@ class ClusterRunner:
         self.auditor: _audit.NullAuditor = (
             _audit.Auditor(on_divergence=stance.on_divergence)
             if audit else _audit.NullAuditor())
-        self.audit_stats = {"epochs-sealed": 0, "epochs-validated": 0,
-                            "divergences": 0}
+        self._m_audit_sealed = g.counter("audit.epochs-sealed")
+        self._m_audit_matches = g.counter("audit.epochs-validated")
+        self._m_audit_div = g.counter("audit.divergences")
         #: the validator of the last audited recovery (its ``events``)
         self.last_audit: Optional[rec.AuditValidator] = None
+        #: routed edge windows shared by one vertex's failed subtasks
+        #: within one recover() (only when >= 2 of them failed)
+        self._route_cache: Dict[Tuple[int, int], RecordBatch] = {}
+        self._route_cache_enabled = False
+        #: cache hits in the last recover()
+        self._route_cache_hits = 0
         self._last_records_total = 0
         #: checkpoint id -> np [L] log heads at that fence, from the fence
-        #: health read (recovery reads them here, not from the device)
+        #: health read (recovery reads them here, not from the device).
+        #: Written by the fence tail (the worker when pipelined), pruned at
+        #: completion, read by recovery: every touch holds the lock.
         self._ck_log_heads: Dict[int, np.ndarray] = {}
+        self._ck_heads_lock = threading.Lock()
         #: host mirror of the in-flight ring offsets: heads advance one per
         #: superstep, tails move only at checkpoint completion. Recovery's
         #: coverage decisions read it; the device bounds are checked
@@ -207,6 +310,8 @@ class ClusterRunner:
         self.epoch_tracker = EpochTracker()
         self.coordinator.subscribe_completion(
             self.epoch_tracker.notify_checkpoint_complete)
+        self.latency = (LatencyMarkers(self, latency_marker_every)
+                        if latency_marker_every else None)
         #: source subtasks log SOURCE_CHECKPOINT at every trigger
         self._source_flats = [
             job.subtask_base(v.vertex_id) + s
@@ -217,32 +322,66 @@ class ClusterRunner:
             compiled.inflight_ring_steps,
             compiled.log_capacity // DETS_PER_STEP)
 
+    @property
+    def audit_stats(self) -> Dict[str, int]:
+        return {"epochs-sealed": self._m_audit_sealed.value,
+                "epochs-validated": self._m_audit_matches.value,
+                "divergences": self._m_audit_div.value}
+
     # --- steady state --------------------------------------------------------
 
-    def run_epoch(self, complete_checkpoint: bool = True) -> None:
+    def run_epoch(self, complete_checkpoint: bool = True,
+                  overlap_fence: Optional[bool] = None) -> None:
         """Run to the next epoch fence and trigger its checkpoint.
         ``complete_checkpoint=False`` leaves it pending (no acks): logs and
         rings keep accumulating across epochs, and a failure before the
-        next completion replays from the older checkpoint."""
+        next completion replays from the older checkpoint.
+
+        ``overlap_fence`` (default: the runner's ``overlap_epoch``) selects
+        the pipelined fence: the closed epoch's fence surface is captured
+        without a host sync and its tail (health read, audit seal, ledger
+        append, asynchronous checkpoint write) drains on one fence worker
+        while the next epoch's compute runs; it joins at the next fence,
+        where the deferred overflow check and the checkpoint ack run on
+        this thread. ``drain_fence()`` settles it on demand."""
         if self.failed:
             raise rec.RecoveryError(
                 f"cannot run with failed subtasks {sorted(self.failed)}; "
                 f"call recover() first")
+        overlap = (self.overlap_epoch if overlap_fence is None
+                   else overlap_fence)
+        if overlap and not self._fence_headroom_checked:
+            self._check_fence_headroom()
+        if self._fence_tail is not None and not overlap:
+            self._join_fence_tail()
         ex = self.executor
         closed = ex.epoch_id
         n = ex.steps_per_epoch - ex.step_in_epoch
+        t0 = _time.monotonic()
         ex.run_epoch()
+        self._m_epoch_steps_ms.update((_time.monotonic() - t0) * 1e3)
+        # The previous epoch's tail overlapped this epoch's dispatch; it
+        # joins before any of this fence's state is touched.
+        self._join_fence_tail()
         t_fence = _time.monotonic()
         self.global_step += n
         self._fence_step[ex.epoch_id] = self.global_step
         self.heartbeats.beat_all_except(self.failed)
-        self._run_fence_tail_inline(closed, complete_checkpoint, t_fence)
+        self._m_steps.inc(n)
+        self._m_epochs.inc()
+        if self.latency is not None:
+            self.latency.observe()
+        if overlap:
+            self._begin_fence_tail(closed, complete_checkpoint)
+        else:
+            self._run_fence_tail_inline(closed, complete_checkpoint, t_fence)
 
     def step(self) -> None:
         if self.failed:
             raise rec.RecoveryError("failed subtasks present; recover() first")
         self.executor.step()
         self.global_step += 1
+        self._m_steps.inc()
         self.heartbeats.beat_all_except(self.failed)
 
     def _absorb_fence_health(self, closed: int, vec: np.ndarray) -> int:
@@ -251,39 +390,49 @@ class ClusterRunner:
         the epoch's record delta."""
         nf = 4 + len(self.executor.carry.out_rings)
         total_records = int(vec[nf])
-        self._ck_log_heads[closed] = vec[nf + 1:].astype(np.int64)
-        while len(self._ck_log_heads) > 128:
-            self._ck_log_heads.pop(next(iter(self._ck_log_heads)))
+        with self._ck_heads_lock:
+            self._ck_log_heads[closed] = vec[nf + 1:].astype(np.int64)
+            while len(self._ck_log_heads) > 128:
+                self._ck_log_heads.pop(next(iter(self._ck_log_heads)))
         delta = total_records - self._last_records_total
+        self._m_records.mark(delta)
         self._last_records_total = total_records
         return delta
 
-    def _seal_and_trigger(self, closed: int, phases: Dict[str, float]
+    def _seal_and_trigger(self, closed: int, window_fn, snap_fn,
+                          phases: Dict[str, float], async_write: bool
                           ) -> None:
-        """Audit seal over the closed epoch's causal surface, ledger
-        append, checkpoint trigger over the lean fence snapshot."""
-        ex = self.executor
+        """The fence tail's persistence half, shared by both modes: audit
+        seal over the closed epoch's causal surface, ledger append,
+        checkpoint trigger. ``window_fn``/``snap_fn`` say where the state
+        comes from (the live carry, or the pipelined capture), so the
+        digests are byte-identical either way."""
         if self.auditor.enabled:
             t = _time.monotonic()
-            dg = _audit.digest_epoch_window(
-                closed, ex.epoch_window(closed), layout=self._audit_layout)
+            dg = _audit.digest_epoch_window(closed, window_fn(),
+                                            layout=self._audit_layout)
             self.auditor.seal(dg)
             phases["fence.digest-seal"] = (_time.monotonic() - t) * 1e3
             t = _time.monotonic()
             self.coordinator.record_ledger(dg.to_entry())
             phases["fence.ledger-write"] = (_time.monotonic() - t) * 1e3
             self.epoch_tracker.notify_epoch_sealed(closed, dg)
-            self.audit_stats["epochs-sealed"] += 1
+            self._m_audit_sealed.inc()
+        self.last_sealed_epoch = max(self.last_sealed_epoch, closed)
         t = _time.monotonic()
-        self.coordinator.trigger(closed, ex.lean_snapshot(),
-                                 async_write=False, owned=True)
+        self.coordinator.trigger(closed, snap_fn(), async_write=async_write,
+                                 owned=True)
+        if async_write:
+            # The worker makes its own write durable before it exits, so
+            # completion (acked at the join) never fires on a writer.
+            self.coordinator.drain()
         phases["fence.snapshot"] = (_time.monotonic() - t) * 1e3
 
     def _append_source_fence_determinant(self, closed: int,
                                          phases: Dict[str, float]) -> None:
         """Every source logs the checkpoint-trigger arrival — after the
-        lean snapshot, so the checkpointed log heads stay at the fence
-        (the rows belong to the new epoch)."""
+        fence capture / lean snapshot, so the checkpointed log heads stay
+        at the fence (the rows belong to the new epoch)."""
         if not self._source_flats:
             return
         ex = self.executor
@@ -297,9 +446,10 @@ class ClusterRunner:
 
     def _run_fence_tail_inline(self, closed: int, complete_checkpoint: bool,
                                t_fence: float) -> None:
-        """The strict fence order: one health read (overflow flags, record
-        total, fence log heads), audit seal + ledger + trigger, source
-        fence determinants, then completion (which truncates)."""
+        """The strict fence order (the sequential control): one health
+        read (overflow flags, record total, fence log heads), audit seal +
+        ledger + trigger, source fence determinants, then completion
+        (which truncates)."""
         ex = self.executor
         phases: Dict[str, float] = {}
         t = _time.monotonic()
@@ -311,12 +461,128 @@ class ClusterRunner:
             raise OverflowError_("; ".join(violations))
         self.epoch_tracker.inc_record_count(delta)
         self.epoch_tracker.start_new_epoch(ex.epoch_id)
-        self._seal_and_trigger(closed, phases)
+        self._seal_and_trigger(closed, lambda: ex.epoch_window(closed),
+                               ex.lean_snapshot, phases, async_write=False)
         self._append_source_fence_determinant(closed, phases)
         if complete_checkpoint:
             self.coordinator.ack_all(closed)
         phases["fence-tail"] = (_time.monotonic() - t_fence) * 1e3
         self.last_fence_phases = phases
+        self._m_epoch_fence_ms.update(phases["fence-tail"])
+
+    def _check_fence_headroom(self) -> None:
+        """The pipelined fence defers the overflow check to the next
+        fence, so the in-flight rings must absorb one extra epoch before
+        they wrap; asserted once."""
+        self._fence_headroom_checked = True
+        rings = self.executor.carry.out_rings
+        if not rings:
+            return
+        min_steps = min(r.ring_steps for r in rings)
+        spe = self.executor.steps_per_epoch
+        if min_steps < 2 * spe:
+            raise ValueError(
+                f"overlap_epoch needs one epoch of ring headroom: "
+                f"inflight_ring_steps={min_steps} < 2*steps_per_epoch="
+                f"{2 * spe} — raise inflight_ring_steps or use the "
+                f"sequential fence (overlap_epoch=False)")
+
+    def _begin_fence_tail(self, closed: int,
+                          complete_checkpoint: bool) -> None:
+        """Capture this fence's state and hand the tail to the fence
+        worker. The capture window makes no host sync: every device-to-
+        host copy starts here, on the thread that queues the blocks, and
+        the worker only waits for those copies."""
+        ex = self.executor
+        t = _time.monotonic()
+        phases: Dict[str, float] = {}
+        # clonos: overlap-window-begin
+        handles = ex.capture_fence(with_window=self.auditor.enabled)
+        snap = ex.lean_snapshot()
+        if self.coordinator.storage.wants_host:
+            snap = _device.HostCopy(snap)
+        self._append_source_fence_determinant(closed, phases)
+        # clonos: overlap-window-end
+        pre_ms = (_time.monotonic() - t) * 1e3
+        phases["fence.capture"] = max(
+            0.0, pre_ms - phases.get("fence.source-append", 0.0))
+        tail = {"epoch": closed, "complete": complete_checkpoint,
+                "handles": handles, "snap": snap, "phases": phases,
+                "pre_ms": pre_ms, "vec": None, "err": None}
+        th = threading.Thread(target=self._fence_worker, args=(tail,),
+                              name="fence-tail", daemon=True)
+        tail["thread"] = th
+        self._fence_tail = tail
+        th.start()
+
+    def _fence_worker(self, tail: dict) -> None:
+        """The fence tail off the critical path: drain the health copy,
+        fold the host mirrors, advance the epoch tracker, then seal +
+        ledger + checkpoint from the captured handles, and wait out its
+        own asynchronous write. Host work only: it queues nothing on the
+        card. Errors are held and raised at the join, where the deferred
+        overflow check and the ack also run (on the main thread)."""
+        closed = tail["epoch"]
+        phases = tail["phases"]
+        try:
+            t = _time.monotonic()
+            vec = tail["handles"].health()
+            phases["fence.health-read"] = (_time.monotonic() - t) * 1e3
+            tail["vec"] = vec
+            delta = self._absorb_fence_health(closed, vec)
+            self.epoch_tracker.inc_record_count(delta)
+            # By value: the main thread may have rolled further epochs.
+            self.epoch_tracker.start_new_epoch(closed + 1)
+            self._seal_and_trigger(closed, tail["handles"].window,
+                                   lambda: tail["snap"], phases,
+                                   async_write=True)
+        except BaseException as e:      # raised at the join
+            tail["err"] = e
+
+    def _join_fence_tail(self) -> None:
+        """Join the in-flight fence tail (main thread only: the deferred
+        overflow check, and the checkpoint ack whose completion listeners
+        replace ``executor.carry``). Closes the tail's attribution: the
+        sub-spans keep their true walls, ``fence-tail`` is the wall the
+        main thread paid (capture + join), and the difference is
+        ``fence.overlap-saved``."""
+        tail = self._fence_tail
+        if tail is None:
+            return
+        self._fence_tail = None
+        t = _time.monotonic()
+        tail["thread"].join()
+        joined_ms = (_time.monotonic() - t) * 1e3
+        phases = tail["phases"]
+        tail_ms = tail["pre_ms"] + joined_ms
+        spans = sum(v for k, v in phases.items() if k.startswith("fence."))
+        saved = max(0.0, spans - tail_ms)
+        phases["fence-tail"] = tail_ms
+        phases["fence.overlap-saved"] = saved
+        self.fence_overlap_saved_total_ms += saved
+        self.last_fence_phases = phases
+        self._m_epoch_fence_ms.update(tail_ms)
+        if tail["err"] is not None:
+            raise tail["err"]
+        violations = self.executor.overflow_messages(tail["vec"])
+        if violations:
+            raise OverflowError_(
+                f"deferred fence check (pipelined fence, epoch "
+                f"{tail['epoch']}): " + "; ".join(violations))
+        if tail["complete"]:
+            self.coordinator.ack_all(tail["epoch"])
+
+    def fence_tail_in_flight(self) -> bool:
+        """True while a pipelined fence tail is still unjoined."""
+        return self._fence_tail is not None
+
+    def drain_fence(self) -> None:
+        """Settle the pipelined fence: join the in-flight tail (its
+        deferred overflow check and ack) and wait out asynchronous
+        checkpoint writes. Afterwards ledger, completion and truncation
+        match a sequential run at the same fence."""
+        self._join_fence_tail()
+        self.coordinator.drain()
 
     def _update_ring_mirror(self, completed_epoch: int) -> None:
         """Checkpoint-completion hook: advance the host ring-tail mirror
@@ -328,8 +594,9 @@ class ClusterRunner:
         else:
             self._ring_tail_mirror = max(self._ring_tail_mirror, f)
         # Recovery restores only from the latest completed checkpoint.
-        self._ck_log_heads = {k: v for k, v in self._ck_log_heads.items()
-                              if k >= completed_epoch}
+        with self._ck_heads_lock:
+            self._ck_log_heads = {k: v for k, v in self._ck_log_heads.items()
+                                  if k >= completed_epoch}
 
     # --- failure injection ---------------------------------------------------
 
@@ -342,7 +609,10 @@ class ClusterRunner:
 
     def inject_failure(self, flat_subtasks: Sequence[int]) -> None:
         """Kill subtasks: zero their operator-state row, causal log row,
-        held replica rows and their lane of the vertex's in-flight ring."""
+        held replica rows and their lane of the vertex's in-flight ring.
+        A pipelined fence tail in flight is joined first (its seal and ack
+        land), so the kill sees a completed fence or a pending one."""
+        self._join_fence_tail()
         ex = self.executor
         compiled = ex.compiled
         c = ex.carry
@@ -387,22 +657,39 @@ class ClusterRunner:
     # --- recovery ------------------------------------------------------------
 
     def recover(self, drill: bool = False,
-                overlap_finalize: Optional[bool] = None) -> RecoveryReport:
+                host_rows: Optional[Dict[int, Tuple[np.ndarray, int]]]
+                = None,
+                overlap_finalize: Optional[bool] = None,
+                pre_patch_join: Optional[Callable[[], None]] = None
+                ) -> RecoveryReport:
         """Run the causal-recovery protocol for all failed subtasks, in
-        topological order, with a sequential finalize (one packed read,
-        its deferred asserts, revive, then the audit validator).
+        topological order.
 
         ``drill=True`` (failover rehearsal) runs the identical replay but
         makes none of the failure-handling decisions: pending checkpoints
         are not ignored, no IGNORE_CHECKPOINT determinants are logged and
         the checkpoint interval is not backed off — so the job state is
-        unchanged afterwards."""
-        if overlap_finalize:
-            raise rec.RecoveryError(
-                "the overlapped recovery finalize comes with a later slice "
-                "of the port; recover() runs the sequential finalize")
+        unchanged afterwards.
+
+        ``host_rows`` maps flat subtask -> (rows, abs_start): determinants
+        from outside the card (a standby host's mirror) in place of the
+        replica fetch for those subtasks.
+
+        ``overlap_finalize`` (default: the runner's ``overlap_recovery``)
+        drains the final packed read on a worker thread while this thread
+        runs the audit validator; the join and the deferred asserts run
+        before revive, and an audit divergence is raised after revive —
+        the order of the sequential control (``False``: barrier read,
+        state verify, revive, audit).
+
+        ``pre_patch_join`` is called once just before the first patch (the
+        earliest read of the roll-gap ledger); its blocked wall is billed
+        to ``finalize.listener-reattach``."""
         if not self.failed:
             raise rec.RecoveryError("no failed subtasks")
+        # A kill already joined the pipelined fence; recovery never runs
+        # against a half-sealed tail.
+        self._join_fence_tail()
         if not self.standbys.has_state():
             raise rec.RecoveryError(
                 "no completed checkpoint to restore standbys from")
@@ -450,9 +737,7 @@ class ClusterRunner:
 
         patched = ex.carry
         nrings = len(patched.out_rings)
-        bounds_dev = (torch.stack([torch.stack([el.tail, el.head])
-                                   for el in patched.out_rings])
-                      if nrings else None)
+        bounds_dev = self._ring_bounds_dev()
         if self._ring_mirror_valid:
             # Heads advance once per executed superstep.
             self._bounds_cache = {
@@ -463,6 +748,13 @@ class ClusterRunner:
                     else np.zeros((0, 2), np.int32))
             self._bounds_cache = {ri: (int(barr[ri, 0]), int(barr[ri, 1]))
                                   for ri in range(nrings)}
+        self._route_cache = {}
+        self._route_cache_hits = 0
+        vid_failed_counts: Dict[int, int] = {}
+        for flat in failed:
+            v_of = self._vertex_of(flat)[0]
+            vid_failed_counts[v_of] = vid_failed_counts.get(v_of, 0) + 1
+        prev_vid = None
         tp = _clock("restore", t0)
 
         # ---- phase A: determinant metadata for every failed subtask ----
@@ -470,10 +762,14 @@ class ClusterRunner:
         # host read. Subtasks whose cleanness the host derives itself (no
         # async rows since the fence, fence heads in hand) skip even that:
         # their metadata becomes deferred asserts in the final read.
-        ck_heads = self._ck_log_heads.get(ckpt.checkpoint_id)
+        with self._ck_heads_lock:
+            ck_heads = self._ck_log_heads.get(ckpt.checkpoint_id)
         prep: Dict[int, Dict[str, Any]] = {}
         slow_reads: List[Tuple[int, str, torch.Tensor]] = []
         for flat in failed:
+            if host_rows is not None and flat in host_rows:
+                prep[flat] = {"holders": [], "fast": False, "host": True}
+                continue
             vid_a, _ = self._vertex_of(flat)
             holders_a = [(r, h) for r, (o, h) in enumerate(self.plan.pairs)
                          if o == flat and h not in self.failed]
@@ -512,7 +808,23 @@ class ClusterRunner:
         total_records = 0
         for flat in failed:
             vid, sub = self._vertex_of(flat)
-            v = self.job.vertices[vid]
+            if vid != prev_vid:
+                # Routed windows are final only once the upstream rings
+                # they read are (upstreams were patched earlier in topo
+                # order): share them within one vertex's consumers, and
+                # only under a byte budget for the all-lane blocks.
+                self._route_cache = {}
+                share = vid_failed_counts[vid] >= 2
+                if share and n_steps > 0:
+                    ch_ = self._recovery_ch
+                    est = sum(
+                        -(-n_steps // ch_) * ch_
+                        * self.job.vertices[self.job.edges[e2].dst]
+                        .parallelism * self.job.edges[e2].capacity * 4 * 4
+                        for e2 in self.job.in_edges(vid))
+                    share = est <= (1 << 30)
+                self._route_cache_enabled = share
+                prev_vid = vid
             mgr = rec.RecoveryManager(vid, sub, flat,
                                       self._make_replayer(vid, sub))
             managers.append(mgr)
@@ -530,7 +842,14 @@ class ClusterRunner:
             holders = p["holders"]
             fast = p["fast"]
             synthesized = False
-            if not holders and n_steps > 0:
+            if p.get("host"):
+                # Mirror-sourced determinants: everything after the fetch
+                # (merge, replay, verify, patch) is the same.
+                rows_h, start_h = host_rows[flat]
+                mgr.expect_determinant_responses(1)
+                mgr.notify_determinant_response(
+                    np.asarray(rows_h, np.int32), int(start_h))
+            elif not holders and n_steps > 0:
                 if out_edges:
                     raise rec.RecoveryError(
                         f"subtask {flat}: no surviving replica holds its "
@@ -580,7 +899,7 @@ class ClusterRunner:
                             int(meta[j, 1]))
                 # A consistent replica's device bytes restore the log.
                 r_best = holders[0][0] if consistent else None
-            else:
+            elif not p.get("host"):
                 mgr.expect_determinant_responses(0)
             if synthesized:
                 rows = self._synthesize_det_rows(fence, n_steps)
@@ -624,6 +943,15 @@ class ClusterRunner:
                 raise rec.RecoveryError(
                     f"subtask {flat}: replayed determinant stream diverges "
                     f"from the recovered log")
+            if pre_patch_join is not None:
+                t_j = _time.monotonic()
+                pre_patch_join()
+                b_j = _time.monotonic() - t_j
+                phases["finalize.listener-reattach"] = (
+                    phases.get("finalize.listener-reattach", 0.0)
+                    + b_j * 1e3)
+                tp += b_j           # the wait is not the patch's
+                pre_patch_join = None
             patched = self._patch(
                 patched, snap, vid, sub, flat, result, rebuilt, from_epoch,
                 fence, n_steps, replica_src=r_best, det_n=clean_n,
@@ -653,6 +981,7 @@ class ClusterRunner:
                 copy_rows, patched.replicas, patched.logs))
         ex.carry = patched
         self._bounds_cache = None
+        self._route_cache = {}
         tp = _clock("replica_rebuild", tp)
 
         # ---- final packed read: completion barrier + deferred asserts ----
@@ -660,6 +989,13 @@ class ClusterRunner:
         # heads, the ring bounds recovery routed against, and for every
         # fast-path subtask its parse/meta metadata, its output-cut flag
         # and its consumed total. Dispatched last, it is also the barrier.
+        # ``finalize.barrier-read`` is the wait for it, ``finalize.state-
+        # verify`` the host asserts; overlapped, the audit validator runs
+        # inside the barrier window and ``finalize.overlap-saved`` carries
+        # the credit (sum(finalize.*) - overlap-saved == finalize).
+        overlap = (self.overlap_recovery if overlap_finalize is None
+                   else bool(overlap_finalize))
+        t_fin0 = tp
         fast_mgrs = [m for m in managers if prep[m.flat_subtask]["fast"]]
         pieces = [torch.stack([patched.logs.head[f] for f in failed])
                   .to(torch.int32)]
@@ -671,22 +1007,32 @@ class ClusterRunner:
                        pf["meta_d"].reshape(-1).to(torch.int32),
                        m.result.verify_ok_d.to(torch.int32).reshape(1),
                        m.result.consumed_d.to(torch.int32).reshape(1)]
-        t_fin = tp
-        arr = torch.cat(pieces).cpu().numpy()
-        tp = _clock("finalize.barrier-read", tp)
-        total_records += self._verify_final(
-            arr, failed, nrings, fast_mgrs, prep, ck_heads, n_steps)
-        tp = _clock("finalize.state-verify", tp)
-        phases["finalize"] = (tp - t_fin) * 1e3
-        for flat in failed:
-            self.heartbeats.revive(flat)
-        self.failed.clear()
-        if not drill:
-            self.coordinator.reset_interval()
-        if self.auditor.enabled:
+        # Issued here, on the thread that queued the recovery's work; the
+        # barrier worker only waits for this copy.
+        final = _device.HostCopy(torch.cat(pieces))
+        barrier: Dict[str, Any] = {"arr": None, "err": None, "ms": 0.0}
+
+        def _drain_barrier() -> None:
+            try:
+                barrier["arr"] = final.wait()
+            except Exception as err:        # raised after the join
+                barrier["err"] = err
+            barrier["ms"] = (_time.monotonic() - t_fin0) * 1e3
+
+        def _revive() -> None:
+            for flat in failed:
+                self.heartbeats.revive(flat)
+            self.failed.clear()
+            if not drill:
+                self.coordinator.reset_interval()
+
+        def _audit() -> float:
             # Recompute every replayed closed epoch's digest from the
             # patched carry against the sealed ledger; the abort policy
             # raises before the job resumes.
+            if not self.auditor.enabled:
+                return 0.0
+            t_a = _time.monotonic()
             validator = rec.AuditValidator(
                 ex, self.coordinator.read_ledger(),
                 on_divergence=self.auditor.on_divergence)
@@ -694,11 +1040,54 @@ class ClusterRunner:
             try:
                 validator.validate(range(from_epoch, ex.epoch_id))
             finally:
-                self.audit_stats["epochs-validated"] += \
-                    validator.stats["match"]
-                self.audit_stats["divergences"] += \
-                    validator.stats["divergence"]
-                _clock("audit", tp)
+                self._m_audit_matches.inc(validator.stats["match"])
+                self._m_audit_div.inc(validator.stats["divergence"])
+            a_ms = (_time.monotonic() - t_a) * 1e3
+            phases["audit"] = phases.get("audit", 0.0) + a_ms
+            return a_ms
+
+        audit_ms = 0.0
+        audit_err: Optional[Exception] = None
+        if overlap:
+            th = threading.Thread(target=_drain_barrier,
+                                  name="recovery-finalize-barrier")
+            th.start()
+            # Revive stays after the join and the verify, as in the
+            # control: a failed verify leaves the subtasks dead and the
+            # recovery retryable. A divergence is held until after revive.
+            t_a0 = _time.monotonic()
+            try:
+                audit_ms = _audit()
+            except Exception as err:
+                audit_err = err
+                audit_ms = (_time.monotonic() - t_a0) * 1e3
+            finally:
+                th.join()
+        else:
+            _drain_barrier()
+        if barrier["err"] is not None:
+            raise barrier["err"]
+        phases["finalize.barrier-read"] = (
+            phases.get("finalize.barrier-read", 0.0) + barrier["ms"])
+        t_v = _time.monotonic()
+        total_records += self._verify_final(
+            barrier["arr"], failed, nrings, fast_mgrs, prep, ck_heads,
+            n_steps)
+        now_v = _time.monotonic()
+        verify_ms = (now_v - t_v) * 1e3
+        phases["finalize.state-verify"] = (
+            phases.get("finalize.state-verify", 0.0) + verify_ms)
+        fin_ms = (now_v - t_fin0) * 1e3 - audit_ms
+        phases["finalize"] = phases.get("finalize", 0.0) + fin_ms
+        _revive()
+        if overlap:
+            if audit_err is not None:
+                raise audit_err
+            phases["finalize.overlap-saved"] = (
+                phases.get("finalize.overlap-saved", 0.0)
+                + max(0.0, barrier["ms"] + verify_ms - fin_ms))
+        else:
+            _audit()
         report = RecoveryReport(
             failed_subtasks=failed, from_epoch=from_epoch,
             steps_replayed=n_steps, determinants_replayed=total_dets,
@@ -708,7 +1097,19 @@ class ClusterRunner:
             restore_bytes=restore_bytes, checkpoint_bytes=checkpoint_bytes)
         if not drill:
             self.reports.append(report)
+            self._m_recovery_ms.update(report.recovery_ms)
+            self._m_recovered_records.inc(report.records_replayed)
+            for pname, ms in phases.items():
+                self._mgroup.histogram(f"recovery.{pname}-ms").update(ms)
         return report
+
+    def _ring_bounds_dev(self) -> Optional[torch.Tensor]:
+        """Device ``[R, 2]`` (tail, head) of every in-flight ring —
+        dispatch only; recovery folds it into its final packed read."""
+        rings = self.executor.carry.out_rings
+        if not rings:
+            return None
+        return torch.stack([torch.stack([el.tail, el.head]) for el in rings])
 
     def _verify_final(self, arr: np.ndarray, failed: Tuple[int, ...],
                       nrings: int, fast_mgrs, prep, ck_heads,
@@ -780,6 +1181,7 @@ class ClusterRunner:
         Default drill set: one subtask of every vertex class, failed
         together. A set that would leave some log without a surviving
         replica holder is refused BEFORE any state is zeroed."""
+        self._join_fence_tail()
         if self.failed:
             raise rec.RecoveryError("cannot drill with real failures "
                                     "pending")
@@ -819,6 +1221,248 @@ class ClusterRunner:
         self.inject_failure(flats)
         self.recover(drill=True)
         return _time.monotonic() - t0
+
+    @classmethod
+    def bootstrap_standby(cls, job: JobGraph, checkpoint_dir: str,
+                          mirror_rows: Dict[int, Tuple[np.ndarray, int]],
+                          ignored_checkpoints: Sequence[int] = (),
+                          **runner_kw
+                          ) -> Tuple["ClusterRunner", RecoveryReport]:
+        """Standby-host failover: rebuild the whole job in a fresh runner
+        after the loss of its host, from the durable checkpoint in
+        ``checkpoint_dir`` and mirrored determinant rows (flat subtask ->
+        (rows, abs_start), covering every subtask and ending at an epoch
+        fence). Every subtask is recovered through the causal protocol in
+        topological order, so the rebuilt state equals the dead runner's
+        at its last mirrored fence.
+
+        A worker thread derives the roll-gap / async-row ledgers from the
+        mirrored streams (joined just before recovery's first patch),
+        fast-forwards the host RNG past the replayed prefix and loads the
+        built kernel, so the first live step loads nothing (joined before
+        returning). Rebalance edges are refused: their round-robin cursors
+        are not in the fence snapshot."""
+        for e in job.edges:
+            if e.partition == PartitionType.REBALANCE:
+                raise rec.RecoveryError(
+                    "bootstrap_standby: rebalance edges not supported "
+                    "(post-replay round-robin cursors are not "
+                    "reconstructible from the fence snapshot)")
+        sub_ms: Dict[str, float] = {}
+        t_sub = _time.monotonic()
+
+        def _stage(name: str) -> None:
+            nonlocal t_sub
+            now = _time.monotonic()
+            sub_ms[name] = sub_ms.get(name, 0.0) + (now - t_sub) * 1e3
+            t_sub = now
+
+        runner = cls(job, checkpoint_dir=checkpoint_dir, **runner_kw)
+        ex = runner.executor
+        dev = runner.device
+        storage = runner.coordinator.storage
+        ignored = set(ignored_checkpoints)
+        # Only fully acked checkpoints are restore points.
+        ids = [i for i in storage.completed_ids() if i not in ignored]
+        if not ids:
+            raise rec.RecoveryError(
+                "bootstrap_standby: no durable completed non-ignored "
+                f"checkpoint in {checkpoint_dir}")
+        ckpt = storage.read(max(ids))
+        runner.standbys.on_completed_checkpoint(ckpt)
+        runner.coordinator.mark_ignored(ignored)
+        spe = ex.steps_per_epoch
+        from_epoch = ckpt.checkpoint_id + 1
+        L = job.total_subtasks()
+        missing = [f for f in range(L) if f not in mirror_rows]
+        if missing:
+            raise rec.RecoveryError(
+                f"bootstrap_standby: mirror rows missing for subtasks "
+                f"{missing}")
+        # The fence's absolute superstep: ring heads count supersteps; a
+        # job without rings pins it by the checkpoint cadence.
+        if ckpt.carry.ring_heads:
+            fence = int(np.asarray(ckpt.carry.ring_heads[0]))
+        else:
+            fence = (ckpt.checkpoint_id + 1) * spe
+        anchors_by_flat = {flat: det.sync_anchors(np.asarray(rows,
+                                                             np.int32))
+                           for flat, (rows, _start) in mirror_rows.items()}
+        ns = {len(a) for a in anchors_by_flat.values()}
+        if len(ns) != 1:
+            raise rec.RecoveryError(
+                f"bootstrap_standby: mirror streams disagree on the "
+                f"replayed step count: {sorted(ns)}")
+        n_steps = ns.pop()
+        if n_steps % spe != 0:
+            raise rec.RecoveryError(
+                f"bootstrap_standby: mirrored {n_steps} steps is not a "
+                f"whole number of {spe}-step epochs (mirrors refresh at "
+                f"fences)")
+        k = n_steps // spe
+
+        # The control-plane bookkeeping the dead runner had.
+        runner.global_step = fence + n_steps
+        ex._steps_executed = fence + n_steps
+        # Per-step (time, rng) inputs are global across the lockstep
+        # supersteps, so any subtask's stream reproduces them; entries
+        # below the fence are placeholders (nothing replays there).
+        a0 = anchors_by_flat[0]
+        rows0 = np.asarray(mirror_rows[0][0], np.int32)
+        hist = [(0, 0)] * fence
+        for j in range(n_steps):
+            hist.append((int(rows0[a0[j], det.LANE_P + 1]),
+                         int(rows0[a0[j] + 1, det.LANE_P])))
+        ex.step_input_history = hist
+        if runner.latency is not None:
+            # Placeholders (rng 0) would all read as markers.
+            runner.latency._seen = len(hist)
+        ex.epoch_id = from_epoch + k
+        ex.step_in_epoch = 0
+        for j in range(k + 1):
+            runner._fence_step[from_epoch + j] = fence + j * spe
+        runner._ring_tail_mirror = fence
+        with runner._ck_heads_lock:
+            runner._ck_log_heads[ckpt.checkpoint_id] = np.asarray(
+                ckpt.carry.log_heads).astype(np.int64)
+        _stage("finalize.state-rehydrate")
+
+        ov: Dict[str, Any] = {"derive_ms": 0.0, "warm_ms": 0.0,
+                              "rg": {}, "ac": {}, "err": None}
+        derived = threading.Event()
+
+        def _overlap_work() -> None:
+            # Roll-gap / async ledgers from the mirrored streams: rows
+            # between one epoch's last sync block and the next epoch's
+            # first anchor are that next epoch's roll-gap appends.
+            t_d = _time.monotonic()
+            try:
+                rg: Dict[Tuple[int, int], int] = {}
+                ac: Dict[Tuple[int, int], int] = {}
+                for flat, (rows, _start) in mirror_rows.items():
+                    nrows = np.asarray(rows).shape[0]
+                    a = anchors_by_flat[flat]
+                    for j in range(k + 1):
+                        if j == 0:
+                            gap = int(a[0]) if len(a) else nrows
+                        else:
+                            prev_end = int(a[j * spe - 1]) + DETS_PER_STEP
+                            nxt = int(a[j * spe]) if j < k else nrows
+                            gap = nxt - prev_end
+                        if gap > 0:
+                            rg[(flat, from_epoch + j)] = gap
+                    for j in range(k):
+                        lo = int(a[j * spe])
+                        hi = int(a[(j + 1) * spe]) if j + 1 < k else nrows
+                        total_async = ((hi - lo) - spe * DETS_PER_STEP
+                                       + (rg.get((flat, from_epoch), 0)
+                                          if j == 0 else 0))
+                        if total_async > 0:
+                            ac[(flat, from_epoch + j)] = total_async
+                ov["rg"], ov["ac"] = rg, ac
+            except Exception as err:          # raised at the join
+                ov["err"] = err
+            finally:
+                ov["derive_ms"] = (_time.monotonic() - t_d) * 1e3
+                derived.set()
+            if ov["err"] is not None:
+                return
+            # Replay reads recorded draws and never touches the host RNG,
+            # so this thread owns it until the join.
+            t_w = _time.monotonic()
+            try:
+                ex.fast_forward_host_rng(fence + n_steps)
+                if dev.type == "cuda":
+                    from clonos_tpu_torch.ops import histogram as _hist
+                    _hist._lib()
+            except Exception as err:
+                ov["err"] = err
+            ov["warm_ms"] = (_time.monotonic() - t_w) * 1e3
+
+        worker = threading.Thread(target=_overlap_work,
+                                  name="bootstrap-finalize-overlap")
+        worker.start()
+
+        def _join_ledgers() -> None:
+            derived.wait()
+            if ov["err"] is not None:
+                raise ov["err"]
+            ex.install_replay_ledgers(ov["rg"], ov["ac"])
+
+        try:
+            # Ring offsets as the dead runner had them: the content is
+            # rebuilt by recovery's ring write-backs, but the offsets must
+            # read (fence, fence + n) for its routing coverage.
+            c = ex.carry
+            new_rings = []
+            for el in c.out_rings:
+                starts = el.epoch_starts.cpu().numpy().copy()
+                me = starts.shape[0]
+                for j in range(k + 1):
+                    starts[(from_epoch + j) % me] = fence + j * spe
+                new_rings.append(el._replace(
+                    head=_device.scalar(fence + n_steps, dev),
+                    tail=_device.scalar(fence, dev),
+                    epoch_starts=_device.upload(starts, dev),
+                    latest_epoch=_device.scalar(from_epoch + k, dev),
+                    epoch_base=_device.scalar(from_epoch, dev)))
+            ex.carry = c._replace(out_rings=tuple(new_rings))
+            _stage("finalize.ring-reregister")
+
+            runner.failed = set(range(L))
+            for f in range(L):
+                runner.heartbeats.mark_dead(f)
+            report = runner.recover(host_rows=mirror_rows,
+                                    pre_patch_join=_join_ledgers)
+            t_sub = _time.monotonic()   # recover() attributes its own time
+
+            # The depth-1 edge buffers (the batch produced at step
+            # fence+n-1, consumed by the next live step) are outside the
+            # replay's input range: route that step from the rebuilt
+            # rings. With nothing replayed the fence snapshot holds them.
+            c = ex.carry
+            if n_steps > 0:
+                bufs = []
+                for eidx, e in enumerate(job.edges):
+                    el = c.out_rings[ex.compiled.ring_index[e.src]]
+                    raw = ifl.slice_steps_at(el, fence + n_steps - 1, 1)
+                    routed = runner._route_all(eidx, raw,
+                                               _device.scalar(0, dev))
+                    bufs.append(RecordBatch(*(x[0] for x in routed)))
+            else:
+                bufs = list(runner._on_device(ckpt.carry.edge_bufs))
+            ex.carry = c._replace(edge_bufs=tuple(bufs))
+            _stage("finalize.edge-rehydrate")
+        finally:
+            t_j2 = _time.monotonic()
+            worker.join()
+        if ov["err"] is not None:
+            raise ov["err"]
+        warm_blocked_ms = (_time.monotonic() - t_j2) * 1e3
+
+        # The rebuild stages extend the finalize phase; each sub-span
+        # keeps its true wall, only the blocked remainders extend the
+        # finalize total, and the rest is finalize.overlap-saved.
+        pm = report.phase_ms
+        for name, ms in sub_ms.items():
+            pm[name] = pm.get(name, 0.0) + ms
+            pm["finalize"] = pm.get("finalize", 0.0) + ms
+            runner._mgroup.histogram(f"recovery.{name}-ms").update(ms)
+        reattach_blocked_ms = pm.get("finalize.listener-reattach", 0.0)
+        pm["finalize.listener-reattach"] = ov["derive_ms"]
+        pm["finalize.first-step-recompile"] = (
+            pm.get("finalize.first-step-recompile", 0.0) + ov["warm_ms"])
+        pm["finalize"] = (pm.get("finalize", 0.0) + reattach_blocked_ms
+                          + warm_blocked_ms)
+        pm["finalize.overlap-saved"] = (
+            pm.get("finalize.overlap-saved", 0.0)
+            + max(ov["derive_ms"] - reattach_blocked_ms, 0.0)
+            + max(ov["warm_ms"] - warm_blocked_ms, 0.0))
+        for name in ("finalize.listener-reattach",
+                     "finalize.first-step-recompile",
+                     "finalize.overlap-saved"):
+            runner._mgroup.histogram(f"recovery.{name}-ms").update(pm[name])
+        return runner, report
 
     # --- recovery helpers ----------------------------------------------------
 
@@ -946,10 +1590,8 @@ class ClusterRunner:
         if n_steps <= 0:
             return []
         e = self.job.edges[eidx]
-        compiled = self.executor.compiled
-        dst_p = self.job.vertices[e.dst].parallelism
         ch = self._recovery_ch
-        ri = compiled.ring_index[e.src]
+        ri = self.executor.compiled.ring_index[e.src]
         el = carry.out_rings[ri]
         tail, head = self._bounds_cache[ri]
         ring_lo = max(tail, head - el.ring_steps)
@@ -967,27 +1609,24 @@ class ClusterRunner:
                     f"in-flight ring of vertex {e.src} no longer holds steps "
                     f"[{lo_real}, {lo_real + h_need}) (spill comes with a "
                     f"later slice)")
-            raw = ifl.slice_steps_at(el, h_start, ch)
-            live = (idx >= lead) & (idx < min(max(need, 0), ch))
-            raw = raw._replace(valid=raw.valid & live[:, None, None])
-            if eidx in compiled.static_route:
-                r, _ = compiled.static_route[eidx].apply(raw)
-                lane = RecordBatch(*(x[:, sub] for x in r))
-            elif e.partition == PartitionType.HASH:
-                lane = routing.route_hash_block_lane(
-                    raw, sub, dst_p, self.job.num_key_groups, e.capacity)
-            elif e.partition == PartitionType.FORWARD:
-                lane = routing.route_forward_block_lane(raw, sub, e.capacity)
-            elif e.partition == PartitionType.REBALANCE:
-                counts = raw.count().sum(dim=1, dtype=torch.int32)
-                offs = rr + torch.cumsum(counts, 0, dtype=torch.int32) \
-                    - counts
-                lane = routing.route_rebalance_block_lane(
-                    raw, sub, dst_p, e.capacity, offs)
+            routed = (self._route_cache.get((eidx, i))
+                      if self._route_cache_enabled else None)
+            if routed is not None:
+                self._route_cache_hits += 1
+                lane = RecordBatch(*(x[:, sub] for x in routed))
             else:
-                lane = routing.route_broadcast_block_lane(raw, sub,
-                                                          e.capacity)
-            rr = rr + raw.count().sum(dtype=torch.int32)
+                raw = ifl.slice_steps_at(el, h_start, ch)
+                live = (idx >= lead) & (idx < min(max(need, 0), ch))
+                raw = raw._replace(valid=raw.valid & live[:, None, None])
+                if self._route_cache_enabled:
+                    # Several failed consumers: route the window to every
+                    # lane once and select per consumer.
+                    routed = self._route_all(eidx, raw, rr)
+                    self._route_cache[(eidx, i)] = routed
+                    lane = RecordBatch(*(x[:, sub] for x in routed))
+                else:
+                    lane = self._route_lane(eidx, raw, sub, rr)
+                rr = rr + raw.count().sum(dtype=torch.int32)
             need -= ch
             lead = 0
             if i == 0:
@@ -996,6 +1635,37 @@ class ClusterRunner:
                                                      snap.edge_bufs[eidx])))
             chunks.append(lane)
         return chunks
+
+    def _route_all(self, eidx: int, raw: RecordBatch, rr: torch.Tensor
+                   ) -> RecordBatch:
+        """A ``[m, P_src, cap]`` producer window routed over edge ``eidx``
+        to every consumer lane (``rr``: the round-robin offset at its
+        first step)."""
+        routed, _ = self.executor.compiled._route_edge(
+            eidx, raw, {eidx: rr.reshape(1)})
+        return routed
+
+    def _route_lane(self, eidx: int, raw: RecordBatch, sub: int,
+                    rr: torch.Tensor) -> RecordBatch:
+        """Consumer lane ``sub`` of :meth:`_route_all`, computed directly
+        (one lane's scatter instead of all of them)."""
+        e = self.job.edges[eidx]
+        compiled = self.executor.compiled
+        dst_p = self.job.vertices[e.dst].parallelism
+        if eidx in compiled.static_route:
+            r, _ = compiled.static_route[eidx].apply(raw)
+            return RecordBatch(*(x[:, sub] for x in r))
+        if e.partition == PartitionType.HASH:
+            return routing.route_hash_block_lane(
+                raw, sub, dst_p, self.job.num_key_groups, e.capacity)
+        if e.partition == PartitionType.FORWARD:
+            return routing.route_forward_block_lane(raw, sub, e.capacity)
+        if e.partition == PartitionType.REBALANCE:
+            counts = raw.count().sum(dim=1, dtype=torch.int32)
+            offs = rr + torch.cumsum(counts, 0, dtype=torch.int32) - counts
+            return routing.route_rebalance_block_lane(
+                raw, sub, dst_p, e.capacity, offs)
+        return routing.route_broadcast_block_lane(raw, sub, e.capacity)
 
     def _patch(self, carry: JobCarry, snap: LeanSnapshot, vid: int,
                sub: int, flat: int, result: rec.ReplayResult,

@@ -2,6 +2,8 @@
 
 Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, spill,
 host feeds and async-append batching, which come with later slices).
+``capture_fence`` hands a closed epoch's fence surface to the pipelined
+fence's worker thread without a host sync (``FenceHandles``).
 
 - Every vertex's subtasks are a ``[P]`` dim of its state and batches.
 - A superstep advances every vertex by one batch: vertex v consumes the
@@ -471,6 +473,60 @@ def canonical_carry(carry: JobCarry) -> JobCarry:
         out_rings=tuple(_canon_ring(r) for r in carry.out_rings))
 
 
+class FenceHandles:
+    """One closed epoch's fence surface on its way to the host: the health
+    vector and, for the audit seal, the epoch's causal-log rows and ring
+    steps. Made by :meth:`LocalExecutor.capture_fence` on the thread that
+    drives the blocks; :meth:`health` and :meth:`window` may run on any
+    thread and only wait for the capture's own copies (never for a block
+    queued after it), so a fence worker drains them while the next
+    epoch's compute runs."""
+
+    def __init__(self, epoch: int, health: _device.HostCopy,
+                 window: Optional[_device.HostCopy],
+                 log_counts: np.ndarray, steps: Tuple[int, int],
+                 ring_vids: Sequence[int]):
+        self.epoch = epoch
+        self._health = health
+        self._window = window
+        self._log_counts = log_counts
+        self._steps = steps
+        self._ring_vids = list(ring_vids)
+
+    def health(self) -> np.ndarray:
+        return self._health.wait()
+
+    def window(self) -> Optional[Dict[str, Any]]:
+        """The captured surface in :meth:`LocalExecutor.epoch_window`'s
+        exact shape (None when captured without one). The host-derived
+        bounds the capture sliced by are checked against the device's."""
+        if self._window is None:
+            return None
+        w = self._window.wait()
+        L = self._log_counts.shape[0]
+        starts, heads = w["bounds"][:L], w["bounds"][L:2 * L]
+        if not np.array_equal(heads - starts, self._log_counts):
+            raise RuntimeError(
+                f"epoch {self.epoch}: host log window counts "
+                f"{self._log_counts.tolist()} != device "
+                f"{(heads - starts).tolist()}")
+        lo, hi = self._steps
+        rb = w["bounds"][2 * L:].reshape(-1, 2)
+        for vid, (s, t) in zip(self._ring_vids, rb):
+            if (int(s), int(t)) != (lo, hi):
+                raise RuntimeError(
+                    f"epoch {self.epoch}: ring of vertex {vid} holds steps "
+                    f"[{int(s)}, {int(t)}), host expected [{lo}, {hi})")
+        cuts = np.concatenate([[0], np.cumsum(self._log_counts)])
+        logs = {f: w["log_rows"][cuts[f]:cuts[f + 1]] for f in range(L)}
+        rings: Dict[int, list] = {}
+        for vid, (recs, counts) in zip(self._ring_vids, w["rings"]):
+            at = np.concatenate([[0], np.cumsum(counts)])
+            rings[vid] = [(recs[0, at[s]:at[s + 1]], recs[1, at[s]:at[s + 1]],
+                           recs[2, at[s]:at[s + 1]]) for s in range(hi - lo)]
+        return {"logs": logs, "rings": rings}
+
+
 class CausalTimeSource:
     """Host clock for the live path: int32 millis since executor start,
     recorded in every task's log as TIMESTAMP determinants."""
@@ -529,6 +585,8 @@ class LocalExecutor:
         #: supersteps actually executed
         self._steps_executed = 0
         self.step_input_history: List[Tuple[int, int]] = []
+        #: the last closed epoch's superstep range [lo, hi)
+        self.closed_steps: Tuple[int, int] = (0, 0)
         # Epoch 0 starts at log offset 0 for every log.
         self.carry = self._roll(self.compiled.init_carry(self.device), 0)
 
@@ -591,12 +649,15 @@ class LocalExecutor:
         """Run the rest of the current epoch in blocks, then roll the
         epoch (the checkpoint fence). Returns the last block's outputs."""
         outs = None
+        first = self._steps_executed - self.step_in_epoch
         while self.step_in_epoch < self.steps_per_epoch:
             outs = self._run_block(min(
                 self.block_steps, self.steps_per_epoch - self.step_in_epoch))
         self.epoch_id += 1
         self.step_in_epoch = 0
         self.carry = self._roll(self.carry, self.epoch_id)
+        #: the closed epoch's superstep range (what capture_fence slices)
+        self.closed_steps = (first, self._steps_executed)
         return outs
 
     def notify_checkpoint_complete(self, epoch: int) -> None:
@@ -740,8 +801,8 @@ class LocalExecutor:
         counts = np.zeros((L,), np.int32)
         rows1[list(flat_subtasks), 0] = row
         counts[list(flat_subtasks)] = 1
-        rows_t = torch.from_numpy(rows1).to(self.device)
-        counts_t = torch.from_numpy(counts).to(self.device)
+        rows_t = _device.upload(rows1, self.device)
+        counts_t = _device.upload(counts, self.device)
         c = self.carry
         replicas = c.replicas
         if self.compiled.plan.num_replicas > 0:
@@ -760,6 +821,77 @@ class LocalExecutor:
             rr_offsets=cp(c.rr_offsets), record_counts=cp(c.record_counts),
             log_heads=c.logs.head.clone(),
             ring_heads=tuple(r.head.clone() for r in c.out_rings))
+
+    def capture_fence(self, with_window: bool = True) -> FenceHandles:
+        """Capture the fence surface of the epoch :meth:`run_epoch` just
+        closed, dispatch-only: the health vector and (``with_window``)
+        the epoch's log rows and its ring steps' valid records (compacted
+        as :meth:`epoch_window` does) are gathered into fresh tensors
+        (later blocks update the rings in place) and their copies to
+        pinned host memory start now. The slice bounds come from the
+        host — the closed epoch's superstep range and its async-row
+        ledger — so nothing waits on the device; the device's own bounds
+        ride along and are checked when the window is drained. Call it
+        right after :meth:`run_epoch`, before any row of the new epoch."""
+        c = self.carry
+        closed = self.epoch_id - 1
+        lo, hi = self.closed_steps
+        health = _device.HostCopy(self._health_vector(c))
+        L = self.compiled.L
+        counts = np.asarray(
+            [DETS_PER_STEP * (hi - lo) + self.async_counts.get((f, closed),
+                                                               0)
+             for f in range(L)], np.int64)
+        window = None
+        if with_window:
+            logs = c.logs
+            me = logs.max_epochs
+            dev = self.device
+            flat = np.repeat(np.arange(L, dtype=np.int64), counts)
+            rel = np.concatenate([np.arange(n, dtype=np.int64)
+                                  for n in counts] or
+                                 [np.zeros(0, np.int64)])
+            flat_d = _device.upload(flat, dev)
+            starts = logs.epoch_starts[:, closed % me]
+            pos = ((starts.to(torch.int64)[flat_d]
+                    + _device.upload(rel, dev)) & (logs.capacity - 1))
+            bounds = [starts, logs.head]
+            rings = []
+            for vid in self.compiled.ring_vertices:
+                el = c.out_rings[self.compiled.ring_index[vid]]
+                # Compacted on the device into a buffer as long as every
+                # slot of the epoch (the valid count is on the device):
+                # the host only cuts it by the per-step counts.
+                slots = (hi - lo) * el.keys.shape[1] * el.keys.shape[2]
+                rings.append(_slice_ring_window(el, lo, hi, slots))
+                bounds.append(torch.stack(
+                    [el.epoch_starts[closed % el.max_epochs], el.head]))
+            window = _device.HostCopy({
+                "log_rows": logs.rows[flat_d, pos],
+                "bounds": torch.cat([b.reshape(-1).to(torch.int32)
+                                     for b in bounds]),
+                "rings": rings})
+        return FenceHandles(closed, health, window, counts, (lo, hi),
+                            self.compiled.ring_vertices)
+
+    def install_replay_ledgers(self,
+                               roll_gap: Dict[Tuple[int, int], int],
+                               async_counts: Dict[Tuple[int, int], int]
+                               ) -> None:
+        """Merge re-derived roll-gap / async-row ledgers (a standby-host
+        bootstrap derives them from mirrored streams). Install before
+        anything reads them: recovery's patch reads ``roll_gap_async``."""
+        self.roll_gap_async.update(roll_gap)
+        self.async_counts.update(async_counts)
+
+    def fast_forward_host_rng(self, steps: int) -> None:
+        """Reset the host RNG to its seeded stream and consume one draw per
+        superstep for ``steps`` supersteps: a rebuilt job's next draw is
+        then the one a never-failed run would make (replay reads recorded
+        draws and never touches this stream)."""
+        self._rng = np.random.RandomState(self._seed)
+        for _ in range(steps):
+            self._rng.randint(0, 2 ** 31, dtype=np.int64)
 
     def restore(self, carry, epoch_id: int) -> None:
         """Adopt a checkpointed carry (tensors or numpy arrays) at an

@@ -78,6 +78,91 @@ def test_ignore_unacked_for_failed_task(mod):
     assert c.latest_completed_id is None
 
 
+@BOTH
+def test_async_write_completes_after_drain(mod):
+    """``trigger`` writes on a writer thread by default; the acks may land
+    first, and whichever thread finishes last completes the checkpoint."""
+    c = _coord(mod, n=2)
+    done = []
+    c.subscribe_completion(done.append)
+    c.trigger(0, {"x": np.arange(3)})
+    c.ack_all(0)
+    c.drain()
+    assert done == [0] and c.latest_completed_id == 0
+    assert c.storage.completed_ids() == [0]
+    assert c.completion_latency_s[0] >= 0.0
+
+
+@BOTH
+def test_single_completer_under_racing_acks(mod):
+    """Acks from several threads racing the writer: every checkpoint's
+    completion listeners fire exactly once."""
+    import threading
+    c = _coord(mod, n=4, max_retained=100)
+    done = []
+    c.subscribe_completion(done.append)
+    for cid in range(12):
+        c.trigger(cid, {"v": np.asarray(cid)})
+        ts = [threading.Thread(target=c.ack, args=(cid, s))
+              for s in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    c.drain()
+    assert sorted(done) == list(range(12))
+    assert c.storage.completed_ids() == list(range(12))
+
+
+def test_transition_observers_match_reference():
+    """The protocol transitions both coordinators report, in order, for
+    the same script (trigger / ack / complete / ignore / discard, and an
+    adopted ignore that blocks a later trigger)."""
+    seqs = []
+    for mod in (cp, jcp):
+        c = _coord(mod, n=2)
+        seen = []
+        c.transition_observers.append(
+            lambda kind, **f: seen.append((kind, sorted(f.items()))))
+        c.trigger(0, {}, async_write=False)
+        c.ack(0, 0)
+        c.ack_all(0)
+        c.trigger(1, {}, async_write=False)
+        c.ack(1, 1)
+        assert c.ignore_unacked_for({0}) == [1]
+        c.mark_ignored([5])
+        c.trigger(5, {}, async_write=False)
+        c.ack_all(5)
+        c.trigger(6, {}, async_write=False)
+        assert c.discard_pending_through(6) == [6]
+        assert c.latest_completed_id == 0
+        seqs.append(seen)
+    assert seqs[0] == seqs[1]
+    assert [k for k, _ in seqs[0]] == [
+        "trigger", "ack", "ack", "complete", "trigger", "ack", "ignore",
+        "trigger", "discard"]
+
+
+def test_async_file_write_of_tensors(tmp_path):
+    """File storage gets the snapshot as numpy: the copy starts on the
+    triggering thread and the writer only waits for it. Completed ids are
+    read back from the durable markers."""
+    c = cp.CheckpointCoordinator(cp.FileCheckpointStorage(str(tmp_path)),
+                                 num_subtasks=1)
+    carry = {"a": torch.arange(6, dtype=torch.int32).reshape(2, 3),
+             "b": (torch.ones(2, dtype=torch.bool),)}
+    c.trigger(0, carry)
+    c.trigger(1, carry)
+    c.ack(1, 0)
+    c.drain()
+    assert c.storage.list_ids() == [0, 1]
+    assert c.storage.completed_ids() == [1]
+    got = c.storage.read(1).carry
+    np.testing.assert_array_equal(got["a"], np.arange(6).reshape(2, 3))
+    assert got["a"].dtype == np.int32 and got["b"][0].dtype == np.bool_
+    assert c.storage.read(1).size_bytes == 6 * 4 + 2
+
+
 def test_backoff_and_reset():
     seqs = []
     for mod in (cp, jcp):

@@ -297,8 +297,8 @@ def test_concurrent_connected_failures(wc_runs):
 
 
 def test_same_vertex_pair_failure(wc_runs):
-    """Both window subtasks fail together (the shared routed-window cache
-    is not ported; each consumer routes its own lane)."""
+    """Both window subtasks fail together: the second consumer's windows
+    come from the routed-window cache the first one filled."""
     report = _check(wc_runs["same_vertex_pair"])
     assert report.failed_subtasks == (2, 3)
     _check(wc_runs["end"])

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from clonos_tpu_torch.api.environment import StreamEnvironment
+from clonos_tpu_torch.api.records import make
 from clonos_tpu_torch.runtime.cluster import ClusterRunner
 from clonos_tpu_torch.runtime.executor import CompiledJob, LocalExecutor
 
@@ -54,7 +55,7 @@ def _job():
 
 
 @pytest.mark.parametrize("entry", ["LocalExecutor", "ClusterRunner",
-                                   "init_carry"])
+                                   "init_carry", "records.make"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -63,5 +64,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry):
             LocalExecutor(_job())
         elif entry == "ClusterRunner":
             ClusterRunner(_job())
+        elif entry == "records.make":
+            make([1, 2, 3], capacity=4)
         else:
             CompiledJob(_job()).init_carry()

@@ -190,7 +190,7 @@ def test_records_helpers_match_reference(capacity):
     keys = rng.randint(-5, 50, (3, 7)).astype(np.int32)
     vals = rng.randint(-9, 9, (3, 7)).astype(np.int32)
     j = jrec.make(keys, vals, capacity=capacity)
-    t = trec.make(keys, vals, capacity=capacity)
+    t = trec.make(keys, vals, capacity=capacity, device="cpu")
     for a, b in zip(j, t):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     np.testing.assert_array_equal(t.count().numpy(), np.asarray(j.count()))
@@ -205,4 +205,4 @@ def test_records_helpers_match_reference(capacity):
         assert str(b.dtype) == f"torch.{np.asarray(a).dtype}"
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     with pytest.raises(ValueError):
-        trec.make(keys, capacity=3)
+        trec.make(keys, capacity=3, device="cpu")
