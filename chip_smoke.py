@@ -39,7 +39,18 @@ Phases:
      failure, across a pending checkpoint; (d) two window subtasks failed
      together, sharing routed windows; (e) ``bootstrap_standby`` of the
      whole job from the durable checkpoint and mirror rows of the
-     control's logs, equal to it at the fence and one epoch on.
+     control's logs, equal to it at the fence and one epoch on;
+  8. tiered storage at the same widths with ``bench.py --spill``'s
+     schedule (spool and checkpoint dirs under ``build/``, up to ~1 GB,
+     removed at the end): (a) the steady state with spill off,
+     ``availability`` and ``eager``, leaf-equal, the spill hook making no
+     synchronising call; (b) a window kill whose replay span is four rings
+     long, refilled from the host and disk tiers, its ledger and carry
+     equal to a no-spill control's; (c) a torn segment of that span
+     refused with a labelled RecoveryError; (d) a window and a reduce
+     subtask recovered from an incremental checkpoint chain, bit-identical
+     to a golden run, with no synchronising call in the pipelined
+     fence's capture windows.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -974,6 +985,347 @@ def phase_overlap(dev_line, root):
     return by_path
 
 
+# --- phase 8 ----------------------------------------------------------------
+
+#: bench.py spill_probe's settings (BENCH_SPILL_SPE, _EPOCHS, _FILL_EPOCHS
+#: defaults and its seed): 512-step epochs, 3 timed steady epochs after
+#: one warm-up, a backlog of 4 pending epochs behind one completed one
+SPILL_SPE = 512
+SPILL_EPOCHS = 3
+SPILL_FILL = 4
+SPILL_SEED = 7
+#: (a)'s runs in turns, so host drift shows as a spread within each mode
+SPILL_TURNS = ("off", "availability", "eager", "eager", "availability",
+               "off")
+#: the steady runs' ring holds 4 epochs (the availability policy's
+#: headroom); the backlog run's holds one, its control's the whole span
+SPILL_STEADY_RING = 1 << (4 * SPILL_SPE - 1).bit_length()
+SPILL_BACKLOG_RING = 1 << (SPILL_SPE - 1).bit_length()
+SPILL_CONTROL_RING = 1 << (SPILL_FILL * SPILL_SPE).bit_length()
+#: (b)'s kill: window subtask 1 (flat PAR + 1, as bench.py kills)
+BACKLOG_KILL = [(1, 1)]
+#: (d): a full snapshot every third checkpoint; its kill is a window and
+#: a reduce subtask
+INC_BASE_EVERY = 3
+INC_KILL = [(1, 4), (2, 1)]
+
+SPILL_REDUCTIONS = (
+    f"bench.py spill_probe at the headline's widths: steps_per_epoch="
+    f"{SPILL_SPE}, block_steps={min(BLOCK_STEPS, SPILL_SPE)}, seed="
+    f"{SPILL_SEED}; steady ring {SPILL_STEADY_RING}, 1 warm-up + "
+    f"{SPILL_EPOCHS} epochs; backlog ring {SPILL_BACKLOG_RING}, host budget "
+    f"1 epoch, 1 completed + {SPILL_FILL} pending epochs, control ring "
+    f"{SPILL_CONTROL_RING}; differences: window_size={WINDOW_SIZE} (bench: "
+    f"1<<30), logical_time=True in the steady runs too (bench: only in "
+    f"the backlog); (d) incremental_base_every={INC_BASE_EVERY}")
+
+
+def _spill_kw(ring_steps, epochs):
+    need = (epochs + 2) * SPILL_SPE * DETS_PER_STEP
+    return dict(steps_per_epoch=SPILL_SPE,
+                log_capacity=1 << need.bit_length(), max_epochs=16,
+                inflight_ring_steps=ring_steps,
+                block_steps=min(BLOCK_STEPS, SPILL_SPE), logical_time=True,
+                seed=SPILL_SEED)
+
+
+def _assert_same_cut_rings(control, faulted, what):
+    """Equal canonical carries where the two runs' rings differ in size:
+    every other leaf bit for bit, the rings on their bounds and on the
+    steps the smaller ring retains."""
+    from clonos_tpu_torch.inflight import log as ifl
+    from clonos_tpu_torch.runtime.executor import canonical_carry
+    from clonos_tpu_torch.utils.tree import tree_leaves
+    ca = canonical_carry(control.executor.carry)
+    cb = canonical_carry(faulted.executor.carry)
+    la = tree_leaves(ca._replace(out_rings=()))
+    lb = tree_leaves(cb._replace(out_rings=()))
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: carry structures differ")
+    for i, (a, b) in enumerate(zip(la, lb)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{what}: carry leaf {i} != control")
+    for i, (ra, rb) in enumerate(zip(ca.out_rings, cb.out_rings)):
+        head, tail = int(ra.head), int(ra.tail)
+        if (head, tail) != (int(rb.head), int(rb.tail)):
+            raise AssertionError(f"{what}: ring {i} bounds differ")
+        n = min(ra.ring_steps, rb.ring_steps, head - tail)
+        for a, b in zip(ifl.slice_steps_at(ra, head - n, n),
+                        ifl.slice_steps_at(rb, head - n, n)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: ring {i} steps != control")
+
+
+def _steady(root, policy, hook):
+    """bench.py's steady(): one warm-up epoch, then SPILL_EPOCHS epochs
+    with every checkpoint completing; returns (runner, records/s, stats,
+    launches). A spilled run's spill hook runs under the sync-debug mode;
+    its synchronising calls and host ms per call go to ``hook``."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = _spill_kw(SPILL_STEADY_RING, SPILL_EPOCHS)
+    if policy is not None:
+        kw.update(spool_dir=os.path.join(root, policy), spill_policy=policy)
+    r = ClusterRunner(build_job(), device=DEVICE, **kw)
+    ex = r.executor
+    if policy is not None:
+        spill = ex._spill_epoch
+
+        def counted(*a):
+            t = time.monotonic()
+            hook["syncs"].append(_sync_count(lambda: spill(*a))[1])
+            hook["ms"].append(round((time.monotonic() - t) * 1e3, 3))
+        ex._spill_epoch = counted
+    r.run_epoch(complete_checkpoint=True)
+    sync()
+    r0 = _source_records(r)
+
+    def timed():
+        t0 = time.monotonic()
+        for _ in range(SPILL_EPOCHS):
+            r.run_epoch(complete_checkpoint=True)
+        sync()
+        return time.monotonic() - t0
+    wall, launches, _ = _counted(timed)
+    rate = (_source_records(r) - r0) / wall
+    stats = {"timed_wall_ms": round(wall * 1e3, 3)}
+    if policy is not None:
+        t1 = time.monotonic()
+        ex.drain_spill()
+        stats.update(ex.spill_stats())
+        stats["drain_residue_ms"] = round((time.monotonic() - t1) * 1e3, 3)
+        ex.close_spill()
+    return r, rate, stats, launches
+
+
+def _backlog(spool_dir, ring_steps):
+    """bench.py's backlog_run(): one completed epoch (the restore point),
+    then SPILL_FILL epochs whose checkpoints stay pending; audit on."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = _spill_kw(ring_steps, SPILL_FILL)
+    if spool_dir is not None:
+        kw.update(spool_dir=spool_dir, spill_host_budget_epochs=1)
+    r = ClusterRunner(build_job(), device=DEVICE, audit=True, **kw)
+    r.run_epoch(complete_checkpoint=True)
+    for _ in range(SPILL_FILL):
+        r.run_epoch(complete_checkpoint=False)
+    sync()
+    return r
+
+
+def phase_spill(dev_line, root):
+    """Tiered storage at the headline's widths (bench.py --spill): (a) the
+    steady state with spill off, ``availability`` and ``eager``; (b) a
+    deep-backlog recovery whose replay span is SPILL_FILL rings long,
+    against a no-spill control; (c) a torn segment of that span refused
+    with its label; (d) recovery from an incremental checkpoint chain."""
+    import glob
+
+    from clonos_tpu_torch.causal.recovery import RecoveryError
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    by_path = {}
+    rnd = lambda d: {k: round(v, 3) for k, v in d.items()}
+
+    # (a) the steady state three ways, in turns: every spilled carry
+    # equals spill off's and the spill hook never synchronises.
+    t0 = time.monotonic()
+    hooks = {p: {"syncs": [], "ms": []} for p in ("availability", "eager")}
+    rates = {"off": [], "availability": [], "eager": []}
+    stats = {k: [] for k in rates}
+    off = None
+    for mode in SPILL_TURNS:
+        policy = None if mode == "off" else mode
+        r, rate, st, launches = _steady(root, policy, hooks.get(mode))
+        rates[mode].append(rate)
+        stats[mode].append(st)
+        if off is None:
+            off = r
+        else:
+            _assert_same(off, r, f"(a) spill {mode} vs spill off")
+        if policy is not None:
+            if min(launches.values()) == 0:
+                raise AssertionError(f"(a) {policy}: no kernel launch")
+            by_path.setdefault(f"spill_{policy}", launches)
+            shutil.rmtree(os.path.join(root, policy), ignore_errors=True)
+        del r
+    del off
+    if torch.device(DEVICE).type == "cuda" and any(
+            sum(h["syncs"]) for h in hooks.values()):
+        raise AssertionError(f"(a) the spill hook synchronised: "
+                             f"{hooks} at {SYNC_SITES}")
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    log("[spill] (a) steady state, availability == eager == off (canonical "
+        "carry): " + json.dumps(dict(
+            turns=list(SPILL_TURNS),
+            records_per_s={k: [round(x, 1) for x in v]
+                           for k, v in rates.items()},
+            spill_throughput_overhead_fraction=round(
+                1 - mean["availability"] / mean["off"], 6),
+            eager_overhead_fraction=round(1 - mean["eager"] / mean["off"],
+                                          6),
+            spill_stats=stats,
+            spill_hook_syncs={k: h["syncs"] for k, h in hooks.items()},
+            spill_hook_host_ms={k: h["ms"] for k, h in hooks.items()},
+            kernel_launches={k: by_path[f"spill_{k}"]
+                             for k in ("availability", "eager")},
+            ring_steps=SPILL_STEADY_RING,
+            seconds=round(time.monotonic() - t0, 3), device=dev_line)))
+
+    # (b) the deep backlog: the ring holds one epoch, the replay span is
+    # SPILL_FILL of them; a host budget of 1 leaves the rest on disk.
+    t0 = time.monotonic()
+    spool = os.path.join(root, "backlog")
+    r = _backlog(spool, SPILL_BACKLOG_RING)
+    r.executor.drain_spill()
+    occupancy = r.executor.spill_occupancy()
+    flats = _flats(r, BACKLOG_KILL)
+    r.inject_failure(flats)
+    t1 = time.monotonic()
+    report, by_path["spill_recovery"], _ = _counted(r.recover)
+    wall_ms = (time.monotonic() - t1) * 1e3
+    moved = r.executor.spill_stats()
+    control = _backlog(None, SPILL_CONTROL_RING)
+    hi = r.auditor.last_epoch
+    ledger = [e for e in r.auditor.ledger() if e["epoch"] <= hi]
+    expected = [e for e in control.auditor.ledger() if e["epoch"] <= hi]
+    problems = diff_ledgers(expected, ledger)
+    if problems or len(ledger) != SPILL_FILL + 1:
+        raise AssertionError(f"(b) ledger diff against the control: "
+                             f"{problems[:8]} ({len(ledger)} entries)")
+    _mirror_ignore(control, flats)
+    _assert_same_cut_rings(control, r, "(b) deep backlog")
+    if not report.steps_replayed > SPILL_BACKLOG_RING:
+        raise AssertionError(f"(b) replayed {report.steps_replayed} steps, "
+                             f"not past the {SPILL_BACKLOG_RING}-step ring")
+    if moved.get("disk_hits", 0) <= 0 or moved.get("write_errors"):
+        raise AssertionError(f"(b) refill movement {moved}")
+    if min(by_path["spill_recovery"].values()) == 0:
+        raise AssertionError(f"(b) no kernel launch: {by_path}")
+    del control
+    log("[spill] (b) deep-backlog recovery == no-spill control (ledger "
+        "diff [], canonical carry): " + json.dumps(dict(
+            flats=flats, from_epoch=report.from_epoch,
+            steps_replayed=report.steps_replayed,
+            ring_steps=SPILL_BACKLOG_RING,
+            control_ring_steps=SPILL_CONTROL_RING,
+            records_replayed=report.records_replayed,
+            ignored_checkpoints=list(report.ignored_checkpoints),
+            recovery_ms=round(report.recovery_ms, 3),
+            recovery_wall_ms=round(wall_ms, 3),
+            phase_ms=rnd(report.phase_ms),
+            tier_occupancy_at_kill=occupancy, spill_movement=moved,
+            kernel_launches=by_path["spill_recovery"],
+            seconds=round(time.monotonic() - t0, 3), device=dev_line)))
+
+    # (c) a torn segment: the source ring's epoch that outran the ring,
+    # cut in half on disk. Recovery must refuse it with its label.
+    t0 = time.monotonic()
+    first = min(e for e in r.executor.spill_logs[0].retained_epochs())
+    torn = glob.glob(os.path.join(spool, f"edge0_epoch{first}.seg"))
+    if len(torn) != 1:
+        raise AssertionError(f"(c) no spilled segment of epoch {first}")
+    with open(torn[0], "rb") as f:
+        data = f.read()
+    with open(torn[0], "wb") as f:
+        f.write(data[:len(data) // 2])
+    r.inject_failure(flats)
+    try:
+        r.recover()
+    except RecoveryError as err:
+        if "tiered refill failed" not in str(err) \
+                or f"epoch{first}" not in str(err):
+            raise AssertionError(f"(c) unlabelled refusal: {err}") from err
+        refusal = str(err)
+    else:
+        raise AssertionError("(c) recovery replayed a torn segment")
+    r.executor.close_spill()
+    del r
+    shutil.rmtree(spool, ignore_errors=True)
+    log("[spill] (c) torn segment refused: " + json.dumps(dict(
+        segment=os.path.basename(torn[0]), bytes_kept=len(data) // 2,
+        bytes_written=len(data), error=refusal[:300],
+        seconds=round(time.monotonic() - t0, 3))))
+
+    # (d) incremental checkpoints: the pipelined fence stages each
+    # snapshot's device diff in its capture window (0 synchronising calls)
+    # and finishes it at the join; the restore point is a delta with a
+    # chain behind it; a window and a reduce subtask recover from it.
+    t0 = time.monotonic()
+    kw = _spill_kw(SPILL_STEADY_RING, INC_BASE_EVERY)
+    inc = ClusterRunner(build_job(), device=DEVICE, overlap_epoch=True,
+                        checkpoint_dir=os.path.join(root, "inc"),
+                        incremental_checkpoints=True,
+                        incremental_base_every=INC_BASE_EVERY, **kw)
+    golden = ClusterRunner(build_job(), device=DEVICE, **kw)
+    capture, join_syncs = [], []
+    begin, join = inc._begin_fence_tail, inc._join_fence_tail
+    inc._begin_fence_tail = lambda *a: capture.append(
+        _sync_count(lambda: begin(*a))[1])
+    inc._join_fence_tail = lambda *a: join_syncs.append(
+        _sync_count(lambda: join(*a))[1])
+    for _ in range(INC_BASE_EVERY):
+        for x in (golden, inc):
+            x.run_epoch(complete_checkpoint=True)
+    inc.drain_fence()
+    inc._begin_fence_tail, inc._join_fence_tail = begin, join
+    st = inc.coordinator.storage
+    restore = inc.standbys.latest.checkpoint_id
+    chain = st._chain(restore)
+    kinds = [st._index[c][0] for c in chain]
+    if len(chain) != INC_BASE_EVERY or kinds[0] != "full" \
+            or set(kinds[1:]) != {"delta"}:
+        raise AssertionError(f"(d) restore point {restore}: chain {chain} "
+                             f"kinds {kinds}")
+    for _ in range(EXTRA_STEPS):
+        for x in (golden, inc):
+            x.step()
+    flats = _flats(inc, INC_KILL)
+    inc.inject_failure(flats)
+    rep, by_path["incremental_recovery"], _ = _counted(inc.recover)
+    _assert_same(golden, inc, "(d) recovery from the incremental chain")
+    if torch.device(DEVICE).type == "cuda" and any(capture):
+        raise AssertionError(f"(d) capture windows synchronised: {capture} "
+                             f"at {SYNC_SITES}")
+    if min(by_path["incremental_recovery"].values()) == 0:
+        raise AssertionError(f"(d) no kernel launch: {by_path}")
+    sizes = st.delta_bytes_on_disk()
+    triggers = len(chain)
+    # What a delta holds, leaf by leaf: unchanged, changed chunks, or the
+    # whole leaf (more chunks changed than the budget).
+    from clonos_tpu_torch.runtime.incremental import LeafDelta
+    composition = {}
+    for c in chain[1:]:
+        kinds_n = {"unchanged": 0, "chunks": 0, "whole": 0}
+        nbytes = {"chunks": 0, "whole": 0}
+        for e in st._load(c)["payload"]:
+            if e is None:
+                kinds_n["unchanged"] += 1
+            elif isinstance(e, LeafDelta):
+                kinds_n["chunks"] += 1
+                nbytes["chunks"] += e.chunks.nbytes + e.chunk_ids.nbytes
+            else:
+                kinds_n["whole"] += 1
+                nbytes["whole"] += np.asarray(e).nbytes
+        composition[str(c)] = dict(leaves=kinds_n, payload_bytes=nbytes)
+    log("[spill] (d) recovery from an incremental chain == golden: "
+        + json.dumps(dict(
+            flats=flats, restore_checkpoint=restore, chain=chain,
+            kinds=kinds, bytes_on_disk={str(c): sizes[c] for c in chain},
+            delta_over_full=[round(sizes[c] / sizes[chain[0]], 6)
+                             for c in chain[1:]],
+            delta_composition=composition,
+            capture_window_syncs=capture, join_syncs=join_syncs,
+            packed_count_reads=st.packed_reads,
+            packed_count_reads_per_trigger=round(
+                st.packed_reads / triggers, 3),
+            steps_replayed=rep.steps_replayed,
+            recovery_ms=round(rep.recovery_ms, 3),
+            phase_ms=rnd(rep.phase_ms),
+            kernel_launches=by_path["incremental_recovery"],
+            seconds=round(time.monotonic() - t0, 3), device=dev_line)))
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1002,10 +1354,17 @@ def main() -> int:
         overlap_launches = phase_overlap(dev_line, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log(f"[config] phase 8: {SPILL_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_spill_", dir=SCRATCH)
+    try:
+        spill_launches = phase_spill(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
-        "audit_recovery": audit_launches, **overlap_launches})))
+        "audit_recovery": audit_launches, **overlap_launches,
+        **spill_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

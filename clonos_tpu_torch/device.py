@@ -77,6 +77,13 @@ class HostCopy:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(cuda[0].device))
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the host copies (known before they land)."""
+        return sum(int(x.numel() * x.element_size())
+                   if isinstance(x, torch.Tensor) else int(x.nbytes)
+                   for x in tree_leaves(self._host))
+
     def wait(self) -> Any:
         if self._event is not None:
             self._event.synchronize()

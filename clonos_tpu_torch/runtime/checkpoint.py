@@ -11,7 +11,9 @@ push, the audit ledger (port of ``clonos_tpu/runtime/checkpoint.py``).
   storage serialised by ``_writer_lock`` and the pending/ignored/completed
   books by ``_state_lock``. The snapshot's device-to-host copy is started
   on the triggering thread (``device.HostCopy``) and the writer only waits
-  for it, so a writer never queues CUDA work behind later blocks.
+  for it, so a writer never queues CUDA work behind later blocks. A
+  storage that diffs on the device (``runtime/incremental.py``) stages
+  its device work on the triggering thread too (:class:`StagedWrite`).
 - Completion (all acks in, snapshot durable) has exactly one completer,
   whichever thread gets there first: it fsyncs the ledger, marks the
   checkpoint complete, truncates the causal and in-flight logs back to
@@ -50,12 +52,36 @@ class CompletedCheckpoint:
     size_bytes: int = 0
 
 
+class StagedWrite:
+    """A checkpoint write whose device work was dispatched on the thread
+    that queued the snapshot's work (:meth:`CheckpointStorage.stage`).
+    :meth:`finish` runs on that thread too, once, before the storage's
+    ``write`` may complete; ``write`` itself may run on any thread and
+    only waits. :meth:`discard` drops a write that will never happen."""
+
+    #: bytes of the staged snapshot
+    nbytes = 0
+
+    def finish(self) -> None:
+        raise NotImplementedError
+
+    def discard(self) -> None:
+        """The checkpoint was ignored before its write."""
+
+
 class CheckpointStorage:
     """Storage SPI."""
 
     #: True = the coordinator hands the storage a numpy tree (durable
-    #: storage). False = the storage keeps device tensors.
+    #: storage). False = the storage keeps device tensors, or stages its
+    #: own copies (:meth:`stage`).
     wants_host = True
+
+    def stage(self, carry, checkpoint_id: int) -> Optional[StagedWrite]:
+        """Start checkpoint ``checkpoint_id``'s device work on the calling
+        thread; None when the storage has none (it takes ``carry`` as it
+        is)."""
+        return None
 
     def write(self, ckpt: CompletedCheckpoint) -> None:
         raise NotImplementedError
@@ -358,23 +384,34 @@ class CheckpointCoordinator:
         will mutate them (``lean_snapshot``'s deep copy), otherwise they
         are cloned here."""
         with self._state_lock:
-            if checkpoint_id in self._ignored:
-                return
-            self._pending[checkpoint_id] = set(range(self.num_subtasks))
-            self._trigger_wall[checkpoint_id] = time.time()
+            ignored = checkpoint_id in self._ignored
+            if not ignored:
+                self._pending[checkpoint_id] = set(range(self.num_subtasks))
+                self._trigger_wall[checkpoint_id] = time.time()
+        if ignored:
+            if isinstance(carry, StagedWrite):
+                carry.discard()
+            return
         self._observe("trigger", cid=checkpoint_id)
         snap_start = time.monotonic()
         if self.storage.wants_host:
             if not isinstance(carry, HostCopy):
                 carry = HostCopy(carry)
-        elif not owned:
-            carry = tree_map(_copy_leaf, carry)
+        elif not isinstance(carry, StagedWrite):
+            staged = self.storage.stage(carry, checkpoint_id)
+            if staged is not None:
+                staged.finish()
+                carry = staged
+            elif not owned:
+                carry = tree_map(_copy_leaf, carry)
 
         def _write():
             host = carry.wait() if isinstance(carry, HostCopy) else carry
+            size = (carry.nbytes if isinstance(carry, StagedWrite)
+                    else carry_nbytes(host))
             ckpt = CompletedCheckpoint(
                 checkpoint_id=checkpoint_id, carry=host,
-                wall_time=snap_start, size_bytes=carry_nbytes(host))
+                wall_time=snap_start, size_bytes=size)
             with self._writer_lock:
                 self.storage.write(ckpt)
             self._maybe_complete(checkpoint_id)

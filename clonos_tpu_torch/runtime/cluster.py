@@ -31,9 +31,17 @@ host bootstrap (``bootstrap_standby``), latency markers and the metrics
 registry they feed, and the routed-window cache shared by one vertex's
 failed subtasks.
 
-Not ported yet, each refused loudly where reached: spill, incremental
-checkpoints, host feeds, two-input operators, transactional sinks and
-timer services.
+Tiered storage: with a ``spool_dir`` (passed through to the executor)
+every closed epoch's ring steps and determinant rows spill to host and
+disk tiers, and a recovery whose replay span outruns the ring refills
+the leading steps from them (uploaded once per recovery, spliced ahead
+of the ring's steps, routed as ring steps are); a torn segment raises a
+labelled ``RecoveryError``. With spill the pipelined fence settles
+strictly. ``incremental_checkpoints`` writes device-diffed delta chains
+(``runtime/incremental.py``).
+
+Not ported yet, each refused loudly where reached: host feeds, two-input
+operators, transactional sinks and timer services.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from clonos_tpu_torch.parallel import routing
 from clonos_tpu_torch.runtime import checkpoint as cp
 from clonos_tpu_torch.runtime.executor import (DETS_PER_STEP, JobCarry,
                                                LeanSnapshot, LocalExecutor)
+from clonos_tpu_torch.storage import SegmentCorruptError, StorageError
 from clonos_tpu_torch.utils import metrics as met
 from clonos_tpu_torch.utils.tree import tree_map
 
@@ -211,6 +220,8 @@ class ClusterRunner:
                  audit: Optional[bool] = None,
                  overlap_recovery: bool = True,
                  overlap_epoch: bool = False,
+                 incremental_checkpoints: bool = False,
+                 incremental_base_every: int = 8,
                  device="cuda", **executor_kw):
         self.job = job
         self.executor = LocalExecutor(job, steps_per_epoch=steps_per_epoch,
@@ -231,9 +242,18 @@ class ClusterRunner:
         self.last_fence_phases: Dict[str, float] = {}
         self.fence_overlap_saved_total_ms = 0.0
         self._fence_headroom_checked = False
-        storage: cp.CheckpointStorage = (
-            cp.FileCheckpointStorage(checkpoint_dir) if checkpoint_dir
-            else cp.InMemoryCheckpointStorage())
+        if incremental_checkpoints:
+            if checkpoint_dir is None:
+                raise ValueError(
+                    "incremental_checkpoints requires checkpoint_dir")
+            from clonos_tpu_torch.runtime.incremental import (
+                IncrementalCheckpointStorage)
+            storage: cp.CheckpointStorage = IncrementalCheckpointStorage(
+                checkpoint_dir, base_every=incremental_base_every)
+        elif checkpoint_dir:
+            storage = cp.FileCheckpointStorage(checkpoint_dir)
+        else:
+            storage = cp.InMemoryCheckpointStorage()
         self.coordinator = cp.CheckpointCoordinator(
             storage, num_subtasks=job.total_subtasks(),
             base_interval_steps=steps_per_epoch)
@@ -270,6 +290,16 @@ class ClusterRunner:
         self.coordinator.subscribe_completion(
             lambda cid: self._m_ckpt_latency_ms.update(
                 self.coordinator.completion_latency_s.get(cid, 0.0) * 1e3))
+        if self.executor.spill_logs is not None:
+            # Tier occupancy and movement over every spill owner.
+            ex = self.executor
+            for key in ("host_epochs", "disk_epochs", "host_bytes",
+                        "disk_bytes"):
+                g.gauge(f"spill.{key.replace('_', '-')}",
+                        lambda k=key: ex.spill_occupancy()[k])
+            for key in ("bytes_spilled", "bytes_refilled"):
+                g.gauge(f"spill.{key.replace('_', '-')}",
+                        lambda k=key: ex.spill_stats().get(k, 0))
         # Exactly-once audit: audit=None inherits the process-global
         # stance, and the divergence policy always does; the default
         # NullAuditor reads and writes nothing.
@@ -292,6 +322,9 @@ class ClusterRunner:
         self._route_cache_enabled = False
         #: cache hits in the last recover()
         self._route_cache_hits = 0
+        #: ring index -> ((lo, hi), steps on the device) refilled from the
+        #: spill tiers within one recover()
+        self._spill_cache: Dict[int, Tuple[Tuple[int, int], RecordBatch]] = {}
         self._last_records_total = 0
         #: checkpoint id -> np [L] log heads at that fence, from the fence
         #: health read (recovery reads them here, not from the device).
@@ -352,7 +385,11 @@ class ClusterRunner:
                    else overlap_fence)
         if overlap and not self._fence_headroom_checked:
             self._check_fence_headroom()
-        if self._fence_tail is not None and not overlap:
+        # A mode switch settles strictly, and so does spill: the tail's
+        # worker (attach_spill_digests) and this epoch's spill hook share
+        # the tiered stores, so the tail joins before this epoch's compute.
+        if self._fence_tail is not None and (
+                not overlap or self.executor.spill_logs is not None):
             self._join_fence_tail()
         ex = self.executor
         closed = ex.epoch_id
@@ -416,6 +453,9 @@ class ClusterRunner:
             t = _time.monotonic()
             self.coordinator.record_ledger(dg.to_entry())
             phases["fence.ledger-write"] = (_time.monotonic() - t) * 1e3
+            if self.executor.spill_logs is not None:
+                # Segment index entries carry the ledger's fingerprints.
+                self.executor.attach_spill_digests(closed, dg)
             self.epoch_tracker.notify_epoch_sealed(closed, dg)
             self._m_audit_sealed.inc()
         self.last_sealed_epoch = max(self.last_sealed_epoch, closed)
@@ -473,10 +513,11 @@ class ClusterRunner:
     def _check_fence_headroom(self) -> None:
         """The pipelined fence defers the overflow check to the next
         fence, so the in-flight rings must absorb one extra epoch before
-        they wrap; asserted once."""
+        they wrap; asserted once. Spilled rings are exempt: a wrap is
+        what spill serves."""
         self._fence_headroom_checked = True
         rings = self.executor.carry.out_rings
-        if not rings:
+        if not rings or self.executor.spill_logs is not None:
             return
         min_steps = min(r.ring_steps for r in rings)
         spe = self.executor.steps_per_epoch
@@ -499,8 +540,13 @@ class ClusterRunner:
         # clonos: overlap-window-begin
         handles = ex.capture_fence(with_window=self.auditor.enabled)
         snap = ex.lean_snapshot()
-        if self.coordinator.storage.wants_host:
+        storage = self.coordinator.storage
+        if storage.wants_host:
             snap = _device.HostCopy(snap)
+        else:
+            # A device-diffing storage dispatches its diff here; its one
+            # packed read waits for the join.
+            snap = storage.stage(snap, closed) or snap
         self._append_source_fence_determinant(closed, phases)
         # clonos: overlap-window-end
         pre_ms = (_time.monotonic() - t) * 1e3
@@ -551,6 +597,10 @@ class ClusterRunner:
             return
         self._fence_tail = None
         t = _time.monotonic()
+        if isinstance(tail["snap"], cp.StagedWrite):
+            # The staged write's host read and copies belong to this
+            # thread; the worker's write waits for them.
+            tail["snap"].finish()
         tail["thread"].join()
         joined_ms = (_time.monotonic() - t) * 1e3
         phases = tail["phases"]
@@ -750,6 +800,7 @@ class ClusterRunner:
                                   for ri in range(nrings)}
         self._route_cache = {}
         self._route_cache_hits = 0
+        self._spill_cache = {}
         vid_failed_counts: Dict[int, int] = {}
         for flat in failed:
             v_of = self._vertex_of(flat)[0]
@@ -982,6 +1033,7 @@ class ClusterRunner:
         ex.carry = patched
         self._bounds_cache = None
         self._route_cache = {}
+        self._spill_cache = {}
         tp = _clock("replica_rebuild", tp)
 
         # ---- final packed read: completion barrier + deferred asserts ----
@@ -1211,13 +1263,17 @@ class ClusterRunner:
                         f"surviving determinant replica under drill set "
                         f"{sorted(fset)} — drill fewer subtasks at once "
                         f"or deepen sharing/replication")
+            # Input reconstruction needs the whole replay window in the
+            # upstream rings or the tiers: checked before any state goes.
             n_steps = self.global_step - fence
-            if n_steps > self.executor.compiled.inflight_ring_steps:
+            if (n_steps > self.executor.compiled.inflight_ring_steps
+                    and self.executor.spill_logs is None):
                 raise rec.RecoveryError(
                     f"failover_drill: {n_steps} steps since the last "
                     f"completed checkpoint exceed the in-flight ring "
                     f"({self.executor.compiled.inflight_ring_steps} "
-                    f"steps); spill comes with a later slice")
+                    f"steps) and spill is disabled — drill earlier or "
+                    f"enable spill")
         self.inject_failure(flats)
         self.recover(drill=True)
         return _time.monotonic() - t0
@@ -1321,7 +1377,9 @@ class ClusterRunner:
         ex.step_in_epoch = 0
         for j in range(k + 1):
             runner._fence_step[from_epoch + j] = fence + j * spe
+            ex._epoch_first[from_epoch + j] = fence + j * spe
         runner._ring_tail_mirror = fence
+        ex._ring_tail = fence
         with runner._ck_heads_lock:
             runner._ck_log_heads[ckpt.checkpoint_id] = np.asarray(
                 ckpt.carry.log_heads).astype(np.int64)
@@ -1586,7 +1644,9 @@ class ClusterRunner:
         ``[fence-1+i*ch, fence-1+(i+1)*ch)``; slot 0 of window 0 is the
         dead pre-fence slot, masked and replaced by the edge buffer.
         Coverage comes from the host bound mirror; the round-robin cursor
-        stays on the device."""
+        stays on the device. Steps the ring no longer holds (below its
+        tail, or clobbered by a wrap while the tail stood still) come
+        from the spill tiers, spliced ahead of the ring's steps."""
         if n_steps <= 0:
             return []
         e = self.job.edges[eidx]
@@ -1594,6 +1654,8 @@ class ClusterRunner:
         ri = self.executor.compiled.ring_index[e.src]
         el = carry.out_rings[ri]
         tail, head = self._bounds_cache[ri]
+        # Steps the ring physically retains: a wrap clobbers steps below
+        # head - ring_steps even while the tail has not moved.
         ring_lo = max(tail, head - el.ring_steps)
         rr = snap.rr_offsets[eidx][0].to(torch.int32)
         need = n_steps
@@ -1604,11 +1666,11 @@ class ClusterRunner:
             h_start = fence - 1 + i * ch
             lo_real = max(h_start, fence)
             h_need = max(min(h_start + ch, fence - 1 + n_steps) - lo_real, 0)
-            if not (lo_real >= ring_lo and head - lo_real >= h_need):
+            if head - lo_real < h_need:
                 raise rec.RecoveryError(
-                    f"in-flight ring of vertex {e.src} no longer holds steps "
-                    f"[{lo_real}, {lo_real + h_need}) (spill comes with a "
-                    f"later slice)")
+                    f"in-flight ring of vertex {e.src} ends at step {head}, "
+                    f"before the replay window [{lo_real}, "
+                    f"{lo_real + h_need})")
             routed = (self._route_cache.get((eidx, i))
                       if self._route_cache_enabled else None)
             if routed is not None:
@@ -1616,6 +1678,11 @@ class ClusterRunner:
                 lane = RecordBatch(*(x[:, sub] for x in routed))
             else:
                 raw = ifl.slice_steps_at(el, h_start, ch)
+                if h_need and lo_real < ring_lo:
+                    raw = self._splice_spilled(
+                        raw, ri, e.src, fence, h_start,
+                        min(h_start + ch, ring_lo),
+                        min(ring_lo, fence - 1 + n_steps))
                 live = (idx >= lead) & (idx < min(max(need, 0), ch))
                 raw = raw._replace(valid=raw.valid & live[:, None, None])
                 if self._route_cache_enabled:
@@ -1635,6 +1702,74 @@ class ClusterRunner:
                                                      snap.edge_bufs[eidx])))
             chunks.append(lane)
         return chunks
+
+    def _splice_spilled(self, raw: RecordBatch, ri: int, src_vid: int,
+                        fence: int, h_start: int, lead_end: int,
+                        spill_end: int) -> RecordBatch:
+        """Replace a ring window's leading slots (steps ``[h_start,
+        lead_end)``, which the ring no longer holds) with the spilled
+        steps. Slots before ``fence`` are dead (zeros; the replay masks
+        them). The spilled span ``[fence, spill_end)`` is read through the
+        prefetching ReplayIterator and uploaded once per recovery."""
+        lo = max(h_start, fence)
+        spilled = self._spilled_span(ri, src_vid, fence, spill_end)
+        parts = []
+        for x, sp in zip(raw, spilled):
+            got = sp[lo - fence:lead_end - fence]
+            # Dead slots: before the fence, and past the needed span.
+            pre = torch.zeros_like(x[:lo - h_start])
+            post = torch.zeros_like(x[:lead_end - lo - got.shape[0]])
+            parts.append(torch.cat([pre, got, post,
+                                    x[lead_end - h_start:]]))
+        return RecordBatch(*parts)
+
+    def _spilled_span(self, ri: int, src_vid: int, lo: int, hi: int
+                      ) -> RecordBatch:
+        """Ring ``ri``'s steps ``[lo, hi)`` from the spill tiers, on the
+        device — read and uploaded once per recovery (the host arrays
+        cross in one pinned copy per field). A torn, corrupt or missing
+        segment raises a labelled RecoveryError."""
+        cached = self._spill_cache.get(ri)
+        if cached is not None and cached[0] == (lo, hi):
+            return cached[1]
+        spill = (self.executor.spill_logs[ri]
+                 if self.executor.spill_logs is not None else None)
+        if spill is None:
+            raise rec.RecoveryError(
+                f"in-flight ring of vertex {src_vid} no longer holds steps "
+                f"[{lo}, {hi}) and spill is disabled")
+        parts: List[RecordBatch] = []
+        have = lo
+        eps = spill.retained_epochs()
+        if eps:
+            it = ifl.ReplayIterator(spill, eps[0], eps[-1])
+            try:
+                for ep_start, ep_batch in it.epochs():
+                    if ep_start > have:
+                        break         # a hole: refused below, never spliced
+                    a = max(have, ep_start)
+                    b = min(ep_start + ep_batch.keys.shape[0], hi)
+                    if b > a:
+                        parts.append(RecordBatch(
+                            *(x[a - ep_start:b - ep_start]
+                              for x in ep_batch)))
+                        have = b
+                    if have >= hi:
+                        break
+            except (SegmentCorruptError, StorageError) as err:
+                raise rec.RecoveryError(
+                    f"vertex {src_vid}: tiered refill failed — {err}"
+                ) from err
+            finally:
+                it.close()
+        if have < hi:
+            raise rec.RecoveryError(
+                f"vertex {src_vid}: spill does not cover steps "
+                f"[{have}, {hi})")
+        span = RecordBatch(*(_device.upload(np.concatenate(xs), self.device)
+                             for xs in zip(*parts)))
+        self._spill_cache[ri] = ((lo, hi), span)
+        return span
 
     def _route_all(self, eidx: int, raw: RecordBatch, rr: torch.Tensor
                    ) -> RecordBatch:

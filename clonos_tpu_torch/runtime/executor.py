@@ -1,9 +1,12 @@
 """Block executor: the whole job advanced K supersteps at a time.
 
-Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, spill,
-host feeds and async-append batching, which come with later slices).
+Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, host
+feeds and async-append batching, which come with later slices).
 ``capture_fence`` hands a closed epoch's fence surface to the pipelined
-fence's worker thread without a host sync (``FenceHandles``).
+fence's worker thread without a host sync (``FenceHandles``). With a
+``spool_dir`` every closed epoch's ring steps and determinant rows move
+to the tiered stores (``storage/tiered.py``) at the epoch roll, sliced
+by host-known bounds: the spill hook makes no synchronising call.
 
 - Every vertex's subtasks are a ``[P]`` dim of its state and batches.
 - A superstep advances every vertex by one batch: vertex v consumes the
@@ -22,6 +25,7 @@ fence's worker thread without a host sync (``FenceHandles``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time as _time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -557,6 +561,9 @@ class LocalExecutor:
     def __init__(self, job: JobGraph, steps_per_epoch: int = 16,
                  log_capacity: int = 1 << 14, max_epochs: int = 64,
                  inflight_ring_steps: int = 64,
+                 spool_dir: Optional[str] = None,
+                 spill_policy: str = ifl.SpillPolicy.EAGER,
+                 spill_host_budget_epochs: Optional[int] = 2,
                  block_steps: Optional[int] = None,
                  replication_factor: int = -1,
                  seed: int = 0, logical_time: bool = False,
@@ -587,6 +594,34 @@ class LocalExecutor:
         self.step_input_history: List[Tuple[int, int]] = []
         #: the last closed epoch's superstep range [lo, hi)
         self.closed_steps: Tuple[int, int] = (0, 0)
+        #: host mirrors of the in-flight ring bounds: epoch -> its first
+        #: superstep (every ring's head counts supersteps), and the ring
+        #: tail, which moves only at the truncation the host orders
+        self._epoch_first: Dict[int, int] = {0: 0}
+        self._ring_tail = 0
+        #: (epoch, its log window) gathered by the spill hook, reused by
+        #: capture_fence at the same fence
+        self._log_window_cache: Optional[Tuple[int, tuple]] = None
+        # Tiered storage: one spill owner per ring vertex and one store
+        # for the stacked determinant logs (None = spill off).
+        self.spill_policy = spill_policy
+        self.spill_logs: Optional[List[ifl.SpillingInFlightLog]] = None
+        self.det_store = None
+        #: per-ring epochs (epoch, first step, steps) the AVAILABILITY
+        #: policy deferred, awaiting a later spill or truncation
+        self._pending_spill: List[List[Tuple[int, int, int]]] = [
+            [] for _ in self.compiled.ring_vertices]
+        if spool_dir is not None:
+            from clonos_tpu_torch.storage import TieredEpochStore
+            self.spill_logs = [
+                ifl.SpillingInFlightLog(
+                    spool_dir, edge_id=vid, policy=spill_policy,
+                    host_budget_epochs=spill_host_budget_epochs)
+                for vid in self.compiled.ring_vertices]
+            self.det_store = TieredEpochStore(
+                spool_dir, "dets",
+                durable=spill_policy != ifl.SpillPolicy.DISABLED,
+                host_budget_epochs=spill_host_budget_epochs)
         # Epoch 0 starts at log offset 0 for every log.
         self.carry = self._roll(self.compiled.init_carry(self.device), 0)
 
@@ -649,24 +684,162 @@ class LocalExecutor:
         """Run the rest of the current epoch in blocks, then roll the
         epoch (the checkpoint fence). Returns the last block's outputs."""
         outs = None
+        self._log_window_cache = None
         first = self._steps_executed - self.step_in_epoch
         while self.step_in_epoch < self.steps_per_epoch:
             outs = self._run_block(min(
                 self.block_steps, self.steps_per_epoch - self.step_in_epoch))
+        closed, hi = self.epoch_id, self._steps_executed
+        if self.spill_logs is not None:
+            # Before the roll stamps the next epoch: the closed epoch's
+            # log windows are [epoch start, head).
+            with record_function("spill"):
+                self._spill_epoch(closed, first, hi)
         self.epoch_id += 1
         self.step_in_epoch = 0
         self.carry = self._roll(self.carry, self.epoch_id)
+        self._epoch_first[self.epoch_id] = hi
         #: the closed epoch's superstep range (what capture_fence slices)
-        self.closed_steps = (first, self._steps_executed)
+        self.closed_steps = (first, hi)
         return outs
 
+    def _spill_epoch(self, epoch: int, lo: int, hi: int) -> None:
+        """Move the just-closed epoch's ring steps ``[lo, hi)`` and its
+        determinant windows to the tiered stores. Every bound is the
+        host's own (heads count supersteps; the tail moves only at the
+        truncation the host orders), so nothing here reads the device:
+        each slice is gathered into a fresh tensor (later blocks write
+        the rings in place) and its copy to the host starts now.
+
+        Policy AVAILABILITY skips epochs while the ring has headroom, but
+        a skipped epoch is only deferred: before a later ring wrap could
+        clobber its steps it is spilled retroactively."""
+        for i, el in enumerate(self.carry.out_rings):
+            S = el.ring_steps
+            sl = self.spill_logs[i]
+            if (self.spill_policy == ifl.SpillPolicy.AVAILABILITY
+                    and (hi - self._ring_tail) / S
+                    < sl.availability_trigger):
+                if hi > lo:
+                    self._pending_spill[i].append((epoch, lo, hi - lo))
+            elif hi > lo:
+                sl.spill_epoch(epoch, lo, ifl.slice_steps_at(el, lo, hi - lo))
+            # Retroactive flush: whatever a wrap could reach within the
+            # next epoch's appends leaves the ring now.
+            danger = hi + self.steps_per_epoch - S
+            keep = []
+            for (e, s, m) in self._pending_spill[i]:
+                if s < hi - S:
+                    raise RuntimeError(
+                        f"in-flight ring {i}: epoch {e} steps "
+                        f"[{s}, {s + m}) were clobbered before spilling "
+                        f"(AVAILABILITY policy deferred too long)")
+                if s < danger:
+                    sl.spill_epoch(e, s, ifl.slice_steps_at(el, s, m))
+                else:
+                    keep.append((e, s, m))
+            self._pending_spill[i] = keep
+        if self.det_store is not None:
+            self._spill_det_epoch(epoch, lo, hi)
+
+    def _spill_det_epoch(self, epoch: int, lo: int, hi: int) -> None:
+        """The closed epoch's determinant windows of every stacked log,
+        padded to ``[L, max count, lanes]`` with their counts and start
+        offsets (the reference's segment layout), from the same log-window
+        gather the pipelined fence's capture uses."""
+        counts, flat_d, rel_d, starts, rows = self._log_window(epoch, lo, hi)
+        nmax = max(int(counts.max()) if counts.size else 0, 1)
+        padded = torch.zeros((self.compiled.L, nmax, det.NUM_LANES),
+                             dtype=torch.int32, device=self.device)
+        padded[flat_d, rel_d] = rows
+        self.det_store.put(epoch, None, _device.HostCopy({
+            "rows": padded, "counts": counts.astype(np.int32),
+            "starts": starts.to(torch.int32)}))
+
     def notify_checkpoint_complete(self, epoch: int) -> None:
-        """Truncate determinant and in-flight logs for epochs <= ``epoch``."""
+        """Truncate determinant and in-flight logs, and their spilled
+        tiers, for epochs <= ``epoch``."""
         self.carry = self._trunc(self.carry, epoch)
+        first = self._epoch_first.get(epoch + 1)
+        if first is not None:
+            self._ring_tail = max(self._ring_tail, first)
+        self._epoch_first = {e: s for e, s in self._epoch_first.items()
+                             if e > epoch}
+        for st in self._tier_stores():
+            st.truncate(epoch)
+        self._pending_spill = [[p for p in pend if p[0] > epoch]
+                               for pend in self._pending_spill]
         self.roll_gap_async = {k: v for k, v in self.roll_gap_async.items()
                                if k[1] > epoch}
         self.async_counts = {k: v for k, v in self.async_counts.items()
                              if k[1] > epoch}
+
+    # --- tiered-storage surface (storage/tiered.py) --------------------------
+
+    def _tier_stores(self) -> list:
+        out = []
+        if self.spill_logs is not None:
+            out.extend(sl.store for sl in self.spill_logs)
+        if self.det_store is not None:
+            out.append(self.det_store)
+        return out
+
+    def attach_spill_digests(self, epoch: int, dg) -> None:
+        """Stamp the sealed epoch's audit fingerprints onto its spilled
+        tiers: each ring segment carries its ``ring/v<vid>`` channel
+        chain, the determinant segment one fold over the ``log/<flat>``
+        chains — the digests the ledger entry pins."""
+        if self.spill_logs is not None:
+            for i, vid in enumerate(self.compiled.ring_vertices):
+                ch = dg.channels.get(f"ring/v{vid}")
+                if ch is not None:
+                    self.spill_logs[i].attach_digest(epoch, ch[1].hex())
+        if self.det_store is not None:
+            h = hashlib.blake2b(digest_size=8)
+            for name in sorted(dg.channels):
+                if name.startswith("log/"):
+                    h.update(name.encode() + b"\x00" + dg.channels[name][1])
+            self.det_store.attach_digest(epoch, h.hexdigest())
+
+    def det_rows_for_epoch(self, flat: int, epoch: int) -> np.ndarray:
+        """One subtask's determinant rows of a spilled epoch from whichever
+        tier holds it — equal to ``epoch_window(epoch)["logs"][flat]``
+        taken at the seal."""
+        if self.det_store is None:
+            raise RuntimeError("determinant tier disabled (no spool_dir)")
+        _, arrs = self.det_store.load_epoch(epoch)
+        c = int(np.asarray(arrs["counts"])[flat])
+        return np.ascontiguousarray(np.asarray(arrs["rows"])[flat, :c])
+
+    def spill_occupancy(self) -> Dict[str, int]:
+        """Tier residency summed across every spill owner (rings + dets)."""
+        agg = {"host_epochs": 0, "host_bytes": 0,
+               "disk_epochs": 0, "disk_bytes": 0}
+        for st in self._tier_stores():
+            for k, v in st.occupancy().items():
+                agg[k] += v
+        return agg
+
+    def spill_stats(self) -> Dict[str, Any]:
+        """Cumulative spill/refill movement counters summed across
+        stores."""
+        agg: Dict[str, Any] = {}
+        for st in self._tier_stores():
+            for k, v in st.stats().items():
+                agg[k] = agg.get(k, 0) + v
+        return agg
+
+    def drain_spill(self) -> None:
+        """Block until every queued segment write is done."""
+        for st in self._tier_stores():
+            st.drain()
+
+    def close_spill(self) -> None:
+        """Drain, then stop every tiered store's writer thread (a stopped
+        store still serves refills from what it holds)."""
+        self.drain_spill()
+        for st in self._tier_stores():
+            st.close()
 
     def _health_vector(self, carry: JobCarry) -> torch.Tensor:
         """Packed int32 health flags, the total record count and the
@@ -705,10 +878,13 @@ class LocalExecutor:
         if vec[2]:
             out.append("causal log absolute offsets near int32 wrap "
                        "(rebase required)")
+        # A spilled ring may wrap: its older steps live in the tiers.
+        spilled = self.spill_logs is not None
         for i in range(len(self.carry.out_rings)):
-            if vec[3 + i]:
+            if vec[3 + i] and not spilled:
                 out.append(f"in-flight ring of vertex "
-                           f"{self.compiled.ring_vertices[i]} overflowed")
+                           f"{self.compiled.ring_vertices[i]} overflowed "
+                           f"with spill disabled")
         if vec[3 + len(self.carry.out_rings)]:
             out.append("replica log ring overflow")
         return out
@@ -755,8 +931,16 @@ class LocalExecutor:
         bounds = small[:2 * L].reshape(L, 2)
         pieces = [_slice_log_window(c.logs, bounds).reshape(-1)]
         ring_counts = []
-        for i, (_, el) in enumerate(rings):
+        spilled: Dict[int, list] = {}
+        for i, (vid, el) in enumerate(rings):
             lo, hi, n = small[2 * L + 3 * i:2 * L + 3 * i + 3]
+            if (self.spill_logs is not None
+                    and lo < self._steps_executed - el.ring_steps):
+                # A wrap clobbered the epoch's leading steps: read them
+                # from the spill tiers.
+                spilled[vid] = self._spilled_ring_window(
+                    self.compiled.ring_index[vid], epoch, int(lo), int(hi))
+                continue
             recs, counts = _slice_ring_window(el, lo, hi, n)
             pieces += [counts, recs.reshape(-1)]
             ring_counts.append(counts.shape[0])
@@ -767,8 +951,9 @@ class LocalExecutor:
         off = rows.size
         cuts = np.concatenate([[0], np.cumsum(n_log)])
         logs = {f: rows[cuts[f]:cuts[f + 1]] for f in range(L)}
-        out_rings: Dict[int, list] = {}
-        for (vid, _), n_steps in zip(rings, ring_counts):
+        out_rings: Dict[int, list] = dict(spilled)
+        for (vid, _), n_steps in zip([r for r in rings
+                                      if r[0] not in spilled], ring_counts):
             counts = flat[off:off + n_steps].astype(np.int64)
             off += n_steps
             n = int(counts.sum())
@@ -779,7 +964,21 @@ class LocalExecutor:
                                recs[1, at[s]:at[s + 1]],
                                recs[2, at[s]:at[s + 1]])
                               for s in range(n_steps)]
-        return {"logs": logs, "rings": out_rings}
+        return {"logs": logs, "rings": {vid: out_rings[vid]
+                                        for vid, _ in rings}}
+
+    def _spilled_ring_window(self, ri: int, epoch: int, lo: int, hi: int
+                             ) -> list:
+        """:meth:`epoch_window`'s ring entry of a spilled epoch: each
+        step's valid records in (lane, slot) order, from the tiers."""
+        start, b = self.spill_logs[ri].load_epoch(epoch)
+        if (start, start + b.keys.shape[0]) != (lo, hi):
+            raise RuntimeError(
+                f"spilled epoch {epoch} of ring {ri} holds steps "
+                f"[{start}, {start + b.keys.shape[0]}), the ring's index "
+                f"says [{lo}, {hi})")
+        return [(b.keys[s][b.valid[s]], b.values[s][b.valid[s]],
+                 b.timestamps[s][b.valid[s]]) for s in range(hi - lo)]
 
     def append_async_many(self, flat_subtasks: Sequence[int],
                           d: det.Determinant) -> None:
@@ -837,25 +1036,12 @@ class LocalExecutor:
         closed = self.epoch_id - 1
         lo, hi = self.closed_steps
         health = _device.HostCopy(self._health_vector(c))
-        L = self.compiled.L
-        counts = np.asarray(
-            [DETS_PER_STEP * (hi - lo) + self.async_counts.get((f, closed),
-                                                               0)
-             for f in range(L)], np.int64)
+        counts = self._log_counts(closed, lo, hi)
         window = None
         if with_window:
-            logs = c.logs
-            me = logs.max_epochs
-            dev = self.device
-            flat = np.repeat(np.arange(L, dtype=np.int64), counts)
-            rel = np.concatenate([np.arange(n, dtype=np.int64)
-                                  for n in counts] or
-                                 [np.zeros(0, np.int64)])
-            flat_d = _device.upload(flat, dev)
-            starts = logs.epoch_starts[:, closed % me]
-            pos = ((starts.to(torch.int64)[flat_d]
-                    + _device.upload(rel, dev)) & (logs.capacity - 1))
-            bounds = [starts, logs.head]
+            _, _, _, starts, log_rows = self._log_window(closed, lo, hi)
+            self._log_window_cache = None
+            bounds = [starts, c.logs.head]
             rings = []
             for vid in self.compiled.ring_vertices:
                 el = c.out_rings[self.compiled.ring_index[vid]]
@@ -867,12 +1053,45 @@ class LocalExecutor:
                 bounds.append(torch.stack(
                     [el.epoch_starts[closed % el.max_epochs], el.head]))
             window = _device.HostCopy({
-                "log_rows": logs.rows[flat_d, pos],
+                "log_rows": log_rows,
                 "bounds": torch.cat([b.reshape(-1).to(torch.int32)
                                      for b in bounds]),
                 "rings": rings})
         return FenceHandles(closed, health, window, counts, (lo, hi),
                             self.compiled.ring_vertices)
+
+    def _log_counts(self, closed: int, lo: int, hi: int) -> np.ndarray:
+        """Host-known row counts of every log's window of epoch ``closed``
+        (supersteps ``[lo, hi)``): the sync blocks plus the async rows
+        the host ledger counted."""
+        return np.asarray(
+            [DETS_PER_STEP * (hi - lo) + self.async_counts.get((f, closed),
+                                                               0)
+             for f in range(self.compiled.L)], np.int64)
+
+    def _log_window(self, closed: int, lo: int, hi: int) -> tuple:
+        """Every log's rows of epoch ``closed``, gathered on the device by
+        host-known counts (no read): ``(counts, flat_d, rel_d, starts,
+        rows)`` — rows ``[sum(counts), lanes]`` in flat order, row ``j``
+        being log ``flat_d[j]``'s ``rel_d[j]``-th row of the epoch. The
+        spill hook's gather is reused by capture_fence at the same fence
+        (the roll in between moves no row)."""
+        cached = self._log_window_cache
+        if cached is not None and cached[0] == closed:
+            return cached[1]
+        counts = self._log_counts(closed, lo, hi)
+        logs = self.carry.logs
+        dev = self.device
+        flat = np.repeat(np.arange(self.compiled.L, dtype=np.int64), counts)
+        rel = np.concatenate([np.arange(n, dtype=np.int64) for n in counts]
+                             or [np.zeros(0, np.int64)])
+        flat_d = _device.upload(flat, dev)
+        rel_d = _device.upload(rel, dev)
+        starts = logs.epoch_starts[:, closed % logs.max_epochs]
+        pos = (starts.to(torch.int64)[flat_d] + rel_d) & (logs.capacity - 1)
+        win = (counts, flat_d, rel_d, starts, logs.rows[flat_d, pos])
+        self._log_window_cache = (closed, win)
+        return win
 
     def install_replay_ledgers(self,
                                roll_gap: Dict[Tuple[int, int], int],

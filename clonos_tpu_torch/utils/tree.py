@@ -6,7 +6,7 @@ flattens dicts in, so flattened carries of the two packages line up."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterator, List
 
 
 def _is_namedtuple(x) -> bool:
@@ -38,3 +38,40 @@ def tree_leaves(tree: Any) -> List[Any]:
     if tree is None:
         return []
     return [tree]
+
+
+def tree_structure(tree: Any) -> Any:
+    """A hashable description of ``tree``'s containers (leaves elided),
+    equal for two trees exactly when their leaves line up."""
+    if _is_namedtuple(tree):
+        return (type(tree), tuple(tree_structure(t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(tree_structure(t) for t in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, tree_structure(tree[k]))
+                            for k in sorted(tree)))
+    if tree is None:
+        return None
+    return "*"
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """``template``'s containers around ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+    out = _rebuild(template, it)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def _rebuild(tree: Any, it: Iterator[Any]) -> Any:
+    if _is_namedtuple(tree):
+        return type(tree)(*(_rebuild(t, it) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(t, it) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    if tree is None:
+        return None
+    return next(it)

@@ -43,8 +43,33 @@ def test_port_imports_neither_jax_nor_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 33          # every module of the port was walked
+    assert int(count) >= 38          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
+
+
+_ALONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "clonos_tpu"))))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.storage", "clonos_tpu_torch.storage.segment",
+    "clonos_tpu_torch.storage.tiered", "clonos_tpu_torch.utils.jsonl",
+    "clonos_tpu_torch.runtime.incremental",
+    "clonos_tpu_torch.inflight.log"])
+def test_tiered_storage_modules_import_alone_without_jax(module):
+    """The tiered-storage slice's modules (whose references are partly
+    JAX-free) each import alone in a fresh interpreter without ``jax``
+    or ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
 
 
 def _job():
