@@ -52,6 +52,20 @@ Phases:
      to a golden run, with no synchronising call in the pipelined
      fence's capture windows.
 
+  9. the host boundaries of BASELINE configs #4 and #5 at full width:
+     (a) config #4 (a Kafka-like feed, 64 subtasks): a failover drill and
+     a cascading kill of a feed source, a window and a reduce subtask,
+     timers on a window subtask re-firing once each, equal committed feed
+     offsets, no synchronising call in the pending epoch's block window
+     (``[feeds]``); (b) config #5 (an interval join, 128 subtasks, >= 10M
+     buffered determinants): a join drill and the kill of a join subtask
+     whose causal services made three external calls, replayed from the
+     sidecar without calling out again (``[join]``); (c) two feeds ->
+     union -> event-time window -> transactional file sink through the
+     pipelined fence: a union, a window and a sink subtask killed, the
+     committed part files byte-identical to the golden run's; then the
+     sliding and the session window (``[egress]``).
+
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -169,6 +183,20 @@ MAIN_SHAPES = (
     ("lane", 512, PAR * BATCH, EDGE_CAPACITY, True),
     ("lane", 512, PAR * BATCH, EDGE_CAPACITY, False),
 )
+#: the exchange shapes of BASELINE configs #4 and #5 (phase 9): their
+#: hash exchanges route 512 records a step (16 x 32 and 32 x 16) into
+#: 8,192 slots (16 x 512 and 32 x 256); #4's window; the lanes a replay
+#: routes
+C45_SHAPES = (
+    ("c4c5-route", 512, 512, 8192, True),
+    ("c4c5-route", 512, 512, 8192, False),
+    ("c4-window", 512 * 16, 512, 499, False),
+    ("c4-lane", 512, 512, 512, True),
+    ("c5-lane", 512, 512, 256, True),
+)
+#: shapes timed against their bound and the library call
+TIMED_LABELS = ("route", "window", "lane") + tuple(
+    {s[0] for s in C45_SHAPES})
 #: ragged and out-of-range cases, the last past the shared-memory budget
 EDGE_SHAPES = (
     ("ragged", 37, 100, VOCAB, True),
@@ -236,7 +264,8 @@ def phase_kernels():
     from clonos_tpu_torch.ops import histogram as hist
     dev = torch.device("cuda")
     rows = []
-    for i, (label, r, b, nk, counts) in enumerate(MAIN_SHAPES + EDGE_SHAPES):
+    for i, (label, r, b, nk, counts) in enumerate(
+            MAIN_SHAPES + C45_SHAPES + EDGE_SHAPES):
         keys, vals, valid = _inputs(r, b, nk, 100 + i, dev)
         s_k, c_k = hist.keyed_hist_cuda(keys, vals, valid, nk, counts)
         s_p, c_p = hist.keyed_hist_plain(keys, vals, valid, nk, counts)
@@ -253,7 +282,7 @@ def phase_kernels():
                 f"counts={counts}: max abs err {err}")
         row = dict(label=label, R=r, B=b, nk=nk, counts=counts,
                    bit_identical=True, max_abs_err=err)
-        if label in ("route", "window", "lane"):
+        if label in TIMED_LABELS:
             kept_mask = valid & (keys >= 0) & (keys < nk)
             kept = int(kept_mask.sum())
             # Library yardstick: torch's scatter_add_ on the same inputs,
@@ -1326,6 +1355,436 @@ def phase_spill(dev_line, root):
     return by_path
 
 
+# --- phase 9 ----------------------------------------------------------------
+
+#: BASELINE config #4 (bench.py:66-126): a Kafka-like feed source ->
+#: keyBy -> window -> keyBy -> reduce -> sink, 16 subtasks each
+C4_PAR = 16
+C4_BATCH = 32
+C4_VOCAB = 499
+C4_EDGE = 512
+C4_KEY_GROUPS = 64
+C4_SPE = 1024
+C4_SEED = 5
+#: the failover drill runs this many steps into the pending epoch
+C4_DRILL_AT = 256
+#: the window subtask's timers, as multiples of the epoch length: three
+#: fire inside the replayed span (the pending epoch), the last stays
+#: pending
+C4_TIMERS = (1.07, 1.66, 1.95, 2.9)
+#: BASELINE config #5 (bench.py:129-200): two synthetic sources -> keyBy
+#: -> interval join -> sink, 32 subtasks each
+C5_PAR = 32
+C5_BATCH = 16
+C5_VOCAB = 211
+C5_EDGE = 256
+C5_SPE = 4096
+C5_FILL = 5
+C5_SEED = 9
+#: the configuration's own figure of buffered determinants
+C5_MIN_DETS = 10_000_000
+#: (c): event-time windows of 64 (slide 16, session gap 16), bounded
+#: disorder 16, the sliding and session runs at this epoch length
+EGRESS_WINDOW = 64
+EGRESS_SLIDE = 16
+EGRESS_OOO = 16
+EGRESS_SHORT_SPE = 256
+#: the session run's feeds deliver this many records a pull (of a batch
+#: of 32), so a key goes quiet for a gap often enough to close sessions
+EGRESS_SESSION_PULL = 2
+
+PHASE9_REDUCTIONS = (
+    f"(a) bench.py config #4 at full width and depth (16 subtasks a "
+    f"vertex, batch {C4_BATCH}, {C4_VOCAB} keys, edge capacity {C4_EDGE}, "
+    f"steps_per_epoch={C4_SPE}, ring {C4_SPE}, seed {C4_SEED}); cuts: "
+    f"logical_time=True, window_size={WINDOW_SIZE} (bench: 1<<30, never "
+    f"fires); the drill runs {C4_DRILL_AT} steps into the pending epoch "
+    f"(bench: at its end). (b) config #5 at full width and depth (32 "
+    f"subtasks a vertex, batch {C5_BATCH}, {C5_VOCAB} keys, edge capacity "
+    f"{C5_EDGE}, {C5_FILL} x {C5_SPE}-step pending epochs, "
+    f"replication_factor=2, seed {C5_SEED}); cut: logical_time=True. "
+    f"(c) (a)'s widths, two feeds -> union -> event-time window -> "
+    f"transactional sink, pipelined fence, ring 4 epochs; the sliding "
+    f"and session runs at {EGRESS_SHORT_SPE}-step epochs, the session "
+    f"run's feeds at {EGRESS_SESSION_PULL} records a pull")
+
+
+def _feed_reader(seed, n, records_per_pull=1 << 30):
+    """A ListFeedReader of RandomState(seed) keys in [0, C4_VOCAB), value
+    1, ``n`` records per partition (bench.py config #4's feed)."""
+    from clonos_tpu_torch.api.feeds import ListFeedReader
+    rng = np.random.RandomState(seed)
+    return ListFeedReader([
+        np.stack([rng.randint(0, C4_VOCAB, n), np.ones(n, np.int64)], 1)
+        for _ in range(C4_PAR)], records_per_pull=records_per_pull)
+
+
+def _wrap_syncs(obj, name, counts):
+    """Count the synchronising calls of every call of ``obj.name`` into
+    ``counts``; undo with ``delattr(obj, name)``."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        out, n = _sync_count(lambda: fn(*a, **k))
+        counts.append(n)
+        return out
+    setattr(obj, name, wrapped)
+
+
+def _reading(report, launches, syncs, dev_line, **extra):
+    return dict(
+        flats=list(report.failed_subtasks), from_epoch=report.from_epoch,
+        steps_replayed=report.steps_replayed,
+        records_replayed=report.records_replayed,
+        determinants_replayed=report.determinants_replayed,
+        ignored_checkpoints=list(report.ignored_checkpoints),
+        recovery_ms=round(report.recovery_ms, 3),
+        phase_ms={k: round(v, 3) for k, v in report.phase_ms.items()},
+        kernel_launches=launches, synchronising_calls=syncs, **extra,
+        device=dev_line)
+
+
+def build_c4_job():
+    from clonos_tpu_torch.api.environment import StreamEnvironment
+    env = StreamEnvironment(name="bench-c4", num_key_groups=C4_KEY_GROUPS,
+                            default_edge_capacity=C4_EDGE)
+    (env.host_source(batch_size=C4_BATCH, parallelism=C4_PAR)
+        .key_by().window_count(num_keys=C4_VOCAB, window_size=WINDOW_SIZE,
+                               parallelism=C4_PAR)
+        .key_by().reduce(num_keys=C4_VOCAB, parallelism=C4_PAR)
+        .sink(parallelism=C4_PAR))
+    return env.build()
+
+
+def phase_feeds(dev_line):
+    """(a) config #4: one completed epoch, a failover drill of a feed
+    source, a window and a reduce subtask, one pending epoch (its block
+    window under the sync-debug mode), then a cascading kill of another
+    such triple, against a golden run; timers on window subtask 3 fire
+    inside the replayed span and re-fire once each; the committed feed
+    offsets, floors and cursors agree."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = dict(steps_per_epoch=C4_SPE,
+              log_capacity=1 << (C4_SPE * 8 - 1).bit_length(),
+              max_epochs=16, inflight_ring_steps=1 << (C4_SPE - 1)
+              .bit_length(), logical_time=True, seed=C4_SEED)
+    runs = {k: ClusterRunner(build_c4_job(), device=DEVICE, **kw)
+            for k in ("golden", "faulted")}
+    golden, faulted = runs["golden"], runs["faulted"]
+    wbase, rbase = (faulted.job.subtask_base(v) for v in (1, 2))
+    timers = [int(x * C4_SPE) for x in C4_TIMERS]
+    fired = {}
+    for name, r in runs.items():
+        r.executor.register_feed(0, _feed_reader(C4_SEED, 4 * C4_SPE
+                                                 * C4_BATCH))
+        fired[name] = []
+        svc = r.timer_service(wbase + 3)
+        svc.register_callback(fired[name].append, callback_id=1)
+        for t in timers:
+            svc.register_timer(t, 1)
+        r.run_epoch(complete_checkpoint=True)
+        for _ in range(C4_DRILL_AT):
+            r.step()
+    drill = [1, wbase + 2, rbase + 6]
+    drill_s, drill_launches, _ = _counted(
+        lambda: faulted.failover_drill(drill))
+    _assert_same(golden, faulted, "(a) after the drill")
+    block_syncs = []
+    _wrap_syncs(faulted.executor, "run_epoch", block_syncs)
+    r0 = _source_records(faulted)
+    t0 = time.monotonic()
+    _, steady_launches, _ = _counted(
+        lambda: faulted.run_epoch(complete_checkpoint=False))
+    rate = (int(faulted.executor.carry.record_counts[:C4_PAR].sum()) - r0
+            ) / (time.monotonic() - t0)
+    delattr(faulted.executor, "run_epoch")
+    golden.run_epoch(complete_checkpoint=False)
+    if torch.device(DEVICE).type == "cuda" and any(block_syncs):
+        raise AssertionError(f"(a) the block window synchronised: "
+                             f"{block_syncs} at {SYNC_SITES}")
+    flats = [2, wbase + 3, rbase + 7]
+    faulted.inject_failure(flats)
+    report, launches, syncs = _counted(faulted.recover, count_syncs=True)
+    _mirror_ignore(golden, flats)
+    _assert_same(golden, faulted, "(a) cascading feed/window/reduce kill")
+    if report.steps_replayed != C4_SPE or report.records_replayed <= 0:
+        raise AssertionError(f"(a) replayed {report.steps_replayed} steps")
+    live = [t for t in timers if t < 2 * C4_SPE]
+    if fired["golden"] != live or fired["faulted"] != live + live \
+            or faulted.timer_services[wbase + 3].pending != 1:
+        raise AssertionError(f"(a) timers: golden {fired['golden']}, "
+                             f"faulted {fired['faulted']}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"(a) no kernel launch: {launches}")
+    # The ring holds one epoch and the pending checkpoint was ignored, so
+    # the run ends here (as bench.py's does): checkpoint 0's offsets, the
+    # readers' floors they were committed to, and the live cursors agree.
+    offsets = {}
+    for k, r in runs.items():
+        ck = r.standbys.latest
+        off = torch.as_tensor(ck.carry.op_states[0]["offset"]).cpu()
+        offsets[k] = (ck.checkpoint_id, off.tolist(),
+                      list(r.executor.feed_readers[0]._base),
+                      list(r.executor.feed_readers[0]._cursor))
+    g = offsets["golden"]
+    if offsets["faulted"] != g or g[0] != 0 or g[1] != g[2] \
+            or min(g[1]) <= 0:
+        raise AssertionError(f"(a) committed feed offsets {offsets}")
+    log("[feeds] config #4 cascade == golden (carry, committed offsets, "
+        "timers): " + json.dumps(_reading(
+            report, launches, syncs, dev_line,
+            block_window_syncs=block_syncs,
+            steady_records_per_s=round(rate, 1),
+            steady_epoch_launches=steady_launches,
+            drill=dict(flats=drill, ms=round(drill_s * 1e3, 3),
+                       kernel_launches=drill_launches),
+            timers_refired=len(fired["faulted"]) - len(live),
+            committed_offsets_total=int(sum(offsets["golden"][1])))))
+    return launches
+
+
+def build_c5_job():
+    from clonos_tpu_torch.api.environment import StreamEnvironment
+    env = StreamEnvironment(name="bench-c5", num_key_groups=C4_KEY_GROUPS,
+                            default_edge_capacity=C5_EDGE)
+    left = env.synthetic_source(vocab=C5_VOCAB, batch_size=C5_BATCH,
+                                parallelism=C5_PAR).key_by()
+    right = env.synthetic_source(vocab=C5_VOCAB, batch_size=C5_BATCH,
+                                 parallelism=C5_PAR,
+                                 name="source-r").key_by()
+    (left.join(right, num_keys=C5_VOCAB, window=4, interval=1 << 30,
+               parallelism=C5_PAR)
+         .sink(parallelism=C5_PAR))
+    return env.build()
+
+
+def phase_join(dev_line):
+    """(b) config #5: one completed epoch, three external calls, a time
+    read and a random draw on join subtask 1 through its causal
+    services, C5_FILL pending epochs (>= 10M buffered determinants), a
+    join-class drill, then a kill of that subtask, against a golden run:
+    the recovered log serves the recorded bytes without a second
+    external call."""
+    from clonos_tpu_torch.causal import determinant as det
+    from clonos_tpu_torch.causal import services as svc
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    span = C5_FILL * C5_SPE
+    kw = dict(steps_per_epoch=C5_SPE,
+              log_capacity=1 << (span * DETS_PER_STEP - 1).bit_length(),
+              max_epochs=16, inflight_ring_steps=1 << (span - 1)
+              .bit_length(), replication_factor=2, logical_time=True,
+              seed=C5_SEED)
+    runs = {k: ClusterRunner(build_c5_job(), device=DEVICE, **kw)
+            for k in ("golden", "faulted")}
+    golden, faulted = runs["golden"], runs["faulted"]
+    jbase = faulted.job.subtask_base(2)
+    calls = {k: [] for k in runs}
+    answers = {}
+    sidecars = {}
+    t0 = time.monotonic()
+    for name, r in runs.items():
+        sidecars[name] = det.SidecarStore(owner=jbase + 1)
+        fac = r.executor.service_factory(
+            jbase + 1, sidecars[name], seed=C5_SEED,
+            clock=r.executor.time_source.now)
+        ext = fac.serializable_service(
+            lambda q, c=calls[name]: c.append(q) or b"answer:" + q)
+        r.run_epoch(complete_checkpoint=True)
+        answers[name] = [ext.apply(b"q%d" % i) for i in range(3)]
+        fac.time_service().current_time_millis()
+        fac.random_service().next_int()
+        for _ in range(C5_FILL):
+            r.run_epoch(complete_checkpoint=False)
+    sync()
+    fill_s = time.monotonic() - t0
+    drill_s, drill_launches, _ = _counted(
+        lambda: faulted.failover_drill([jbase]))
+    _assert_same(golden, faulted, "(b) after the join drill")
+    dets = int(faulted.executor.log_sizes().sum())
+    if dets < C5_MIN_DETS:
+        raise AssertionError(f"(b) {dets} buffered determinants < "
+                             f"{C5_MIN_DETS}")
+    faulted.inject_failure([jbase + 1])
+    report, launches, syncs = _counted(faulted.recover, count_syncs=True)
+    _mirror_ignore(golden, [jbase + 1])
+    _assert_same(golden, faulted, "(b) join recovery")
+    events = [d for _s, d in report.managers[0].result.async_events]
+    serial = [d for d in events
+              if isinstance(d, det.SerializableDeterminant)]
+    replayed = []
+    fac = svc.CausalServiceFactory(
+        replayed.append, sidecars["faulted"], epoch_of=lambda: 0,
+        replay_feed=svc.ReplayFeed(events))
+    ext = fac.serializable_service(
+        lambda q: calls["faulted"].append(q) or b"")
+    again = [ext.apply(b"q%d" % i) for i in range(3)]
+    if len(serial) != 3 or again != answers["faulted"] \
+            or answers["faulted"] != answers["golden"] \
+            or len(calls["faulted"]) != 3:
+        raise AssertionError(f"(b) services: {len(serial)} SERIALIZABLE "
+                             f"rows, replayed {again}, external calls "
+                             f"{len(calls['faulted'])}")
+    if report.steps_replayed != span or min(launches.values()) == 0:
+        raise AssertionError(f"(b) replayed {report.steps_replayed} steps, "
+                             f"launches {launches}")
+    for r in runs.values():
+        r.step()
+    _assert_same(golden, faulted, "(b) one step after the recovery")
+    log("[join] config #5 join recovery == golden (before and after one "
+        "more step): " + json.dumps(_reading(
+            report, launches, syncs, dev_line,
+            buffered_determinants=dets,
+            async_events=[type(d).__name__ for d in events],
+            external_calls=len(calls["faulted"]),
+            fill_seconds=round(fill_s, 3),
+            drill=dict(flats=[jbase], ms=round(drill_s * 1e3, 3),
+                       kernel_launches=drill_launches))))
+    return launches
+
+
+def build_egress_job(kind):
+    from clonos_tpu_torch.api.environment import StreamEnvironment
+    env = StreamEnvironment(name=f"egress-{kind}",
+                            num_key_groups=C4_KEY_GROUPS,
+                            default_edge_capacity=C4_EDGE)
+    a = env.host_source(batch_size=C4_BATCH, parallelism=C4_PAR,
+                        name="feed-a")
+    b = env.host_source(batch_size=C4_BATCH, parallelism=C4_PAR,
+                        name="feed-b")
+    s = a.union(b, capacity=2 * C4_BATCH).key_by()
+    if kind == "tumbling":
+        s = s.window_event_time(num_keys=C4_VOCAB, window_size=EGRESS_WINDOW,
+                                out_of_orderness=EGRESS_OOO)
+    elif kind == "sliding":
+        s = s.window_slide_event_time(num_keys=C4_VOCAB,
+                                      window_size=EGRESS_WINDOW,
+                                      slide=EGRESS_SLIDE,
+                                      out_of_orderness=EGRESS_OOO)
+    else:
+        s = s.window_session(num_keys=C4_VOCAB, gap=EGRESS_SLIDE,
+                             out_of_orderness=EGRESS_OOO)
+    s.key_by().sink(transactional=True)
+    return env.build()
+
+
+def _files(root):
+    out = {}
+    for fn in sorted(os.listdir(root)):
+        with open(os.path.join(root, fn), "rb") as f:
+            out[fn] = f.read()
+    return out
+
+
+def _window_block_ms(runner, spe):
+    """Wall ms of one block of the event-time window's step loop on the
+    card (the vertex's own operator and state, a block of uniformly
+    keyed records at the live edge capacity), against its step count."""
+    from clonos_tpu_torch.api.operators import BlockContext
+    from clonos_tpu_torch.api.records import RecordBatch
+    v = runner.job.vertices[3]
+    k = min(BLOCK_STEPS, spe)
+    cap = runner.job.edges[runner.job.in_edges(3)[0]].capacity
+    dev = runner.device
+    rng = np.random.RandomState(C4_SEED)
+    up = lambda a: torch.from_numpy(a).to(dev)
+    keys = up(rng.randint(0, C4_VOCAB, (k, C4_PAR, cap)).astype(np.int32))
+    ts = torch.arange(k, dtype=torch.int32, device=dev)[:, None, None] \
+        .expand(k, C4_PAR, cap).contiguous()
+    batch = RecordBatch(keys, torch.ones_like(keys), ts,
+                        torch.ones_like(keys, dtype=torch.bool))
+    bctx = BlockContext(ts[:, 0, 0], ts[:, 0, 0], ts[0, 0, 0], ts[0, 0, 0],
+                        torch.arange(C4_PAR, dtype=torch.int32, device=dev))
+    state = runner.executor.carry.op_states[3]
+    sync()
+    t0 = time.monotonic()
+    v.operator.process_block(state, batch, bctx)
+    sync()
+    return round((time.monotonic() - t0) * 1e3, 3), k
+
+
+def phase_egress(dev_line, root):
+    """(c) two feeds -> union -> event-time window -> transactional sink
+    with durable part files, the pipelined fence (capture and block
+    windows under the sync-debug mode): one completed and two pending
+    epochs, a kill of a union, a window and a sink subtask, one more
+    completed epoch; the committed files equal the golden run's byte for
+    byte with no pending part left. Then the sliding and the session
+    window at shorter epochs, one window subtask killed each."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    launches_all = {"keyed_hist": 0, "keyed_hist_sums": 0}
+    for kind in ("tumbling", "sliding", "session"):
+        spe = C4_SPE if kind == "tumbling" else EGRESS_SHORT_SPE
+        kw = dict(steps_per_epoch=spe,
+                  log_capacity=1 << (5 * spe * DETS_PER_STEP - 1)
+                  .bit_length(), max_epochs=16,
+                  inflight_ring_steps=1 << (4 * spe - 1).bit_length(),
+                  overlap_epoch=True, logical_time=True, seed=C4_SEED)
+        runs = {k: ClusterRunner(build_egress_job(kind), device=DEVICE,
+                                 **kw) for k in ("golden", "faulted")}
+        golden, faulted = runs["golden"], runs["faulted"]
+        sinks = {}
+        for name, r in runs.items():
+            for vid in (0, 1):
+                r.executor.register_feed(vid, _feed_reader(
+                    C4_SEED + vid, 4 * spe * C4_BATCH,
+                    EGRESS_SESSION_PULL if kind == "session" else 1 << 30))
+            sinks[name] = r.attach_file_sink(
+                4, os.path.join(root, f"{kind}-{name}"))
+        capture, blocks = [], []
+        _wrap_syncs(faulted, "_begin_fence_tail", capture)
+        _wrap_syncs(faulted.executor, "run_epoch", blocks)
+        t0 = time.monotonic()
+        for complete in (True, False, False):
+            for r in runs.values():
+                r.run_epoch(complete_checkpoint=complete)
+        sync()
+        epochs_s = time.monotonic() - t0
+        ubase, wbase, sbase = (faulted.job.subtask_base(v) for v in (2, 3, 4))
+        flats = ([ubase + 1, wbase + 2, sbase + 3] if kind == "tumbling"
+                 else [wbase + 2])
+        faulted.inject_failure(flats)
+        report, launches, syncs = _counted(faulted.recover,
+                                           count_syncs=True)
+        golden.drain_fence()
+        _mirror_ignore(golden, flats)
+        _assert_same(golden, faulted, f"(c) {kind} recovery")
+        for r in runs.values():
+            r.run_epoch(complete_checkpoint=True)
+            r.drain_fence()
+        delattr(faulted, "_begin_fence_tail")
+        delattr(faulted.executor, "run_epoch")
+        _assert_same(golden, faulted, f"(c) {kind} one epoch on")
+        files = {k: _files(os.path.join(root, f"{kind}-{k}")) for k in runs}
+        committed = sinks["faulted"].read_committed()
+        if files["golden"] != files["faulted"] or any(
+                f.endswith(".pending") for f in files["faulted"]) \
+                or sinks["faulted"].committed_epochs() != [0, 1, 2, 3] \
+                or committed.shape[0] == 0:
+            raise AssertionError(
+                f"(c) {kind}: committed files differ or a pending part is "
+                f"left: {sorted(files['faulted'])}")
+        if torch.device(DEVICE).type == "cuda" and (any(capture)
+                                                    or any(blocks)):
+            raise AssertionError(f"(c) {kind}: capture {capture} / block "
+                                 f"{blocks} windows synchronised at "
+                                 f"{SYNC_SITES}")
+        if min(launches.values()) == 0 and kind == "tumbling":
+            raise AssertionError(f"(c) no kernel launch: {launches}")
+        for k in launches_all:
+            launches_all[k] += launches[k]
+        block_ms, k = _window_block_ms(golden, spe)
+        log(f"[egress] {kind} event-time window, transactional file sink "
+            f"== golden byte for byte: " + json.dumps(_reading(
+                report, launches, syncs, dev_line,
+                capture_window_syncs=capture, block_window_syncs=blocks,
+                committed_records=int(committed.shape[0]),
+                committed_files=len(files["faulted"]),
+                steps_per_epoch=spe, three_epochs_s=round(epochs_s, 3),
+                window_block=dict(steps=k, wall_ms=block_ms))))
+        del runs, golden, faulted
+    return launches_all
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1360,11 +1819,23 @@ def main() -> int:
         spill_launches = phase_spill(dev_line, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 9: {PHASE9_REDUCTIONS}")
+    feed_launches = phase_feeds(dev_line)
+    join_launches = phase_join(dev_line)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_egress_", dir=SCRATCH)
+    try:
+        egress_launches = phase_egress(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
         "audit_recovery": audit_launches, **overlap_launches,
-        **spill_launches})))
+        **spill_launches, "feed_cascade": feed_launches,
+        "join_recovery": join_launches,
+        "event_time_egress": egress_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,13 +8,17 @@ the reference package). One determinant is one ``int32[NUM_LANES]`` row:
     lane 1: record_count   (0 for the per-step sync determinants)
     lanes 2..7: payload    (64-bit values split hi/lo across two lanes)
 
-Tag numbering matches the reference (Determinant.java:20-35).
+Tag numbering matches the reference (Determinant.java:20-35). The
+variable-width SERIALIZABLE payload does not fit a row: its bytes live in
+a host-side :class:`SidecarStore` and the row carries ``(sidecar_key,
+length, crc32)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, Dict, Sequence, Tuple, Type
+import zlib
+from typing import ClassVar, Dict, List, Sequence, Tuple, Type
 
 import numpy as np
 
@@ -143,6 +147,27 @@ class RNGDeterminant(Determinant):
 
 
 @dataclasses.dataclass(frozen=True)
+class SerializableDeterminant(Determinant):
+    """An external-service result; its bytes live in a sidecar store. The
+    64-bit sidecar key spans two lanes, the CRC32 is stored unsigned."""
+
+    TAG: ClassVar[int] = SERIALIZABLE
+    sidecar_key: int = 0
+    length: int = 0
+    crc32: int = 0
+
+    def _payload(self):
+        khi, klo = split64(self.sidecar_key)
+        return (khi, klo, self.length, self.crc32)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(sidecar_key=join64(int(row[LANE_P]), int(row[LANE_P + 1])),
+                   length=int(row[LANE_P + 2]),
+                   crc32=int(row[LANE_P + 3]) & _I32_MASK)
+
+
+@dataclasses.dataclass(frozen=True)
 class TimerTriggerDeterminant(Determinant):
     """A processing-time timer firing, replayed at record_count."""
 
@@ -225,11 +250,23 @@ _TAG_TO_CLASS: Dict[int, Type[Determinant]] = {
     ORDER: OrderDeterminant,
     TIMESTAMP: TimestampDeterminant,
     RNG: RNGDeterminant,
+    SERIALIZABLE: SerializableDeterminant,
     TIMER_TRIGGER: TimerTriggerDeterminant,
     SOURCE_CHECKPOINT: SourceCheckpointDeterminant,
     IGNORE_CHECKPOINT: IgnoreCheckpointDeterminant,
     BUFFER_BUILT: BufferBuiltDeterminant,
 }
+
+
+def pack_batch(dets: Sequence[Determinant]) -> np.ndarray:
+    """Pack determinants into an ``int32[n, NUM_LANES]`` array."""
+    if not dets:
+        return np.zeros((0, NUM_LANES), dtype=ROW_DTYPE)
+    return np.stack([d.pack() for d in dets])
+
+
+def unpack_batch(rows: np.ndarray) -> List[Determinant]:
+    return [Determinant.unpack(rows[i]) for i in range(rows.shape[0])]
 
 
 def to_bytes(rows: np.ndarray) -> bytes:
@@ -244,3 +281,58 @@ def sync_anchors(rows: np.ndarray) -> np.ndarray:
     rows = np.asarray(rows)
     return np.where((rows[:, LANE_TAG] == TIMESTAMP)
                     & (rows[:, LANE_RC] == 0))[0]
+
+
+class SidecarStore:
+    """Host-side blob store for SERIALIZABLE payloads, epoch-scoped like
+    the log: blobs are tagged with the epoch they were created in and
+    dropped when that epoch is truncated.
+
+    Keys are namespaced by the owning task (``owner`` in the bits above
+    ``OWNER_SHIFT``), so blobs merged from another store during recovery
+    never collide with local ones; sequence numbers are never reused."""
+
+    OWNER_SHIFT = 40
+
+    def __init__(self, owner: int = 0):
+        if not (0 <= owner < (1 << (63 - self.OWNER_SHIFT))):
+            raise ValueError(f"owner id out of range: {owner}")
+        self.owner = owner
+        self._blobs: Dict[int, Tuple[int, bytes]] = {}
+        self._next_seq = 1
+
+    def put(self, data: bytes, epoch: int) -> SerializableDeterminant:
+        if self._next_seq >= (1 << self.OWNER_SHIFT):
+            raise RuntimeError("sidecar key space exhausted")
+        key = (self.owner << self.OWNER_SHIFT) | self._next_seq
+        self._next_seq += 1
+        self._blobs[key] = (epoch, data)
+        return SerializableDeterminant(
+            sidecar_key=key, length=len(data), crc32=zlib.crc32(data))
+
+    def get(self, d: SerializableDeterminant) -> bytes:
+        epoch, data = self._blobs[d.sidecar_key]
+        if len(data) != d.length or zlib.crc32(data) != d.crc32:
+            raise ValueError(
+                f"sidecar blob {d.sidecar_key} fails integrity check")
+        return data
+
+    def merge_from(self, other: "SidecarStore") -> None:
+        """Adopt blobs replicated from another store; the same key with
+        different contents (a duplicate owner id) raises."""
+        for key, (epoch, data) in other._blobs.items():
+            existing = self._blobs.get(key)
+            if existing is not None and existing[1] != data:
+                raise ValueError(
+                    f"sidecar key collision on {key}: divergent contents "
+                    f"(duplicate owner id?)")
+            self._blobs[key] = (epoch, data)
+
+    def truncate(self, oldest_live_epoch: int) -> None:
+        dead = [k for k, (e, _) in self._blobs.items()
+                if e < oldest_live_epoch]
+        for k in dead:
+            del self._blobs[k]
+
+    def __len__(self) -> int:
+        return len(self._blobs)

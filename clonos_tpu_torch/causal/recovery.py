@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from clonos_tpu_torch import device as _device
-from clonos_tpu_torch.api.operators import BlockContext, Operator
+from clonos_tpu_torch.api.operators import (BlockContext, Operator,
+                                            TwoInputOperator)
 from clonos_tpu_torch.api.records import RecordBatch, empty
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -121,9 +122,10 @@ class ReplayPlan:
     subtask: int                    # subtask index within the vertex
     flat_subtask: int               # global flat id (log row)
     from_epoch: int                 # first lost epoch
-    #: the lost input batches as a list of block-sized chunks
-    #: (RecordBatch [CH, cap] each), or None for self-generating sources
-    input_steps: Optional[List[RecordBatch]]
+    #: the lost input batches as a list of block-sized chunks (each a
+    #: RecordBatch [CH, cap], or a (left, right) pair of them for a
+    #: two-input vertex), or None for self-generating sources
+    input_steps: Optional[List[Any]]
     det_rows: np.ndarray            # int32[m, lanes] merged determinant rows
     det_start: int                  # absolute offset of det_rows[0]
     checkpoint_op_state: Any        # the vertex's checkpointed [P, ...] state
@@ -226,26 +228,34 @@ class LogReplayer:
         #: edge is statically routed (the live path's static gather).
         self.in_slot_keys = in_slot_keys
 
-    def _replay_block(self, op_state, batches: RecordBatch,
-                      times: torch.Tensor, rngs: torch.Tensor,
-                      subtask: torch.Tensor, consumed_in: torch.Tensor):
+    def _replay_block(self, op_state, batches, times: torch.Tensor,
+                      rngs: torch.Tensor, subtask: torch.Tensor,
+                      consumed_in: torch.Tensor):
         """One block of replay on the failed subtask alone (state and
         inputs with a leading subtask dim of 1); the consumed-record total
-        accumulates on the device."""
-        lift = RecordBatch(*(x[:, None] for x in batches))
+        accumulates on the device. ``batches`` is a (left, right) pair
+        for a two-input vertex."""
+        lift = lambda b: RecordBatch(*(x[:, None] for x in b))
         z = torch.zeros((), dtype=torch.int32, device=times.device)
         bctx = BlockContext(times=times, rng_bits=rngs, epoch=z, step0=z,
                             subtask=subtask.reshape(1))
-        if self.in_slot_keys is not None and hasattr(
+        if isinstance(self.operator, TwoInputOperator):
+            left, right = batches
+            new_state, out = self.operator.process_block(
+                op_state, (lift(left), lift(right)), bctx)
+            consumed = (left.count().sum(dtype=torch.int32)
+                        + right.count().sum(dtype=torch.int32))
+        elif self.in_slot_keys is not None and hasattr(
                 self.operator, "process_block_static_keys"):
             new_state, out = self.operator.process_block_static_keys(
-                op_state, lift, bctx, self.in_slot_keys)
+                op_state, lift(batches), bctx, self.in_slot_keys)
+            consumed = batches.count().sum(dtype=torch.int32)
         else:
-            new_state, out = self.operator.process_block(op_state, lift,
-                                                         bctx)
+            new_state, out = self.operator.process_block(
+                op_state, lift(batches), bctx)
+            consumed = batches.count().sum(dtype=torch.int32)
         out = RecordBatch(*(x[:, 0] for x in out))
-        return (new_state, out, out.count(),
-                consumed_in + batches.count().sum(dtype=torch.int32))
+        return new_state, out, out.count(), consumed_in + consumed
 
     def _parse(self, rows: np.ndarray, n: int):
         """Locate the n per-step sync blocks (anchored at TIMESTAMP rows)
@@ -331,8 +341,12 @@ class LogReplayer:
                 # Runs the exact tail: the reference pads pad-safe
                 # operators to the fixed block only to reuse a compiled
                 # program, and padding leaves their state unchanged.
-                chunk = RecordBatch(*(x[:hi - lo]
-                                      for x in plan.input_steps[ci]))
+                cut = lambda b: RecordBatch(*(x[:hi - lo] for x in b))
+                chunk = plan.input_steps[ci]
+                chunk = (tuple(cut(b) for b in chunk)
+                         if isinstance(chunk, tuple)
+                         and not isinstance(chunk, RecordBatch)
+                         else cut(chunk))
             state, out, counts, consumed = self._replay_block(
                 state, chunk, times[lo:hi], rngs[lo:hi], subtask, consumed)
             out_chunks.append(out)

@@ -112,9 +112,16 @@ class JobGraph:
         return sum(v.parallelism for v in self.vertices[:vertex_id])
 
     def validate(self) -> None:
+        from clonos_tpu_torch.api.operators import TwoInputOperator
         self.topo_order()
         for v in self.vertices:
-            if len(self.in_edges(v.vertex_id)) > 1:
+            ins = self.in_edges(v.vertex_id)
+            two = isinstance(v.operator, TwoInputOperator)
+            if two and len(ins) != 2:
                 raise ValueError(
-                    f"vertex {v.name}: more than one input edge (two-input "
-                    f"operators come with a later slice of the port)")
+                    f"vertex {v.name}: TwoInputOperator needs exactly 2 "
+                    f"input edges, has {len(ins)}")
+            if not two and len(ins) > 1:
+                raise ValueError(
+                    f"vertex {v.name}: single-input operator with "
+                    f"{len(ins)} input edges (use a TwoInputOperator)")

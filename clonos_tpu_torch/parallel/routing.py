@@ -181,14 +181,14 @@ def _block_to_targets(batch: RecordBatch, target: torch.Tensor,
     sc = composite[order]
     bounds = torch.arange(K * (T + 1), dtype=torch.int32, device=dev)
     run_start = torch.searchsorted(sc, bounds, side="left").to(torch.int32)
-    run_end = torch.cat([run_start[1:], torch.tensor(
-        [K * n], dtype=torch.int32, device=dev)])
+    # Fills, not host tensors: a copy from the host would synchronise.
+    run_end = torch.cat([run_start[1:], torch.full(
+        (1,), K * n, dtype=torch.int32, device=dev)])
     run_len = (run_end - run_start).reshape(K, T + 1)[:, :T]
     dropped = (run_len - cap).clamp(min=0).to(torch.int32)
     c = torch.arange(cap, dtype=torch.int32, device=dev)
     src = run_start.reshape(K, T + 1)[:, :T, None] + c[None, None, :]
-    ok = c[None, None, :] < torch.minimum(
-        run_len, torch.tensor(cap, dtype=torch.int32, device=dev))[:, :, None]
+    ok = c[None, None, :] < run_len.clamp(max=cap)[:, :, None]
     pick = order[src.clamp(0, K * n - 1).to(torch.int64)]     # [K, T, cap]
     out = RecordBatch(keys[pick], vals[pick], ts[pick], ok)
     return zero_invalid(out), dropped

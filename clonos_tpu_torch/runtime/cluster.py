@@ -40,8 +40,15 @@ labelled ``RecoveryError``. With spill the pipelined fence settles
 strictly. ``incremental_checkpoints`` writes device-diffed delta chains
 (``runtime/incremental.py``).
 
-Not ported yet, each refused loudly where reached: host feeds, two-input
-operators, transactional sinks and timer services.
+Host boundaries: host-fed sources commit their checkpointed offsets to
+their readers when the checkpoint completes, and a failed one re-reads
+its lost records (``_reread_feed``); processing-time timers advance at
+block boundaries on host-known causal time and re-fire after recovery;
+transactional sinks tap every block's outputs into per-epoch
+transactions (a ``device.HostCopy`` started on the main thread, waited at
+the seal), seal them at the fence, commit them on checkpoint completion
+and rebuild a failed subtask's shards from its replay. A two-input
+vertex replays from both of its input edges.
 """
 
 from __future__ import annotations
@@ -57,7 +64,9 @@ import numpy as np
 import torch
 
 from clonos_tpu_torch import device as _device
-from clonos_tpu_torch.api.operators import HostFeedSource
+from clonos_tpu_torch.api.operators import (HostFeedSource,
+                                            TransactionalSinkOperator,
+                                            TwoInputOperator)
 from clonos_tpu_torch.api.records import RecordBatch
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.causal import log as clog
@@ -68,6 +77,8 @@ from clonos_tpu_torch.inflight import log as ifl
 from clonos_tpu_torch.obs import audit as _audit
 from clonos_tpu_torch.parallel import routing
 from clonos_tpu_torch.runtime import checkpoint as cp
+from clonos_tpu_torch.runtime.timers import ProcessingTimeService
+from clonos_tpu_torch.runtime.txn import TransactionLog
 from clonos_tpu_torch.runtime.executor import (DETS_PER_STEP, JobCarry,
                                                LeanSnapshot, LocalExecutor)
 from clonos_tpu_torch.storage import SegmentCorruptError, StorageError
@@ -262,6 +273,17 @@ class ClusterRunner:
             self.standbys.on_completed_checkpoint)
         self.coordinator.subscribe_completion(
             self.executor.notify_checkpoint_complete)
+        # A completed checkpoint commits the feed offsets it captured, so
+        # bounded-retention readers may release history below them.
+        self.coordinator.subscribe_completed_state(self._commit_feed_offsets)
+        self.coordinator.transition_observers.append(self._drop_feed_copy)
+        #: checkpoint id -> host copy of its feed offsets, started with
+        #: the fence snapshot (the completion never reads the device).
+        #: Written on the main thread, taken at completion (possibly on a
+        #: writer thread), dropped when its checkpoint is ignored or
+        #: discarded: every touch holds the lock.
+        self._feed_offset_copies: Dict[int, _device.HostCopy] = {}
+        self._feed_copies_lock = threading.Lock()
         self.heartbeats = HeartbeatMonitor(
             range(job.total_subtasks()), timeout_s=heartbeat_timeout_s)
         self.failed: Set[int] = set()
@@ -345,6 +367,20 @@ class ClusterRunner:
             self.epoch_tracker.notify_checkpoint_complete)
         self.latency = (LatencyMarkers(self, latency_marker_every)
                         if latency_marker_every else None)
+        #: flat subtask -> ProcessingTimeService; timers fire at block
+        #: boundaries and log TIMER_TRIGGER determinants
+        self.timer_services: Dict[int, ProcessingTimeService] = {}
+        self.executor.block_listeners.append(self._advance_timers)
+        # Transactional sinks: per-block emissions tap into per-epoch
+        # transactions, sealed at fences, committed on completion.
+        self.txn_logs: Dict[int, TransactionLog] = {
+            v.vertex_id: TransactionLog(v.vertex_id)
+            for v in job.vertices
+            if isinstance(v.operator, TransactionalSinkOperator)}
+        if self.txn_logs:
+            self.executor.on_block_outputs = self._absorb_sink_outputs
+            self.coordinator.subscribe_completion(
+                lambda e: [tl.commit(e) for tl in self.txn_logs.values()])
         #: source subtasks log SOURCE_CHECKPOINT at every trigger
         self._source_flats = [
             job.subtask_base(v.vertex_id) + s
@@ -354,6 +390,84 @@ class ClusterRunner:
             recovery_block_steps or self.executor.block_steps,
             compiled.inflight_ring_steps,
             compiled.log_capacity // DETS_PER_STEP)
+
+    # --- host boundaries: feeds, timers, transactional sinks ----------------
+
+    def _stage_feed_offsets(self, closed: int, snap: LeanSnapshot
+                            ) -> LeanSnapshot:
+        """Start the host copy of the fence snapshot's feed offsets (on the
+        thread that queued the blocks); the completion reads it."""
+        readers = self.executor.feed_readers
+        if readers:
+            copy = _device.HostCopy(
+                {vid: snap.op_states[vid]["offset"] for vid in readers})
+            with self._feed_copies_lock:
+                self._feed_offset_copies[closed] = copy
+        return snap
+
+    def _drop_feed_copy(self, kind: str, cid: int = -1, **_) -> None:
+        """Transition observer: an ignored or discarded checkpoint never
+        completes, so its offsets copy is dropped."""
+        if kind in ("ignore", "discard"):
+            with self._feed_copies_lock:
+                self._feed_offset_copies.pop(cid, None)
+
+    def _commit_feed_offsets(self, ckpt: cp.CompletedCheckpoint) -> None:
+        """Completion listener (possibly on a checkpoint writer's thread):
+        commit the checkpoint's feed offsets to their readers."""
+        cid = ckpt.checkpoint_id
+        with self._feed_copies_lock:
+            copy = self._feed_offset_copies.pop(cid, None)
+            for k in [k for k in self._feed_offset_copies if k < cid]:
+                del self._feed_offset_copies[k]
+        if copy is None:
+            return
+        for vid, off in copy.wait().items():
+            self.executor.feed_readers[vid].notify_checkpoint_complete(
+                [int(x) for x in off])
+
+    def _absorb_sink_outputs(self, outs, epoch: int) -> None:
+        for vid, tl in self.txn_logs.items():
+            b = outs.sinks.get(vid)
+            if b is not None:
+                tl.absorb(epoch, _device.HostCopy(b))
+
+    def _seal_txns(self, closed: int) -> None:
+        for tl in self.txn_logs.values():
+            tl.seal(closed)
+
+    def timer_service(self, flat_subtask: int) -> ProcessingTimeService:
+        """The task's processing-time timer service (created on first
+        use): its callbacks fire at block boundaries on causal time and
+        their TIMER_TRIGGER determinants replay after a failure."""
+        svc = self.timer_services.get(flat_subtask)
+        if svc is None:
+            svc = ProcessingTimeService(
+                append=lambda d, f=flat_subtask:
+                    self.executor.append_async_determinant(f, d))
+            self.timer_services[flat_subtask] = svc
+        return svc
+
+    def _advance_timers(self, now: int, stamp: int) -> None:
+        for flat, svc in self.timer_services.items():
+            if flat not in self.failed:
+                svc.advance(now, stamp)
+
+    def attach_file_sink(self, vertex_id: int, root: str, token: int = 0):
+        """Back a transactional sink with durable part files
+        (``runtime/filesink.py``): pendings persist at every seal, commits
+        are atomic renames, and stale pendings at or below ``token`` are
+        swept now."""
+        from clonos_tpu_torch.runtime.filesink import FileSystemSink
+        if vertex_id not in self.txn_logs:
+            raise ValueError(
+                f"vertex {vertex_id} is not a transactional sink")
+        fs = FileSystemSink(root, token=token)
+        tl = self.txn_logs[vertex_id]
+        tl.pre_committer = fs.write_pending
+        tl.committer = fs.commit
+        fs.sweep_pending(keep_epochs=tl.pending_epochs())
+        return fs
 
     @property
     def audit_stats(self) -> Dict[str, int]:
@@ -501,9 +615,12 @@ class ClusterRunner:
             raise OverflowError_("; ".join(violations))
         self.epoch_tracker.inc_record_count(delta)
         self.epoch_tracker.start_new_epoch(ex.epoch_id)
-        self._seal_and_trigger(closed, lambda: ex.epoch_window(closed),
-                               ex.lean_snapshot, phases, async_write=False)
+        self._seal_and_trigger(
+            closed, lambda: ex.epoch_window(closed),
+            lambda: self._stage_feed_offsets(closed, ex.lean_snapshot()),
+            phases, async_write=False)
         self._append_source_fence_determinant(closed, phases)
+        self._seal_txns(closed)
         if complete_checkpoint:
             self.coordinator.ack_all(closed)
         phases["fence-tail"] = (_time.monotonic() - t_fence) * 1e3
@@ -539,7 +656,7 @@ class ClusterRunner:
         phases: Dict[str, float] = {}
         # clonos: overlap-window-begin
         handles = ex.capture_fence(with_window=self.auditor.enabled)
-        snap = ex.lean_snapshot()
+        snap = self._stage_feed_offsets(closed, ex.lean_snapshot())
         storage = self.coordinator.storage
         if storage.wants_host:
             snap = _device.HostCopy(snap)
@@ -575,6 +692,9 @@ class ClusterRunner:
             vec = tail["handles"].health()
             phases["fence.health-read"] = (_time.monotonic() - t) * 1e3
             tail["vec"] = vec
+            # The epoch's sink emissions are host copies the main thread
+            # started; the seal waits for them here, off its path.
+            self._seal_txns(closed)
             delta = self._absorb_fence_health(closed, vec)
             self.epoch_tracker.inc_record_count(delta)
             # By value: the main thread may have rolled further epochs.
@@ -745,13 +865,6 @@ class ClusterRunner:
                 "no completed checkpoint to restore standbys from")
         ex = self.executor
         compiled = ex.compiled
-        for flat in self.failed:
-            v = self.job.vertices[self._vertex_of(flat)[0]]
-            if isinstance(v.operator, HostFeedSource) \
-                    or len(self.job.in_edges(v.vertex_id)) > 1:
-                raise rec.RecoveryError(
-                    f"subtask {flat}: recovery of host-fed and two-input "
-                    f"vertices comes with a later slice of the port")
         t0 = _time.monotonic()
         topo_pos = {vid: i for i, vid in enumerate(compiled.topo)}
         failed = tuple(sorted(
@@ -825,8 +938,10 @@ class ClusterRunner:
             holders_a = [(r, h) for r, (o, h) in enumerate(self.plan.pairs)
                          if o == flat and h not in self.failed]
             p: Dict[str, Any] = {"holders": holders_a}
+            op_a = self.job.vertices[vid_a].operator
             eligible = (bool(holders_a) and n_steps > 0
-                        and self.job.vertices[vid_a].operator.replay_pad_safe
+                        and op_a.replay_pad_safe
+                        and not isinstance(op_a, HostFeedSource)
                         and n_steps <= self._pad_steps())
             if eligible:
                 t_d, r_d, e_d, small_d = self._device_parse(
@@ -837,6 +952,7 @@ class ClusterRunner:
                 p["meta_d"] = self._fetch_meta(
                     patched.replicas, [r for r, _ in holders_a], from_epoch)
             p["fast"] = (eligible and ck_heads is not None
+                         and vid_a not in self.txn_logs
                          and ex.async_rows_since(flat, from_epoch) == 0)
             if not p["fast"]:
                 for kind in ("small", "meta"):
@@ -967,9 +1083,20 @@ class ClusterRunner:
             # Lost inputs: the checkpointed edge buffer + the upstream
             # ring re-routed into this lane. An upstream lane zeroed by a
             # connected failure was rebuilt earlier in this loop.
-            input_steps = (self._replay_inputs(patched, snap, in_edges[0],
-                                               sub, fence, n_steps)
-                           if in_edges else None)
+            # Both edges of a two-input vertex; a host-fed source
+            # re-reads its feed.
+            v = self.job.vertices[vid]
+            input_steps = None
+            if isinstance(v.operator, TwoInputOperator):
+                input_steps = list(zip(*(
+                    self._replay_inputs(patched, snap, e, sub, fence,
+                                        n_steps) for e in in_edges)))
+            elif in_edges:
+                input_steps = self._replay_inputs(patched, snap, in_edges[0],
+                                                  sub, fence, n_steps)
+            elif isinstance(v.operator, HostFeedSource) and n_steps > 0:
+                input_steps = self._reread_feed(vid, sub, snap, rows,
+                                                n_steps)
             tp = _clock("inputs", tp)
 
             plan = rec.ReplayPlan(
@@ -985,6 +1112,19 @@ class ClusterRunner:
             result = mgr.run_replay(plan, self.device, defer_sync=fast)
             if not result.deferred:
                 total_records += result.records_replayed
+            # Recovered timers re-run their callbacks (the rows are back
+            # in the rebuilt log already).
+            svc = self.timer_services.get(flat)
+            if svc is not None and not drill:
+                for _step_i, ad in result.async_events:
+                    if isinstance(ad, det.TimerTriggerDeterminant):
+                        svc.refire(ad)
+            # A transactional sink's pending shards died with the task:
+            # rebuild them from the replayed outputs before any commit.
+            if vid in self.txn_logs and n_steps > 0:
+                self.txn_logs[vid].drop_uncommitted_shards(sub)
+                self._rebuild_txn_shards(vid, sub, result, from_epoch,
+                                         fence, n_steps)
             tp = _clock("replay", tp)
 
             rebuilt = np.asarray(result.rebuilt_log_rows)
@@ -1610,6 +1750,67 @@ class ClusterRunner:
         small = torch.stack([count.to(torch.int32), start.to(torch.int32),
                              n_anchors, clean.to(torch.int32)])
         return times, rngs, expected, small
+
+    def _rebuild_txn_shards(self, vid: int, sub: int,
+                            result: rec.ReplayResult, from_epoch: int,
+                            fence: int, n_steps: int) -> None:
+        """The failed sink subtask's pending transaction shards, epoch by
+        epoch, from its replayed output chunks (one copy to the host)."""
+        tl = self.txn_logs[vid]
+        chunks = _device.HostCopy(list(result.out_chunks or [])).wait()
+        ch = self._recovery_ch
+
+        def steps_slice(lo: int, hi: int) -> np.ndarray:
+            rows = []
+            for i, c in enumerate(chunks):
+                base = i * ch
+                for s in range(max(lo, base), min(hi, base + c.keys.shape[0])):
+                    m = c.valid[s - base]
+                    if m.any():
+                        rows.append(np.stack(
+                            [c.keys[s - base][m], c.values[s - base][m],
+                             c.timestamps[s - base][m]], axis=1))
+            return (np.concatenate(rows, axis=0) if rows
+                    else np.zeros((0, 3), np.int32))
+
+        cur = self.executor.epoch_id
+        for e in range(from_epoch, cur + 1):
+            if e not in self._fence_step:
+                continue
+            lo = self._fence_step[e] - fence
+            hi = (self._fence_step.get(e + 1, fence + n_steps) - fence
+                  if e < cur else n_steps)
+            tl.rebuild_shard(e, sub, steps_slice(lo, min(hi, n_steps)))
+
+    def _reread_feed(self, vid: int, sub: int, snap: LeanSnapshot,
+                     rows: np.ndarray, n_steps: int) -> List[RecordBatch]:
+        """A host-fed source's lost input batches: the offset from the
+        checkpointed operator state, each step's count from its recorded
+        BUFFER_BUILT determinant, the records from the rewindable reader.
+        Returns recovery-block-sized chunks (zero-padded tail), uploaded
+        in one pinned copy."""
+        reader = self.executor.feed_readers.get(vid)
+        if reader is None:
+            raise rec.RecoveryError(
+                f"vertex {vid}: HostFeedSource has no registered feed "
+                f"reader to re-read from")
+        b = self.job.vertices[vid].operator.batch_size
+        anchors = det.sync_anchors(rows)[:n_steps]
+        counts = rows[anchors + 3, det.LANE_P].astype(np.int64)
+        offset = int(snap.op_states[vid]["offset"][sub].cpu())
+        ch = self._recovery_ch
+        padded = -(-n_steps // ch) * ch
+        host = np.zeros((3, padded, b), np.int32)
+        for i, c in enumerate(counts):
+            ks, vs = reader.read_at(sub, offset, int(c))
+            host[0, i, :c], host[1, i, :c] = ks, vs
+            host[2, i, :c] = 1
+            offset += int(c)
+        arr = _device.upload(host, self.device)
+        return [RecordBatch(arr[0, lo:lo + ch], arr[1, lo:lo + ch],
+                            torch.zeros_like(arr[0, lo:lo + ch]),
+                            arr[2, lo:lo + ch] != 0)
+                for lo in range(0, padded, ch)]
 
     def _synthesize_det_rows(self, fence_global: int,
                              n_steps: int) -> np.ndarray:

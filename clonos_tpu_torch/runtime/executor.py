@@ -1,7 +1,10 @@
 """Block executor: the whole job advanced K supersteps at a time.
 
-Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, host
-feeds and async-append batching, which come with later slices).
+Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, which
+comes with the multi-card slice). Host-fed sources take one pinned,
+non-blocking upload per block per feed; block listeners (timers) and the
+block-outputs tap (transactional sinks) run after every block on
+host-known values; causal services append through ``append_async_many``.
 ``capture_fence`` hands a closed epoch's fence surface to the pipelined
 fence's worker thread without a host sync (``FenceHandles``). With a
 ``spool_dir`` every closed epoch's ring steps and determinant rows move
@@ -34,7 +37,8 @@ import torch
 from torch.profiler import record_function
 
 from clonos_tpu_torch import device as _device
-from clonos_tpu_torch.api.operators import BlockContext, HostFeedSource
+from clonos_tpu_torch.api.operators import (BlockContext, HostFeedSource,
+                                            TwoInputOperator)
 from clonos_tpu_torch.api.records import RecordBatch, empty
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.causal import log as clog
@@ -63,6 +67,7 @@ class BlockInputs(NamedTuple):
     rng_bits: torch.Tensor    # int32[K]
     epoch: torch.Tensor       # int32 scalar
     step0: torch.Tensor       # int32 scalar (global step index)
+    feeds: Tuple[RecordBatch, ...] = ()   # per feed vertex, [K, P, B]
 
 
 class JobCarry(NamedTuple):
@@ -116,11 +121,9 @@ class CompiledJob:
         self.job.validate()
         self.topo = self.job.topo_order()
         self.L = self.job.total_subtasks()
+        #: host-fed sources, in id order (positions in BlockInputs.feeds)
         self.feed_vertices = [v.vertex_id for v in self.job.vertices
                               if isinstance(v.operator, HostFeedSource)]
-        if self.feed_vertices:
-            raise NotImplementedError(
-                "host-fed sources come with a later slice of the port")
         self.plan = rep.ReplicationPlan.from_job(
             self.job, self.job.sharing_depth,
             replication_factor=self.replication_factor)
@@ -241,8 +244,14 @@ class CompiledJob:
                 times=binputs.times, rng_bits=binputs.rng_bits,
                 epoch=binputs.epoch, step0=binputs.step0,
                 subtask=torch.arange(p, dtype=torch.int32, device=dev))
-            if in_edges:
+            if isinstance(v.operator, TwoInputOperator):
+                ins = (shifted(in_edges[0]), shifted(in_edges[1]))
+                consumed = ins[0].count() + ins[1].count()          # [K, P]
+            elif in_edges:
                 ins = shifted(in_edges[0])
+                consumed = ins.count()
+            elif vid in self.feed_vertices and binputs.feeds:
+                ins = binputs.feeds[self.feed_vertices.index(vid)]
                 consumed = ins.count()
             else:
                 ins = empty((K, p, self.vertex_out_capacity(vid)), dev)
@@ -624,6 +633,14 @@ class LocalExecutor:
                 host_budget_epochs=spill_host_budget_epochs)
         # Epoch 0 starts at log offset 0 for every log.
         self.carry = self._roll(self.compiled.init_carry(self.device), 0)
+        #: vid -> FeedReader of a HostFeedSource vertex
+        self.feed_readers: Dict[int, Any] = {}
+        #: called after every block with (last causal time, record stamp):
+        #: the superstep-boundary hook timer services advance on
+        self.block_listeners: List[Any] = []
+        #: called after every block with (BlockOutputs, epoch id): the
+        #: transactional sinks' egress tap
+        self.on_block_outputs: Optional[Any] = None
 
     @property
     def plan(self) -> rep.ReplicationPlan:
@@ -650,26 +667,67 @@ class LocalExecutor:
             out_rings=tuple(ifl.truncate(el, e) for el in carry.out_rings),
             replicas=replicas)
 
+    def register_feed(self, vertex_id: int, reader) -> None:
+        """Attach a rewindable reader (``api/feeds.py``) to a
+        HostFeedSource vertex."""
+        if vertex_id not in self.compiled.feed_vertices:
+            raise ValueError(f"vertex {vertex_id} is not a HostFeedSource")
+        self.feed_readers[vertex_id] = reader
+
+    def _pull_feeds(self, k: int) -> Tuple[RecordBatch, ...]:
+        """k steps' worth of records from every feed reader as stacked
+        ``[k, P, B]`` batches: one pinned, non-blocking upload per feed."""
+        feeds = []
+        for vid in self.compiled.feed_vertices:
+            v = self.job.vertices[vid]
+            b = v.operator.batch_size
+            reader = self.feed_readers.get(vid)
+            if reader is None:
+                feeds.append(empty((k, v.parallelism, b), self.device))
+                continue
+            host = np.zeros((3, k, v.parallelism, b), np.int32)
+            for s in range(v.parallelism):
+                ks, vs, cnt = reader.pull_block(s, b, k)
+                host[0, :, s], host[1, :, s] = ks, vs
+                host[2, :, s] = np.arange(b)[None, :] < cnt[:, None]
+            arr = _device.upload(host, self.device)
+            feeds.append(RecordBatch(arr[0], arr[1], torch.zeros_like(arr[0]),
+                                     arr[2] != 0))
+        return tuple(feeds)
+
     def _next_block_inputs(self, k: int) -> BlockInputs:
-        times = np.empty((k,), np.int32)
-        rngs = np.empty((k,), np.int32)
+        host = np.empty((2, k), np.int32)
         for i in range(k):
             t = self.time_source.now()
             r = int(self._rng.randint(0, 2 ** 31, dtype=np.int64))
-            times[i], rngs[i] = t, r
+            host[0, i], host[1, i] = t, r
             self.step_input_history.append((t, r))
-        i32 = lambda x: torch.as_tensor(x, dtype=torch.int32,
-                                        device=self.device)
+        both = _device.upload(host, self.device)
         return BlockInputs(
-            times=i32(times), rng_bits=i32(rngs), epoch=i32(self.epoch_id),
-            step0=i32(len(self.step_input_history) - k))
+            times=both[0], rng_bits=both[1],
+            epoch=_device.scalar(self.epoch_id, self.device),
+            step0=_device.scalar(len(self.step_input_history) - k,
+                                 self.device),
+            feeds=self._pull_feeds(k))
 
     def _run_block(self, k: int) -> BlockOutputs:
         self.carry, outs = self.compiled.run_block(
             self.carry, self._next_block_inputs(k))
         self.step_in_epoch += k
         self._steps_executed += k
+        if self.on_block_outputs is not None:
+            self.on_block_outputs(outs, self.epoch_id)
+        self._notify_block()
         return outs
+
+    def _notify_block(self) -> None:
+        """Block listeners get the last executed step's causal time and
+        the record stamp: host-known values, no device read."""
+        if self.block_listeners and self._steps_executed:
+            t = self.step_input_history[self._steps_executed - 1][0]
+            stamp = self.global_record_stamp()
+            for fn in self.block_listeners:
+                fn(t, stamp)
 
     def step(self) -> StepOutputs:
         """Run one superstep (a K=1 block)."""
@@ -979,6 +1037,28 @@ class LocalExecutor:
                 f"says [{lo}, {hi})")
         return [(b.keys[s][b.valid[s]], b.values[s][b.valid[s]],
                  b.timestamps[s][b.valid[s]]) for s in range(hi - lo)]
+
+    def append_async_determinant(self, flat_subtask: int,
+                                 d: det.Determinant) -> None:
+        """Append one determinant row to a task's log (and every replica
+        of it) between blocks: the causal services' and timers' path."""
+        self.append_async_many([flat_subtask], d)
+
+    def service_factory(self, flat_subtask: int, sidecar: det.SidecarStore,
+                        replay_feed=None, seed: int = 0, clock=None):
+        """A task's causal-service bundle: time, random and external-call
+        wrappers whose values record into its log and replay after a
+        failure."""
+        from clonos_tpu_torch.causal.services import CausalServiceFactory
+        return CausalServiceFactory(
+            append=lambda d: self.append_async_determinant(flat_subtask, d),
+            sidecar=sidecar, epoch_of=lambda: self.epoch_id,
+            replay_feed=replay_feed, seed=seed, clock=clock)
+
+    def log_sizes(self) -> np.ndarray:
+        """Buffered determinant rows per task log (one device read)."""
+        logs = self.carry.logs
+        return (logs.head - logs.tail).cpu().numpy()
 
     def append_async_many(self, flat_subtasks: Sequence[int],
                           d: det.Determinant) -> None:

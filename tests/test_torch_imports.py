@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 38          # every module of the port was walked
+    assert int(count) >= 43          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
 
 
@@ -64,6 +64,23 @@ def test_tiered_storage_modules_import_alone_without_jax(module):
     """The tiered-storage slice's modules (whose references are partly
     JAX-free) each import alone in a fresh interpreter without ``jax``
     or ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.causal.services", "clonos_tpu_torch.causal.determinant",
+    "clonos_tpu_torch.runtime.timers", "clonos_tpu_torch.api.feeds",
+    "clonos_tpu_torch.runtime.txn", "clonos_tpu_torch.runtime.filesink"])
+def test_host_boundary_modules_import_alone_without_jax(module):
+    """The host-boundary slice's modules (services, timers, feeds, the
+    transaction log and the file sink, whose references are JAX-free)
+    each import alone in a fresh interpreter without ``jax`` or
+    ``clonos_tpu``."""
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
                           env=env, capture_output=True, text=True,
