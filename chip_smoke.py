@@ -64,7 +64,20 @@ Phases:
      union -> event-time window -> transactional file sink through the
      pipelined fence: a union, a window and a sink subtask killed, the
      committed part files byte-identical to the golden run's; then the
-     sliding and the session window (``[egress]``).
+     sliding and the session window (``[egress]``);
+ 10. in-process observability at the headline's widths
+     (``[observability]``): (a) ``bench.py``'s overhead probe under the
+     process profiler (``overhead.ft-fraction`` in [0, 1], the expected
+     sections, profiler fences counted), and the spill sections of
+     phase 8 (a)'s epochs with spill off, ``availability`` and
+     ``eager``; (b) phase 7's pipelined runner traced to a file through
+     two epochs and a window recovery equal to a golden run, the file's
+     Chrome export valid and each ``recovery.<phase>`` span equal to
+     ``phase_ms`` within 0.01 ms; (c) 0 synchronising calls in the
+     traced capture windows, and source records/s with the tracer off,
+     on, on, off (a reading); (d) ``MetricsEndpoint`` on 127.0.0.1
+     serving ``/metrics``, ``/metrics.json``, ``/metrics/history.json``
+     and ``/trace``, ``overhead.ft-fraction`` in both metric views.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -1785,6 +1798,271 @@ def phase_egress(dev_line, root):
     return launches_all
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+#: bench.py overhead_probe's epoch length (BENCH_PROFILE_SPE default) and
+#: seed; its ring is one epoch (1 << (SPE - 1).bit_length())
+PROBE_SPE = STEPS_PER_EPOCH
+PROBE_SEED = 7
+#: sections every profiled epoch of the headline job reports, and those
+#: a spilled one adds per policy (``refill`` is a recovery's): with
+#: every checkpoint completing, ``availability`` defers its ring epochs
+#: until truncation drops them and its determinant segment usually
+#: loses the race with truncation too, so ``spill-write`` may not occur
+PROBE_SECTIONS = {"compute", "roll", "truncate", "snapshot",
+                  "source-append", "health-read", "async-append"}
+SPILL_SECTIONS = {
+    "off": (PROBE_SECTIONS,) * 2,
+    "availability": (PROBE_SECTIONS | {"spill"},
+                     PROBE_SECTIONS | {"spill", "spill-write"}),
+    "eager": (PROBE_SECTIONS | {"spill", "spill-write"},) * 2}
+#: (b)'s kill: a window subtask EXTRA_STEPS past the second fence
+TRACE_KILL = [(1, 4)]
+#: recovery phase_ms keys that are credits or waits, not spans
+UNTRACED_PHASES = {"finalize.overlap-saved", "finalize.listener-reattach"}
+
+PHASE10_REDUCTIONS = (
+    f"(a) bench.py overhead_probe at the headline's widths: steps_per_epoch="
+    f"{PROBE_SPE}, ring {1 << (PROBE_SPE - 1).bit_length()}, seed "
+    f"{PROBE_SEED}, 1 warm-up + 2 profiled epochs; cuts: logical_time=True, "
+    f"window_size={WINDOW_SIZE} (bench: 1<<30), block_steps={BLOCK_STEPS}, "
+    f"the lineage probe bench.py appends is not ported; spill split at "
+    f"phase 8 (a)'s settings, 1 warm-up + 2 profiled epochs. (b)-(c) phase "
+    f"7's runner (pipelined fence, audit, checkpoints on disk), 2 epochs + "
+    f"{EXTRA_STEPS} steps, one window kill")
+
+
+def _sections_ms(before, after):
+    return {k: round((after.get(k, 0.0) - before.get(k, 0.0)) * 1e3, 3)
+            for k in sorted(after)}
+
+
+def _profiled(make, epochs=2, spill=False):
+    """One warm-up epoch, then ``epochs`` profiled ones under a fresh
+    process profiler; returns (runner, profiler, sections ms of the
+    profiled epochs, profiler fences in them)."""
+    from clonos_tpu_torch.obs import profile as prof_mod
+    from clonos_tpu_torch.utils import devsync
+    prof = prof_mod.configure_profile()
+    r = make()
+    r.run_epoch(complete_checkpoint=True)
+    if spill:
+        r.executor.drain_spill()
+    sync()
+    before = prof.lifetime()
+    real, fences = devsync.device_sync, [0]
+
+    def counting(tree):
+        fences[0] += 1
+        real(tree)
+    devsync.device_sync = counting
+    try:
+        for _ in range(epochs):
+            r.run_epoch(complete_checkpoint=True)
+        if spill:
+            r.executor.drain_spill()
+        sync()
+    finally:
+        devsync.device_sync = real
+    return r, prof, _sections_ms(before, prof.lifetime()), fences[0]
+
+
+def _traced_pair(root, tag, path=None):
+    """Phase 7's pipelined runner through 2 completed epochs and
+    EXTRA_STEPS steps, the tracer on (to ``path``) or off; returns
+    (runner, source records/s over the epochs, capture-window syncs)."""
+    from clonos_tpu_torch import obs
+    if path is not None:
+        obs.configure("runner", path=path)
+    else:
+        obs.reset()
+    r = _runner7(root, tag, True)
+    syncs = []
+    _wrap_syncs(r, "_begin_fence_tail", syncs)
+    sync()
+    r0 = _source_records(r)
+    t0 = time.monotonic()
+    for _ in range(2):
+        r.run_epoch(complete_checkpoint=True)
+    sync()
+    rate = (_source_records(r) - r0) / (time.monotonic() - t0)
+    delattr(r, "_begin_fence_tail")
+    for _ in range(EXTRA_STEPS):
+        r.step()
+    return r, rate, syncs
+
+
+def phase_observability(dev_line, root):
+    """In-process observability on the headline job at full width: (a) the
+    overhead probe and the spill section split, (b) a traced pipelined run
+    with a window recovery, its Chrome export and its recovery spans
+    against ``phase_ms``, (c) 0 syncs in the traced capture windows and
+    records/s with the tracer on and off, (d) the metrics endpoint's four
+    routes. Returns the path's kernel launches."""
+    import urllib.request
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.obs import chrome
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.utils import metrics as met
+    out = {}
+    t_phase = time.monotonic()
+
+    def drive():
+        # (a) bench.py overhead_probe: sequential fence, no audit.
+        kw = dict(runner_kw(), seed=PROBE_SEED,
+                  inflight_ring_steps=1 << (PROBE_SPE - 1).bit_length())
+        r, prof, sections, fences = _profiled(
+            lambda: ClusterRunner(build_job(), device=DEVICE, **kw))
+        frac, life = prof.ft_fraction(), prof.lifetime_ft_fraction()
+        if not (0.0 <= frac <= 1.0 and 0.0 <= life <= 1.0):
+            raise AssertionError(f"(a) ft-fraction {frac}, lifetime {life}")
+        if set(prof.lifetime()) != PROBE_SECTIONS or fences == 0:
+            raise AssertionError(f"(a) sections {sorted(prof.lifetime())}, "
+                                 f"{fences} profiler fences")
+        out["registry"] = r.metrics
+        log("[observability] (a) overhead probe: " + json.dumps(dict(
+            overhead_ft_fraction=frac,
+            overhead_ft_fraction_lifetime=round(life, 6),
+            sections_ms_lifetime={k: round(v * 1e3, 3) for k, v in
+                                  sorted(prof.lifetime().items())},
+            sections_ms_profiled_epochs=sections,
+            profiler_fences=fences, steps_per_epoch=PROBE_SPE,
+            lineage_probe="not ported", device=dev_line)))
+        del r
+        # (a) the spill split at phase 8 (a)'s settings, against the
+        # same epochs with spill off.
+        split = {}
+        for policy in ("off", "availability", "eager"):
+            skw = _spill_kw(SPILL_STEADY_RING, SPILL_EPOCHS)
+            spill = policy != "off"
+            if spill:
+                skw.update(spool_dir=os.path.join(root, f"spool-{policy}"),
+                           spill_policy=policy)
+            r, prof, sections, fences = _profiled(
+                lambda: ClusterRunner(build_job(), device=DEVICE, **skw),
+                spill=spill)
+            least, most = SPILL_SECTIONS[policy]
+            if not least <= set(prof.lifetime()) <= most:
+                raise AssertionError(f"(a) {policy} sections "
+                                     f"{sorted(prof.lifetime())}")
+            stats = {}
+            if spill:
+                r.executor.close_spill()
+                stats = r.executor.spill_stats()
+            split[policy] = dict(
+                sections_ms=sections, profiler_fences=fences,
+                overhead_ft_fraction=prof.ft_fraction(),
+                segments_written=stats.get("segments_written"),
+                bytes_spilled=stats.get("bytes_spilled"))
+            del r
+        obs.reset_profile()
+        log("[observability] (a) spill split (spill = the hook's host time, "
+            "spill-write = the writer thread, compute = the blocks, each "
+            "over 2 profiled epochs): " + json.dumps(dict(
+                split, steps_per_epoch=SPILL_SPE, device=dev_line)))
+
+        # (b)-(c) off, on (killed and recovered), on, off.
+        path = os.path.join(root, "trace-runner.jsonl")
+        golden, rate_off, _ = _traced_pair(root, "t-golden")
+        golden.drain_fence()
+        traced, rate_on, syncs = _traced_pair(root, "t-traced", path)
+        rates = {"off": [rate_off], "on": [rate_on]}
+        flats = _flats(traced, TRACE_KILL)
+        traced.inject_failure(flats)
+        report = traced.recover()
+        _assert_same(golden, traced, "(b) traced window recovery")
+        out["tracer"] = obs.get_tracer()
+        for r in (golden, traced):
+            r.drain_fence()
+            r.coordinator.storage._close_ledger()
+        del golden, traced
+        for tag, p in (("on", path + ".2"), ("off", None)):
+            r, rate, more = _traced_pair(root, f"t-{tag}2", p)
+            rates[tag].append(rate)
+            syncs += more if tag == "on" else []
+            r.drain_fence()
+            r.coordinator.storage._close_ledger()
+            del r
+        out["report"], out["rates"], out["syncs"] = report, rates, syncs
+        out["path"] = path
+
+    _, launches, _ = _counted(drive)
+    report, rates, syncs = out["report"], out["rates"], out["syncs"]
+    tracer = out["tracer"]
+    obs.reset()
+    records = chrome.load_jsonl(out["path"])
+    n_events = chrome.validate_chrome(chrome.to_chrome(records))
+    names = {r["name"] for r in records}
+    want = {"epoch.steps", "epoch.fence", "checkpoint.trigger",
+            "checkpoint", "recovery.finalize", "recovery"}
+    phases = {k: v for k, v in report.phase_ms.items()
+              if k not in UNTRACED_PHASES}
+    span_ms = {k: sum(r["dur"] for r in records
+                      if r["name"] == f"recovery.{k}") * 1e3 for k in phases}
+    if n_events <= 0 or not want <= names or not all(
+            f"recovery.{k}" in names for k in phases):
+        raise AssertionError(f"(b) trace names {sorted(names)}")
+    off_by = {k: abs(span_ms[k] - v) for k, v in phases.items()}
+    if max(off_by.values()) > 0.01:
+        raise AssertionError(f"(b) recovery spans vs phase_ms: {off_by}")
+    if torch.device(DEVICE).type == "cuda" and any(syncs):
+        raise AssertionError(f"(c) traced capture windows synchronised: "
+                             f"{syncs} at {SYNC_SITES}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"observability path launched no kernel: "
+                             f"{launches}")
+    summary = chrome.summarize(records)
+    log("[observability] (b) traced pipelined run, window recovery == "
+        "golden; Chrome trace valid: " + json.dumps(dict(
+            chrome_events=n_events, records=summary["records"],
+            traces=len(summary["traces"]),
+            names={k: dict(count=v["count"],
+                           total_ms=round(v["total_s"] * 1e3, 3))
+                   for k, v in sorted(summary["names"].items())},
+            recovery_ms=round(report.recovery_ms, 3),
+            phase_ms={k: round(v, 3) for k, v in report.phase_ms.items()},
+            span_minus_phase_ms_max=max(off_by.values()),
+            device=dev_line)))
+    log("[observability] (c) tracer on, pipelined fence: " + json.dumps(dict(
+        capture_window_syncs=syncs,
+        source_records_per_s_off_on_on_off=[
+            round(x, 1) for x in (rates["off"][0], rates["on"][0],
+                                  rates["on"][1], rates["off"][1])],
+        note="reading, not a claim", device=dev_line)))
+
+    # (d) the endpoint over (a)'s registry, (b)'s flight recorder.
+    hist = obs.MetricsHistory(interval_s=3600.0, window=8)
+    ep = met.MetricsEndpoint(out["registry"], host="127.0.0.1", port=0,
+                             tracer=tracer, history=hist)
+    try:
+        base = "http://%s:%d" % ep.address
+        for _ in range(2):
+            hist.sample_once()
+        bodies = {route: urllib.request.urlopen(base + route,
+                                                timeout=60).read()
+                  for route in ("/metrics", "/metrics.json",
+                                "/metrics/history.json", "/trace")}
+    finally:
+        ep.close()
+    gauge = "job.bench-allround.overhead.ft-fraction"
+    js = json.loads(bodies["/metrics.json"])
+    samples = json.loads(bodies["/metrics/history.json"])["samples"]
+    trace_events = chrome.validate_chrome(json.loads(bodies["/trace"]))
+    if gauge not in js or met._prom_name(gauge).encode() + b" " \
+            not in bodies["/metrics"] or len(samples) != 2 \
+            or gauge not in samples[-1]["metrics"] or trace_events <= 0:
+        raise AssertionError("(d) endpoint: overhead.ft-fraction missing "
+                             "or a route is malformed")
+    log("[observability] (d) endpoint on 127.0.0.1: " + json.dumps(dict(
+        routes={k: len(v) for k, v in bodies.items()},
+        ft_fraction=js[gauge], history_samples=len(samples),
+        trace_events=trace_events, kernel_launches=launches,
+        phase_seconds=round(time.monotonic() - t_phase, 3),
+        device=dev_line)))
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1829,13 +2107,21 @@ def main() -> int:
         egress_launches = phase_egress(dev_line, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 10: {PHASE10_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_", dir=SCRATCH)
+    try:
+        obs_launches = phase_observability(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
         "audit_recovery": audit_launches, **overlap_launches,
         **spill_launches, "feed_cascade": feed_launches,
         "join_recovery": join_launches,
-        "event_time_egress": egress_launches})))
+        "event_time_egress": egress_launches,
+        "observability": obs_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,6 +15,10 @@
   device scalar, both read in the cluster's one packed read at the end.
 - :class:`AuditValidator` recomputes each replayed closed epoch's audit
   digest from the patched carry and compares it with the sealed ledger.
+
+With a tracer configured (``obs/trace.py``) each FSM transition is a
+``recovery.fsm`` instant and each validated epoch a
+``recovery.audit.{match,divergence,missing}`` instant.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from clonos_tpu_torch.api.operators import (BlockContext, Operator,
                                             TwoInputOperator)
 from clonos_tpu_torch.api.records import RecordBatch, empty
 from clonos_tpu_torch.causal import determinant as det
+from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -77,7 +82,13 @@ class AuditValidator:
         divergence under the abort policy."""
         from clonos_tpu_torch.obs import audit as _audit
         from clonos_tpu_torch.obs.digest import EpochDigest, diff as _diff
+        tr = get_tracer()
         stats = self.stats
+
+        def event(kind: str, **fields) -> None:
+            self.events.append((kind, fields))
+            tr.event(kind, **fields)
+
         for e in epochs:
             e = int(e)
             recomputed = _audit.digest_epoch_window(
@@ -85,19 +96,19 @@ class AuditValidator:
             entry = self.ledger.get(e)
             if entry is None:
                 stats["missing"] += 1
-                self.events.append(("recovery.audit.missing", {"epoch": e}))
+                event("recovery.audit.missing", epoch=e)
                 continue
             d = _diff(EpochDigest.from_entry(entry), recomputed)
             if d is None:
                 stats["match"] += 1
-                self.events.append(("recovery.audit.match", {
-                    "epoch": e, "channels": len(recomputed.channels),
-                    "records": recomputed.record_count()}))
+                event("recovery.audit.match", epoch=e,
+                      channels=len(recomputed.channels),
+                      records=recomputed.record_count())
             else:
                 stats["divergence"] += 1
                 channel, reason = d
-                self.events.append(("recovery.audit.divergence", {
-                    "epoch": e, "channel": channel, "reason": reason}))
+                event("recovery.audit.divergence", epoch=e,
+                      channel=channel, reason=reason)
                 if self.on_divergence == "abort":
                     raise AuditDivergenceError(
                         f"epoch {e} channel {channel}: {reason} — replay "
@@ -430,6 +441,9 @@ class RecoveryManager:
     def _goto(self, s: RecoveryState) -> None:
         self.state = s
         self.transitions.append(s)
+        get_tracer().event("recovery.fsm", state=s.name,
+                           flat=self.flat_subtask, vertex=self.vertex_id,
+                           subtask=self.subtask)
 
     # --- events -------------------------------------------------------------
 

@@ -22,7 +22,13 @@ push, the audit ledger (port of ``clonos_tpu/runtime/checkpoint.py``).
   ignored and never completes.
 - The per-epoch audit ledger lives next to the checkpoints; a file
   storage writes ``ledger.jsonl`` in the reference's line format (one
-  ``json.dumps(entry, sort_keys=True)`` line per sealed epoch).
+  ``json.dumps(entry, sort_keys=True)`` line per sealed epoch), group-
+  committed: every line flushed at once, an fsync every
+  ``ledger_group_commit`` appends and at completion.
+- With a tracer configured (``obs/trace.py``): a ``checkpoint.trigger``
+  event at the trigger, a ``checkpoint`` span over trigger-to-complete
+  (with ``size_bytes``) and a ``checkpoint.truncate`` event at
+  completion.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import numpy as np
 import torch
 
 from clonos_tpu_torch.device import HostCopy
+from clonos_tpu_torch.obs.trace import get_tracer
+from clonos_tpu_torch.utils.jsonl import JsonlAppender, atomic_rewrite_jsonl
 from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -168,10 +176,16 @@ class FileCheckpointStorage(CheckpointStorage):
     only ``ledger.jsonl``; deletion reclaims space like subsumed-
     checkpoint disposal."""
 
+    #: group-commit width: fsync the ledger every K appends (and at every
+    #: checkpoint completion / explicit flush). The crash window is at
+    #: most K-1 sealed-but-unsynced lines plus one torn line, all at the
+    #: tail, which the tolerant reader already drops.
+    ledger_group_commit = 8
+
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
-        self._ledger_file = None
+        self._ledger_w: Optional[JsonlAppender] = None
 
     def _path(self, cid: int) -> str:
         return os.path.join(self.root, f"chk_{cid}.pkl")
@@ -202,43 +216,50 @@ class FileCheckpointStorage(CheckpointStorage):
         return os.path.join(self.root, "ledger.jsonl")
 
     def write_ledger(self, entry: dict) -> None:
-        """Append one JSON line per sealed epoch, flushed to the OS at
-        once; :meth:`flush_ledger` fsyncs (checkpoint completion)."""
-        if self._ledger_file is None:
-            self._ledger_file = open(self.ledger_path(), "a")
-        self._ledger_file.write(json.dumps(entry, sort_keys=True) + "\n")
-        self._ledger_file.flush()
+        """Append one JSON line per sealed epoch through the durable
+        appender (``utils/jsonl``): every line is flushed to the OS at
+        once, the fsync is batched every ``ledger_group_commit`` appends,
+        and completion calls :meth:`flush_ledger`, so a durable checkpoint
+        never outruns its sealed entries."""
+        if self._ledger_w is None:
+            self._ledger_w = JsonlAppender(
+                self.ledger_path(), sort_keys=True,
+                fsync_every=self.ledger_group_commit)
+        self._ledger_w.append(entry)
+
+    @property
+    def _ledger_unsynced(self) -> int:
+        """Sealed-but-unsynced tail lines in the group-commit window (0
+        with no appender open)."""
+        return self._ledger_w.unsynced if self._ledger_w is not None \
+            else 0
 
     def flush_ledger(self) -> None:
-        if self._ledger_file is not None:
-            os.fsync(self._ledger_file.fileno())
+        if self._ledger_w is not None:
+            self._ledger_w.sync()
 
     def _close_ledger(self) -> None:
-        if self._ledger_file is not None:
-            self.flush_ledger()
-            self._ledger_file.close()
-            self._ledger_file = None
+        if self._ledger_w is not None:
+            self._ledger_w.close()
+            self._ledger_w = None
 
     def read_ledger(self) -> List[dict]:
         return read_ledger_file(self.ledger_path())
 
     def compact_ledger(self, below_epoch: int) -> int:
-        """Atomic last-wins rewrite of the entries below the fence (a
-        crash leaves the old file or the new one, never a mix)."""
+        """Atomic last-wins rewrite of the entries below the fence
+        (``atomic_rewrite_jsonl``: a crash leaves the old file or the new
+        one, never a mix)."""
         path = self.ledger_path()
         self._close_ledger()          # os.replace swaps the inode under us
         entries = read_ledger_file(path)
+        if not entries:
+            return 0
         compacted = compact_ledger_entries(entries, below_epoch)
         dropped = len(entries) - len(compacted)
         if dropped == 0:
             return 0
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            for e in compacted:
-                f.write(json.dumps(e, sort_keys=True) + "\n")
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
+        atomic_rewrite_jsonl(path, compacted, sort_keys=True)
         return dropped
 
 
@@ -393,6 +414,8 @@ class CheckpointCoordinator:
                 carry.discard()
             return
         self._observe("trigger", cid=checkpoint_id)
+        get_tracer().event("checkpoint.trigger", cid=checkpoint_id,
+                           subtasks=self.num_subtasks)
         snap_start = time.monotonic()
         if self.storage.wants_host:
             if not isinstance(carry, HostCopy):
@@ -483,14 +506,19 @@ class CheckpointCoordinator:
                 self.storage.mark_complete(checkpoint_id)
             except NotImplementedError:
                 pass
+        tr = get_tracer()
         if trig is not None:
+            lat = time.time() - trig
             with self._state_lock:
-                self.completion_latency_s[checkpoint_id] = time.time() - trig
+                self.completion_latency_s[checkpoint_id] = lat
                 while len(self.completion_latency_s) > 64:
                     del self.completion_latency_s[
                         min(self.completion_latency_s)]
+            tr.complete("checkpoint", lat, cid=checkpoint_id,
+                        size_bytes=ckpt.size_bytes)
         for fn in self._complete_listeners:
             fn(checkpoint_id)
+        tr.event("checkpoint.truncate", cid=checkpoint_id)
         for fn in self._listeners:
             fn(ckpt)
         self._retain()

@@ -49,11 +49,22 @@ transactions (a ``device.HostCopy`` started on the main thread, waited at
 the seal), seal them at the fence, commit them on checkpoint completion
 and rebuild a failed subtask's shards from its replay. A two-input
 vertex replays from both of its input edges.
+
+Observability, off by default: the process tracer (``obs/trace.py``)
+records the ``epoch`` / ``epoch.steps`` / ``epoch.fence`` spans, one
+``recovery.<phase>`` span per recovery phase (``phase_ms``'s keys) and
+the ``recovery`` span; the process profiler (``obs/profile.py``), bound
+to the job's metric group, times the fence's sections (``health-read``,
+``digest-seal``, ``ledger-write``, ``snapshot``, ``source-append``,
+``timer-advance``) against ``compute`` and rolls them into the
+``overhead.ft-fraction`` gauge at every fence. ``from_config`` builds a
+runner from the typed options (``config/defaults.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time as _time
 import warnings
@@ -75,6 +86,9 @@ from clonos_tpu_torch.causal.epoch import EpochTracker
 from clonos_tpu_torch.graph.job_graph import JobGraph, PartitionType
 from clonos_tpu_torch.inflight import log as ifl
 from clonos_tpu_torch.obs import audit as _audit
+from clonos_tpu_torch.obs import profile as _prof
+from clonos_tpu_torch.obs.trace import configure as configure_tracer
+from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.parallel import routing
 from clonos_tpu_torch.runtime import checkpoint as cp
 from clonos_tpu_torch.runtime.timers import ProcessingTimeService
@@ -121,16 +135,20 @@ class HeartbeatMonitor:
 
 class StandbyPool:
     """Holds the state standbys restore from: the latest completed
-    checkpoint, refreshed on every completion."""
+    checkpoint, refreshed on every completion, for
+    ``num_standby_per_vertex`` standbys of each subtask."""
 
-    def __init__(self):
+    def __init__(self, num_standby_per_vertex: int = 1):
+        self.num_standby_per_vertex = num_standby_per_vertex
         self.latest: Optional[cp.CompletedCheckpoint] = None
+        self.dispatch_count = 0
 
     def on_completed_checkpoint(self, ckpt: cp.CompletedCheckpoint) -> None:
         # Monotonic: a stale completion never regresses the restore point.
         if self.latest is None \
                 or ckpt.checkpoint_id >= self.latest.checkpoint_id:
             self.latest = ckpt
+        self.dispatch_count += 1
 
     def has_state(self) -> bool:
         return self.latest is not None
@@ -224,11 +242,12 @@ class ClusterRunner:
     of each is the sequential control, reached only through the switch."""
 
     def __init__(self, job: JobGraph, steps_per_epoch: int = 8,
-                 heartbeat_timeout_s: float = 5.0,
+                 num_standby: int = 1, heartbeat_timeout_s: float = 5.0,
                  checkpoint_dir: Optional[str] = None,
                  recovery_block_steps: Optional[int] = None,
                  latency_marker_every: Optional[int] = None,
                  audit: Optional[bool] = None,
+                 audit_on_divergence: Optional[str] = None,
                  overlap_recovery: bool = True,
                  overlap_epoch: bool = False,
                  incremental_checkpoints: bool = False,
@@ -268,7 +287,7 @@ class ClusterRunner:
         self.coordinator = cp.CheckpointCoordinator(
             storage, num_subtasks=job.total_subtasks(),
             base_interval_steps=steps_per_epoch)
-        self.standbys = StandbyPool()
+        self.standbys = StandbyPool(num_standby)
         self.coordinator.subscribe_completed_state(
             self.standbys.on_completed_checkpoint)
         self.coordinator.subscribe_completion(
@@ -323,19 +342,30 @@ class ClusterRunner:
                 g.gauge(f"spill.{key.replace('_', '-')}",
                         lambda k=key: ex.spill_stats().get(k, 0))
         # Exactly-once audit: audit=None inherits the process-global
-        # stance, and the divergence policy always does; the default
-        # NullAuditor reads and writes nothing.
+        # stance, and so does the divergence policy unless
+        # audit_on_divergence names one; the default NullAuditor reads
+        # and writes nothing.
         self._audit_layout = tuple(
             (v.vertex_id, v.parallelism) for v in job.vertices)
         stance = _audit.get_auditor()
         if audit is None:
             audit = stance.enabled
         self.auditor: _audit.NullAuditor = (
-            _audit.Auditor(on_divergence=stance.on_divergence)
+            _audit.Auditor(on_divergence=(audit_on_divergence
+                                          or stance.on_divergence))
             if audit else _audit.NullAuditor())
         self._m_audit_sealed = g.counter("audit.epochs-sealed")
         self._m_audit_matches = g.counter("audit.epochs-validated")
         self._m_audit_div = g.counter("audit.divergences")
+        # Overhead attribution: the runner inherits the process profiler;
+        # an enabled one feeds its overhead.<section>-ms histograms and
+        # the overhead.ft-fraction gauge into this group. The default
+        # NullProfiler binds to nothing and waits for nothing.
+        self.profiler = _prof.get_profiler()
+        if self.profiler.enabled:
+            self.profiler.bind(g)
+        # Determinant-log occupancy (one device read per scrape).
+        self.watchdog = met.LogOccupancyWatchdog(self.executor, g)
         #: the validator of the last audited recovery (its ``events``)
         self.last_audit: Optional[rec.AuditValidator] = None
         #: routed edge windows shared by one vertex's failed subtasks
@@ -449,9 +479,60 @@ class ClusterRunner:
         return svc
 
     def _advance_timers(self, now: int, stamp: int) -> None:
-        for flat, svc in self.timer_services.items():
-            if flat not in self.failed:
-                svc.advance(now, stamp)
+        if not self.timer_services:
+            return
+        with self.profiler.section("timer-advance"):
+            for flat, svc in self.timer_services.items():
+                if flat not in self.failed:
+                    svc.advance(now, stamp)
+
+    @classmethod
+    def from_config(cls, job: JobGraph, config=None, device="cuda",
+                    **overrides) -> "ClusterRunner":
+        """Build a runner from the typed configuration
+        (``config/defaults.py``); explicit ``overrides`` win. The
+        ``observability.profile.enabled`` option installs the process
+        profiler and ``observability.tracing.*`` the process tracer
+        (``trace-runner.jsonl`` under the tracing dir), unless one is
+        already installed."""
+        from clonos_tpu_torch.config import defaults as D
+        from clonos_tpu_torch.config.options import Configuration
+        cfg = config or Configuration()
+        job.sharing_depth = cfg.get(D.DETERMINANT_SHARING_DEPTH)
+        kw: Dict[str, Any] = dict(
+            steps_per_epoch=cfg.get(D.CHECKPOINT_INTERVAL_STEPS),
+            num_standby=(cfg.get(D.NUM_STANDBY_TASKS)
+                         if cfg.get(D.FAILOVER_STRATEGY) == "standbytask"
+                         else 0),
+            heartbeat_timeout_s=cfg.get(D.HEARTBEAT_TIMEOUT_MS) / 1e3,
+            log_capacity=cfg.get(D.DETERMINANT_LOG_CAPACITY),
+            max_epochs=cfg.get(D.DETERMINANT_MAX_EPOCHS),
+            inflight_ring_steps=cfg.get(D.INFLIGHT_CAPACITY_BATCHES),
+        )
+        if cfg.get(D.INFLIGHT_TYPE) == "spillable":
+            kw["spool_dir"] = os.path.join(cfg.get(D.CHECKPOINT_DIR),
+                                           "spill")
+            kw["spill_policy"] = cfg.get(D.INFLIGHT_SPILL_POLICY)
+            kw["spill_host_budget_epochs"] = cfg.get(
+                D.INFLIGHT_HOST_BUDGET_EPOCHS)
+        if cfg.contains(D.CHECKPOINT_DIR):
+            kw["checkpoint_dir"] = cfg.get(D.CHECKPOINT_DIR)
+        if cfg.get(D.AUDIT_ENABLED):
+            kw["audit"] = True
+            kw["audit_on_divergence"] = cfg.get(D.AUDIT_ON_DIVERGENCE)
+        if cfg.get(D.PROFILE_ENABLED) and not _prof.get_profiler().enabled:
+            _prof.configure_profile()
+        if cfg.get(D.TRACING_ENABLED) and not get_tracer().enabled:
+            trace_dir = cfg.get(D.TRACE_DIR)
+            os.makedirs(trace_dir, exist_ok=True)
+            configure_tracer(
+                "runner", path=os.path.join(trace_dir, "trace-runner.jsonl"),
+                buffer=cfg.get(D.TRACE_BUFFER_EVENTS))
+        kw.update(overrides)
+        runner = cls(job, device=device, **kw)
+        runner.coordinator.backoff_multiplier = cfg.get(
+            D.CHECKPOINT_BACKOFF_MULTIPLIER)
+        return runner
 
     def attach_file_sink(self, vertex_id: int, root: str, token: int = 0):
         """Back a transactional sink with durable part files
@@ -508,24 +589,39 @@ class ClusterRunner:
         ex = self.executor
         closed = ex.epoch_id
         n = ex.steps_per_epoch - ex.step_in_epoch
-        t0 = _time.monotonic()
-        ex.run_epoch()
-        self._m_epoch_steps_ms.update((_time.monotonic() - t0) * 1e3)
-        # The previous epoch's tail overlapped this epoch's dispatch; it
-        # joins before any of this fence's state is touched.
-        self._join_fence_tail()
-        t_fence = _time.monotonic()
-        self.global_step += n
-        self._fence_step[ex.epoch_id] = self.global_step
-        self.heartbeats.beat_all_except(self.failed)
-        self._m_steps.inc(n)
-        self._m_epochs.inc()
-        if self.latency is not None:
-            self.latency.observe()
-        if overlap:
-            self._begin_fence_tail(closed, complete_checkpoint)
-        else:
-            self._run_fence_tail_inline(closed, complete_checkpoint, t_fence)
+        tr = get_tracer()
+        prof = self.profiler
+        with tr.span("epoch", epoch=closed, steps=n):
+            t0 = _time.monotonic()
+            ex.run_epoch()
+            if not overlap:
+                # An enabled profiler waits for the card here, so
+                # "compute" is the blocks' execution; never on the
+                # pipelined path, whose overlap this wait would undo.
+                prof.fence(ex.carry)
+            steps_s = _time.monotonic() - t0
+            self._m_epoch_steps_ms.update(steps_s * 1e3)
+            tr.complete("epoch.steps", steps_s, epoch=closed, steps=n)
+            prof.observe("compute", steps_s, kind=_prof.COMPUTE)
+            # The previous epoch's tail overlapped this epoch's dispatch;
+            # it joins before any of this fence's state is touched.
+            self._join_fence_tail()
+            t_fence = _time.monotonic()
+            self.global_step += n
+            self._fence_step[ex.epoch_id] = self.global_step
+            self.heartbeats.beat_all_except(self.failed)
+            self._m_steps.inc(n)
+            self._m_epochs.inc()
+            if self.latency is not None:
+                self.latency.observe()
+            if overlap:
+                self._begin_fence_tail(closed, complete_checkpoint, prof)
+            else:
+                self._run_fence_tail_inline(closed, complete_checkpoint,
+                                            t_fence, tr, prof)
+            # Close the attribution window: FT seconds / (FT + compute)
+            # since the previous fence.
+            prof.rollup()
 
     def step(self) -> None:
         if self.failed:
@@ -551,7 +647,7 @@ class ClusterRunner:
         return delta
 
     def _seal_and_trigger(self, closed: int, window_fn, snap_fn,
-                          phases: Dict[str, float], async_write: bool
+                          phases: Dict[str, float], prof, async_write: bool
                           ) -> None:
         """The fence tail's persistence half, shared by both modes: audit
         seal over the closed epoch's causal surface, ledger append,
@@ -559,13 +655,16 @@ class ClusterRunner:
         comes from (the live carry, or the pipelined capture), so the
         digests are byte-identical either way."""
         if self.auditor.enabled:
+            win = window_fn()
             t = _time.monotonic()
-            dg = _audit.digest_epoch_window(closed, window_fn(),
-                                            layout=self._audit_layout)
-            self.auditor.seal(dg)
+            with prof.section("digest-seal"):
+                dg = _audit.digest_epoch_window(closed, win,
+                                                layout=self._audit_layout)
+                self.auditor.seal(dg)
             phases["fence.digest-seal"] = (_time.monotonic() - t) * 1e3
             t = _time.monotonic()
-            self.coordinator.record_ledger(dg.to_entry())
+            with prof.section("ledger-write"):
+                self.coordinator.record_ledger(dg.to_entry())
             phases["fence.ledger-write"] = (_time.monotonic() - t) * 1e3
             if self.executor.spill_logs is not None:
                 # Segment index entries carry the ledger's fingerprints.
@@ -574,16 +673,19 @@ class ClusterRunner:
             self._m_audit_sealed.inc()
         self.last_sealed_epoch = max(self.last_sealed_epoch, closed)
         t = _time.monotonic()
-        self.coordinator.trigger(closed, snap_fn(), async_write=async_write,
-                                 owned=True)
-        if async_write:
-            # The worker makes its own write durable before it exits, so
-            # completion (acked at the join) never fires on a writer.
-            self.coordinator.drain()
+        with prof.section("snapshot"):
+            self.coordinator.trigger(closed, snap_fn(),
+                                     async_write=async_write, owned=True)
+            if async_write:
+                # The worker makes its own write durable before it exits,
+                # so completion (acked at the join) never fires on a
+                # writer.
+                self.coordinator.drain()
         phases["fence.snapshot"] = (_time.monotonic() - t) * 1e3
 
     def _append_source_fence_determinant(self, closed: int,
-                                         phases: Dict[str, float]) -> None:
+                                         phases: Dict[str, float],
+                                         prof) -> None:
         """Every source logs the checkpoint-trigger arrival — after the
         fence capture / lean snapshot, so the checkpointed log heads stay
         at the fence (the rows belong to the new epoch)."""
@@ -592,14 +694,16 @@ class ClusterRunner:
         ex = self.executor
         t_ms = ex.step_input_history[-1][0] if ex.step_input_history else 0
         t = _time.monotonic()
-        ex.append_async_many(
-            self._source_flats, det.SourceCheckpointDeterminant(
-                record_count=ex.global_record_stamp(),
-                checkpoint_id=closed, timestamp=t_ms))
+        with prof.section("source-append"):
+            ex.append_async_many(
+                self._source_flats, det.SourceCheckpointDeterminant(
+                    record_count=ex.global_record_stamp(),
+                    checkpoint_id=closed, timestamp=t_ms))
+            prof.fence(ex.carry.logs)
         phases["fence.source-append"] = (_time.monotonic() - t) * 1e3
 
     def _run_fence_tail_inline(self, closed: int, complete_checkpoint: bool,
-                               t_fence: float) -> None:
+                               t_fence: float, tr, prof) -> None:
         """The strict fence order (the sequential control): one health
         read (overflow flags, record total, fence log heads), audit seal +
         ledger + trigger, source fence determinants, then completion
@@ -607,7 +711,8 @@ class ClusterRunner:
         ex = self.executor
         phases: Dict[str, float] = {}
         t = _time.monotonic()
-        vec = ex.health_vector()
+        with prof.section("health-read"):
+            vec = ex.health_vector()
         phases["fence.health-read"] = (_time.monotonic() - t) * 1e3
         delta = self._absorb_fence_health(closed, vec)
         violations = ex.overflow_messages(vec)
@@ -618,14 +723,16 @@ class ClusterRunner:
         self._seal_and_trigger(
             closed, lambda: ex.epoch_window(closed),
             lambda: self._stage_feed_offsets(closed, ex.lean_snapshot()),
-            phases, async_write=False)
-        self._append_source_fence_determinant(closed, phases)
+            phases, prof, async_write=False)
+        self._append_source_fence_determinant(closed, phases, prof)
         self._seal_txns(closed)
         if complete_checkpoint:
             self.coordinator.ack_all(closed)
-        phases["fence-tail"] = (_time.monotonic() - t_fence) * 1e3
+        fence_s = _time.monotonic() - t_fence
+        phases["fence-tail"] = fence_s * 1e3
         self.last_fence_phases = phases
         self._m_epoch_fence_ms.update(phases["fence-tail"])
+        tr.complete("epoch.fence", fence_s, epoch=closed)
 
     def _check_fence_headroom(self) -> None:
         """The pipelined fence defers the overflow check to the next
@@ -645,8 +752,8 @@ class ClusterRunner:
                 f"{2 * spe} — raise inflight_ring_steps or use the "
                 f"sequential fence (overlap_epoch=False)")
 
-    def _begin_fence_tail(self, closed: int,
-                          complete_checkpoint: bool) -> None:
+    def _begin_fence_tail(self, closed: int, complete_checkpoint: bool,
+                          prof) -> None:
         """Capture this fence's state and hand the tail to the fence
         worker. The capture window makes no host sync: every device-to-
         host copy starts here, on the thread that queues the blocks, and
@@ -664,7 +771,7 @@ class ClusterRunner:
             # A device-diffing storage dispatches its diff here; its one
             # packed read waits for the join.
             snap = storage.stage(snap, closed) or snap
-        self._append_source_fence_determinant(closed, phases)
+        self._append_source_fence_determinant(closed, phases, prof)
         # clonos: overlap-window-end
         pre_ms = (_time.monotonic() - t) * 1e3
         phases["fence.capture"] = max(
@@ -699,9 +806,11 @@ class ClusterRunner:
             self.epoch_tracker.inc_record_count(delta)
             # By value: the main thread may have rolled further epochs.
             self.epoch_tracker.start_new_epoch(closed + 1)
+            # No profiler sections here: the join observes this tail's
+            # phases under their section names on the main thread.
             self._seal_and_trigger(closed, tail["handles"].window,
                                    lambda: tail["snap"], phases,
-                                   async_write=True)
+                                   _prof.NullProfiler(), async_write=True)
         except BaseException as e:      # raised at the join
             tail["err"] = e
 
@@ -731,7 +840,16 @@ class ClusterRunner:
         phases["fence.overlap-saved"] = saved
         self.fence_overlap_saved_total_ms += saved
         self.last_fence_phases = phases
+        prof = self.profiler
+        for key, section in (("fence.health-read", "health-read"),
+                             ("fence.digest-seal", "digest-seal"),
+                             ("fence.ledger-write", "ledger-write"),
+                             ("fence.snapshot", "snapshot")):
+            if key in phases:
+                prof.observe(section, phases[key] / 1e3)
         self._m_epoch_fence_ms.update(tail_ms)
+        get_tracer().complete("epoch.fence", tail_ms / 1e3,
+                              epoch=tail["epoch"])
         if tail["err"] is not None:
             raise tail["err"]
         violations = self.executor.overflow_messages(tail["vec"])
@@ -896,6 +1014,8 @@ class ClusterRunner:
         def _clock(name: str, since: float) -> float:
             now = _time.monotonic()
             phases[name] = phases.get(name, 0.0) + (now - since) * 1e3
+            get_tracer().complete(f"recovery.{name}", now - since,
+                                  drill=drill)
             return now
 
         patched = ex.carry
@@ -1236,6 +1356,7 @@ class ClusterRunner:
                 self._m_audit_div.inc(validator.stats["divergence"])
             a_ms = (_time.monotonic() - t_a) * 1e3
             phases["audit"] = phases.get("audit", 0.0) + a_ms
+            get_tracer().complete("recovery.audit", a_ms / 1e3, drill=drill)
             return a_ms
 
         audit_ms = 0.0
@@ -1261,6 +1382,8 @@ class ClusterRunner:
             raise barrier["err"]
         phases["finalize.barrier-read"] = (
             phases.get("finalize.barrier-read", 0.0) + barrier["ms"])
+        get_tracer().complete("recovery.finalize.barrier-read",
+                              barrier["ms"] / 1e3, drill=drill)
         t_v = _time.monotonic()
         total_records += self._verify_final(
             barrier["arr"], failed, nrings, fast_mgrs, prep, ck_heads,
@@ -1269,8 +1392,12 @@ class ClusterRunner:
         verify_ms = (now_v - t_v) * 1e3
         phases["finalize.state-verify"] = (
             phases.get("finalize.state-verify", 0.0) + verify_ms)
+        get_tracer().complete("recovery.finalize.state-verify",
+                              verify_ms / 1e3, drill=drill)
         fin_ms = (now_v - t_fin0) * 1e3 - audit_ms
         phases["finalize"] = phases.get("finalize", 0.0) + fin_ms
+        get_tracer().complete("recovery.finalize", fin_ms / 1e3,
+                              drill=drill)
         _revive()
         if overlap:
             if audit_err is not None:
@@ -1293,6 +1420,10 @@ class ClusterRunner:
             self._m_recovered_records.inc(report.records_replayed)
             for pname, ms in phases.items():
                 self._mgroup.histogram(f"recovery.{pname}-ms").update(ms)
+        get_tracer().complete(
+            "recovery", report.recovery_ms / 1e3, drill=drill,
+            failed=list(failed), from_epoch=from_epoch,
+            steps_replayed=n_steps, records_replayed=total_records)
         return report
 
     def _ring_bounds_dev(self) -> Optional[torch.Tensor]:
@@ -1444,6 +1575,9 @@ class ClusterRunner:
                     "bootstrap_standby: rebalance edges not supported "
                     "(post-replay round-robin cursors are not "
                     "reconstructible from the fence snapshot)")
+        # Rebuild stages around recover(): each is a
+        # recovery.finalize.<stage> span and folds into phase_ms.
+        tr = get_tracer()
         sub_ms: Dict[str, float] = {}
         t_sub = _time.monotonic()
 
@@ -1451,6 +1585,7 @@ class ClusterRunner:
             nonlocal t_sub
             now = _time.monotonic()
             sub_ms[name] = sub_ms.get(name, 0.0) + (now - t_sub) * 1e3
+            tr.complete(f"recovery.{name}", now - t_sub)
             t_sub = now
 
         runner = cls(job, checkpoint_dir=checkpoint_dir, **runner_kw)

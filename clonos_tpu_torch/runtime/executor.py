@@ -9,7 +9,10 @@ host-known values; causal services append through ``append_async_many``.
 fence's worker thread without a host sync (``FenceHandles``). With a
 ``spool_dir`` every closed epoch's ring steps and determinant rows move
 to the tiered stores (``storage/tiered.py``) at the epoch roll, sliced
-by host-known bounds: the spill hook makes no synchronising call.
+by host-known bounds: the spill hook makes no synchronising call. The
+process profiler (``obs/profile.py``) times the ``spill``, ``roll``,
+``truncate`` and ``async-append`` sections; the disabled default times
+nothing and waits for nothing.
 
 - Every vertex's subtasks are a ``[P]`` dim of its state and batches.
 - A superstep advances every vertex by one batch: vertex v consumes the
@@ -45,6 +48,8 @@ from clonos_tpu_torch.causal import log as clog
 from clonos_tpu_torch.causal import replication as rep
 from clonos_tpu_torch.graph.job_graph import JobGraph, PartitionType
 from clonos_tpu_torch.inflight import log as ifl
+from clonos_tpu_torch.obs.profile import get_profiler
+from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.parallel import routing
 from clonos_tpu_torch.utils.tree import tree_map
 
@@ -748,14 +753,17 @@ class LocalExecutor:
             outs = self._run_block(min(
                 self.block_steps, self.steps_per_epoch - self.step_in_epoch))
         closed, hi = self.epoch_id, self._steps_executed
+        prof = get_profiler()
         if self.spill_logs is not None:
             # Before the roll stamps the next epoch: the closed epoch's
             # log windows are [epoch start, head).
-            with record_function("spill"):
+            with record_function("spill"), prof.section("spill"):
                 self._spill_epoch(closed, first, hi)
         self.epoch_id += 1
         self.step_in_epoch = 0
-        self.carry = self._roll(self.carry, self.epoch_id)
+        with prof.section("roll"):
+            self.carry = self._roll(self.carry, self.epoch_id)
+            prof.fence(self.carry.logs)
         self._epoch_first[self.epoch_id] = hi
         #: the closed epoch's superstep range (what capture_fence slices)
         self.closed_steps = (first, hi)
@@ -817,14 +825,18 @@ class LocalExecutor:
     def notify_checkpoint_complete(self, epoch: int) -> None:
         """Truncate determinant and in-flight logs, and their spilled
         tiers, for epochs <= ``epoch``."""
-        self.carry = self._trunc(self.carry, epoch)
+        get_tracer().event("epoch.inflight_truncate", epoch=epoch)
+        prof = get_profiler()
+        with prof.section("truncate"):
+            self.carry = self._trunc(self.carry, epoch)
+            prof.fence(self.carry.logs)
+            for st in self._tier_stores():
+                st.truncate(epoch)
         first = self._epoch_first.get(epoch + 1)
         if first is not None:
             self._ring_tail = max(self._ring_tail, first)
         self._epoch_first = {e: s for e, s in self._epoch_first.items()
                              if e > epoch}
-        for st in self._tier_stores():
-            st.truncate(epoch)
         self._pending_spill = [[p for p in pend if p[0] > epoch]
                                for pend in self._pending_spill]
         self.roll_gap_async = {k: v for k, v in self.roll_gap_async.items()
@@ -1080,15 +1092,17 @@ class LocalExecutor:
         counts = np.zeros((L,), np.int32)
         rows1[list(flat_subtasks), 0] = row
         counts[list(flat_subtasks)] = 1
-        rows_t = _device.upload(rows1, self.device)
-        counts_t = _device.upload(counts, self.device)
-        c = self.carry
-        replicas = c.replicas
-        if self.compiled.plan.num_replicas > 0:
-            oi = self.compiled.owner_idx(self.device)
-            replicas = clog.v_append(replicas, rows_t[oi], counts_t[oi])
-        self.carry = c._replace(logs=clog.v_append(c.logs, rows_t, counts_t),
-                                replicas=replicas)
+        with get_profiler().section("async-append"):
+            rows_t = _device.upload(rows1, self.device)
+            counts_t = _device.upload(counts, self.device)
+            c = self.carry
+            replicas = c.replicas
+            if self.compiled.plan.num_replicas > 0:
+                oi = self.compiled.owner_idx(self.device)
+                replicas = clog.v_append(replicas, rows_t[oi], counts_t[oi])
+            self.carry = c._replace(
+                logs=clog.v_append(c.logs, rows_t, counts_t),
+                replicas=replicas)
 
     def lean_snapshot(self) -> LeanSnapshot:
         """The fence snapshot: deep copies (the live carry's rings are

@@ -26,6 +26,8 @@ The writer's queue lets the fence stage epoch N+1 while the thread
 still flushes epoch N; ``drain`` joins the queue. ``attach_digest``
 records the audit ledger's digest of a spilled epoch in the segment
 index, so a spilled epoch carries the fingerprint the ledger pinned.
+The process profiler (``obs/profile.py``) receives the writer's
+``spill-write`` and a disk refill's ``refill`` seconds.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 
 from clonos_tpu_torch.device import HostCopy
+from clonos_tpu_torch.obs.profile import get_profiler
 from clonos_tpu_torch.storage.segment import read_segment, write_segment
 from clonos_tpu_torch.utils.jsonl import read_jsonl
 
@@ -207,6 +210,7 @@ class TieredEpochStore:
             self.disk_hits += 1
             self.refill_seconds += dur
             self.bytes_refilled += sum(a.nbytes for a in arrays.values())
+        get_profiler().observe("refill", dur)
         return start, arrays
 
     # --- background writer ---------------------------------------------------
@@ -275,6 +279,7 @@ class TieredEpochStore:
             self.bytes_spilled += nbytes
             self.spill_seconds += dur
             self._enforce_host_budget_locked()
+        get_profiler().observe("spill-write", dur)
 
     def _enforce_host_budget_locked(self) -> None:
         """Demote durable host copies beyond the budget to disk-only

@@ -208,6 +208,61 @@ def test_file_ledger_is_readable_by_the_reference(tmp_path):
     assert jcp.read_ledger_file(path) == want == cp.read_ledger_file(path)
 
 
+def test_group_commit_ledger_torn_batched_tail_roundtrip(tmp_path):
+    """Mirror of ``tests/test_pipelined_fence.py``'s group-commit case on
+    the port's storage: appends are flushed per line but fsynced every K;
+    the tolerant reader drops only a torn last line, and ``flush_ledger``
+    (the completion path) zeroes the unsynced window."""
+    st = cp.FileCheckpointStorage(str(tmp_path / "ck"))
+    assert st.ledger_group_commit == 8
+    for i in range(11):
+        st.write_ledger({"epoch": i, "records": 10 * i})
+    assert st._ledger_unsynced == 3
+    assert [e["epoch"] for e in st.read_ledger()] == list(range(11))
+    st.flush_ledger()
+    assert st._ledger_unsynced == 0
+    st._close_ledger()
+    path = st.ledger_path()
+    with open(path, "rb") as f:
+        raw = f.read()
+    lines = raw.splitlines(keepends=True)
+    torn = b"".join(lines[:-1]) + lines[-1][: len(lines[-1]) // 2]
+    with open(path, "wb") as f:
+        f.write(torn)
+    assert [e["epoch"] for e in cp.read_ledger_file(path)] \
+        == list(range(10)), "only the torn LAST line is dropped"
+    cp.CheckpointStorage().flush_ledger()
+
+
+@pytest.mark.parametrize("appends,fsyncs,unsynced", [(8, 1, 0), (11, 1, 3)])
+def test_group_commit_fsyncs_and_bytes_match_reference(tmp_path, monkeypatch,
+                                                       appends, fsyncs,
+                                                       unsynced):
+    """The same ``write_ledger`` calls on a fresh storage of each package:
+    equal ``os.fsync`` counts, equal unsynced windows, equal bytes; the
+    completion's ``flush_ledger`` zeroes both windows."""
+    import os as _os
+    calls = []
+    real = _os.fsync
+    monkeypatch.setattr(_os, "fsync", lambda fd: (calls.append(fd),
+                                                  real(fd))[1])
+    got = {}
+    for tag, mod in (("port", cp), ("reference", jcp)):
+        st = mod.FileCheckpointStorage(str(tmp_path / tag))
+        del calls[:]
+        for i in range(appends):
+            st.write_ledger({"epoch": i, "records": 3 * i,
+                             "combined": f"{i:04x}"})
+        got[tag] = (len(calls), st._ledger_unsynced)
+        st.flush_ledger()
+        assert st._ledger_unsynced == 0
+        st._close_ledger()
+        with open(st.ledger_path(), "rb") as f:
+            got[tag] += (f.read(),)
+    assert got["port"] == got["reference"]
+    assert got["port"][:2] == (fsyncs, unsynced)
+
+
 # --- epoch tracking ----------------------------------------------------------
 
 

@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 43          # every module of the port was walked
+    assert int(count) >= 52          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
 
 
@@ -81,6 +81,25 @@ def test_host_boundary_modules_import_alone_without_jax(module):
     transaction log and the file sink, whose references are JAX-free)
     each import alone in a fresh interpreter without ``jax`` or
     ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.obs", "clonos_tpu_torch.obs.trace",
+    "clonos_tpu_torch.obs.chrome", "clonos_tpu_torch.obs.profile",
+    "clonos_tpu_torch.obs.history", "clonos_tpu_torch.utils.metrics",
+    "clonos_tpu_torch.utils.devsync", "clonos_tpu_torch.config",
+    "clonos_tpu_torch.config.options", "clonos_tpu_torch.config.defaults"])
+def test_observability_modules_import_alone_without_jax(module):
+    """The observability slice's modules (tracer, Chrome export,
+    profiler, history, reporters and endpoint, device sync, typed
+    configuration; their references are partly JAX-free) each import
+    alone in a fresh interpreter without ``jax`` or ``clonos_tpu``."""
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
                           env=env, capture_output=True, text=True,
