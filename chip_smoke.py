@@ -207,9 +207,19 @@ C45_SHAPES = (
     ("c4-lane", 512, 512, 512, True),
     ("c5-lane", 512, 512, 256, True),
 )
+#: the wordcount job's shapes (phase 11: 4 x 64 records a step, edge
+#: capacity 256, 1,000 keys): a 16-step block's exchange routes 256
+#: records a step into 1,024 slots, its window counts 64 rows (16 steps x
+#: 4 subtasks) of 256; a window replay routes into 256 slots
+WC_SHAPES = (
+    ("wc-route", 16, 256, 1024, True),
+    ("wc-route", 16, 256, 1024, False),
+    ("wc-window", 64, 256, 1000, False),
+    ("wc-lane", 16, 256, 256, True),
+)
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
-    {s[0] for s in C45_SHAPES})
+    {s[0] for s in C45_SHAPES + WC_SHAPES})
 #: ragged and out-of-range cases, the last past the shared-memory budget
 EDGE_SHAPES = (
     ("ragged", 37, 100, VOCAB, True),
@@ -278,7 +288,7 @@ def phase_kernels():
     dev = torch.device("cuda")
     rows = []
     for i, (label, r, b, nk, counts) in enumerate(
-            MAIN_SHAPES + C45_SHAPES + EDGE_SHAPES):
+            MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES):
         keys, vals, valid = _inputs(r, b, nk, 100 + i, dev)
         s_k, c_k = hist.keyed_hist_cuda(keys, vals, valid, nk, counts)
         s_p, c_p = hist.keyed_hist_plain(keys, vals, valid, nk, counts)
@@ -2063,6 +2073,313 @@ def phase_observability(dev_line, root):
 
 
 
+# --- phase 11 ---------------------------------------------------------------
+
+#: the worker CLI's own depth: 16-step epochs (its default), every third
+#: checkpoint completed (at most 48 un-truncated steps in the default
+#: 64-step ring and 1<<14-row logs), killed after the status line of run
+#: 26 (27 epochs, 9 completed checkpoints, 20 epochs after the third).
+#: Line i is printed after the refresh of fence i - 1, so a kill after
+#: line i with i % 3 == 2 leaves the mirror one fence or more past the
+#: last completed checkpoint (run i - 2) and lands before the next one
+#: (run i + 1) completes, an epoch and a sleep later.
+WC_SPE = 16
+WC_COMPLETE_EVERY = 3
+WC_KILL_AT = 26
+WC_SEED = 5
+WC_EPOCH_SLEEP = 0.3
+HB_TIMEOUT_S = 3.0
+HB_INTERVAL_S = 0.2
+#: (a): seeded key:value lines sent over TCP (40 blocks of the socket
+#: source's batch of 64), a window kill this many steps past a fence
+SOCKET_LINES = 40 * 64
+SOCKET_SEED = 11
+SOCKET_KILL_AT = 5
+#: in-process refresh timing: fences of the same job
+REFRESH_EPOCHS = 6
+
+PHASE11_REDUCTIONS = (
+    f"(a) examples/wordcount.py build_socket_job at its published widths "
+    f"(1 socket source x 64 records a step -> keyBy -> window over 1,000 "
+    f"keys, window 500 -> sink, 64 key groups), {SOCKET_LINES} seeded "
+    f"lines, steps_per_epoch={WC_SPE}; no cut. (b) build_job at its "
+    f"published widths (4 sources x 64 -> keyBy -> 4 windows over 1,000 "
+    f"keys -> 4 sinks, 64 key groups) through `python -m clonos_tpu_torch "
+    f"worker` with the CLI's defaults (log capacity 1<<14, ring 64 steps, "
+    f"steps_per_epoch={WC_SPE}) and --complete-every {WC_COMPLETE_EVERY} "
+    f"--seed {WC_SEED} --epoch-sleep {WC_EPOCH_SLEEP} --heartbeat-interval "
+    f"{HB_INTERVAL_S}; JobMaster heartbeat timeout {HB_TIMEOUT_S} s; cut: "
+    f"depth, killed after {WC_KILL_AT + 1} epochs (the reference test: 8)")
+
+
+def _pump(stream, q):
+    for line in iter(stream.readline, ""):
+        q.put(line)
+    q.put(None)
+
+
+def _serve_lines(payload: bytes):
+    """A one-connection TCP server on 127.0.0.1 that sends ``payload``
+    and closes; returns (port, thread)."""
+    import socket
+    import threading
+    srv = socket.create_server(("127.0.0.1", 0))
+
+    def serve():
+        with srv:
+            conn, _ = srv.accept()
+            with conn:
+                conn.sendall(payload)
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    return srv.getsockname()[1], t
+
+
+def phase_socket_wordcount(dev_line):
+    """(a) BASELINE config #1: the socket wordcount job fed seeded
+    ``key:value`` lines over TCP, run to drain, its window subtask killed
+    mid-epoch and recovered; the digest after recovery equals the one
+    before the kill and the source read every line sent."""
+    from clonos_tpu_torch.api.feeds import SocketFeedReader
+    from clonos_tpu_torch.examples import wordcount as wc
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    rng = np.random.RandomState(SOCKET_SEED)
+    keys = rng.randint(0, wc.VOCAB, SOCKET_LINES)
+    vals = rng.randint(1, 10, SOCKET_LINES)
+    port, server = _serve_lines("".join(
+        f"{k}:{v}\n" for k, v in zip(keys, vals)).encode())
+    reader = SocketFeedReader("127.0.0.1", port)
+    try:
+        reader._thread.join(timeout=120)
+        server.join(timeout=120)
+        if reader._thread.is_alive() or server.is_alive():
+            raise AssertionError("(a) the socket feed did not drain")
+        runner = ClusterRunner(wc.build_socket_job(), steps_per_epoch=WC_SPE,
+                               seed=WC_SEED, device=DEVICE)
+        runner.executor.register_feed(0, reader)
+        window = runner.job.subtask_base(1)
+
+        def drive():
+            runner.run_epoch(complete_checkpoint=True)
+            for _ in range(SOCKET_KILL_AT):
+                runner.step()
+            before = runner.state_digest()
+            runner.inject_failure([window])
+            report = runner.recover()
+            after = runner.state_digest()
+            epochs = 1
+            while int(runner.executor.carry.record_counts[0]) \
+                    < SOCKET_LINES and epochs < 2 * SOCKET_LINES // (
+                        64 * WC_SPE):
+                runner.run_epoch(complete_checkpoint=True)
+                epochs += 1
+            return before, after, report, epochs
+
+        t0 = time.monotonic()
+        (before, after, report, epochs), launches, _ = _counted(drive)
+        wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        reader.close()
+    source = int(runner.executor.carry.record_counts[0])
+    if after != before:
+        raise AssertionError(f"(a) digest after recovery {after} != before "
+                             f"the kill {before}")
+    if source != SOCKET_LINES:
+        raise AssertionError(f"(a) source records {source} != lines sent "
+                             f"{SOCKET_LINES}")
+    if report.steps_replayed != SOCKET_KILL_AT or \
+            min(launches.values()) == 0:
+        raise AssertionError(f"(a) replayed {report.steps_replayed} steps, "
+                             f"launches {launches}")
+    log("[socket] config #1 drained and recovered, digest equal: "
+        + json.dumps(_reading(
+            report, launches, None, dev_line, lines_sent=SOCKET_LINES,
+            source_records=source, epochs=epochs, digest=after,
+            records_lost=reader.records_lost,
+            phase_wall_ms=round(wall_ms, 3))))
+    return launches
+
+
+def _refresh_ms():
+    """Wall ms of ``HostLogEndpoint.refresh`` at each fence of an
+    in-process runner of the worker's job on this device (the queue is
+    drained first, so the time is the copy and the slicing alone)."""
+    from clonos_tpu_torch.examples import wordcount as wc
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.runtime.remote import HostLogEndpoint
+    r = ClusterRunner(wc.build_job(), steps_per_epoch=WC_SPE, seed=WC_SEED,
+                      device=DEVICE)
+    ep = HostLogEndpoint(r.executor)
+    out = []
+    try:
+        for i in range(REFRESH_EPOCHS):
+            r.run_epoch(complete_checkpoint=(i % WC_COMPLETE_EVERY == 0))
+            sync()
+            t0 = time.monotonic()
+            ep.refresh()
+            out.append(round((time.monotonic() - t0) * 1e3, 3))
+    finally:
+        ep.close()
+    return out
+
+
+def phase_host_loss(dev_line, root):
+    """(b) Host-loss failover across two processes on one card: a worker
+    process (``python -m clonos_tpu_torch worker``) runs the wordcount job
+    under this process's JobMaster; this process mirrors its logs; the
+    worker is SIGKILLed; heartbeat expiry flags it; the controller
+    rebuilds the whole job here on the card with the digest the worker
+    reported at that global step; the rebuilt job runs on and survives
+    two ordinary window kills. Returns the rebuild's and run-on's kernel
+    launches."""
+    import queue
+    import signal
+    import threading
+    from clonos_tpu_torch.examples import wordcount as wc
+    from clonos_tpu_torch.ops import native
+    from clonos_tpu_torch.runtime import remote
+    repo = os.path.dirname(os.path.abspath(__file__))
+    jm = remote.JobMasterServer(heartbeat_timeout_s=HB_TIMEOUT_S)
+    ctl = remote.JobMasterController(jm, device=DEVICE)
+    cmd = [sys.executable, "-m", "clonos_tpu_torch", "worker",
+           "clonos_tpu_torch.examples.wordcount:build_job",
+           "--jm", f"127.0.0.1:{jm.address[1]}",
+           "--checkpoint-dir", os.path.join(root, "ck"),
+           "--executor-id", "worker-0", "--epochs", "64",
+           "--steps-per-epoch", str(WC_SPE),
+           "--complete-every", str(WC_COMPLETE_EVERY),
+           "--seed", str(WC_SEED), "--heartbeat-interval", str(HB_INTERVAL_S),
+           "--epoch-sleep", str(WC_EPOCH_SLEEP)]
+    if torch.device(DEVICE).type != "cuda":
+        cmd += ["--device", DEVICE]          # a CPU rehearsal
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_phase = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            text=True)
+    lines = queue.Queue()
+    threading.Thread(target=_pump, args=(proc.stdout, lines),
+                     daemon=True).start()
+
+    def next_line(timeout=300):
+        line = lines.get(timeout=timeout)
+        if line is None:
+            raise AssertionError(f"(b) the worker exited early "
+                                 f"(rc {proc.wait(timeout=60)})")
+        return json.loads(line)
+
+    digests, syncs = {}, []
+    try:
+        first = next_line()
+        if first.get("registered") != "worker-0" \
+                or ctl.attach() != ["worker-0"]:
+            raise AssertionError(f"(b) registration: {first}")
+        info = jm.info("worker-0")
+        if info["device"].split(":")[0] != torch.device(DEVICE).type \
+                or info["codec"] != "native" or not native.available():
+            raise AssertionError(f"(b) the worker runs on {info['device']} "
+                                 f"with the {info['codec']} codec")
+        mirror = ctl.mirrors["worker-0"]
+        i = 0
+        t_worker = time.monotonic()
+        while True:
+            st = next_line(timeout=120)
+            digests[st["global_step"]] = st["digest"]
+            t0 = time.monotonic()
+            if ctl.sync()["worker-0"] < 0:
+                raise AssertionError("(b) the mirror lost the worker")
+            syncs.append((mirror.last_rows, mirror.last_frame_bytes,
+                           (time.monotonic() - t0) * 1e3))
+            if i >= WC_KILL_AT and i % WC_COMPLETE_EVERY == 2 \
+                    and lines.empty():
+                break
+            i += 1
+        worker_s = time.monotonic() - t_worker
+        proc.send_signal(signal.SIGKILL)
+        t_kill = time.monotonic()
+        proc.wait(timeout=60)
+        while (line := lines.get(timeout=60)) is not None:
+            st = json.loads(line)
+            digests[st["global_step"]] = st["digest"]
+        deadline = t_kill + 4 * HB_TIMEOUT_S + 10
+        while "worker-0" not in ctl.failed():
+            if time.monotonic() > deadline:
+                raise AssertionError("(b) heartbeat expiry not seen")
+            time.sleep(0.05)
+        detect_ms = (time.monotonic() - t_kill) * 1e3
+        t0 = time.monotonic()
+        (runner, report), rebuild_launches, _ = _counted(
+            lambda: ctl.rebuild("worker-0", wc.build_job(),
+                                steps_per_epoch=WC_SPE, seed=WC_SEED))
+        rebuild_ms = (time.monotonic() - t0) * 1e3
+        rebuilt_step = runner.global_step
+        digest = runner.state_digest()
+        if runner.device.type != torch.device(DEVICE).type \
+                or runner.global_step not in digests \
+                or digest != digests[runner.global_step]:
+            raise AssertionError(
+                f"(b) the rebuild on {runner.device} at global step "
+                f"{runner.global_step} has digest {digest}; the worker "
+                f"reported {digests.get(runner.global_step)}")
+        if report.steps_replayed != runner.global_step \
+                - runner._fence_step[report.from_epoch] \
+                or report.determinants_replayed <= 0 \
+                or min(rebuild_launches.values()) == 0:
+            raise AssertionError(f"(b) rebuild replayed "
+                                 f"{report.steps_replayed} steps, launches "
+                                 f"{rebuild_launches}")
+        window = runner.job.subtask_base(1) + 1
+
+        def run_on():
+            runner.run_epoch(complete_checkpoint=True)
+            runner.run_epoch(complete_checkpoint=False)
+            runner.inject_failure([window])
+            runner.recover()
+            runner.run_epoch(complete_checkpoint=True)
+            for _ in range(SOCKET_KILL_AT):
+                runner.step()
+            before = runner.state_digest()
+            runner.inject_failure([window])
+            rep = runner.recover()
+            return before, rep
+        (before, rep), run_on_launches, _ = _counted(run_on)
+        if runner.state_digest() != before \
+                or rep.steps_replayed != SOCKET_KILL_AT:
+            raise AssertionError("(b) the rebuilt job's window recovery "
+                                 "diverged")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        ctl.close()
+        jm.close()
+    refresh = _refresh_ms()
+    launches = {k: rebuild_launches[k] + run_on_launches[k]
+                for k in rebuild_launches}
+    rows = [s[0] for s in syncs]
+    nbytes = [s[1] for s in syncs]
+    sync_ms = [s[2] for s in syncs]
+    log("[failover] host loss rebuilt on the card, digest equal: "
+        + json.dumps(_reading(
+            report, rebuild_launches, None, dev_line,
+            rebuild_ms=round(rebuild_ms, 3), global_step=rebuilt_step,
+            epochs_seen=len(digests), worker_seconds=round(worker_s, 3),
+            detect_ms=round(detect_ms, 3),
+            mirror_syncs=len(syncs),
+            mirror_rows_per_sync={"mean": round(float(np.mean(rows)), 3),
+                                  "max": int(max(rows))},
+            frame_bytes_per_sync={"mean": round(float(np.mean(nbytes)), 3),
+                                  "max": int(max(nbytes))},
+            sync_ms={"median": round(float(np.median(sync_ms)), 3),
+                     "max": round(float(max(sync_ms)), 3)},
+            codec=info["codec"], worker_device=info["device"],
+            refresh_ms_per_fence=refresh,
+            run_on_launches=run_on_launches,
+            phase_seconds=round(time.monotonic() - t_phase, 3))))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2114,6 +2431,13 @@ def main() -> int:
         obs_launches = phase_observability(dev_line, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log(f"[config] phase 11: {PHASE11_REDUCTIONS}")
+    socket_launches = phase_socket_wordcount(dev_line)
+    root = tempfile.mkdtemp(prefix="chip_smoke_remote_", dir=SCRATCH)
+    try:
+        host_loss_launches = phase_host_loss(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -2121,7 +2445,9 @@ def main() -> int:
         **spill_launches, "feed_cascade": feed_launches,
         "join_recovery": join_launches,
         "event_time_egress": egress_launches,
-        "observability": obs_launches})))
+        "observability": obs_launches,
+        "socket_wordcount": socket_launches,
+        "host_loss": host_loss_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,5 @@
 """Feed readers: the external-ingestion boundary (port of
-``clonos_tpu/api/feeds.py``; the socket reader comes with the process
-runtime).
+``clonos_tpu/api/feeds.py``).
 
 A feed is rewindable, partitioned and of bounded retention, the contract
 a Kafka consumer gives its stream processor:
@@ -25,6 +24,7 @@ operator from causal time.
 
 from __future__ import annotations
 
+import socket
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -197,3 +197,84 @@ class ListFeedReader(FeedReader):
         with self._lock:
             for s, off in enumerate(offsets):
                 self._trim_to(s, min(int(off), self._cursor[s]))
+
+
+class SocketFeedReader(FeedReader):
+    """Line-based TCP ingestion: the SocketWindowWordCount front door
+    (reference flink-examples .../socket/SocketWindowWordCount.java). A
+    background thread drains the socket into a bounded retained buffer
+    per subtask (``retention`` records a partition; committed offsets
+    release earlier ones at every completed checkpoint), so the
+    rewindable contract holds for ranges within retention. The thread
+    touches host lists only.
+
+    Lines are ``key[:value]`` integer pairs; value defaults to 1; other
+    lines are skipped. Line i goes to partition ``i % num_subtasks``.
+    """
+
+    def __init__(self, host: str, port: int, num_subtasks: int = 1,
+                 retention: Optional[int] = 1 << 20):
+        self._r = _RetainedPartitions(num_subtasks, retention)
+        #: records dropped by retention before the consumer reached them
+        #: (live pulls skip forward past them — Kafka's
+        #: auto.offset.reset=earliest — but the loss is counted)
+        self.records_lost = [0] * num_subtasks
+        self._lock = threading.Lock()
+        self._sock = socket.create_connection((host, port))
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def _drain(self):
+        f = self._sock.makefile("r")
+        i = 0
+        nparts = len(self._r._parts)
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                if ":" in line:
+                    k, v = line.split(":", 1)
+                    rec = (int(k), int(v))
+                else:
+                    rec = (int(line), 1)
+            except ValueError:
+                continue
+            s = i % nparts
+            with self._lock:
+                self._r._parts[s].append(rec)
+                self._r._enforce_retention(s)
+            i += 1
+
+    def pull(self, subtask: int, max_n: int):
+        with self._lock:
+            r = self._r
+            lo = r._cursor[subtask]
+            if lo < r._base[subtask]:
+                # Fell behind the retention window: resume at the
+                # earliest retained offset and count the gap (recovery
+                # re-reads through read_at still fail loudly).
+                self.records_lost[subtask] += r._base[subtask] - lo
+                lo = r._base[subtask]
+            avail = r._base[subtask] + len(r._parts[subtask]) - lo
+            n = min(max_n, avail)
+            chunk = r._slice(subtask, lo, n)
+            r._cursor[subtask] = lo + n
+        return [k for k, _ in chunk], [v for _, v in chunk]
+
+    def read_at(self, subtask: int, offset: int, n: int):
+        with self._lock:
+            chunk = self._r._slice(subtask, offset, n)
+        return [k for k, _ in chunk], [v for _, v in chunk]
+
+    def notify_checkpoint_complete(self, offsets: Sequence[int]) -> None:
+        with self._lock:
+            self._r.commit(offsets)
+
+    def close(self) -> None:
+        """Close the socket; the drain thread ends at its next read."""
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()

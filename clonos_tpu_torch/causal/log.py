@@ -19,9 +19,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from clonos_tpu_torch.causal.determinant import NUM_LANES
+from clonos_tpu_torch.device import resolve
 from clonos_tpu_torch.device import scalar as _i32
 from clonos_tpu_torch.utils.tree import tree_map
 
@@ -202,3 +204,116 @@ def get_determinants(state: ThreadLogState, from_epoch, max_out: int):
     """All retained determinants of one log from the start of
     ``from_epoch`` (the replay feed)."""
     return slice_from(state, epoch_start_offset(state, from_epoch), max_out)
+
+
+def rebase(state: ThreadLogState, amount) -> ThreadLogState:
+    """Subtract ``amount`` from every absolute offset (head, tail, epoch
+    index) — the int32-wrap mitigation. Safe only when every producer and
+    replica of the log rebases by the same agreed amount (a multiple of
+    capacity, so ring positions stay) at a quiescent point."""
+    amount = _i32(amount, state.head.device)
+    return state._replace(head=state.head - amount,
+                          tail=state.tail - amount,
+                          epoch_starts=state.epoch_starts - amount)
+
+
+def append_one(state: ThreadLogState, row: torch.Tensor) -> ThreadLogState:
+    """Append a single ``[NUM_LANES]`` row at head."""
+    return append(state, row.reshape(1, -1), 1)
+
+
+def v_merge_delta(state: ThreadLogState, rows: torch.Tensor, count,
+                  abs_start) -> Tuple[ThreadLogState, torch.Tensor]:
+    """Ingest a replicated delta of another task's log into each replica
+    of the stack: ``rows [L, m, lanes]``, ``count [L]``, ``abs_start
+    [L]``. Dedups by absolute offset (reference processUpstreamDelta:117):
+    entries with offset < head are already present and skipped; only the
+    fresh suffix is appended.
+
+    Returns ``(new_state, gap[L])``. ``gap`` is True where ``abs_start >
+    head`` (a preceding delta was lost): nothing is appended there, and
+    the caller must request a re-send from ``head``."""
+    L, m = rows.shape[:2]
+    dev = rows.device
+    count = _i32(count, dev).expand(L)
+    abs_start = _i32(abs_start, dev).expand(L)
+    gap = abs_start > state.head
+    skip = torch.minimum((state.head - abs_start).clamp(min=0), count)
+    fresh = torch.where(gap, 0, count - skip).to(torch.int32)
+    idx = torch.arange(m, dtype=torch.int32, device=dev)[None, :]
+    shifted = torch.where(idx + skip[:, None] < m, idx + skip[:, None], 0)
+    fresh_rows = torch.gather(
+        rows, 1, shifted.to(torch.int64)[:, :, None].expand(L, m,
+                                                             rows.shape[2]))
+    return v_append(state, fresh_rows, fresh), gap
+
+
+def merge_delta(state: ThreadLogState, rows: torch.Tensor, count, abs_start
+                ) -> Tuple[ThreadLogState, torch.Tensor]:
+    """:func:`v_merge_delta` on one log: ``rows [m, lanes]``."""
+    dev = rows.device
+    out, gap = v_merge_delta(tree_map(lambda x: x[None], state), rows[None],
+                             _i32(count, dev).reshape(1),
+                             _i32(abs_start, dev).reshape(1))
+    return tree_map(lambda x: x[0], out), gap[0]
+
+
+# --- host-side wrapper (control plane, remote mirrors, tests) ---------------
+
+
+class ThreadCausalLog:
+    """One log as an object, for host-side use: the remote mirror's
+    replica log and the control plane's log manipulation. The executor
+    never uses it; there the logs live stacked in the carry. The state
+    stays on ``device``; reads come back as numpy arrays."""
+
+    def __init__(self, capacity: int = 1 << 12, max_epochs: int = 64,
+                 device="cuda"):
+        self.device = resolve(device)
+        self.state = create(capacity, max_epochs, self.device)
+
+    def _rows(self, rows) -> torch.Tensor:
+        return torch.from_numpy(np.array(rows, np.int32)).to(self.device)
+
+    def append_rows(self, rows: np.ndarray) -> None:
+        if rows.ndim != 2 or rows.shape[1] != NUM_LANES:
+            raise ValueError(
+                f"expected [n, {NUM_LANES}] rows, got {rows.shape}")
+        self.state = append(self.state, self._rows(rows), rows.shape[0])
+
+    def start_epoch(self, epoch_id: int) -> None:
+        self.state = start_epoch(self.state, epoch_id)
+
+    def notify_checkpoint_complete(self, epoch_id: int) -> None:
+        self.state = truncate(self.state, epoch_id)
+
+    def merge_delta(self, rows: np.ndarray, abs_start: int) -> bool:
+        """True on success; False when a gap was detected (nothing merged
+        — request a re-send from ``self.head``)."""
+        self.state, gap = merge_delta(self.state, self._rows(rows),
+                                      rows.shape[0], abs_start)
+        return not bool(gap)
+
+    def delta_for_consumer(self, consumer_offset: int, max_out: int):
+        buf, count, start = slice_from(self.state, consumer_offset, max_out)
+        return buf[:int(count)].cpu().numpy(), int(start)
+
+    def determinants_from_epoch(self, epoch: int,
+                                max_out: int) -> np.ndarray:
+        buf, count, _ = get_determinants(self.state, epoch, max_out)
+        return buf[:int(count)].cpu().numpy()
+
+    @property
+    def capacity(self) -> int:
+        return self.state.capacity
+
+    @property
+    def head(self) -> int:
+        return int(self.state.head)
+
+    @property
+    def tail(self) -> int:
+        return int(self.state.tail)
+
+    def __len__(self) -> int:
+        return int(size(self.state))

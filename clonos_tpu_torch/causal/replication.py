@@ -9,7 +9,7 @@ replicas, so replica heads equal owner heads at every block fence.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ from clonos_tpu_torch import device as _device
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.causal import log as clog
 from clonos_tpu_torch.graph.job_graph import JobGraph
+from clonos_tpu_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +76,21 @@ def create_replicas(plan: ReplicationPlan, capacity: int, max_epochs: int,
                          device)
 
 
+def replicate_step(replicas: clog.ThreadLogState,
+                   owner_logs: clog.ThreadLogState,
+                   owner_idx: torch.Tensor,
+                   max_delta: int) -> Tuple[clog.ThreadLogState, torch.Tensor]:
+    """One replication round: pull each owner's fresh suffix (at most
+    ``max_delta`` rows) into every replica. Returns ``(replicas, lag)``,
+    ``lag[r]`` the rows replica r is still behind its owner (nonzero when
+    the owner produced more than ``max_delta`` since the last round; the
+    next round catches up)."""
+    owners = tree_map(lambda x: x[owner_idx], owner_logs)
+    buf, count, start = clog.v_slice_from(owners, replicas.head, max_delta)
+    new_replicas, _ = clog.v_merge_delta(replicas, buf, count, start)
+    return new_replicas, owners.head - new_replicas.head
+
+
 def sync_replica_epochs(replicas: clog.ThreadLogState, epoch_id
                         ) -> clog.ThreadLogState:
     """Record the epoch index on replicas at the epoch fence."""
@@ -113,3 +129,22 @@ def merge_determinant_responses(
             best_rows = np.concatenate([rows[:best_start - start], best_rows])
             best_start = start
     return best_rows, best_start
+
+
+# --- recovery side: determinant requests (host control plane) ---------------
+
+
+def collect_determinant_response(
+    replicas: clog.ThreadLogState, replica_rows: Sequence[int],
+    from_epoch: int, max_out: int,
+) -> Dict[int, Tuple[np.ndarray, int]]:
+    """Serve a DeterminantRequest from this holder's replica rows
+    (reference JobCausalLogImpl.respondToDeterminantRequest:188): for
+    each replica row, every retained row from ``from_epoch``'s start, as
+    ``{replica_row: (rows ndarray, abs_start)}``."""
+    out: Dict[int, Tuple[np.ndarray, int]] = {}
+    for r in replica_rows:
+        one = tree_map(lambda x: x[r], replicas)
+        buf, count, start = clog.get_determinants(one, from_epoch, max_out)
+        out[r] = (buf[:int(count)].cpu().numpy(), int(start))
+    return out

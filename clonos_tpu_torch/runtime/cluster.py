@@ -109,16 +109,21 @@ class HeartbeatMonitor:
         self.timeout_s = timeout_s
         self._last: Dict[int, float] = {s: clock() for s in subtasks}
         self._dead: Set[int] = set()
+        #: injected per-subtask heartbeat delay (seconds): a gray-failed
+        #: worker's beats arrive this much late — alive and making slow
+        #: progress, so degraded, not dead. Empty in production.
+        self.lag: Dict[int, float] = {}
 
     def beat(self, subtask: int) -> None:
         if subtask not in self._dead:
-            self._last[subtask] = self._clock()
+            self._last[subtask] = (self._clock()
+                                   - self.lag.get(subtask, 0.0))
 
     def beat_all_except(self, dead: Set[int]) -> None:
         now = self._clock()
         for s in self._last:
             if s not in dead and s not in self._dead:
-                self._last[s] = now
+                self._last[s] = now - self.lag.get(s, 0.0)
 
     def mark_dead(self, subtask: int) -> None:
         self._dead.add(subtask)
@@ -128,8 +133,35 @@ class HeartbeatMonitor:
         return sorted(s for s, t in self._last.items()
                       if s not in self._dead and now - t > self.timeout_s)
 
+    def _alive(self) -> Dict[int, float]:
+        return {s: t for s, t in self._last.items() if s not in self._dead}
+
+    def degraded(self, grace_s: float = 0.0) -> List[int]:
+        """Subtasks whose beats arrive late but inside the death timeout
+        (gray failures). Lateness is measured against the freshest live
+        beat, not wall time, so only a worker lagging its peers by more
+        than ``grace_s`` is degraded. Disjoint from :meth:`expired`."""
+        alive = self._alive()
+        if not alive:
+            return []
+        freshest = max(alive.values())
+        now = self._clock()
+        return sorted(s for s, t in alive.items()
+                      if freshest - t > grace_s
+                      and now - t <= self.timeout_s)
+
+    def ages_ms(self) -> Dict[int, float]:
+        """Per-subtask beat age behind the freshest live beat, in ms
+        (0.0 for the freshest; empty when no one is alive)."""
+        alive = self._alive()
+        if not alive:
+            return {}
+        freshest = max(alive.values())
+        return {s: (freshest - t) * 1e3 for s, t in alive.items()}
+
     def revive(self, subtask: int) -> None:
         self._dead.discard(subtask)
+        self.lag.pop(subtask, None)
         self._last[subtask] = self._clock()
 
 
@@ -364,6 +396,13 @@ class ClusterRunner:
         self.profiler = _prof.get_profiler()
         if self.profiler.enabled:
             self.profiler.bind(g)
+        g.gauge("audit.enabled", lambda: int(self.auditor.enabled))
+        g.gauge("audit.last-sealed-epoch", lambda: self.auditor.last_epoch)
+        # Live exactly-once health, from host mirrors (no device read):
+        # how much of the in-flight rings un-truncated history holds, and
+        # how many supersteps a failure now would replay.
+        g.gauge("backpressure.inflight-occupancy", self._inflight_occupancy)
+        g.gauge("recovery.replay-lag-steps", self._replay_lag_steps)
         # Determinant-log occupancy (one device read per scrape).
         self.watchdog = met.LogOccupancyWatchdog(self.executor, g)
         #: the validator of the last audited recovery (its ``events``)
@@ -555,6 +594,48 @@ class ClusterRunner:
         return {"epochs-sealed": self._m_audit_sealed.value,
                 "epochs-validated": self._m_audit_matches.value,
                 "divergences": self._m_audit_div.value}
+
+    def _inflight_occupancy(self) -> float:
+        """Fraction of the in-flight rings' capacity holding un-truncated
+        steps (rises when checkpoint completion lags the fences)."""
+        if not self.executor.carry.out_rings:
+            return 0.0
+        cap = self.executor.compiled.inflight_ring_steps
+        held = self.global_step - self._ring_tail_mirror
+        return min(max(held, 0) / cap, 1.0)
+
+    def _replay_lag_steps(self) -> int:
+        """Supersteps a failure now would replay (the distance from the
+        latest completed checkpoint's fence)."""
+        ck = self.standbys.latest
+        if ck is None:
+            return self.global_step
+        f = self._fence_step.get(ck.checkpoint_id + 1)
+        return self.global_step - f if f is not None else 0
+
+    def state_digest(self) -> str:
+        """Canonical digest of the recoverable job state: operator states,
+        log heads, each log's live row window and the record counts — sha1
+        over the reference's bytes in the reference's order, so a rebuilt
+        job (``bootstrap_standby``) reproduces the dead worker's digest at
+        its last mirrored fence, and the two packages' digests of one
+        state agree. One device-to-host copy, waited on this thread."""
+        import hashlib
+        c = self.executor.carry
+        ops, heads, tails, rows, counts = _device.HostCopy(
+            (c.op_states, c.logs.head, c.logs.tail, c.logs.rows,
+             c.record_counts)).wait()
+        h = hashlib.sha1()
+        for st in ops:
+            for k in sorted(st):
+                h.update(np.asarray(st[k]).tobytes())
+        cap = rows.shape[1]
+        h.update(heads.tobytes())
+        for flat in range(rows.shape[0]):
+            pos = np.arange(int(tails[flat]), int(heads[flat])) & (cap - 1)
+            h.update(rows[flat][pos].tobytes())
+        h.update(counts.tobytes())
+        return h.hexdigest()
 
     # --- steady state --------------------------------------------------------
 

@@ -1067,6 +1067,11 @@ class LocalExecutor:
             sidecar=sidecar, epoch_of=lambda: self.epoch_id,
             replay_feed=replay_feed, seed=seed, clock=clock)
 
+    def vertex_state(self, vertex_id: int):
+        """One vertex's operator state as numpy arrays (the reference's
+        ``jax.device_get`` of it: same keys, same dtypes)."""
+        return _device.HostCopy(self.carry.op_states[vertex_id]).wait()
+
     def log_sizes(self) -> np.ndarray:
         """Buffered determinant rows per task log (one device read)."""
         logs = self.carry.logs

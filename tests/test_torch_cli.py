@@ -1,0 +1,80 @@
+"""PyTorch port, the command line (``python -m clonos_tpu_torch``): ``info``
+prints the reference CLI's JSON for the two wordcount builders; ``run
+--device cpu`` exits 0 with the reference's top-level keys and metric
+names (and its deterministic metric values); the default device is the
+card, so without one ``run`` raises; a ``worker`` given the multi-host
+bootstrap flags refuses them. Tolerance: exact."""
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from clonos_tpu import cli as jcli
+from clonos_tpu_torch import cli
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JOB = "clonos_tpu_torch.examples.wordcount:build_job"
+
+
+def _stdout(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("builder", ["build_job", "build_socket_job"])
+def test_info_equals_reference_cli(builder):
+    got = json.loads(_stdout(cli.main, [
+        "info", f"clonos_tpu_torch.examples.wordcount:{builder}"]))
+    want = json.loads(_stdout(jcli.main, [
+        "info", f"examples.wordcount:{builder}"]))
+    assert got == want
+    assert got["total_subtasks"] == (12 if builder == "build_job" else 3)
+
+
+def test_run_on_cpu_prints_the_reference_keys():
+    proc = subprocess.run(
+        [sys.executable, "-m", "clonos_tpu_torch", "run", _JOB,
+         "--device", "cpu", "--epochs", "2", "--steps-per-epoch", "8"],
+        cwd=_REPO, env=dict(os.environ, PYTHONPATH=_REPO),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = json.loads(_stdout(jcli.main, [
+        "run", "examples.wordcount:build_job", "--epochs", "2",
+        "--steps-per-epoch", "8"]).strip().splitlines()[-1])
+    assert sorted(got) == sorted(want) == ["epochs", "job", "metrics",
+                                           "wall_s"]
+    assert (got["job"], got["epochs"]) == (want["job"], want["epochs"])
+    assert sorted(got["metrics"]) == sorted(want["metrics"])
+    pre = f"job.{got['job']}."
+    for name in ("supersteps", "epochs", "recovery.replay-lag-steps",
+                 "backpressure.inflight-occupancy", "audit.enabled",
+                 "audit.last-sealed-epoch", "checkpoint.latest-bytes"):
+        assert got["metrics"][pre + name] == want["metrics"][pre + name], \
+            name
+
+
+def test_run_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["run", _JOB, "--epochs", "1"])
+
+
+@pytest.mark.parametrize("flag", [["--coordinator", "127.0.0.1:1"],
+                                  ["--num-processes", "2"],
+                                  ["--process-id", "1"]])
+def test_worker_refuses_the_multi_host_bootstrap(flag, tmp_path):
+    with pytest.raises(SystemExit, match="not supported"):
+        cli.main(["worker", _JOB, "--jm", "127.0.0.1:1",
+                  "--checkpoint-dir", str(tmp_path), "--device", "cpu",
+                  *flag])
+    assert not os.listdir(tmp_path)

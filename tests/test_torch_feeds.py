@@ -265,3 +265,76 @@ def test_failover_drill_of_feed_window_and_reduce_leaves_the_carry():
         r.run_epoch()
     for a, b in zip(_leaves(golden), _leaves(port)):
         np.testing.assert_array_equal(b, a)
+
+
+def _line_server(lines, n_clients):
+    """A TCP server on 127.0.0.1 that sends ``lines`` to each of
+    ``n_clients`` connections and closes them."""
+    import socket
+    import threading
+    srv = socket.create_server(("127.0.0.1", 0))
+    payload = "".join(f"{x}\n" for x in lines).encode()
+
+    def serve():
+        for _ in range(n_clients):
+            conn, _ = srv.accept()
+            with conn:
+                conn.sendall(payload)
+        srv.close()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    return srv.getsockname()[1], t
+
+
+@pytest.mark.parametrize("parts,retention", [(1, None), (3, 16), (2, 5)])
+def test_socket_reader_equals_reference(parts, retention):
+    """Seeded ``key[:value]`` lines (with blanks and junk) over TCP: the
+    port's reader and the reference's return the same records call for
+    call — pulls past retention with ``records_lost``, pull_block,
+    read_at, commits and the expired-offset error."""
+    rng = np.random.RandomState(parts * 10 + (retention or 0))
+    lines = []
+    for _ in range(90):
+        kind = rng.randint(0, 6)
+        k, v = int(rng.randint(-50, 1000)), int(rng.randint(-9, 9))
+        lines.append({0: f"{k}:{v}", 1: str(k), 2: "", 3: "x:1",
+                      4: f"  {k}:{v}  ", 5: f"{k}:{v}"}[kind])
+    port, server = _line_server(lines, 2)
+    readers = [mod.SocketFeedReader("127.0.0.1", port, num_subtasks=parts,
+                                    retention=retention)
+               for mod in (tf, jf)]
+    try:
+        for r in readers:
+            r._thread.join(timeout=60)
+            assert not r._thread.is_alive()
+        server.join(timeout=60)
+        got, want = readers
+        script = [("pull", 0, 4), ("pull", parts - 1, 7),
+                  ("block", 0, 3, 2), ("commit",), ("pull", 0, 100),
+                  ("read", parts - 1, 0, 1), ("read", 0, 200, 1)]
+        for step in script:
+            out = []
+            for r in readers:
+                try:
+                    if step[0] == "pull":
+                        out.append(r.pull(step[1], step[2]))
+                    elif step[0] == "block":
+                        out.append(tuple(a.tolist() for a in
+                                         r.pull_block(*step[1:])))
+                    elif step[0] == "commit":
+                        r.notify_checkpoint_complete(
+                            [3 + s for s in range(parts)])
+                        out.append(None)
+                    else:
+                        out.append(r.read_at(*step[1:]))
+                except ValueError as e:          # expired or unavailable
+                    out.append((type(e).__name__, str(e)))
+            assert out[0] == out[1], step
+            assert got.records_lost == want.records_lost, step
+            assert (got._r._base, got._r._cursor) \
+                == (want._r._base, want._r._cursor), step
+        if retention is not None and retention < 16:
+            assert sum(got.records_lost) > 0
+    finally:
+        readers[0].close()

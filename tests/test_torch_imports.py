@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 52          # every module of the port was walked
+    assert int(count) >= 61          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
 
 
@@ -100,6 +100,29 @@ def test_observability_modules_import_alone_without_jax(module):
     profiler, history, reporters and endpoint, device sync, typed
     configuration; their references are partly JAX-free) each import
     alone in a fresh interpreter without ``jax`` or ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.version", "clonos_tpu_torch.__main__",
+    "clonos_tpu_torch.cli", "clonos_tpu_torch.ops.native",
+    "clonos_tpu_torch.causal.serde", "clonos_tpu_torch.causal.log",
+    "clonos_tpu_torch.causal.replication",
+    "clonos_tpu_torch.parallel.transport",
+    "clonos_tpu_torch.runtime.remote",
+    "clonos_tpu_torch.examples.wordcount"])
+def test_process_runtime_modules_import_alone_without_jax(module):
+    """The wire-format and process-runtime slice's modules (the codec and
+    its native loader, the transport, the host-side log, the remote
+    control plane, the CLI and its entry point, the example job; their
+    references are partly JAX-free) each import alone in a fresh
+    interpreter without ``jax`` or ``clonos_tpu``, and importing the
+    entry point runs nothing."""
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
                           env=env, capture_output=True, text=True,
