@@ -77,7 +77,19 @@ Phases:
      traced capture windows, and source records/s with the tracer off,
      on, on, off (a reading); (d) ``MetricsEndpoint`` on 127.0.0.1
      serving ``/metrics``, ``/metrics.json``, ``/metrics/history.json``
-     and ``/trace``, ``overhead.ft-fraction`` in both metric views.
+     and ``/trace``, ``overhead.ft-fraction`` in both metric views;
+ 11. the process runtime: (a) BASELINE config #1, the socket wordcount
+     fed over TCP with a window recovery (``[socket]``); (b) the wordcount
+     job's host-loss failover across two processes (``[failover]``);
+ 12. the read tier at the headline's widths (``[serve]``): (a) point and
+     batched reads through a replica, equal to the owner's at the same
+     epoch stamp, the replicas' tables equal to the reduce's state and to
+     a CPU run's, one gather per batch and no synchronising call in the
+     serve window; (b) routed reads from a reader thread while the
+     pipelined, audited runner ingests, a replica killed and revived with
+     no client-visible error, the sealed ledger equal to the same
+     runner's without a tier, no synchronising call in the capture
+     windows.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -580,22 +592,34 @@ def _mirror_ignore(golden, flats):
 SYNC_SITES = []
 
 
-def _sync_count(fn):
+def _sync_count(fn, this_thread=False):
     """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``;
     returns (result, synchronising calls) — (result, None) off the card.
-    Where each call came from is appended to ``SYNC_SITES``."""
+    The mode is process-wide: with ``this_thread`` only the calls made
+    on the calling thread count (another thread may queue work on the
+    card meanwhile, as the serve dispatch thread does). Where each
+    counted call came from is appended to ``SYNC_SITES``."""
     if torch.device(DEVICE).type != "cuda":
         return fn(), None
-    with warnings.catch_warnings(record=True) as caught:
+    import threading
+    me = threading.get_ident()
+    caught = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        caught.append((threading.get_ident(), str(message), filename,
+                       lineno))
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     # (The mode's one-time "prototype feature" notice is not a sync.)
-    sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-             if "called a synchronizing" in str(w.message)]
+    sites = [f"{os.path.relpath(f)}:{n}" for tid, m, f, n in caught
+             if "called a synchronizing" in m
+             and (not this_thread or tid == me)]
     SYNC_SITES.extend(sites)
     return out, len(sites)
 
@@ -2380,6 +2404,343 @@ def phase_host_loss(dev_line, root):
     return launches
 
 
+# --- phase 12 ---------------------------------------------------------------
+
+#: bench.py serve_probe's parts 1-2 (bench.py:766-779): 256-step epochs,
+#: log and ring sized from them, seed 7, keys from RandomState(13)
+SERVE_SPE = 256
+SERVE_SEED = 7
+SERVE_EPOCHS = 3
+SERVE_SEQ_READS = 256
+SERVE_BATCH_READS = 4096
+SERVE_CHUNK = 256
+SERVE_KEY_SEED = 13
+SERVE_LOG = 1 << (2 * SERVE_SPE * DETS_PER_STEP).bit_length()
+SERVE_RING = 1 << (2 * SERVE_SPE - 1).bit_length()
+#: (b): epochs of the pipelined, audited runner under reads, the epoch
+#: after which replica 0 is killed, and the keys of one routed read
+SERVE_INGEST_EPOCHS = 12
+SERVE_KILL_AT = 4
+SERVE_READ_KEYS = 32
+SERVE_READ_SEED = 17
+#: the reader's pause between reads (it yields the GIL to the driving thread)
+SERVE_READ_GAP_S = 0.001
+
+PHASE12_REDUCTIONS = (
+    f"bench.py serve_probe parts 1-2 at the headline's widths (8 sources "
+    f"x {BATCH} -> keyBy -> 8 windows over {VOCAB} keys -> keyBy(static) -> "
+    f"8 reduces -> 8 sinks, 32 subtasks; steps_per_epoch={SERVE_SPE}, "
+    f"block_steps={SERVE_SPE}, log_capacity={SERVE_LOG}, "
+    f"inflight_ring_steps={SERVE_RING}, seed {SERVE_SEED}; a tier of 2 "
+    f"replicas on the reduce, {SERVE_EPOCHS} completed epochs; "
+    f"{SERVE_SEQ_READS} point reads then {SERVE_BATCH_READS} batched reads "
+    f"in chunks of {SERVE_CHUNK}, keys from RandomState({SERVE_KEY_SEED})); "
+    f"cuts: logical_time=True, window_size={WINDOW_SIZE} (bench: 1<<30, "
+    f"never fires, so its reduce tables stay 0). (b) in place of part 3's "
+    f"soak driver (not ported): the same runner pipelined with the audit on "
+    f"for {SERVE_INGEST_EPOCHS} epochs, a reader thread issuing routed "
+    f"reads of {SERVE_READ_KEYS} keys {SERVE_READ_GAP_S * 1e3:g} ms apart, "
+    f"replica 0 killed after epoch "
+    f"{SERVE_KILL_AT}, against the same runner without a tier")
+
+
+def _serve_runner(dev, **kw):
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    return ClusterRunner(
+        build_job(), device=dev, steps_per_epoch=SERVE_SPE,
+        log_capacity=SERVE_LOG, max_epochs=16,
+        inflight_ring_steps=SERVE_RING, block_steps=SERVE_SPE,
+        logical_time=True, seed=SERVE_SEED, **kw)
+
+
+def _reduce_vid(job):
+    return next(v.vertex_id for v in job.vertices
+                if getattr(v.operator, "emits_running_value", False))
+
+
+def _timed_refresh(tier, out):
+    """Time every owner refresh (the fence hook's wait) into ``out``."""
+    refresh = tier.owner_endpoint.refresh
+
+    def timed(*a, **k):
+        t0 = time.monotonic()
+        refresh(*a, **k)
+        out.append(round((time.monotonic() - t0) * 1e3, 3))
+    tier.owner_endpoint.refresh = timed
+
+
+def phase_serve_reads(dev_line):
+    """(a) The read tier at full width: point vs batched reads through
+    replica 0, replica values == owner values at the same stamp, point ==
+    batched, the replicas' tables == the reduce's ``vertex_state`` == a
+    CPU run's table, dispatches <= batches, 0 synchronising calls in the
+    serve window (counted on the dispatch thread). Returns the epochs'
+    kernel launches."""
+    from clonos_tpu_torch.runtime import serve
+    runner = _serve_runner(DEVICE)
+    vid = _reduce_vid(runner.job)
+    tier = serve.build_serve_tier(runner, vid, n_replicas=2)
+    refresh_ms, feed_ms = [], []
+    _timed_refresh(tier, refresh_ms)
+    try:
+        def epochs():
+            for _ in range(SERVE_EPOCHS):
+                runner.run_epoch(complete_checkpoint=True)
+                feed_ms.append(round(
+                    runner.last_fence_phases["fence.serve-feed"], 3))
+            runner.drain_fence()
+        _, launches, _ = _counted(epochs)
+        rng = np.random.RandomState(SERVE_KEY_SEED)
+        rep = tier.clients[0]
+        ep = tier.endpoints[0]
+        rep.query_batch(vid, [0])             # the first upload and gather
+        rep.query(vid, 0)
+        keys_seq = rng.randint(0, VOCAB, SERVE_SEQ_READS)
+        t0 = time.monotonic()
+        seq_out = [rep.query(vid, int(k)) for k in keys_seq]
+        seq_s = time.monotonic() - t0
+        keys_b = rng.randint(0, VOCAB, SERVE_BATCH_READS)
+        d0 = ep.dispatches
+        batch_epochs, batch_vals = [], {}
+        t0 = time.monotonic()
+        for i in range(0, SERVE_BATCH_READS, SERVE_CHUNK):
+            chunk = [int(k) for k in keys_b[i:i + SERVE_CHUNK]]
+            out = rep.query_batch(vid, chunk)
+            batch_epochs.append(out["epoch"])
+            batch_vals.update(zip(chunk, out["values"]))
+        batch_s = time.monotonic() - t0
+        n_batches = SERVE_BATCH_READS // SERVE_CHUNK
+        batch_dispatches = ep.dispatches - d0
+        # The serve window's syncs, counted on the dispatch thread over
+        # one more pass of the same batches (outside the timed ones).
+        fn = serve._gather_fn(runner.job.vertices[vid].parallelism,
+                              runner.job.num_key_groups)
+        window_syncs = []
+
+        def counted_gather(acc, keys):
+            out, n = _sync_count(lambda: fn(acc, keys), this_thread=True)
+            window_syncs.append(n)
+            return out
+        gather_fn = serve._gather_fn
+        serve._gather_fn = lambda *_: counted_gather
+        try:
+            for i in range(0, SERVE_BATCH_READS, SERVE_CHUNK):
+                rep.query_batch(vid, [int(k) for k in
+                                      keys_b[i:i + SERVE_CHUNK]])
+        finally:
+            serve._gather_fn = gather_fn
+        probe_keys = sorted(batch_vals)
+        own = tier.owner_client.query_batch(vid, probe_keys)
+        mismatched = [k for k, v in zip(probe_keys, own["values"])
+                      if batch_vals[k] != v]
+        point_bad = [int(k) for k, o in zip(keys_seq, seq_out)
+                     if int(k) in batch_vals
+                     and o["value"] != batch_vals[int(k)]]
+        card = runner.executor.vertex_state(vid)["acc"]
+        tables = [r.host_view() for r in tier.replicas]
+        # The gather's time per dispatch at a chunk's bucket, on a copy
+        # of the replica's table (the endpoint's stream is its own).
+        acc = torch.from_numpy(tables[0][0]).to(DEVICE)
+        gkeys = torch.from_numpy(np.resize(
+            keys_b[:SERVE_CHUNK], serve._bucket(SERVE_CHUNK)).astype(
+                np.int32)).to(DEVICE)
+        gather_ms = gather_device_ms = None
+        if torch.device(DEVICE).type == "cuda":
+            gather_ms = _time_ms(lambda: fn(acc, gkeys))
+            gather_device_ms = _device_ms(lambda: fn(acc, gkeys), None)
+        statuses = [r.status() for r in tier.replicas]
+        epoch = own["epoch"]
+    finally:
+        tier.close()
+    cpu = _serve_runner("cpu")
+    for _ in range(SERVE_EPOCHS):
+        cpu.run_epoch(complete_checkpoint=True)
+    cpu_table = cpu.executor.vertex_state(vid)["acc"]
+    problems = []
+    if not (all(e == epoch for e in batch_epochs)
+            and epoch == SERVE_EPOCHS - 1):
+        problems.append(f"epoch stamps {batch_epochs} vs owner {epoch}")
+    if mismatched:
+        problems.append(f"replica != owner at keys {mismatched[:8]}")
+    if point_bad:
+        problems.append(f"point != batched at keys {point_bad[:8]}")
+    for i, (table, stamp) in enumerate(tables):
+        if stamp != epoch or not np.array_equal(table, card):
+            problems.append(f"replica {i} table (epoch {stamp}) != the "
+                            f"reduce's vertex_state")
+    if not np.array_equal(card, cpu_table) or not card.any():
+        problems.append("the card's reduce table != the CPU run's (or "
+                        "all zero)")
+    if batch_dispatches > n_batches:
+        problems.append(f"{batch_dispatches} dispatches > {n_batches} "
+                        f"batches")
+    if torch.device(DEVICE).type == "cuda" and (
+            any(window_syncs) or len(window_syncs) != n_batches):
+        problems.append(f"serve windows synchronised: {window_syncs} at "
+                        f"{SYNC_SITES}")
+    if min(launches.values()) == 0:
+        problems.append(f"no kernel launch: {launches}")
+    if problems:
+        raise AssertionError("(a) " + "; ".join(problems))
+    qps_seq = SERVE_SEQ_READS / seq_s
+    qps_batch = SERVE_BATCH_READS / batch_s
+    log("[serve] (a) batched vs point reads, replica == owner == vertex_state "
+        "== CPU: " + json.dumps(dict(
+            epoch=epoch, reads_per_s_point=round(qps_seq, 1),
+            reads_per_s_batched=round(qps_batch, 1),
+            batched_over_point=round(qps_batch / qps_seq, 2),
+            reference_bar=5.0, batch_dispatches=batch_dispatches,
+            batches=n_batches, serve_window_syncs=window_syncs,
+            gather_ms_per_dispatch={
+                "events": gather_ms and round(gather_ms, 4),
+                "device": gather_device_ms and round(gather_device_ms, 4)},
+            fence_serve_feed_ms=feed_ms, owner_refresh_ms=refresh_ms,
+            replica_status=statuses, kernel_launches=launches,
+            device=dev_line)))
+    return launches
+
+
+def _ingest(runner, tier, kill_at):
+    """Run ``SERVE_INGEST_EPOCHS`` pipelined epochs; with a tier, a reader
+    thread issues routed reads from the first fence on and replica 0 dies
+    after epoch
+    ``kill_at`` (the driving thread waits, outside the timed wall, until a read
+    was rerouted). Returns (source records/s, capture-window syncs,
+    fence.serve-feed ms, reader stats)."""
+    import threading
+    stats = {"reads": 0, "errors": [], "staleness": []}
+    stop = threading.Event()
+
+    def reader():
+        rng = np.random.RandomState(SERVE_READ_SEED)
+        vid = tier.vertex_id
+        while not stop.is_set():
+            keys = rng.randint(0, VOCAB, SERVE_READ_KEYS)
+            try:
+                out = tier.router.query_batch(vid, [int(k) for k in keys])
+                if len(out["values"]) != SERVE_READ_KEYS:
+                    raise AssertionError(f"{len(out['values'])} values")
+                stats["reads"] += 1
+                tier.mark_reads(SERVE_READ_KEYS)
+            except Exception as e:       # a client-visible error
+                stats["errors"].append(repr(e))
+            stats["staleness"].append(max(tier.staleness()))
+            stop.wait(SERVE_READ_GAP_S)
+
+    syncs, feed = [], []
+    begin = runner._begin_fence_tail
+
+    def counted_begin(*a):
+        out, n = _sync_count(lambda: begin(*a), this_thread=True)
+        syncs.append(n)
+        return out
+    runner._begin_fence_tail = counted_begin
+    th = None
+    if tier is not None:
+        th = threading.Thread(target=reader, name="serve-reader",
+                              daemon=True)
+    r0 = _source_records(runner)
+    paused = 0.0
+    t0 = time.monotonic()
+    try:
+        for e in range(SERVE_INGEST_EPOCHS):
+            runner.run_epoch(complete_checkpoint=True)
+            feed.append(runner.last_fence_phases.get("fence.serve-feed"))
+            if th is not None and e == 0:
+                th.start()          # the owner serves from the first fence
+            if tier is not None and e == kill_at:
+                tp = time.monotonic()
+                before = tier.router.reroutes
+                tier.kill_replica(0)
+                stats["staleness"].append(max(tier.staleness()))
+                deadline = tp + 30.0
+                while tier.router.reroutes == before and \
+                        time.monotonic() < deadline and th.is_alive():
+                    time.sleep(0.001)
+                paused += time.monotonic() - tp
+        runner.drain_fence()
+        feed.append(runner.last_fence_phases.get("fence.serve-feed"))
+        sync()
+        wall = time.monotonic() - t0 - paused
+    finally:
+        stop.set()
+        if th is not None:
+            th.join(timeout=30.0)
+        runner._begin_fence_tail = begin
+    rate = (_source_records(runner) - r0) / wall
+    return rate, syncs, [round(x, 3) for x in feed if x is not None], stats
+
+
+def phase_serve_ingest(dev_line):
+    """(b) Reads under ingest: the pipelined, audited runner with a tier
+    and a reader thread, replica 0 killed after epoch ``SERVE_KILL_AT``;
+    0 client-visible errors, reroutes > 0, a staleness peak above the
+    final staleness of 0, a revival, a sealed ledger equal to the same
+    runner's without a tier, 0 syncs in each capture window. Returns the
+    tiered run's kernel launches."""
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    from clonos_tpu_torch.runtime import serve
+    control = _serve_runner(DEVICE, overlap_epoch=True, audit=True)
+    rate_off, syncs_off, _, _ = _ingest(control, None, -1)
+    runner = _serve_runner(DEVICE, overlap_epoch=True, audit=True)
+    tier = serve.build_serve_tier(runner, _reduce_vid(runner.job),
+                                  n_replicas=2, staleness_bound=2)
+    try:
+        (rate_on, syncs_on, feed, stats), launches, _ = _counted(
+            lambda: _ingest(runner, tier, SERVE_KILL_AT))
+        final = tier.staleness()
+        router = tier.router
+        lat = sorted(router.recent_ms)
+        p50 = serve._quantile(lat, 0.5)
+        p99 = serve._quantile(lat, 0.99)
+        reroutes, reads = router.reroutes, router.reads
+        revivals = [r.revivals for r in tier.replicas]
+        snap = runner.metrics.snapshot()
+    finally:
+        tier.close()
+    problems = []
+    if stats["errors"] or not stats["reads"]:
+        problems.append(f"{len(stats['errors'])} client-visible errors "
+                        f"{stats['errors'][:3]}, {stats['reads']} reads")
+    if reroutes <= 0:
+        problems.append("no read was rerouted")
+    peak = max(stats["staleness"])
+    if not (peak > max(final) == 0):
+        problems.append(f"staleness peak {peak}, final {final}")
+    if revivals[0] < 1:
+        problems.append(f"revivals {revivals}")
+    led, led_off = (runner.coordinator.read_ledger(),
+                    control.coordinator.read_ledger())
+    diff = diff_ledgers(led_off, led)
+    if diff or len(led) != SERVE_INGEST_EPOCHS:
+        problems.append(f"ledger with the tier != without: {diff[:4]} "
+                        f"({len(led)} entries)")
+    if torch.device(DEVICE).type == "cuda" and (any(syncs_on)
+                                                or any(syncs_off)):
+        problems.append(f"capture windows synchronised: {syncs_on} / "
+                        f"{syncs_off} at {SYNC_SITES}")
+    if min(launches.values()) == 0:
+        problems.append(f"no kernel launch: {launches}")
+    if problems:
+        raise AssertionError("(b) " + "; ".join(problems))
+    log("[serve] (b) reads under ingest with a replica kill, ledger == "
+        "without a tier: " + json.dumps(dict(
+            epochs=SERVE_INGEST_EPOCHS, reader_batches=stats["reads"],
+            routed_reads=reads, client_errors=0, reroutes=reroutes,
+            staleness_peak=peak, staleness_final=final, revivals=revivals,
+            read_ms={"p50": round(p50, 3), "p99": round(p99, 3)},
+            source_records_per_s={"with_tier": round(rate_on, 1),
+                                  "without": round(rate_off, 1)},
+            fence_serve_feed_ms={"mean": round(float(np.mean(feed)), 3),
+                                 "per_fence": feed},
+            capture_window_syncs={"with_tier": syncs_on,
+                                  "without": syncs_off},
+            serve_gauges={k: v for k, v in snap.items()
+                          if k.startswith("serve.")},
+            kernel_launches=launches, device=dev_line)))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2438,6 +2799,14 @@ def main() -> int:
         host_loss_launches = phase_host_loss(dev_line, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log(f"[config] phase 12: {PHASE12_REDUCTIONS}")
+    t12 = time.monotonic()
+    read_launches = phase_serve_reads(dev_line)
+    torch.cuda.empty_cache()
+    ingest_launches = phase_serve_ingest(dev_line)
+    read_tier = {k: read_launches[k] + ingest_launches[k]
+                 for k in read_launches}
+    log(f"[serve] phase 12: {time.monotonic() - t12:.1f} s")
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -2447,7 +2816,7 @@ def main() -> int:
         "event_time_egress": egress_launches,
         "observability": obs_launches,
         "socket_wordcount": socket_launches,
-        "host_loss": host_loss_launches})))
+        "host_loss": host_loss_launches, "read_tier": read_tier})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -338,7 +338,17 @@ class ClusterRunner:
         self.heartbeats = HeartbeatMonitor(
             range(job.total_subtasks()), timeout_s=heartbeat_timeout_s)
         self.failed: Set[int] = set()
-        #: the last epoch whose fence tail sealed (-1 before the first)
+        #: ``fn(closed)`` at every epoch fence, on the driving thread,
+        #: before checkpoint completion truncates the logs and rings
+        #: (queryable state refreshes its fence snapshot here)
+        self.fence_hooks: List = []
+        #: read-replica delta feeds (``runtime/serve.py``): ``fn(epoch,
+        #: window)`` when an epoch seals, with the same extracted window
+        #: the audit digests. On the fence worker when the fence is
+        #: pipelined: subscribers are host-only and thread-safe.
+        self.serve_feeds: List = []
+        #: the last epoch whose fence tail sealed (-1 before the first):
+        #: the freshness stamp of every queryable-state snapshot
         self.last_sealed_epoch = -1
         self.global_step = 0
         #: epoch -> global step at its start
@@ -734,9 +744,11 @@ class ClusterRunner:
         seal over the closed epoch's causal surface, ledger append,
         checkpoint trigger. ``window_fn``/``snap_fn`` say where the state
         comes from (the live carry, or the pipelined capture), so the
-        digests are byte-identical either way."""
+        digests are byte-identical either way. One window extraction
+        feeds both the audit digest and the serve feeds."""
+        win = (window_fn() if self.auditor.enabled or self.serve_feeds
+               else None)
         if self.auditor.enabled:
-            win = window_fn()
             t = _time.monotonic()
             with prof.section("digest-seal"):
                 dg = _audit.digest_epoch_window(closed, win,
@@ -753,6 +765,11 @@ class ClusterRunner:
             self.epoch_tracker.notify_epoch_sealed(closed, dg)
             self._m_audit_sealed.inc()
         self.last_sealed_epoch = max(self.last_sealed_epoch, closed)
+        if self.serve_feeds:
+            t = _time.monotonic()
+            for fn in list(self.serve_feeds):
+                fn(closed, win)
+            phases["fence.serve-feed"] = (_time.monotonic() - t) * 1e3
         t = _time.monotonic()
         with prof.section("snapshot"):
             self.coordinator.trigger(closed, snap_fn(),
@@ -807,6 +824,9 @@ class ClusterRunner:
             phases, prof, async_write=False)
         self._append_source_fence_determinant(closed, phases, prof)
         self._seal_txns(closed)
+        # Before completion: ack_all truncates the logs and rings.
+        for hook in self.fence_hooks:
+            hook(closed)
         if complete_checkpoint:
             self.coordinator.ack_all(closed)
         fence_s = _time.monotonic() - t_fence
@@ -843,7 +863,8 @@ class ClusterRunner:
         t = _time.monotonic()
         phases: Dict[str, float] = {}
         # clonos: overlap-window-begin
-        handles = ex.capture_fence(with_window=self.auditor.enabled)
+        handles = ex.capture_fence(
+            with_window=self.auditor.enabled or bool(self.serve_feeds))
         snap = self._stage_feed_offsets(closed, ex.lean_snapshot())
         storage = self.coordinator.storage
         if storage.wants_host:
@@ -854,6 +875,8 @@ class ClusterRunner:
             snap = storage.stage(snap, closed) or snap
         self._append_source_fence_determinant(closed, phases, prof)
         # clonos: overlap-window-end
+        for hook in self.fence_hooks:
+            hook(closed)
         pre_ms = (_time.monotonic() - t) * 1e3
         phases["fence.capture"] = max(
             0.0, pre_ms - phases.get("fence.source-append", 0.0))

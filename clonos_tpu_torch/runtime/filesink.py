@@ -1,7 +1,6 @@
 """Durable filesystem egress behind the two-phase-commit sink (port of
-``clonos_tpu/runtime/filesink.py``, without leader fencing, which comes
-with the process runtime): exactly-once part files by write-pending and
-atomic rename on commit.
+``clonos_tpu/runtime/filesink.py``): exactly-once part files by
+write-pending and atomic rename on commit.
 
 - pre-commit (epoch seal): each subtask shard of the sealed epoch is
   written to ``part-<epoch>-<sub>-t<token>.pending`` before the
@@ -16,6 +15,13 @@ atomic rename on commit.
 a sweep only deletes parts at or below its own token, so a stale
 incarnation sharing the root cannot delete a newer writer's parts.
 Token-less names parse as token 0.
+
+``fencing`` is a leadership handle with ``is_leader()`` (a
+``runtime.leader.FileLeaderElection``): when set, every mutating
+operation (pending write, commit, :meth:`FileSystemSink.sweep_pending`)
+raises ``PermissionError`` unless this incarnation holds the lease, so a
+deposed writer sharing the root cannot delete or certify the new
+leader's parts.
 """
 
 from __future__ import annotations
@@ -29,10 +35,19 @@ import numpy as np
 class FileSystemSink:
     """One sink vertex's durable part-file store."""
 
-    def __init__(self, root: str, token: int = 0):
+    def __init__(self, root: str, fencing=None, token: int = 0):
         self.root = root
+        self.fencing = fencing
         self.token = int(token)
         os.makedirs(root, exist_ok=True)
+
+    def _check_fencing(self, what: str) -> None:
+        if self.fencing is not None and not self.fencing.is_leader():
+            raise PermissionError(
+                f"filesink {what} refused: this incarnation does not hold "
+                f"the leadership lease for {self.root!r} — a fenced-off "
+                f"writer must not mutate a sink root another incarnation "
+                f"may be writing")
 
     def _part(self, epoch: int, sub: int, state: str) -> str:
         return os.path.join(
@@ -52,6 +67,7 @@ class FileSystemSink:
                       shards: Dict[int, np.ndarray]) -> None:
         """Pre-commit: persist every subtask shard of the sealed epoch
         (temp file + replace, so a crash never leaves a torn pending)."""
+        self._check_fencing("write_pending")
         for sub, rows in shards.items():
             path = self._part(epoch, sub, "pending")
             tmp = path + ".tmp"
@@ -62,6 +78,7 @@ class FileSystemSink:
     def commit(self, epoch: int, _rows: np.ndarray) -> None:
         """Checkpoint complete: the epoch's pendings at or below this
         writer's token become final, atomically."""
+        self._check_fencing("commit")
         for fn in sorted(os.listdir(self.root)):
             if not (fn.startswith(f"part-{epoch}-")
                     and fn.endswith(".pending")):
@@ -77,6 +94,7 @@ class FileSystemSink:
         orphans. Parts above this writer's token are a newer
         incarnation's and stay; strictly older tokens always go. Returns
         the removed filenames."""
+        self._check_fencing("sweep_pending")
         keep = set(keep_epochs)
         removed = []
         for fn in sorted(os.listdir(self.root)):

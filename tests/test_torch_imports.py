@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 61          # every module of the port was walked
+    assert int(count) >= 64          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
 
 
@@ -123,6 +123,22 @@ def test_process_runtime_modules_import_alone_without_jax(module):
     references are partly JAX-free) each import alone in a fresh
     interpreter without ``jax`` or ``clonos_tpu``, and importing the
     entry point runs nothing."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.runtime.query", "clonos_tpu_torch.runtime.serve",
+    "clonos_tpu_torch.runtime.leader"])
+def test_read_tier_modules_import_alone_without_jax(module):
+    """The read tier's modules (queryable state, the replicas, endpoint
+    and router, and leader leases; their references are partly
+    JAX-free) each import alone in a fresh interpreter without ``jax``
+    or ``clonos_tpu``."""
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
                           env=env, capture_output=True, text=True,
