@@ -16,7 +16,10 @@ before any phase runs.
 
 Phases:
   1. device line and kernel build;
-  2. kernel vs plain version on the card, bit for bit, with times;
+  2. kernel vs plain version on the card, bit for bit, with times (CUDA
+     events, CUPTI device time, host time per call) against the bound,
+     the plain version and ``scatter_add_``, at the paths' shapes, a
+     one-launch floor, two skewed-key rows and an unaligned view;
   3. the card's run of two blocks equals the CPU's, bit for bit; a third
      block on the card under torch.profiler (where the time goes);
   4. the main path: 3 epochs + 256 steps, counting kernel launches;
@@ -191,7 +194,8 @@ def phase_build() -> float:
     log(f"[build] {hist._SOURCE}: {build_s:.3f} s "
         f"(nvcc {info.get('seconds', 0.0):.3f} s) -> "
         f"{cuda_build.library_path(hist._SOURCE)}")
-    for line in str(info.get("log", "")).splitlines()[-8:]:
+    # ptxas -v: registers, shared memory and spills of every instantiation
+    for line in str(info.get("log", "")).splitlines():
         log(f"[build] {line}")
     log(f"[build] shared-memory budget per block: "
         f"{hist.smem_budget(torch.device('cuda'))} bytes")
@@ -229,9 +233,20 @@ WC_SHAPES = (
     ("wc-window", 64, 256, 1000, False),
     ("wc-lane", 16, 256, 256, True),
 )
+#: one launch's least device time (R=1 B=16 nk=16, sums only): the
+#: yardstick for rows whose bound is below it; the headline window shape
+#: with skewed keys (Zipf(1.2) over the keys; 90% of records on one key)
+FLOOR_SHAPES = (("floor", 1, 16, 16, False),)
+SKEW_SHAPES = (
+    ("skew-zipf", 512 * PAR, EDGE_CAPACITY, VOCAB, False),
+    ("skew-hot", 512 * PAR, EDGE_CAPACITY, VOCAB, False),
+)
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
-    {s[0] for s in C45_SHAPES + WC_SHAPES})
+    {s[0] for s in C45_SHAPES + WC_SHAPES + FLOOR_SHAPES + SKEW_SHAPES})
+#: the route shape as views one element into their buffers (the kernel's
+#: unaligned branch): checked bit for bit, not timed
+ALIGN_SHAPES = (("align", 512, PAR * BATCH, PAR * EDGE_CAPACITY, True),)
 #: ragged and out-of-range cases, the last past the shared-memory budget
 EDGE_SHAPES = (
     ("ragged", 37, 100, VOCAB, True),
@@ -241,17 +256,28 @@ EDGE_SHAPES = (
 )
 
 
-def _inputs(r, b, nk, seed, dev):
+def _inputs(r, b, nk, seed, dev, label=""):
     rng = np.random.RandomState(seed)
-    keys = rng.randint(-3, nk + 4, (r, b)).astype(np.int32)
+    if label == "skew-zipf":
+        p = np.arange(1, nk + 1, dtype=np.float64) ** -1.2
+        keys = rng.choice(nk, (r, b), p=p / p.sum()).astype(np.int32)
+    elif label == "skew-hot":
+        keys = np.where(rng.rand(r, b) < 0.9, rng.randint(nk),
+                        rng.randint(0, nk, (r, b))).astype(np.int32)
+    else:
+        keys = rng.randint(-3, nk + 4, (r, b)).astype(np.int32)
     vals = rng.randint(-1000, 1000, (r, b)).astype(np.int32)
     valid = rng.rand(r, b) < 0.7
-    return tuple(torch.from_numpy(a).to(dev) for a in (keys, vals, valid))
+    out = tuple(torch.from_numpy(a).to(dev) for a in (keys, vals, valid))
+    if label == "align":
+        # Each input a view one element into a buffer of r * b + 1.
+        out = tuple(torch.cat([a.reshape(-1)[:1], a.reshape(-1)])[1:]
+                    .view(r, b) for a in out)
+    return out
 
 
-def _time_ms(fn, iters=20) -> float:
-    fn()
-    sync()
+def _events_ms(fn, iters) -> float:
+    """CUDA events around ``iters`` back-to-back calls, per call."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -262,7 +288,15 @@ def _time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, name_part="hist_", iters=20):
+def _time_ms(fn, iters=20, reps=5) -> float:
+    """``_events_ms`` after a warm-up: the median of ``reps`` runs (the
+    host is shared, and one run can stall)."""
+    fn()
+    sync()
+    return float(np.median([_events_ms(fn, iters) for _ in range(reps)]))
+
+
+def _device_ms(fn, name_part="hist_", iters=50):
     """Device time per call of the kernels ``fn`` launches whose name holds
     ``name_part`` (every kernel for None), from torch.profiler's CUPTI
     trace; None when the trace shows no device time."""
@@ -284,6 +318,36 @@ def _device_ms(fn, name_part="hist_", iters=20):
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
+def _time_pair_ms(fn_a, fn_b, iters=20, reps=9):
+    """``_time_ms`` of two calls, their runs in turns (a b b a a b ...),
+    so that both meet the same moments of a shared host."""
+    fn_a()
+    fn_b()
+    sync()
+    runs = ([], [])
+    for i in range(2 * reps):
+        which = (i + i // 2) % 2
+        runs[which].append(_events_ms((fn_a, fn_b)[which], iters))
+    return float(np.median(runs[0])), float(np.median(runs[1]))
+
+
+def _host_us(fn, iters=200, reps=5) -> float:
+    """Host wall time per call over ``iters`` back-to-back calls (no
+    synchronisation inside the timed loop; one after it): the median of
+    ``reps`` such runs."""
+    fn()
+    sync()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        sync()
+        runs.append((t1 - t0) / iters * 1e6)
+    return float(np.median(runs))
+
+
 def _bound(r, b, nk, counts, kept):
     """Least time on the card: inputs read once (keys, vals int32, valid
     bool), outputs written once; one int32 add per kept record per
@@ -296,12 +360,21 @@ def _bound(r, b, nk, counts, kept):
 
 
 def phase_kernels():
+    """Every shape: the kernel against its plain version, bit for bit. The
+    timed shapes: CUDA events, host time and the plain and library calls
+    first, for every shape, then the profiler's device times, so no event
+    or host timing follows a profiler session."""
     from clonos_tpu_torch.ops import histogram as hist
     dev = torch.device("cuda")
     rows = []
+    profiled = []
     for i, (label, r, b, nk, counts) in enumerate(
-            MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES):
-        keys, vals, valid = _inputs(r, b, nk, 100 + i, dev)
+            MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES
+            + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES):
+        keys, vals, valid = _inputs(r, b, nk, 100 + i, dev, label)
+        aligned = all(a.data_ptr() % 16 == 0 for a in (keys, vals, valid))
+        smem_optin, sms = hist._device_info(keys.get_device())
+        plan = hist._plan(r, b, nk, counts, aligned, smem_optin, sms)
         s_k, c_k = hist.keyed_hist_cuda(keys, vals, valid, nk, counts)
         s_p, c_p = hist.keyed_hist_plain(keys, vals, valid, nk, counts)
         sync()
@@ -316,41 +389,158 @@ def phase_kernels():
                 f"keyed_hist kernel != plain at {label} R={r} B={b} nk={nk} "
                 f"counts={counts}: max abs err {err}")
         row = dict(label=label, R=r, B=b, nk=nk, counts=counts,
-                   bit_identical=True, max_abs_err=err)
-        if label in TIMED_LABELS:
-            kept_mask = valid & (keys >= 0) & (keys < nk)
-            kept = int(kept_mask.sum())
-            # Library yardstick: torch's scatter_add_ on the same inputs,
-            # dropped records pointed at a spare slot (index prep untimed).
-            idx = torch.where(
-                kept_mask, torch.arange(r, device=dev)[:, None] * nk
-                + keys.to(torch.int64), r * nk).reshape(-1)
-            v = vals.reshape(-1)
-            one = kept_mask.to(torch.int32).reshape(-1)
-            out_s = torch.zeros(r * nk + 1, dtype=torch.int32, device=dev)
-            out_c = torch.zeros(r * nk + 1, dtype=torch.int32, device=dev)
-
-            def library():
-                out_s.zero_().scatter_add_(0, idx, v)
-                if counts:
-                    out_c.zero_().scatter_add_(0, idx, one)
-
-            row["ms"] = _time_ms(
-                lambda: hist.keyed_hist_cuda(keys, vals, valid, nk, counts))
-            # CUDA events over back-to-back launches include the host's
-            # ctypes launch cost where it exceeds the kernel's; the
-            # profiler's device time is the kernel alone.
-            row["device_ms"] = _device_ms(
-                lambda: hist.keyed_hist_cuda(keys, vals, valid, nk, counts))
-            row["plain_ms"] = _time_ms(
-                lambda: hist.keyed_hist_plain(keys, vals, valid, nk, counts))
-            row["library_ms"] = _time_ms(library)
-            # Every kernel the library call launches (fill + scatter).
-            row["library_device_ms"] = _device_ms(library, None)
-            row["bound_ms"], row["bound_by"] = _bound(r, b, nk, counts, kept)
+                   bit_identical=True, max_abs_err=err,
+                   branch=("bulk", "direct", "global")[plan.branch],
+                   grid=plan.grid, threads=plan.threads, smem=plan.smem,
+                   resident=plan.resident)
         rows.append(row)
+        if label not in TIMED_LABELS:
+            continue
+        kept_mask = valid & (keys >= 0) & (keys < nk)
+        kept = int(kept_mask.sum())
+        # Library yardstick: torch's scatter_add_ on the same inputs,
+        # dropped records pointed at a spare slot (index prep untimed).
+        idx = torch.where(
+            kept_mask, torch.arange(r, device=dev)[:, None] * nk
+            + keys.to(torch.int64), r * nk).reshape(-1)
+        v = vals.reshape(-1)
+        one = kept_mask.to(torch.int32).reshape(-1)
+        out_s = torch.zeros(r * nk + 1, dtype=torch.int32, device=dev)
+        out_c = torch.zeros(r * nk + 1, dtype=torch.int32, device=dev)
+
+        def library(out_s=out_s, out_c=out_c, idx=idx, v=v, one=one,
+                    counts=counts):
+            out_s.zero_().scatter_add_(0, idx, v)
+            if counts:
+                out_c.zero_().scatter_add_(0, idx, one)
+
+        def kernel(keys=keys, vals=vals, valid=valid, nk=nk, counts=counts):
+            return hist.keyed_hist_cuda(keys, vals, valid, nk, counts)
+
+        other = _other_branch(hist, keys, vals, valid, nk, counts, plan)
+
+        # CUDA events over back-to-back calls include the host's launch
+        # cost where it exceeds the kernel's; the profiler's device time
+        # is the kernel alone; host_us is the host's cost of a call.
+        row["ms"], row["library_ms"] = _time_pair_ms(kernel, library)
+        row["host_us"] = _host_us(kernel)
+        row["plain_ms"] = _time_ms(
+            lambda: hist.keyed_hist_plain(keys, vals, valid, nk, counts))
+        row["bound_ms"], row["bound_by"] = _bound(r, b, nk, counts, kept)
+        profiled.append((row, kernel, library, other))
+    _host_split(hist)
+    for row, kernel, library, other in profiled:
+        row["device_ms"] = _device_ms(kernel)
+        if other is not None:
+            row["other_branch_device_ms"] = _device_ms(other)
+        # Every kernel the library call launches (fill + scatter).
+        row["library_device_ms"] = _device_ms(library, None)
+    del profiled
+    for row in rows:
         log(f"[kernel] {json.dumps(row)}")
+    _judge(rows)
     return rows
+
+
+def _other_branch(hist, keys, vals, valid, nk, counts, plan):
+    """A call that launches the shared-memory branch the plan did not pick
+    (bulk for direct, direct for bulk) on these aligned rows, after
+    checking it against the plain version: the evidence for the plan's
+    choice. Its launches are not counted. None where only one branch
+    can run."""
+    import ctypes
+    r, b = keys.shape
+    index = keys.get_device()
+    smem_optin, sms = hist._device_info(index)
+    if plan.branch == hist.GLOBAL or b % 16 or hist._table_bytes(
+            nk, counts) + hist._ring_bytes(b) > smem_optin:
+        return None
+    other = hist._branch_plan(
+        hist.DIRECT if plan.branch == hist.BULK else hist.BULK, r, b, nk,
+        counts, smem_optin, sms)
+    args = (ctypes.c_int * 10)(r, b, nk, int(counts), other.branch,
+                               other.grid, other.threads, other.smem,
+                               other.chunk, index)
+    out = torch.empty((2, r, nk), dtype=torch.int32, device=keys.device)
+    ptrs = (keys.data_ptr(), vals.data_ptr(), valid.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr() if counts else None,
+            ctypes.addressof(args))
+
+    def launch(args=args, out=out):  # both must outlive the launches
+        err = hist._launch(*ptrs, hist._current_stream(index))
+        if err != 0:
+            raise RuntimeError(f"launch of branch {other.branch} failed: "
+                               f"cuda error {err}")
+
+    launch()
+    s_p, c_p = hist.keyed_hist_plain(keys, vals, valid, nk, counts)
+    if not (torch.equal(out[0], s_p) and (not counts
+                                          or torch.equal(out[1], c_p))):
+        raise AssertionError(f"branch {other.branch} != plain at R={r} "
+                             f"B={b} nk={nk} counts={counts}")
+    return launch
+
+
+def _host_split(hist):
+    """Where a wrapper call's host time goes, at the wordcount route's
+    sums-only shape (host us per call, as ``_host_us``): the whole call,
+    its output allocation (and the counts form's: one buffer, two views),
+    the bound C launcher alone (ctypes, device check, kernel launch) and
+    one plain torch op for scale."""
+    label, r, b, nk, _ = WC_SHAPES[1]
+    keys, vals, valid = _inputs(r, b, nk, 7, torch.device("cuda"))
+    out = hist.keyed_hist_cuda(keys, vals, valid, nk, False)[0]
+    index = keys.get_device()
+    _, _, args = hist._launch_args(r, b, nk, False, True, index)
+    ptrs = (keys.data_ptr(), vals.data_ptr(), valid.data_ptr(),
+            out.data_ptr())
+    stream = hist._current_stream(index)
+    launch = hist._launch
+    split = {
+        "call": _host_us(
+            lambda: hist.keyed_hist_cuda(keys, vals, valid, nk, False)),
+        "alloc": _host_us(lambda: keys.new_empty((r, nk))),
+        "alloc_counts": _host_us(
+            lambda: keys.new_empty((2, r, nk)).unbind(0)),
+        "launcher": _host_us(lambda: launch(*ptrs, None, args, stream)),
+        "torch_zero_": _host_us(out.zero_),
+    }
+    log(f"[kernel-host] {label} R={r} B={b} nk={nk} sums only, host us per "
+        f"call: " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+
+
+def _judge(rows):
+    """Log each timed row against the floor and its bound: a row whose
+    bound exceeds the floor's device time should reach half of its bound,
+    any other row at most the floor plus its bound; and the wrapper's
+    events time should not exceed the library call's. A reading: nothing
+    here fails the run."""
+    timed = [r for r in rows if "ms" in r]
+    floor = next(r["device_ms"] for r in timed if r["label"] == "floor")
+    skew = {r["label"]: r["device_ms"] for r in timed
+            if r["label"] in ("window", "skew-zipf", "skew-hot")}
+    word = {True: "held", False: "failed"}
+    for r in timed:
+        dev_ms, bound = r["device_ms"], r["bound_ms"]
+        if dev_ms is None or floor is None:
+            verdict = "not measured"
+        elif bound > floor:
+            verdict = (f"bound share {bound / dev_ms:.3f} "
+                       f"({word[dev_ms <= 2 * bound]}: >= 0.5)")
+        else:
+            verdict = (f"floor + bound {floor + bound:.5f} ms "
+                       f"({word[dev_ms <= floor + bound]})")
+        lib = word[r["ms"] <= r["library_ms"]]
+        log(f"[kernel-judge] {r['label']} R={r['R']} B={r['B']} nk={r['nk']} "
+            f"counts={r['counts']}: device {dev_ms} ms ({r['branch']}; "
+            f"the other branch {r.get('other_branch_device_ms')}), "
+            f"{verdict}; events "
+            f"{r['ms']:.5f} <= library {r['library_ms']:.5f} ms: {lib}; "
+            f"host {r['host_us']:.2f} us")
+    if all(skew.get(k) for k in ("window", "skew-zipf", "skew-hot")):
+        log(f"[kernel-judge] skew: zipf / uniform "
+            f"{skew['skew-zipf'] / skew['window']:.3f}, hot / uniform "
+            f"{skew['skew-hot'] / skew['window']:.3f} (device time)")
 
 
 def kernels_line(rows, by_path):
@@ -384,7 +574,7 @@ def kernels_line(rows, by_path):
                                  if r["counts"] == counts),
             "device_ms": top["device_ms"],
             "shapes": [{k: r[k] for k in ("label", "R", "B", "nk", "ms",
-                                          "device_ms", "plain_ms",
+                                          "host_us", "device_ms", "plain_ms",
                                           "library_ms", "library_device_ms",
                                           "bound_ms", "bound_by")}
                        for r in mine]})
@@ -480,6 +670,9 @@ def profile_block(job, carry, binputs):
         ms, n = by_kernel.get(e.name, (0.0, 0))
         by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    hist_ms = sum(ms for name, (ms, _) in by_kernel.items()
+                  if "hist_" in name)
+    hist_n = sum(n for name, (_, n) in by_kernel.items() if "hist_" in name)
     log(f"[profile] one {BLOCK_STEPS}-step block on the card: wall "
         f"{wall_ms:.3f} ms (profiler on), device busy {busy_ms:.3f} ms, "
         f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, {len(work)} "
@@ -488,6 +681,9 @@ def profile_block(job, carry, binputs):
         f"inside the range): {json.dumps(by_layer)}")
     log(f"[profile] device span by layer (first to last device event, "
         f"gaps included): {json.dumps(spans)}")
+    log(f"[profile] keyed histogram: {hist_ms:.4f} ms of device time in "
+        f"{hist_n} launches, {hist_ms / busy_ms:.4f} of the block's busy "
+        f"time")
     log("[profile] top device operations (ms, count): " + json.dumps(
         [[name[:70], round(ms, 4), n] for name, (ms, n) in top]))
 

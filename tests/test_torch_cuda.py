@@ -87,3 +87,113 @@ def test_card_run_equals_cpu_run(cuda_device):
     assert len(la) == len(lb)
     for a, b in zip(la, lb):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def _check(args, nk, want_counts):
+    """One kernel launch on ``[R, B]`` CUDA rows against the plain version,
+    bit for bit."""
+    before = th.keyed_hist.launches
+    s, c = th.keyed_hist_cuda(*args, nk, want_counts)
+    s2, c2 = th.keyed_hist_plain(*args, nk, want_counts)
+    torch.cuda.synchronize()
+    assert th.keyed_hist.launches == before + 1
+    assert torch.equal(s, s2)
+    if want_counts:
+        assert torch.equal(c, c2)
+    else:
+        assert c is None and c2 is None
+
+
+def _on_card(arrays, device):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("want_counts", [True, False])
+def test_kernel_on_views_at_an_odd_offset(cuda_device, want_counts):
+    keys, vals, valid = _inputs(7, (64,), 1024, 8192)
+    args = [torch.cat([a.reshape(-1)[:1], a.reshape(-1)])[1:].view(64, 1024)
+            for a in _on_card((keys, vals, valid), cuda_device)]
+    assert all(a.data_ptr() % 16 for a in args)
+    _check(args, 8192, want_counts)
+
+
+@pytest.mark.parametrize("b", [100, 300, 1000, 1028])
+def test_kernel_rows_not_a_multiple_of_16(cuda_device, b):
+    keys, vals, valid = _inputs(b, (33,), b, 997)
+    for want_counts in (True, False):
+        _check(_on_card((keys, vals, valid), cuda_device), 997, want_counts)
+
+
+@pytest.mark.parametrize("r", [1, 3, 131, 20000])
+def test_kernel_rows_below_and_far_above_the_persistent_grid(cuda_device, r):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    keys, vals, valid = _inputs(r, (r,), 512, 499)
+    args = _on_card((keys, vals, valid), cuda_device)
+    for want_counts in (True, False):
+        _check(args, 499, want_counts)
+    if r == 20000:
+        smem, n = th._device_info(cuda_device.index or 0)
+        assert n == sms
+        assert th._plan(r, 512, 499, False, True, smem, n).grid < r // 8
+
+
+@pytest.mark.parametrize("nk", [8192, 16384])
+def test_kernel_wide_tables_with_counts(cuda_device, nk):
+    keys, vals, valid = _inputs(nk, (512,), 1024, nk)
+    _check(_on_card((keys, vals, valid), cuda_device), nk, True)
+    # Records past 1,024 a row take more than one ring stage per row.
+    keys, vals, valid = _inputs(nk + 1, (40,), 2048 + 16, nk)
+    _check(_on_card((keys, vals, valid), cuda_device), nk, True)
+
+
+@pytest.mark.parametrize("dist", ["zipf", "hot-key"])
+def test_kernel_on_skewed_keys(cuda_device, dist):
+    rng = np.random.RandomState(11)
+    r, b, nk = 256, 1024, 997
+    if dist == "zipf":
+        p = np.arange(1, nk + 1, dtype=np.float64) ** -1.2
+        keys = rng.choice(nk, (r, b), p=p / p.sum())
+    else:
+        keys = np.where(rng.rand(r, b) < 0.9, rng.randint(nk),
+                        rng.randint(0, nk, (r, b)))
+    vals = rng.randint(-1000, 1000, (r, b))
+    valid = rng.rand(r, b) < 0.7
+    args = _on_card((keys.astype(np.int32), vals.astype(np.int32), valid),
+                    cuda_device)
+    for want_counts in (True, False):
+        _check(args, nk, want_counts)
+
+
+def test_kernel_from_two_threads_on_two_streams(cuda_device):
+    import threading
+    shapes = [(512, 1024, 8192, True), (4096, 1024, 997, False)]
+    inputs = [_on_card(_inputs(i, (r,), b, nk), cuda_device)
+              for i, (r, b, nk, _) in enumerate(shapes)]
+    expect = [th.keyed_hist_plain(*a, nk, counts)
+              for a, (_, _, nk, counts) in zip(inputs, shapes)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    errors = []
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.stream(stream):
+                nk, counts = shapes[i][2], shapes[i][3]
+                for _ in range(20):
+                    got[i].append(th.keyed_hist_cuda(*inputs[i], nk, counts))
+            stream.synchronize()
+        except Exception as e:  # reported below, on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    for i, (s2, c2) in enumerate(expect):
+        assert len(got[i]) == 20
+        for s, c in got[i]:
+            assert torch.equal(s, s2)
+            assert (c is None and c2 is None) or torch.equal(c, c2)
