@@ -93,6 +93,21 @@ Phases:
      no client-visible error, the sealed ledger equal to the same
      runner's without a tier, no synchronising call in the capture
      windows.
+ 13. the slot pool (``[spanning]``, ``[multitenant]``): (a) the headline
+     job cut on its window -> reduce edge across two ``python -m
+     clonos_tpu_torch slotworker`` processes, deployed by a
+     ``SlotPoolScheduler`` here; an in-process upstream times the edge
+     export's ``publish`` (0 synchronising calls) and its stream equals
+     worker a's; worker b is SIGKILLed after its sixth epoch and only
+     its group is rebuilt, on a, equal to b's reported fence; every
+     fence of b and of the rebuilt slice equals an in-process control on
+     the card; a deposed fencing token's DEPLOY is refused. (b) three
+     tenants of the wordcount job under an embedded ``Dispatcher`` (one
+     submitted by the ``submit`` CLI, all listed by ``jobs --json``),
+     worker b killed between two rounds, red and blue rebuilt on a to
+     fences b reported, green deployed once and fencing through the
+     storm within max(30 s, 25 x its median gap), every digest equal to
+     one control, per-job ledgers and trace files, exactly-once per job.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -2937,6 +2952,693 @@ def phase_serve_ingest(dev_line):
     return launches
 
 
+# --- phase 13 ---------------------------------------------------------------
+
+#: (a) the headline job across two slot-worker processes: its spec (the
+#: workers import it with the repo on PYTHONPATH), cut on window -> reduce
+SPAN_SPEC = "chip_smoke:build_job"
+SPAN_EPOCHS = 8
+SPAN_COMPLETE_EVERY = 2
+#: b's status line "epoch": 6 follows the fence of epoch 5, whose
+#: checkpoint stays pending (5 % 2 == 1): the mirror then holds one epoch
+#: past the last completed checkpoint (epoch 4), so the rebuild replays
+#: an epoch. b is stopped and checked before the kill
+#: (``_kill_covered``): a later line is taken if the mirror missed this one
+SPAN_KILL_AT = 6
+#: records the downstream pulls a step: at most half of what the window
+#: exports a step (a CPU rehearsal of the upstream slice: 2,991 records
+#: in epoch 0 and 3,988 in epoch 1, 2.9-3.9 a step; checked on the card)
+SPAN_FEED_BATCH = 1
+SPAN_EPOCH_SLEEP = 0.5
+SLOT_HB_TIMEOUT_S = 2.0
+SLOT_HB_INTERVAL_S = 0.3
+#: (b) three tenants of the wordcount job over one pool (the reference
+#: test's runner settings, targets and pacing)
+MT_SPEC = "clonos_tpu_torch.examples.wordcount:build_job"
+MT_RUNNER_KW = dict(steps_per_epoch=4, log_capacity=512, max_epochs=64,
+                    inflight_ring_steps=64, seed=7, logical_time=True)
+MT_TARGETS = {"red-001": 20, "blue-002": 20, "green-003": 30}
+MT_EPOCH_SLEEP = 0.25
+
+PHASE13_REDUCTIONS = (
+    f"(a) the headline job at full width across two `python -m "
+    f"clonos_tpu_torch slotworker` processes ([source, window] | [reduce, "
+    f"sink], cut on the window -> reduce HASH edge) with the headline's "
+    f"cuts (logical_time=True, window_size={WINDOW_SIZE}, "
+    f"steps_per_epoch={STEPS_PER_EPOCH}, block_steps={BLOCK_STEPS}); "
+    f"feed_batch={SPAN_FEED_BATCH} (the downstream pulls at most half the "
+    f"window's exports a step); {SPAN_EPOCHS} epochs, complete_every="
+    f"{SPAN_COMPLETE_EVERY}, the downstream worker killed after its "
+    f"epoch-{SPAN_KILL_AT} line; epoch sleep {SPAN_EPOCH_SLEEP} s, "
+    f"heartbeat {SLOT_HB_INTERVAL_S} s / timeout {SLOT_HB_TIMEOUT_S} s. "
+    f"(b) tests/test_multitenant.py on the card: the wordcount job at its "
+    f"published widths (4 sources x 64 -> keyBy -> 4 windows over 1,000 "
+    f"keys -> 4 sinks) for three tenants, steps_per_epoch=4, targets "
+    f"20/20/30 epochs, epoch sleep {MT_EPOCH_SLEEP} s; cut: depth")
+
+
+def _slotworker(jm_address, eid, slots, lease, epoch_sleep, trace_dir=None):
+    """Start ``python -m clonos_tpu_torch slotworker`` on this script's
+    device; returns (process, queue of its stdout lines). Its standard
+    error goes to ``<lease>.<eid>.stderr`` (``_worker_errors`` prints its
+    tail when a phase fails)."""
+    import queue
+    import threading
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-X", "faulthandler", "-m", "clonos_tpu_torch",
+           "slotworker", "--jm", f"127.0.0.1:{jm_address[1]}",
+           "--executor-id", eid,
+           "--slots", str(slots), "--lease", lease,
+           "--heartbeat-interval", str(SLOT_HB_INTERVAL_S),
+           "--max-seconds", "400", "--epoch-sleep", str(epoch_sleep),
+           "--device", DEVICE]
+    if trace_dir is not None:
+        cmd += ["--trace-dir", trace_dir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with open(f"{lease}.{eid}.stderr", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    lines = queue.Queue()
+    threading.Thread(target=_pump, args=(proc.stdout, lines),
+                     daemon=True).start()
+    return proc, lines
+
+
+def _worker_errors(lease, procs):
+    """Print each worker's exit code and the tail of its standard error
+    (called when a phase-13 part fails). A worker still running is sent
+    SIGABRT first, so its fault handler dumps every thread's stack."""
+    import signal
+    for p in procs.values():
+        if p.poll() is None:
+            p.send_signal(signal.SIGABRT)
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+    for eid, p in procs.items():
+        path = f"{lease}.{eid}.stderr"
+        tail = ""
+        if os.path.exists(path):
+            with open(path) as f:
+                tail = f.read()[-6000:]
+        log(f"[slots] worker {eid} exit {p.poll()}; stderr tail:\n{tail}")
+
+
+def _status(lines, timeout=240):
+    """The next JSON status line of a worker (None once it has exited)."""
+    while True:
+        line = lines.get(timeout=timeout)
+        if line is None:
+            return None
+        try:
+            return json.loads(line)
+        except ValueError:
+            continue
+
+
+def _until(lines, want, what, timeout=240, seen=None):
+    """Read a worker's status lines until ``want(st)``; every fence line
+    read on the way is appended to ``seen``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = _status(lines, max(1.0, deadline - time.monotonic()))
+        if st is None:
+            raise AssertionError(f"{what}: the worker exited")
+        if seen is not None and "group" in st and "digest" in st:
+            seen.append(st)
+        if want(st):
+            return st
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: timed out")
+
+
+def _registered(jm, eids, timeout=120):
+    deadline = time.monotonic() + timeout
+    while set(eids) - set(jm.registered()):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"workers {eids} never registered")
+        time.sleep(0.05)
+    for eid in eids:
+        dev = jm.info(eid).get("device", "")
+        if dev.split(":")[0] != torch.device(DEVICE).type:
+            raise AssertionError(f"worker {eid} registered device {dev!r}")
+
+
+def _span_ms(trace_path, name):
+    """Durations (ms) of the spans called ``name`` in a worker's trace,
+    with their args."""
+    out = []
+    with open(trace_path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("name") == name and rec.get("ph") == "X":
+                out.append((rec["dur"] * 1e3, rec.get("args", {})))
+    return out
+
+
+def _mirror_covers(mirror, ckdir, step, spe):
+    """Would a rebuild from ``mirror`` and the checkpoints in ``ckdir``
+    land on global step ``step``? Only when the mirror's rows run from
+    the newest completed checkpoint's fence (its log head) to ``step``:
+    ``bootstrap_standby`` restores that checkpoint and replays the rows'
+    steps, and does not check that they start at its fence."""
+    from clonos_tpu_torch.causal import determinant as det
+    from clonos_tpu_torch.runtime.checkpoint import FileCheckpointStorage
+    storage = FileCheckpointStorage(ckdir)
+    done = storage.completed_ids()
+    if not done:
+        return False
+    heads = np.asarray(storage.read(max(done)).carry.log_heads)
+    rows, start = mirror.rows_with_start(0)
+    fence = (max(done) + 1) * spe
+    return (start == int(heads[0]) and fence + len(
+        det.sync_anchors(np.asarray(rows, np.int32))) == step)
+
+
+def _kill_covered(proc, sync, seen_lines, covered):
+    """SIGKILL a worker at a moment its rebuild can reproduce: sync the
+    mirrors (after the endpoint refresh that follows a status line),
+    SIGSTOP the worker, let the lines it printed arrive
+    (``seen_lines()``), and kill only if ``covered(lines)`` holds; else
+    SIGCONT it and return None, to be tried again at a later line.
+    Returns the lines seen."""
+    import signal
+    time.sleep(0.05)
+    sync()
+    proc.send_signal(signal.SIGSTOP)
+    time.sleep(0.2)
+    lines = seen_lines()
+    if covered(lines):
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+        return lines
+    proc.send_signal(signal.SIGCONT)
+    return None
+
+
+def _edge_records(address):
+    from clonos_tpu_torch.parallel import transport as tp
+    cl = tp.ControlClient(address)
+    try:
+        rt, resp = cl.call(tp.FETCH_EDGE, tp.pack_json(
+            {"edge": 1, "start": 0, "count": 1 << 30}))
+    finally:
+        cl.close()
+    if rt != tp.EDGE_DATA:
+        raise AssertionError(f"FETCH_EDGE answered {rt}")
+    hlen = int.from_bytes(resp[:4], "little")
+    hdr = tp.unpack_json(resp[4: 4 + hlen])
+    return hdr, np.frombuffer(resp[4 + hlen:], np.int32).reshape(-1, 2)
+
+
+def _epochs_of(runner, n, complete_every):
+    out = {}
+    for _ in range(n):
+        closed = runner.executor.epoch_id
+        runner.run_epoch(complete_checkpoint=(closed % complete_every == 0))
+        out[runner.global_step] = runner.state_digest()
+    return out
+
+
+def _upstream_probe(job, kw):
+    """The upstream slice ([source, window] + its export) in this process
+    on the card for the whole run: each fence's publish timed, with its
+    synchronising calls counted on this thread, and the stream it
+    exports (the one worker a must export too)."""
+    from clonos_tpu_torch.runtime import scheduler as sch
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    sub, _vmap, _feeds, exports = job.subgraph([0, 1],
+                                               feed_batch_size=SPAN_FEED_BATCH)
+    runner = ClusterRunner(sub, device=DEVICE, **kw)
+    export = sch.EdgeExportServer(runner, exports)
+    publish = export.publish
+    fences = []
+
+    def timed():
+        t0 = time.monotonic()
+        _, syncs = _sync_count(publish, this_thread=True)
+        fences.append(((time.monotonic() - t0) * 1e3, syncs))
+    export.publish = timed
+    per_epoch = []
+    try:
+        for _ in range(SPAN_EPOCHS):
+            before = export.exported()[1]
+            closed = runner.executor.epoch_id
+            runner.run_epoch(
+                complete_checkpoint=(closed % SPAN_COMPLETE_EVERY == 0))
+            per_epoch.append(export.exported()[1] - before)
+        export.mark_final()
+        _hdr, recs = _edge_records(export.address)
+    finally:
+        export.close()
+    return {"records_per_epoch": per_epoch, "records": recs,
+            "publish_ms": [round(f[0], 3) for f in fences],
+            "publish_syncs": [f[1] for f in fences]}
+
+
+def phase_spanning(dev_line, root):
+    """(a) One job across two slot-worker processes on the card: the
+    headline job cut on its window -> reduce edge, deployed by a
+    ``SlotPoolScheduler`` in this process onto workers ``a`` and ``b``;
+    ``b`` is SIGKILLed after its epoch-6 fence (or the first later one
+    its mirror covers) and only its group is rebuilt, on ``a``. Every
+    fence digest of ``b`` before the kill and of ``a`` after the rebuild
+    equals an in-process control on the card (the same slice over the
+    exported records through ``ListFeedReader``). Returns the control's
+    kernel launches."""
+    from clonos_tpu_torch.api.feeds import ListFeedReader
+    from clonos_tpu_torch.runtime import scheduler as sch
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.runtime.leader import FileLeaderElection
+    from clonos_tpu_torch.runtime.remote import JobMasterServer
+    t_phase = time.monotonic()
+    job = sch._load_job(SPAN_SPEC)
+    kw = runner_kw()
+    spe = kw["steps_per_epoch"]
+    parts = sch.partition_vertices(job, 2)
+    if parts != [[0, 1], [2, 3]] or sch.cut_edges(job, parts[1])[0] != [1]:
+        raise AssertionError(f"(a) the two-worker cut is {parts}")
+    probe = _upstream_probe(job, kw)
+    steady = min(probe["records_per_epoch"])
+    if 2 * SPAN_FEED_BATCH * spe > steady:
+        raise AssertionError(
+            f"(a) feed_batch {SPAN_FEED_BATCH} pulls more than half of the "
+            f"window's {probe['records_per_epoch']} records an epoch")
+    if torch.device(DEVICE).type == "cuda" \
+            and set(probe["publish_syncs"]) != {0}:
+        raise AssertionError(f"(a) publish made {probe['publish_syncs']} "
+                             f"synchronising calls")
+    lease = os.path.join(root, "span.lease")
+    trace_dir = os.path.join(root, "span-traces")
+    jm = JobMasterServer(heartbeat_timeout_s=SLOT_HB_TIMEOUT_S)
+    election = FileLeaderElection(lease, "jm-0", lease_ttl_s=600.0)
+    if not election.try_acquire():
+        raise AssertionError("(a) the lease was not granted")
+    sched = sch.SlotPoolScheduler(
+        jm, election, SPAN_SPEC, runner_kw=kw, feed_batch=SPAN_FEED_BATCH,
+        target_epochs=SPAN_EPOCHS, complete_every=SPAN_COMPLETE_EVERY,
+        checkpoint_root=os.path.join(root, "span-ck"),
+        deploy_timeout_s=240.0, device=DEVICE)
+    (pa, qa) = _slotworker(jm.address, "a", 2, lease, SPAN_EPOCH_SLEEP,
+                           trace_dir=trace_dir)
+    (pb, qb) = _slotworker(jm.address, "b", 2, lease, SPAN_EPOCH_SLEEP)
+    seen_a, seen_b = [], []
+    try:
+        _registered(jm, ["a", "b"])
+        t0 = time.monotonic()
+        placements = sched.deploy()
+        deploy_s = time.monotonic() - t0
+        if placements != {0: "a", 1: "b"} \
+                or sched.standby != {0: "b", 1: "a"}:
+            raise AssertionError(f"(a) placements {placements}, standby "
+                                 f"{sched.standby}")
+        da = _until(qa, lambda st: st.get("deployed") == 0, "(a) deploy a")
+        db = _until(qb, lambda st: st.get("deployed") == 1, "(a) deploy b")
+        if da["vertices"] != [0, 1] or db["vertices"] != [2, 3]:
+            raise AssertionError(f"(a) slices {da}, {db}")
+
+        def at_fence(st):
+            if "group" in st:
+                sched.sync()
+            return st.get("epoch", -1) >= SPAN_KILL_AT or "finished" in st
+
+        def drained():
+            while not qb.empty():
+                st = _status(qb, 1)
+                if st is not None and "group" in st and "digest" in st:
+                    seen_b.append(st)
+            return seen_b
+        ckdir = os.path.join(root, "span-ck", "g1")
+        while True:
+            last = _until(qb, at_fence, "(a) b's fences", seen=seen_b)
+            if "finished" in last:
+                raise AssertionError("(a) b finished before the kill")
+            if _kill_covered(pb, sched.sync, drained, lambda ls: _mirror_covers(
+                    sched.mirrors[1], ckdir, ls[-1]["global_step"], spe)):
+                break
+        t_kill = time.monotonic()
+        kill_step = seen_b[-1]["global_step"]
+        while (st := _status(qb, 60)) is not None:
+            if "group" in st and "digest" in st:
+                seen_b.append(st)
+        while "b" not in sched.failed_workers():
+            if time.monotonic() > t_kill + 4 * SLOT_HB_TIMEOUT_S + 10:
+                raise AssertionError("(a) heartbeat expiry not seen")
+            time.sleep(0.02)
+        detect_ms = (time.monotonic() - t_kill) * 1e3
+        try:
+            sched._send_deploy("a", {"group": 1,
+                                     "fencing_epoch": election.epoch - 1})
+            raise AssertionError("(a) a deposed token's DEPLOY was accepted")
+        except RuntimeError as e:
+            if "stale fencing" not in str(e) and "lease claim" not in str(e):
+                raise
+        t0 = time.monotonic()
+        moved = sched.recover_worker("b")
+        redeploy_ms = (time.monotonic() - t0) * 1e3
+        if moved != {1: "a"} or sched.placements != {0: "a", 1: "a"}:
+            raise AssertionError(f"(a) recovery moved {moved}")
+        digests_b = {s["global_step"]: s["digest"] for s in seen_b}
+        dep = _until(qa, lambda st: st.get("deployed") == 1, "(a) rebuild",
+                     seen=seen_a)
+        if not dep["recovered"] or dep["vertices"] != [2, 3] \
+                or dep["global_step"] != kill_step \
+                or dep["digest"] != digests_b[dep["global_step"]]:
+            raise AssertionError(f"(a) the rebuild {dep} differs from the "
+                                 f"dead worker's fence")
+        fin = _until(qa, lambda st: st.get("finished") == 1,
+                     "(a) rebuilt slice", seen=seen_a)
+        if fin["global_step"] != SPAN_EPOCHS * spe:
+            raise AssertionError(f"(a) the rebuilt slice ended at {fin}")
+        hdr, recs = _edge_records(sched._export_addr[1])
+        if not hdr["final"] or not np.array_equal(recs, probe["records"]):
+            raise AssertionError(
+                f"(a) worker a exported {recs.shape[0]} records, this "
+                f"process {probe['records'].shape[0]}: the streams differ")
+        sub, _v, feeds, _e = job.subgraph(parts[1],
+                                          feed_batch_size=SPAN_FEED_BATCH)
+
+        def control():
+            ctrl = ClusterRunner(sub, device=DEVICE, **kw)
+            ctrl.executor.register_feed(feeds[1],
+                                        ListFeedReader([recs.tolist()]))
+            return _epochs_of(ctrl, SPAN_EPOCHS, SPAN_COMPLETE_EVERY)
+        ctrl_digests, launches, _ = _counted(control)
+        if min(launches.values()) == 0:
+            raise AssertionError(f"(a) control launches {launches}")
+        fences_a = [s for s in seen_a if s.get("group") == 1]
+        for s in seen_b + fences_a + [dep]:
+            if s["digest"] != ctrl_digests.get(s["global_step"]):
+                raise AssertionError(
+                    f"(a) fence {s['global_step']} diverges from the "
+                    f"no-failure control")
+        rebuild = _span_ms(os.path.join(trace_dir, "trace-a.jsonl"),
+                           "recovery.rebuild")
+    except BaseException:
+        _worker_errors(lease, {"a": pa, "b": pb})
+        raise
+    finally:
+        for p in (pa, pb):
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        sched.close()
+        jm.close()
+    up_lines = [s for s in seen_a if s.get("group") == 0] or [
+        {"publish_ms": 0.0, "publishes": 0}]
+    blocked = [s["blocked_ms"] for s in seen_b]
+    fence_gs = sorted(digests_b)
+    kill_epoch = kill_step // spe
+    completed = max(e for e in range(kill_epoch)
+                    if e % SPAN_COMPLETE_EVERY == 0)
+    log("[spanning] headline job on two slot workers, b killed, group 1 "
+        "rebuilt on a, every digest equal: " + json.dumps({
+            "device": dev_line,
+            "deploy_ms_per_group": [round(v, 3) for v in
+                                    list(sched._m_deploy_ms._buf)[:2]],
+            "deploy_s": round(deploy_s, 3),
+            "feed_batch": SPAN_FEED_BATCH,
+            "edge_records_per_epoch": probe["records_per_epoch"],
+            "edge_bytes_per_epoch": [8 * n for n in
+                                     probe["records_per_epoch"]],
+            "publish_ms_per_fence": probe["publish_ms"],
+            "publish_syncs_per_fence": probe["publish_syncs"],
+            "worker_publish_ms_per_fence": round(
+                up_lines[-1]["publish_ms"]
+                / max(1, up_lines[-1]["publishes"]), 3),
+            "blocked_read_ms_per_epoch": [
+                round(b - a, 3) for a, b in zip([0.0] + blocked, blocked)],
+            "fences_before_kill": fence_gs,
+            "detect_ms": round(detect_ms, 3),
+            "determinant_fetch_ms": round(sched._m_fetch_ms.mean, 3),
+            "redeploy_ms": round(redeploy_ms, 3),
+            "rebuild_ms": [round(r[0], 3) for r in rebuild],
+            "killed_after_epoch": kill_epoch,
+            "rebuilt_at_step": dep["global_step"],
+            "steps_replayed": dep["global_step"] - (completed + 1) * spe,
+            "control_launches": launches,
+            "phase_seconds": round(time.monotonic() - t_phase, 3)}))
+    return launches
+
+
+def phase_multitenant(dev_line, root):
+    """(b) Three tenants over one slot pool on the card
+    (tests/test_multitenant.py): an embedded ``Dispatcher``, slot workers
+    ``a`` (4 slots) and ``b`` (2 slots); red submitted by ``python -m
+    clonos_tpu_torch submit``, blue and green through the API, listed by
+    ``jobs --json``; ``b`` SIGKILLed once red and blue pass epoch 5; red
+    and blue rebuilt on ``a`` independently, green untouched and fencing
+    through the storm within its gap bound; every digest equal to one
+    in-process control on the card. Returns the control's launches."""
+    import threading
+    from clonos_tpu_torch.obs import configure_audit, reset_audit
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.runtime.dispatcher import Dispatcher
+    from clonos_tpu_torch.runtime.scheduler import _load_job
+    t_phase = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    lease = os.path.join(root, "mt.lease")
+    ckroot = os.path.join(root, "mt-ck")
+    tracedir = os.path.join(root, "mt-traces")
+    wtrace = os.path.join(root, "mt-worker-traces")
+    configure_audit(on_divergence="warn")
+    disp = Dispatcher(lease_path=lease, checkpoint_root=ckroot,
+                      runner_kw=MT_RUNNER_KW, target_epochs=8,
+                      complete_every=2, deploy_timeout_s=240.0,
+                      trace_dir=tracedir,
+                      heartbeat_timeout_s=SLOT_HB_TIMEOUT_S, device=DEVICE)
+    pa, qa = _slotworker(disp.jm.address, "a", 4, lease, MT_EPOCH_SLEEP,
+                         trace_dir=wtrace)
+    pb, qb = _slotworker(disp.jm.address, "b", 2, lease, MT_EPOCH_SLEEP)
+    lk = threading.Lock()
+    ev_a, ev_b = [], []
+
+    def collect(q, out):
+        while (line := q.get()) is not None:
+            try:
+                st = json.loads(line)
+            except ValueError:
+                continue
+            with lk:
+                out.append((time.monotonic(), st))
+    ta = threading.Thread(target=collect, args=(qa, ev_a), daemon=True)
+    tb = threading.Thread(target=collect, args=(qb, ev_b), daemon=True)
+    ta.start()
+    tb.start()
+
+    def pump(pred, deadline_s, what):
+        deadline = time.monotonic() + deadline_s
+        while True:
+            disp.step()
+            with lk:
+                ea, eb = list(ev_a), list(ev_b)
+            got = pred(ea, eb)
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(f"(b) timeout: {what}")
+            time.sleep(0.02)
+
+    def fences(events, jid):
+        return [(t, s) for t, s in events
+                if s.get("job") == jid and "group" in s and "digest" in s]
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cli = [sys.executable, "-m", "clonos_tpu_torch"]
+    daddr = f"127.0.0.1:{disp.address[1]}"
+    jobs_proc = None
+    try:
+        _registered(disp.jm, ["a", "b"])
+        sub = subprocess.run(
+            cli + ["submit", MT_SPEC, "--dispatcher", daddr, "--tenant",
+                   "red", "--slots", "1", "--workers", "b",
+                   "--target-epochs", str(MT_TARGETS["red-001"])],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=120)
+        if sub.returncode != 0 or json.loads(sub.stdout) != {
+                "job_id": "red-001", "state": "ADMITTED"}:
+            raise AssertionError(f"(b) submit: {sub.stdout} {sub.stderr}")
+        ry = disp.submit_job(MT_SPEC, {"tenant": "blue", "slots": 1,
+                                       "workers": ["b"]},
+                             target_epochs=MT_TARGETS["blue-002"])
+        rz = disp.submit_job(MT_SPEC, {"tenant": "green", "slots": 1,
+                                       "workers": ["a"]},
+                             target_epochs=MT_TARGETS["green-003"])
+        if (ry["job_id"], rz["job_id"]) != ("blue-002", "green-003"):
+            raise AssertionError(f"(b) job ids {ry} {rz}")
+        jobs_proc = subprocess.Popen(
+            cli + ["jobs", "--dispatcher", daddr, "--json"], cwd=repo,
+            env=env, stdout=subprocess.PIPE, text=True)
+
+        def deployed(ea, eb):
+            got = {s.get("job"): s for _, s in ea + eb
+                   if s.get("deployed") == 0}
+            return got if set(MT_TARGETS) <= set(got) else None
+        dep0 = pump(deployed, 240, "initial deploys")
+        if any(d["vertices"] != [0, 1, 2] or d["recovered"]
+               for d in dep0.values()) \
+                or disp.pool.placements() != {
+                    ("red-001", 0): "b", ("blue-002", 0): "b",
+                    ("green-003", 0): "a"}:
+            raise AssertionError(f"(b) placements {disp.pool.placements()}")
+
+        def ripe(ea, eb):
+            ex, ey = fences(eb, "red-001"), fences(eb, "blue-002")
+            return (ex and ey and len(fences(ea, "green-003")) >= 4
+                    and max(s["epoch"] for _, s in ex) >= 5
+                    and max(s["epoch"] for _, s in ey) >= 5)
+
+        def seen_b():
+            with lk:
+                return list(ev_b)
+
+        def covered(eb):
+            return all(_mirror_covers(
+                disp._jobs[jid].scheduler.mirrors[0],
+                os.path.join(ckroot, jid, "g0"),
+                max(s["global_step"] for _, s in fences(eb, jid)),
+                MT_RUNNER_KW["steps_per_epoch"])
+                for jid in ("red-001", "blue-002"))
+        while True:
+            pump(ripe, 240, "pre-kill epochs")
+            killed = _kill_covered(pb, disp.step, seen_b, covered)
+            if killed is not None:
+                break
+        t_kill = time.monotonic()
+        tb.join(timeout=60)
+        with lk:
+            eb = list(ev_b)
+        if len(eb) != len(killed) or any("finished" in s for _, s in eb):
+            raise AssertionError("(b) b went on past the moment it was "
+                                 "killed at")
+        digests_b = {jid: {s["global_step"]: s["digest"]
+                           for _, s in fences(eb, jid)}
+                     for jid in ("red-001", "blue-002")}
+
+        def recovered(ea, eb):
+            out = {s.get("job"): s for _, s in ea
+                   if s.get("deployed") == 0 and s.get("recovered")}
+            return out if {"red-001", "blue-002"} <= set(out) else None
+        rec = pump(recovered, 240, "independent recoveries")
+        t_rec = time.monotonic()
+        for jid in ("red-001", "blue-002"):
+            d = rec[jid]
+            if d["global_step"] not in digests_b[jid] \
+                    or d["digest"] != digests_b[jid][d["global_step"]]:
+                raise AssertionError(f"(b) {jid} rebuilt to {d}; b reported "
+                                     f"{sorted(digests_b[jid])}")
+        with lk:
+            ea = list(ev_a)
+        dz = [s for _, s in ea if s.get("deployed") == 0
+              and s.get("job") == "green-003"]
+        idx = sorted(i for i, (_, s) in enumerate(ea)
+                     if s.get("deployed") == 0 and s.get("recovered"))
+        if len(dz) != 1 or dz[0]["recovered"] or len(idx) != 2 \
+                or not any(s.get("job") == "green-003" and "group" in s
+                           for _, s in ea[idx[0] + 1:idx[1]]):
+            raise AssertionError("(b) green was redeployed, or no green "
+                                 "fence fell between the two rebuilds")
+        tz = [t for t, _ in fences(ea, "green-003")]
+        pre = [t for t in tz if t <= t_kill]
+        gaps = sorted(b - a for a, b in zip(pre, pre[1:]))
+        median = gaps[len(gaps) // 2]
+        storm = [pre[-1]] + [t for t in tz if t_kill < t <= t_rec]
+        max_gap = max(b - a for a, b in zip(storm, storm[1:]))
+        bound = max(30.0, 25 * median)
+        if len(storm) < 2 or max_gap > bound:
+            raise AssertionError(f"(b) green's fence gap {max_gap:.3f} s "
+                                 f"against its bound {bound:.3f} s")
+
+        def all_done(ea, eb):
+            states = {j["job_id"]: j["state"] for j in disp.jobs()}
+            return states if set(states.values()) == {"FINISHED"} else None
+        pump(all_done, 300, "jobs running to completion")
+
+        def finished(ea, eb):   # a worker reports FINISHED, then prints
+            fins = {s["job"]: s for _, s in ea if "finished" in s}
+            return fins if set(MT_TARGETS) <= set(fins) else None
+        pump(finished, 60, "the finished lines")
+        # The listing was taken while the jobs ran (never waited on
+        # before the kill: the tenants on b would run on meanwhile).
+        listed = json.loads(jobs_proc.communicate(timeout=120)[0])
+        if sorted(j["job_id"] for j in listed["jobs"]) != sorted(MT_TARGETS):
+            raise AssertionError(f"(b) jobs --json listed {listed}")
+        with lk:
+            ea = list(ev_a)
+        fins = {s["job"]: s for _, s in ea if "finished" in s}
+        spe = MT_RUNNER_KW["steps_per_epoch"]
+        if any(fins[j]["global_step"] != n * spe
+               for j, n in MT_TARGETS.items()):
+            raise AssertionError(f"(b) targets: {fins}")
+        job = _load_job(MT_SPEC)
+        sub, _v, _f, _e = job.subgraph([0, 1, 2], feed_batch_size=8)
+
+        def control():
+            ctrl = ClusterRunner(sub, device=DEVICE, **MT_RUNNER_KW)
+            return _epochs_of(ctrl, max(MT_TARGETS.values()), 2)
+        ctrl_digests, launches, _ = _counted(control)
+        if min(launches.values()) == 0:
+            raise AssertionError(f"(b) control launches {launches}")
+        for jid in MT_TARGETS:
+            for events in (ea, eb):
+                for _, s in fences(events, jid):
+                    if s["digest"] != ctrl_digests[s["global_step"]]:
+                        raise AssertionError(
+                            f"(b) {jid} fence {s['global_step']} diverges")
+            if not os.path.exists(os.path.join(ckroot, jid, "g0",
+                                               "ledger.jsonl")):
+                raise AssertionError(f"(b) no ledger under {jid}/g0")
+            path = os.path.join(tracedir, f"trace-jm.{jid}.jsonl")
+            with open(path) as f:
+                recs = [json.loads(ln) for ln in f if ln.strip()]
+            stormy = jid != "green-003"
+            if not recs or any(not r["trace"].startswith(f"{jid}:")
+                               for r in recs) \
+                    or ("recovery.redeploy" in {r["name"] for r in recs}) \
+                    != stormy:
+                raise AssertionError(f"(b) {jid}'s trace file")
+        m = disp.metrics_extra()
+        for jid in MT_TARGETS:
+            if m.get(f"cluster.job.{jid}.audit.exactly-once-ok") != 1:
+                raise AssertionError(f"(b) {jid} exactly-once: {m}")
+        for tenant in ("red", "blue", "green"):
+            if m[f"tenant.{tenant}.slots-held"] != 0:
+                raise AssertionError(f"(b) {tenant} still holds slots")
+        if m["dispatcher.queue-depth"] != 0 \
+                or m["dispatcher.jobs-total"] != 3:
+            raise AssertionError(f"(b) dispatcher gauges {m}")
+        rebuilds = [(a.get("job"), round(ms, 3)) for ms, a in _span_ms(
+            os.path.join(wtrace, "trace-a.jsonl"), "recovery.rebuild")]
+    except BaseException:
+        log(f"[slots] (b) jobs: {json.dumps(disp.jobs())}")
+        _worker_errors(lease, {"a": pa, "b": pb})
+        raise
+    finally:
+        if jobs_proc is not None and jobs_proc.poll() is None:
+            jobs_proc.kill()
+        for p in (pa, pb):
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        disp.close()
+        reset_audit()
+    log("[multitenant] three tenants, b killed, red and blue rebuilt on a, "
+        "green untouched, every digest equal: " + json.dumps({
+            "device": dev_line,
+            "green_gap_median_s": round(median, 3),
+            "green_gap_max_s": round(max_gap, 3),
+            "green_gap_bound_s": round(bound, 3),
+            "green_gap_ratio": round(max_gap / median, 3),
+            "rebuild_ms": rebuilds,
+            "detect_to_rebuilt_s": round(t_rec - t_kill, 3),
+            "control_launches": launches,
+            "phase_seconds": round(time.monotonic() - t_phase, 3)}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3003,6 +3705,16 @@ def main() -> int:
     read_tier = {k: read_launches[k] + ingest_launches[k]
                  for k in read_launches}
     log(f"[serve] phase 12: {time.monotonic() - t12:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[config] phase 13: {PHASE13_REDUCTIONS}")
+    t13 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_slots_", dir=SCRATCH)
+    try:
+        spanning_launches = phase_spanning(dev_line, root)
+        multitenant_launches = phase_multitenant(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[slots] phase 13: {time.monotonic() - t13:.1f} s")
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -3012,7 +3724,9 @@ def main() -> int:
         "event_time_egress": egress_launches,
         "observability": obs_launches,
         "socket_wordcount": socket_launches,
-        "host_loss": host_loss_launches, "read_tier": read_tier})))
+        "host_loss": host_loss_launches, "read_tier": read_tier,
+        "spanning": spanning_launches,
+        "multitenant": multitenant_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

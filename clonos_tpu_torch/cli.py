@@ -10,6 +10,12 @@ Usage:
     python -m clonos_tpu_torch info <module:function>
     python -m clonos_tpu_torch worker <module:function> --jm HOST:PORT \\
         --checkpoint-dir DIR [--epochs N] [--complete-every K] ...
+    python -m clonos_tpu_torch dispatcher --lease PATH [--quota T=N] ...
+    python -m clonos_tpu_torch slotworker --jm HOST:PORT \\
+        --executor-id ID [--slots N] [--lease PATH] ...
+    python -m clonos_tpu_torch submit <module:function> \\
+        --dispatcher HOST:PORT [--tenant T] [--slots N] [--wait] ...
+    python -m clonos_tpu_torch jobs --dispatcher HOST:PORT [--json]
 
 ``worker`` is the TaskExecutor process: it registers with a remote
 JobMaster (naming its device and which path frames its deltas) and
@@ -19,6 +25,12 @@ logs at every fence to the standby host's mirrors
 (``runtime/remote.py``). It is one process on one card: the multi-host
 bootstrap flags (``--coordinator``, ``--num-processes``,
 ``--process-id``) are refused.
+
+``slotworker`` is the slot-pool TaskExecutor (``runtime/scheduler.py``):
+it advertises slots and runs only the task slices a JobMaster deploys
+onto it, on its ``--device``. ``dispatcher`` is the multi-tenant
+JobMaster (``runtime/dispatcher.py``) that slot workers register with;
+``submit`` and ``jobs`` are its clients.
 """
 
 from __future__ import annotations
@@ -208,6 +220,163 @@ def cmd_worker(args) -> int:
     return 0
 
 
+def cmd_slotworker(args) -> int:
+    """Slot-pool TaskExecutor entry point (``runtime/scheduler.py``): the
+    process advertises slot capacity and runs ONLY the task slices the
+    JobMaster deploys onto it, on ``--device``. Job spec, runner settings
+    and recovery state all arrive inside the fenced deployment
+    descriptors; this process brings slots and its device. One JSON line
+    per deployment and per (group, epoch)."""
+    from clonos_tpu_torch.runtime.scheduler import SliceWorker
+
+    tracer = _setup_tracer(args, args.executor_id)
+    _setup_profile(args)
+    host, _, port = args.jm.partition(":")
+    worker = SliceWorker(
+        args.executor_id, (host, int(port)), lease_path=args.lease,
+        slots=args.slots, bind_host=args.bind_host,
+        heartbeat_interval=args.heartbeat_interval,
+        chaos_step_delay_s=args.chaos_step_delay, device=args.device)
+    endpoint = None
+    if args.metrics_port is not None:
+        from clonos_tpu_torch.utils.metrics import (MetricRegistry,
+                                                    MetricsEndpoint)
+        # The worker's metric view is its per-slice snapshot cache (the
+        # same dict its heartbeats piggyback to the JobMaster).
+        endpoint = MetricsEndpoint(
+            MetricRegistry(), port=args.metrics_port,
+            extra=lambda: dict(worker._metrics_cache), tracer=tracer,
+            history=_make_history(args))
+        print(f"# metrics: http://{endpoint.address[0]}:"
+              f"{endpoint.address[1]}/metrics", file=sys.stderr)
+    print(json.dumps({"registered": args.executor_id,
+                      "deploy_port": worker.endpoint.address[1],
+                      "slots": args.slots,
+                      "device": str(worker.device)}), flush=True)
+    try:
+        worker.run(max_seconds=args.max_seconds,
+                   epoch_sleep=args.epoch_sleep)
+    finally:
+        worker.close()
+        if endpoint is not None:
+            endpoint.close()
+    return 0
+
+
+def cmd_dispatcher(args) -> int:
+    """Multi-tenant dispatcher entry point (``runtime/dispatcher.py``):
+    one shared slot pool serving many concurrent jobs. Slot workers point
+    their ``--jm`` at the printed jm address; clients submit over the
+    printed dispatcher address (``submit`` / ``jobs``). One JSON line
+    with both addresses on startup."""
+    from clonos_tpu_torch.runtime.dispatcher import Dispatcher
+
+    _setup_tracer(args, "dispatcher")
+    _setup_profile(args)
+    if args.audit:
+        from clonos_tpu_torch.obs import configure_audit
+        configure_audit(on_divergence=args.audit)
+    quotas = {}
+    for spec in args.quota or []:
+        tenant, _, n = spec.partition("=")
+        quotas[tenant] = int(n)
+    disp = Dispatcher(
+        lease_path=args.lease, checkpoint_root=args.checkpoint_root,
+        quotas=quotas, default_quota=args.default_quota,
+        runner_kw={"steps_per_epoch": args.steps_per_epoch,
+                   "seed": args.seed},
+        target_epochs=args.epochs, complete_every=args.complete_every,
+        trace_dir=args.trace_dir, host=args.bind_host, port=args.port,
+        heartbeat_timeout_s=args.heartbeat_timeout, device=args.device)
+    endpoint = None
+    if args.metrics_port is not None:
+        from clonos_tpu_torch.utils.metrics import (MetricRegistry,
+                                                    MetricsEndpoint)
+        endpoint = MetricsEndpoint(
+            MetricRegistry(), port=args.metrics_port,
+            extra=disp.metrics_extra, history=_make_history(args))
+        print(f"# metrics: http://{endpoint.address[0]}:"
+              f"{endpoint.address[1]}/metrics", file=sys.stderr)
+    print(json.dumps({"dispatcher": list(disp.address),
+                      "jm": list(disp.jm.address)}), flush=True)
+    try:
+        disp.run(max_seconds=args.max_seconds)
+    finally:
+        disp.close()
+        if endpoint is not None:
+            endpoint.close()
+    return 0
+
+
+def cmd_submit(args) -> int:
+    """Submit a job to a running dispatcher. Prints the admission result
+    ({job_id, state}) or, with ``--wait``, the terminal job record; a
+    typed quota rejection prints its error JSON and exits 1."""
+    from clonos_tpu_torch.parallel import transport as tp
+
+    host, _, port = args.dispatcher.partition(":")
+    client = tp.ControlClient((host, int(port)))
+    cfg = {"tenant": args.tenant, "slots": args.slots,
+           "max_concurrent_recoveries": args.max_recoveries}
+    if args.workers:
+        cfg["workers"] = [w for w in args.workers.split(",") if w]
+    req = {"job": args.job, "tenant_config": cfg}
+    if args.target_epochs is not None:
+        req["target_epochs"] = args.target_epochs
+    try:
+        rt, resp = client.call(tp.SUBMIT_JOB, tp.pack_json(req))
+        body = tp.unpack_json(resp)
+        if rt == tp.ERROR:
+            print(json.dumps(body))
+            return 1
+        if args.wait:
+            deadline = time.monotonic() + args.timeout
+            while time.monotonic() < deadline:
+                body = client.call_json(
+                    tp.JOB_STATUS, {"job_id": body["job_id"]})
+                if body["state"] in ("FINISHED", "FAILED", "CANCELLED"):
+                    break
+                time.sleep(0.5)
+    finally:
+        client.close()
+    print(json.dumps(body))
+    return 1 if body.get("state") == "FAILED" else 0
+
+
+def cmd_jobs(args) -> int:
+    """List a dispatcher's jobs (or cancel one with ``--cancel``)."""
+    from clonos_tpu_torch.parallel import transport as tp
+
+    host, _, port = args.dispatcher.partition(":")
+    client = tp.ControlClient((host, int(port)))
+    try:
+        if args.cancel:
+            print(json.dumps(client.call_json(
+                tp.CANCEL_JOB, {"job_id": args.cancel})))
+            return 0
+        res = client.call_json(tp.JOB_STATUS, {})
+    finally:
+        client.close()
+    if args.json:
+        print(json.dumps(res))
+        return 0
+    jobs = res.get("jobs", [])
+    print(f"{'JOB':<20} {'TENANT':<12} {'STATE':<11} {'SLOTS':>5}  "
+          f"PLACEMENTS")
+    for j in jobs:
+        placements = " ".join(
+            f"g{g}={w}" for g, w in sorted(
+                (j.get("placements") or {}).items()))
+        if j.get("error"):
+            placements = (placements + "  " if placements else "") \
+                + f"error: {j['error']}"
+        print(f"{j['job_id']:<20} {j['tenant']:<12} {j['state']:<11} "
+              f"{j['slots']:>5}  {placements}")
+    if not jobs:
+        print("(no jobs submitted)")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="clonos_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -265,6 +434,119 @@ def main(argv=None) -> int:
                          "(overhead.* metrics; off by default)")
     _add_device_arg(pw)
     pw.set_defaults(fn=cmd_worker)
+
+    ps = sub.add_parser("slotworker",
+                        help="serve task slots to a slot-pool JobMaster; "
+                             "runs only the task slices deployed onto it")
+    ps.add_argument("--jm", required=True, help="JobMaster host:port")
+    ps.add_argument("--executor-id", default="slotworker-0")
+    ps.add_argument("--slots", type=int, default=1)
+    ps.add_argument("--lease", default=None,
+                    help="shared leader-lease dir; DEPLOY fencing tokens "
+                         "are validated against its claims")
+    ps.add_argument("--bind-host", default="127.0.0.1")
+    ps.add_argument("--heartbeat-interval", type=float, default=0.5)
+    ps.add_argument("--max-seconds", type=float, default=600.0,
+                    help="wall guard: exit after this long")
+    ps.add_argument("--epoch-sleep", type=float, default=0.0,
+                    help="pause after each served epoch round (lets "
+                         "tests kill mid-run)")
+    ps.add_argument("--chaos-step-delay", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="gray-failure injection: sleep this long "
+                         "before each slice epoch — degraded (late "
+                         "fences) but never dead (heartbeats keep "
+                         "flowing)")
+    ps.add_argument("--metrics-port", type=int, default=None,
+                    help="serve this worker's /metrics + /metrics.json "
+                         "+ /trace on this port (0 = ephemeral)")
+    ps.add_argument("--trace-dir", default=None,
+                    help="record trace spans to "
+                         "trace-<executor-id>.jsonl here; DEPLOY "
+                         "headers make the spans join the JobMaster's "
+                         "trace id (off by default)")
+    _add_profile_args(ps)
+    _add_device_arg(ps)
+    ps.set_defaults(fn=cmd_slotworker)
+
+    pc = sub.add_parser("dispatcher",
+                        help="multi-tenant dispatcher: one shared slot "
+                             "pool serving many concurrent jobs")
+    pc.add_argument("--lease", required=True,
+                    help="cluster lease path; each job's leader claims "
+                         "<lease>.<job-id>.epochN.claim (slot workers "
+                         "validate DEPLOY fencing against the same "
+                         "path)")
+    pc.add_argument("--checkpoint-root",
+                    default="/tmp/clonos-dispatcher",
+                    help="every job's checkpoints + ledgers land under "
+                         "<root>/<job-id>/")
+    pc.add_argument("--quota", action="append", default=[],
+                    metavar="TENANT=N",
+                    help="per-tenant slot quota (repeatable); "
+                         "submissions beyond it are rejected with a "
+                         "typed quota-exceeded error")
+    pc.add_argument("--default-quota", type=int, default=None,
+                    help="slot quota for tenants without an explicit "
+                         "--quota (default: unlimited)")
+    pc.add_argument("--port", type=int, default=0,
+                    help="dispatcher submit/status port (0 = ephemeral)")
+    pc.add_argument("--bind-host", default="127.0.0.1")
+    pc.add_argument("--epochs", type=int, default=8,
+                    help="default target epochs per job (submit may "
+                         "override)")
+    pc.add_argument("--steps-per-epoch", type=int, default=16)
+    pc.add_argument("--seed", type=int, default=0)
+    pc.add_argument("--complete-every", type=int, default=1)
+    pc.add_argument("--heartbeat-timeout", type=float, default=5.0)
+    pc.add_argument("--max-seconds", type=float, default=600.0,
+                    help="wall guard: exit after this long")
+    pc.add_argument("--audit", choices=["warn", "abort"], default=None,
+                    help="enable the exactly-once audit for every "
+                         "deployed job (DEPLOY headers carry the "
+                         "stance)")
+    pc.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics + /metrics.json with "
+                         "per-tenant rollups (0 = ephemeral)")
+    pc.add_argument("--trace-dir", default=None,
+                    help="per-job trace files "
+                         "(trace-jm.<job-id>.jsonl) land here")
+    _add_profile_args(pc)
+    _add_device_arg(pc)
+    pc.set_defaults(fn=cmd_dispatcher)
+
+    pj = sub.add_parser("submit", help="submit a job to a running "
+                                       "dispatcher")
+    pj.add_argument("job", help="module:function returning a JobGraph "
+                                "(resolved by the slot workers)")
+    pj.add_argument("--dispatcher", required=True,
+                    help="dispatcher host:port")
+    pj.add_argument("--tenant", default="default")
+    pj.add_argument("--slots", type=int, default=1,
+                    help="slices to cut the job into (= pool slots "
+                         "held)")
+    pj.add_argument("--max-recoveries", type=int, default=1,
+                    help="cap on concurrently rebuilt groups after a "
+                         "worker death (storm containment)")
+    pj.add_argument("--workers", default=None,
+                    help="comma-separated placement hint (slice i "
+                         "prefers the i-th worker)")
+    pj.add_argument("--target-epochs", type=int, default=None)
+    pj.add_argument("--wait", action="store_true",
+                    help="poll until the job reaches a terminal state")
+    pj.add_argument("--timeout", type=float, default=600.0,
+                    help="--wait deadline (seconds)")
+    pj.set_defaults(fn=cmd_submit)
+
+    po = sub.add_parser("jobs", help="list (or cancel) a dispatcher's "
+                                     "jobs")
+    po.add_argument("--dispatcher", required=True,
+                    help="dispatcher host:port")
+    po.add_argument("--json", action="store_true",
+                    help="machine-readable job list")
+    po.add_argument("--cancel", default=None, metavar="JOB_ID",
+                    help="cancel this job instead of listing")
+    po.set_defaults(fn=cmd_jobs)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List
+from typing import Dict, List, Sequence, Tuple
 
 from clonos_tpu_torch.api.operators import Operator
 from clonos_tpu_torch.graph.vertex_info import VertexGraphInformation
@@ -110,6 +110,77 @@ class JobGraph:
         """Global flat index of (vertex, subtask 0) in the stacked-log
         layout (all subtasks of all vertices, in vertex-id order)."""
         return sum(v.parallelism for v in self.vertices[:vertex_id])
+
+    def subgraph(self, vertex_ids: Sequence[int], feed_batch_size: int = 8
+                 ) -> Tuple["JobGraph", Dict[int, int],
+                            Dict[int, int], Dict[int, int]]:
+        """Deployment slice over ``vertex_ids`` (``runtime/scheduler.py``'s
+        unit of placement, the per-TaskExecutor TaskDeploymentDescriptor
+        analog). Cut edges become boundary vertices:
+
+        - every in-cut edge (src outside the slice) is replaced by a
+          ``HostFeedSource`` at parallelism 1 feeding the kept dst through
+          the ORIGINAL partition and capacity: the records arrive from the
+          upstream worker over the wire (a rewindable reader,
+          ``api/feeds.py``);
+        - every out-cut edge (dst outside the slice) gets a terminal
+          ``SinkOperator`` on a FORWARD edge, which keeps the producer's
+          in-flight out-ring in the slice: that ring is what the worker's
+          edge export serves (and replays) to downstream workers.
+
+        Returns ``(sub, vmap, feeds, exports)``: ``vmap`` maps original
+        vertex id -> slice vertex id, ``feeds`` original in-cut edge index
+        -> slice feed vertex id, ``exports`` original out-cut edge index
+        -> slice vertex id of the producer whose ring serves that edge.
+        The structure depends only on ``(vertex_ids, feed_batch_size)``,
+        so the JobMaster and the workers derive identical slices."""
+        from clonos_tpu_torch.api.operators import (HostFeedSource,
+                                                    SinkOperator)
+        keep = set(vertex_ids)
+        unknown = keep - {v.vertex_id for v in self.vertices}
+        if unknown:
+            raise ValueError(f"subgraph: unknown vertex ids {sorted(unknown)}")
+        sub = JobGraph(name=f"{self.name}-slice",
+                       num_key_groups=self.num_key_groups,
+                       sharing_depth=self.sharing_depth)
+        vmap: Dict[int, int] = {}
+        for vid in self.topo_order():
+            if vid in keep:
+                v = self.vertices[vid]
+                vmap[vid] = sub.add_vertex(v.name, v.operator,
+                                           v.parallelism).vertex_id
+        feeds: Dict[int, int] = {}
+        exports: Dict[int, int] = {}
+        for eidx, e in enumerate(self.edges):
+            if e.src in keep and e.dst in keep:
+                sub.add_edge(sub.vertices[vmap[e.src]],
+                             sub.vertices[vmap[e.dst]],
+                             e.partition, e.capacity)
+            elif e.dst in keep:
+                # The wire export flattens the producer's lanes into ONE
+                # record stream, so only exchange edges (which re-route
+                # through the partition anyway) can be cut; a FORWARD cut
+                # would need per-lane streams to keep lane affinity.
+                if e.partition == PartitionType.FORWARD:
+                    raise ValueError(
+                        f"subgraph: cut crosses FORWARD edge {eidx} "
+                        f"({self.vertices[e.src].name} -> "
+                        f"{self.vertices[e.dst].name}); slice boundaries "
+                        f"must land on exchange edges")
+                fv = sub.add_vertex(f"feed-in-{eidx}",
+                                    HostFeedSource(
+                                        batch_size=feed_batch_size), 1)
+                sub.add_edge(fv, sub.vertices[vmap[e.dst]],
+                             e.partition, e.capacity)
+                feeds[eidx] = fv.vertex_id
+            elif e.src in keep:
+                src = sub.vertices[vmap[e.src]]
+                sv = sub.add_vertex(f"export-{eidx}", SinkOperator(),
+                                    src.parallelism)
+                sub.add_edge(src, sv, PartitionType.FORWARD, e.capacity)
+                exports[eidx] = vmap[e.src]
+        sub.validate()
+        return sub, vmap, feeds, exports
 
     def validate(self) -> None:
         from clonos_tpu_torch.api.operators import TwoInputOperator

@@ -1657,6 +1657,7 @@ class ClusterRunner:
     def bootstrap_standby(cls, job: JobGraph, checkpoint_dir: str,
                           mirror_rows: Dict[int, Tuple[np.ndarray, int]],
                           ignored_checkpoints: Sequence[int] = (),
+                          feed_readers: Optional[Dict[int, object]] = None,
                           **runner_kw
                           ) -> Tuple["ClusterRunner", RecoveryReport]:
         """Standby-host failover: rebuild the whole job in a fresh runner
@@ -1672,7 +1673,13 @@ class ClusterRunner:
         fast-forwards the host RNG past the replayed prefix and loads the
         built kernel, so the first live step loads nothing (joined before
         returning). Rebalance edges are refused: their round-robin cursors
-        are not in the fence snapshot."""
+        are not in the fence snapshot.
+
+        ``feed_readers`` maps HostFeedSource vertex ids to rewindable
+        readers (the ``api/feeds.py`` contract), registered BEFORE the
+        replay so the feed re-read path serves the recorded offset
+        windows: a scheduler slice whose cut in-edges arrive over the
+        wire needs them."""
         for e in job.edges:
             if e.partition == PartitionType.REBALANCE:
                 raise rec.RecoveryError(
@@ -1693,6 +1700,8 @@ class ClusterRunner:
             t_sub = now
 
         runner = cls(job, checkpoint_dir=checkpoint_dir, **runner_kw)
+        for vid, reader in (feed_readers or {}).items():
+            runner.executor.register_feed(vid, reader)
         ex = runner.executor
         dev = runner.device
         storage = runner.coordinator.storage

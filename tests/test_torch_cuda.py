@@ -197,3 +197,115 @@ def test_kernel_from_two_threads_on_two_streams(cuda_device):
         for s, c in got[i]:
             assert torch.equal(s, s2)
             assert (c is None and c2 is None) or torch.equal(c, c2)
+
+
+def test_spanning_job_on_two_slice_workers_equals_cpu_control(cuda_device,
+                                                              tmp_path):
+    """The spanning job deployed by a ``SlotPoolScheduler`` on two
+    in-process ``SliceWorker``s on the card (each driven by its own
+    thread): each slice runs on its worker's device, records cross the
+    cut edge over the wire, and every downstream fence digest equals a
+    CPU run of the same slice over the exported records."""
+    import json
+    import socket
+    import threading
+    import time
+
+    from clonos_tpu_torch.api.feeds import ListFeedReader
+    from clonos_tpu_torch.examples import spanning
+    from clonos_tpu_torch.parallel import transport as tp
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.runtime.leader import FileLeaderElection
+    from clonos_tpu_torch.runtime.remote import JobMasterServer
+    from clonos_tpu_torch.runtime.scheduler import (SliceWorker,
+                                                    SlotPoolScheduler)
+
+    lines = [((i * 37) % 997, 1 + i % 5) for i in range(600)]
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def serve():
+        conn, _ = srv.accept()
+        conn.sendall("".join(f"{k}:{v}\n" for k, v in lines).encode())
+        time.sleep(30)
+        conn.close()
+
+    threading.Thread(target=serve, daemon=True).start()
+    kw = dict(steps_per_epoch=4, log_capacity=512, max_epochs=64,
+              inflight_ring_steps=64, seed=7, logical_time=True)
+    jm = JobMasterServer(heartbeat_timeout_s=10.0)
+    election = FileLeaderElection(str(tmp_path / "jm.lease"), "jm-0",
+                                  lease_ttl_s=60.0)
+    assert election.try_acquire()
+    statuses = {"a": [], "b": []}
+    workers = {eid: SliceWorker(eid, jm.address,
+                                lease_path=str(tmp_path / "jm.lease"),
+                                slots=2, emit=statuses[eid].append,
+                                device=cuda_device)
+               for eid in ("a", "b")}
+    stop = threading.Event()
+    errors = []
+
+    def drive(w):
+        try:
+            while not stop.is_set():
+                if not w.step():
+                    time.sleep(0.01)
+        except Exception as e:  # reported below, on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=drive, args=(w,), daemon=True)
+               for w in workers.values()]
+    for t in threads:
+        t.start()
+    sched = SlotPoolScheduler(
+        jm, election, "clonos_tpu_torch.examples.spanning:build_job",
+        runner_kw=kw, feed_batch=4, target_epochs=8, complete_every=2,
+        checkpoint_root=str(tmp_path / "ck"), deploy_timeout_s=120.0,
+        device=cuda_device)
+    before = th.keyed_hist.launches
+    try:
+        assert {jm.info(w)["device"].split(":")[0] for w in "ab"} == {"cuda"}
+        assert sched.deploy(external_feeds={0: {
+            "kind": "socket", "host": "127.0.0.1",
+            "port": srv.getsockname()[1], "num_subtasks": 1}}) == \
+            {0: "a", 1: "b"}
+        deadline = time.monotonic() + 120
+        while not any(s.get("finished") == 1 for s in statuses["b"]):
+            assert not errors, errors
+            assert time.monotonic() < deadline, "slices never finished"
+            time.sleep(0.05)
+        assert th.keyed_hist.launches > before
+        for w in workers.values():
+            for sl in w.slices.values():
+                assert sl.runner.device.type == "cuda"
+        cl = tp.ControlClient(sched._export_addr[1])
+        rt, resp = cl.call(tp.FETCH_EDGE, tp.pack_json(
+            {"edge": 1, "start": 0, "count": 1 << 20}))
+        cl.close()
+        assert rt == tp.EDGE_DATA
+        hlen = int.from_bytes(resp[:4], "little")
+        recs = np.frombuffer(resp[4 + hlen:], np.int32).reshape(-1, 2)
+        sub, _v, feeds, _e = spanning.build_job().subgraph(
+            [2, 3], feed_batch_size=4)
+        ctrl = ClusterRunner(sub, device="cpu", **kw)
+        ctrl.executor.register_feed(feeds[1],
+                                    ListFeedReader([recs.tolist()]))
+        want = {}
+        for _ in range(8):
+            closed = ctrl.executor.epoch_id
+            ctrl.run_epoch(complete_checkpoint=(closed % 2 == 0))
+            want[ctrl.global_step] = ctrl.state_digest()
+        got = {s["global_step"]: s["digest"] for s in statuses["b"]
+               if "group" in s}
+        assert len(got) == 8 and got == want, json.dumps(got)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        sched.close()
+        for w in workers.values():
+            w.close()
+        jm.close()
+        srv.close()

@@ -1,10 +1,12 @@
 """PyTorch port, package rules: every module of ``clonos_tpu_torch``, and
 ``chip_smoke``, imports without pulling in ``jax`` or any ``clonos_tpu``
 module (checked in a fresh interpreter, since this test process has both
-loaded), and the entry
+loaded), no source file names one in an import statement at any depth
+(function bodies included), and the entry
 points default to the card: without one they raise instead of running on
 the CPU."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -147,6 +149,93 @@ def test_read_tier_modules_import_alone_without_jax(module):
     assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
 
 
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.runtime.scheduler",
+    "clonos_tpu_torch.runtime.dispatcher",
+    "clonos_tpu_torch.parallel.distributed",
+    "clonos_tpu_torch.examples.spanning"])
+def test_slot_pool_modules_import_alone_without_jax(module):
+    """The slot-pool slice's modules (the scheduler, the dispatcher, the
+    placement helper and the spanning example; their references are
+    partly JAX-free) each import alone in a fresh interpreter without
+    ``jax`` or ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "clonos_tpu")
+
+
+def _bad_imports(path: str):
+    """``(line, module)`` of every import of ``jax``/``jaxlib`` or of the
+    reference package in ``path``, at any depth: module level, function
+    and class bodies, conditional blocks, and ``importlib.import_module``
+    / ``__import__`` calls with a literal name."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [(node.lineno, a.name) for a in node.names
+                    if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = (fn.attr if isinstance(fn, ast.Attribute)
+                    else getattr(fn, "id", None))
+            if (name in ("import_module", "__import__") and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and isinstance(node.args[0].value, str)
+                    and _forbidden(node.args[0].value)):
+                bad.append((node.lineno, node.args[0].value))
+    return bad
+
+
+def _port_sources():
+    out = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(_REPO,
+                                                   "clonos_tpu_torch")):
+        out += [os.path.join(root, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_source_imports_jax_or_reference_at_any_depth():
+    """An AST scan of every ``.py`` of the port and of ``chip_smoke.py``:
+    an import of ``jax``, ``jaxlib`` or ``clonos_tpu`` (but not
+    ``clonos_tpu_torch``) anywhere, including inside functions, fails."""
+    sources = _port_sources()
+    assert len(sources) >= 69          # every module of the port
+    found = {os.path.relpath(p, _REPO): _bad_imports(p) for p in sources}
+    assert {p: b for p, b in found.items() if b} == {}
+
+
+@pytest.mark.parametrize("snippet, hits", [
+    ("import jax", 1), ("import jax.numpy as jnp", 1),
+    ("from jax import numpy", 1), ("from jaxlib import x", 1),
+    ("def f():\n    from clonos_tpu.inflight import log", 1),
+    ("class C:\n    def m(self):\n        import clonos_tpu.obs", 1),
+    ("if x:\n    import importlib\n"
+     "    importlib.import_module('clonos_tpu.cli')", 1),
+    ("from clonos_tpu_torch import obs", 0),
+    ("import clonos_tpu_torch.runtime.scheduler", 0),
+    ("from . import remote", 0), ("import jaxtyping", 0)])
+def test_import_guard_sees_every_depth(tmp_path, snippet, hits):
+    """The guard's own check: imports at any depth are caught; the port's
+    package and relative imports are not."""
+    p = tmp_path / "probe.py"
+    p.write_text(snippet + "\n")
+    assert len(_bad_imports(str(p))) == hits
+
+
 def _job():
     env = StreamEnvironment(name="imports", num_key_groups=8)
     (env.synthetic_source(vocab=7, batch_size=4, parallelism=2)
@@ -155,10 +244,18 @@ def _job():
 
 
 @pytest.mark.parametrize("entry", ["LocalExecutor", "ClusterRunner",
-                                   "init_carry", "records.make"])
-def test_entry_points_default_to_cuda_and_raise_without_a_card(entry):
+                                   "init_carry", "records.make",
+                                   "SliceWorker", "SlotPoolScheduler",
+                                   "Dispatcher"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(entry,
+                                                               tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from clonos_tpu_torch.runtime.dispatcher import Dispatcher
+    from clonos_tpu_torch.runtime.leader import FileLeaderElection
+    from clonos_tpu_torch.runtime.remote import JobMasterServer
+    from clonos_tpu_torch.runtime.scheduler import (SliceWorker,
+                                                    SlotPoolScheduler)
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "LocalExecutor":
             LocalExecutor(_job())
@@ -166,5 +263,18 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry):
             ClusterRunner(_job())
         elif entry == "records.make":
             make([1, 2, 3], capacity=4)
+        elif entry == "SliceWorker":
+            # Raises before it dials the JobMaster.
+            SliceWorker("w0", ("127.0.0.1", 1))
+        elif entry == "SlotPoolScheduler":
+            jm = JobMasterServer()
+            try:
+                SlotPoolScheduler(
+                    jm, FileLeaderElection(str(tmp_path / "l"), "jm"),
+                    "clonos_tpu_torch.examples.spanning:build_job")
+            finally:
+                jm.close()
+        elif entry == "Dispatcher":
+            Dispatcher(lease_path=str(tmp_path / "l"), serve=False)
         else:
             CompiledJob(_job()).init_carry()
