@@ -108,6 +108,22 @@ Phases:
      fences b reported, green deployed once and fencing through the
      storm within max(30 s, 25 x its median gap), every digest equal to
      one control, per-job ledgers and trace files, exactly-once per job.
+ 14. the cross-process observability planes (``[planes]``): (a) their
+     cost in-process, phase 7's pipelined runner at the headline's widths
+     with every plane off, the HLC and timeline on, lineage on (audit
+     off: the window captured for lineage alone) and all on: source
+     records/s, ``fence.lineage-observe`` ms a fence, 0 synchronising
+     calls in every capture window, state digests and ledgers equal
+     across the turns; (b) phase 11 (b)'s failover with
+     ``--timeline-dir``, lineage and incidents on and a transactional
+     sink, the worker killed on sight: the merged timeline (the
+     ``timeline --report json`` CLI) has no causality inversion and a
+     send and a receive for each verb, the gray-failure detector calls
+     the killed worker a suspect and ``incident explain`` names it, the
+     rebuild equals the worker's reported digest, and every sink part a
+     dyed key's path reaches is committed across the failover; (c) phase
+     13 (a)'s spanned job with the HLC on, its DEPLOY and FETCH_EDGE
+     receives ordered after their sends.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -118,6 +134,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2997,7 +3014,8 @@ PHASE13_REDUCTIONS = (
     f"20/20/30 epochs, epoch sleep {MT_EPOCH_SLEEP} s; cut: depth")
 
 
-def _slotworker(jm_address, eid, slots, lease, epoch_sleep, trace_dir=None):
+def _slotworker(jm_address, eid, slots, lease, epoch_sleep, trace_dir=None,
+                timeline_dir=None):
     """Start ``python -m clonos_tpu_torch slotworker`` on this script's
     device; returns (process, queue of its stdout lines). Its standard
     error goes to ``<lease>.<eid>.stderr`` (``_worker_errors`` prints its
@@ -3014,6 +3032,8 @@ def _slotworker(jm_address, eid, slots, lease, epoch_sleep, trace_dir=None):
            "--device", DEVICE]
     if trace_dir is not None:
         cmd += ["--trace-dir", trace_dir]
+    if timeline_dir is not None:
+        cmd += ["--timeline-dir", timeline_dir]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     with open(f"{lease}.{eid}.stderr", "w") as err:
@@ -3100,11 +3120,10 @@ def _span_ms(trace_path, name):
 
 
 def _mirror_covers(mirror, ckdir, step, spe):
-    """Would a rebuild from ``mirror`` and the checkpoints in ``ckdir``
-    land on global step ``step``? Only when the mirror's rows run from
-    the newest completed checkpoint's fence (its log head) to ``step``:
-    ``bootstrap_standby`` restores that checkpoint and replays the rows'
-    steps, and does not check that they start at its fence."""
+    """Do the mirror's rows run from the newest completed checkpoint's
+    fence (its log head) in ``ckdir`` to global step ``step``? Phase 13
+    kills only then, as it did before ``bootstrap_standby`` chose the
+    checkpoint the rows start at (phase 14 (b) kills on sight)."""
     from clonos_tpu_torch.causal import determinant as det
     from clonos_tpu_torch.runtime.checkpoint import FileCheckpointStorage
     storage = FileCheckpointStorage(ckdir)
@@ -3639,6 +3658,527 @@ def phase_multitenant(dev_line, root):
     return launches
 
 
+# --- phase 14 ---------------------------------------------------------------
+
+#: (a) the planes' cost: phase 7's pipelined runner at the headline's
+#: widths, a warm-up epoch and PLANES_EPOCHS timed ones per turn, the
+#: round of turns PLANES_ROUNDS times over. The audit is on except in
+#: the "bare" and "lineage" turns: lineage's window is then captured for
+#: the lineage scan alone, and "bare" (every plane and the audit off) is
+#: its baseline; "timeline" and "all" read against "off"
+PLANES_EPOCHS = 8
+PLANES_TURNS = ("off", "timeline", "bare", "lineage", "all")
+PLANES_ROUNDS = 3
+PLANES_BASELINE = {"timeline": "off", "lineage": "bare", "all": "off"}
+PLANES_DYE_K = 4
+#: (b) phase 11's worker with the planes on, killed on sight after this
+#: status line (phase 11 kills after line 26, where its mirror covers)
+PLANES_KILL_AT = 8
+PLANES_RUN_ON = 3
+#: (b) a beat this far behind the freshest peer's is suspect; two
+#: scores in a row make a suspect (five heartbeat intervals)
+PLANES_HB_HIGH_MS = 5 * HB_INTERVAL_S * 1e3
+#: (c) the spanned job's depth (phase 13: 8 epochs and a kill)
+PLANES_SPAN_EPOCHS = 3
+PLANES_SPAN_SLEEP = 0.1
+
+PHASE14_REDUCTIONS = (
+    f"(a) phase 7's pipelined runner at the headline's widths (phase 4's "
+    f"cuts), 1 warm-up + {PLANES_EPOCHS} timed epochs a turn, turns "
+    f"{'/'.join(PLANES_TURNS)} x {PLANES_ROUNDS} rounds, dye "
+    f"k={PLANES_DYE_K}. (b) phase 11 (b)'s "
+    f"worker (steps_per_epoch={WC_SPE}, --complete-every "
+    f"{WC_COMPLETE_EVERY}, --seed {WC_SEED}) on examples/wordcount.py "
+    f"build_txn_job (build_job with a transactional sink backed by part "
+    f"files) with --timeline-dir, --lineage-dir, --sink-dir and "
+    f"--logical-time (phase 11: wall time), and a never-failed control "
+    f"over the same epochs; cut: "
+    f"depth, killed on sight after status line {PLANES_KILL_AT} (phase "
+    f"11: line {WC_KILL_AT}, at a fence its mirror covers), "
+    f"{PLANES_RUN_ON} epochs run on after the rebuild. (c) phase 13 (a)'s "
+    f"spanned headline job with the HLC plane on; cut: depth, "
+    f"{PLANES_SPAN_EPOCHS} epochs (phase 13: {SPAN_EPOCHS}), no kill, "
+    f"epoch sleep {PLANES_SPAN_SLEEP} s")
+
+
+def _reset_planes():
+    from clonos_tpu_torch import obs
+    obs.reset_timeline()
+    obs.reset_hlc()
+    obs.reset_incidents()
+    obs.reset_detector()
+    obs.reset_lineage()
+
+
+def _planes_turn(root, i, turn):
+    """One turn of (a): a fresh pipelined runner with the turn's planes,
+    dropped before returning. Returns the source records/s over the timed
+    epochs, the capture-window syncs, ``fence.lineage-observe`` ms a
+    fence, the lineage plane's counts, the state digest and the ledger
+    (None with the audit off)."""
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    _reset_planes()
+    plane = None
+    if turn in ("timeline", "all"):
+        obs.configure_timeline("runner", path=os.path.join(
+            root, f"timeline-{i}.jsonl"))
+    if turn == "all":
+        obs.configure_incidents(os.path.join(root, f"incidents-{i}"),
+                                service="runner")
+    if turn in ("lineage", "all"):
+        plane = obs.LineagePlane(os.path.join(root, f"lineage-{i}"),
+                                 service="runner", k=PLANES_DYE_K)
+    r = ClusterRunner(build_job(), device=DEVICE,
+                      audit=turn not in ("bare", "lineage"),
+                      latency_marker_every=64, overlap_epoch=True,
+                      checkpoint_dir=os.path.join(root, f"planes-{i}"),
+                      lineage=plane, **runner_kw())
+    r.run_epoch(complete_checkpoint=True)
+    syncs, observe = [], []
+    _wrap_syncs(r, "_begin_fence_tail", syncs)
+    sync()
+    r0 = _source_records(r)
+    t0 = time.monotonic()
+    for _ in range(PLANES_EPOCHS):
+        r.run_epoch(complete_checkpoint=True)
+        observe.append(r.last_fence_phases.get("fence.lineage-observe"))
+    r.drain_fence()
+    sync()
+    rate = (_source_records(r) - r0) / (time.monotonic() - t0)
+    observe.append(r.last_fence_phases.get("fence.lineage-observe"))
+    delattr(r, "_begin_fence_tail")
+    out = dict(turn=turn, rate=rate, syncs=syncs,
+               observe=[round(x, 3) for x in observe if x is not None],
+               lineage=None, digest=r.state_digest(),
+               ledger=(r.coordinator.storage.read_ledger()
+                       if r.auditor.enabled else None))
+    r.coordinator.storage._close_ledger()
+    if plane is not None:
+        plane.close()
+        out["lineage"] = (plane.dyed, plane.observations)
+    _reset_planes()
+    del r
+    return out
+
+
+def _spread(xs):
+    return dict(min=round(min(xs), 4),
+                median=round(statistics.median(xs), 4),
+                max=round(max(xs), 4))
+
+
+def phase_planes_cost(dev_line, root):
+    """(a) The planes' cost in-process: source records/s of the pipelined
+    runner with every plane off (audit on, and the "bare" turn with the
+    audit off too), the HLC and timeline on, lineage on (audit off) and
+    all of them on, in PLANES_ROUNDS alternating rounds; each plane's
+    ratio to its baseline turn of the same round, with the spread over
+    rounds; 0 synchronising calls in every capture window; the state
+    digests equal across turns and the ledgers of the audited turns
+    equal. Returns the turns' kernel launches."""
+    turns = []
+
+    def drive():
+        for rnd in range(PLANES_ROUNDS):
+            for turn in PLANES_TURNS:
+                turns.append(_planes_turn(root, len(turns), turn))
+    _, launches, _ = _counted(drive)
+    base = turns[0]
+    for i, t in enumerate(turns):
+        turn = t["turn"]
+        if t["digest"] != base["digest"]:
+            raise AssertionError(f"(a) turn {i} ({turn}): state differs")
+        if t["ledger"] is not None and t["ledger"] != base["ledger"]:
+            raise AssertionError(f"(a) turn {i} ({turn}): ledger differs")
+        if torch.device(DEVICE).type == "cuda" and any(t["syncs"]):
+            raise AssertionError(f"(a) turn {i} ({turn}): capture windows "
+                                 f"synchronised: {t['syncs']} at "
+                                 f"{SYNC_SITES}")
+        if turn in ("lineage", "all") and (
+                t["lineage"][0] == 0 or len(t["observe"])
+                != PLANES_EPOCHS + 1):
+            raise AssertionError(f"(a) turn {i} ({turn}): lineage "
+                                 f"{t['lineage']}, observe ms "
+                                 f"{t['observe']}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"(a) no kernel launch: {launches}")
+    n = len(PLANES_TURNS)
+    rounds = [{t["turn"]: t for t in turns[r * n:(r + 1) * n]}
+              for r in range(PLANES_ROUNDS)]
+    rates = {turn: [rd[turn]["rate"] for rd in rounds]
+             for turn in PLANES_TURNS}
+    ratios = {turn: [rd[turn]["rate"] / rd[b]["rate"] for rd in rounds]
+              for turn, b in PLANES_BASELINE.items()}
+    observe = {turn: [x for rd in rounds for x in rd[turn]["observe"]]
+               for turn in ("lineage", "all")}
+    log("[planes] (a) cost at the headline's widths, pipelined fence, "
+        "digests and ledgers equal across turns: " + json.dumps(dict(
+            turns=list(PLANES_TURNS), rounds=PLANES_ROUNDS,
+            timed_epochs=PLANES_EPOCHS,
+            source_records_per_s={k: [round(x, 1) for x in v]
+                                   for k, v in rates.items()},
+            ratio_to_baseline={k: dict(baseline=PLANES_BASELINE[k],
+                                       per_round=[round(x, 4) for x in v],
+                                       **_spread(v))
+                               for k, v in ratios.items()},
+            off_over_bare=_spread([a / b for a, b in
+                                   zip(rates["off"], rates["bare"])]),
+            capture_window_syncs=sorted({s for t in turns
+                                         for s in t["syncs"]}),
+            fence_lineage_observe_ms={k: dict(n=len(v), **_spread(v))
+                                      for k, v in observe.items()},
+            lineage_dyed_observations={
+                t["turn"]: list(t["lineage"]) for t in turns[:n]
+                if t["lineage"] is not None},
+            ledger_epochs=len(base["ledger"]), kernel_launches=launches,
+            note="reading, not a claim", device=dev_line)))
+    return launches
+
+
+def _cli_json(args):
+    """Run ``python -m clonos_tpu_torch ARGS`` from the repo root;
+    returns (exit code, the JSON object of its last output line)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    res = subprocess.run([sys.executable, "-m", "clonos_tpu_torch", *args],
+                         cwd=repo, env=env, capture_output=True, text=True,
+                         timeout=300)
+    lines = res.stdout.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"{args[0]}: no output (rc {res.returncode}): "
+                             f"{res.stderr[-2000:]}")
+    return res.returncode, json.loads(lines[-1])
+
+
+def phase_planes_failover(dev_line, root):
+    """(b) Phase 11's two-process host-loss failover with the timeline,
+    incidents and lineage on: the merged timeline has no causality
+    inversion and a send and a receive for every verb; the gray-failure
+    detector, scored at every status line and every 100 ms after the
+    last, calls the killed worker a suspect and an incident bundle lands
+    whose ``incident explain`` names it; the rebuild equals the worker's
+    reported digest; each dyed key's path joins across the two
+    processes' files, and every sink part a path reaches is committed;
+    each (epoch, subtask) part is final once, and the committed records
+    equal a never-failed control's (worker and standby on logical time).
+    Returns the rebuild's and run-on's kernel launches."""
+    import queue
+    import signal
+    import threading
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.examples import wordcount as wc
+    from clonos_tpu_torch.runtime import remote
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.runtime.filesink import FileSystemSink
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tl_dir, lin_dir, sink_dir = (os.path.join(root, d) for d in
+                                 ("timelines", "lineage", "sink"))
+    os.makedirs(tl_dir)
+    _reset_planes()
+    obs.configure_timeline("standby", path=os.path.join(
+        tl_dir, "timeline-standby.jsonl"))
+    mgr = obs.configure_incidents(root, service="standby")
+    mgr.attach(config=lambda: {"job": "wordcount:build_txn_job",
+                               "kill_at": PLANES_KILL_AT})
+    det = obs.configure_detector(obs.DetectorConfig(
+        hb_age_high_ms=PLANES_HB_HIGH_MS, sustain_fences=2))
+    jm = remote.JobMasterServer(heartbeat_timeout_s=HB_TIMEOUT_S)
+    ctl = remote.JobMasterController(jm, device=DEVICE)
+    cmd = [sys.executable, "-m", "clonos_tpu_torch", "worker",
+           "clonos_tpu_torch.examples.wordcount:build_txn_job",
+           "--jm", f"127.0.0.1:{jm.address[1]}",
+           "--checkpoint-dir", os.path.join(root, "ck"),
+           "--executor-id", "worker-0", "--epochs", "64",
+           "--steps-per-epoch", str(WC_SPE),
+           "--complete-every", str(WC_COMPLETE_EVERY),
+           "--seed", str(WC_SEED), "--heartbeat-interval", str(HB_INTERVAL_S),
+           "--epoch-sleep", str(WC_EPOCH_SLEEP), "--timeline-dir", tl_dir,
+           "--lineage-dir", lin_dir, "--sink-dir", sink_dir,
+           "--logical-time"]
+    if torch.device(DEVICE).type != "cuda":
+        cmd += ["--device", DEVICE]          # a CPU rehearsal
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_phase = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            text=True)
+    lines = queue.Queue()
+    threading.Thread(target=_pump, args=(proc.stdout, lines),
+                     daemon=True).start()
+    scores = [0]
+
+    def score(epoch):
+        # The standby host (this process) is the freshest peer.
+        ages = dict(jm.heartbeat_ages_ms(), standby=0.0)
+        det.on_fence(obs.GraySnapshot.build(epoch=epoch, hb_age_ms=ages))
+        scores[0] += 1
+
+    digests, last_epoch = {}, 0
+    try:
+        first = json.loads(lines.get(timeout=300))
+        if first.get("registered") != "worker-0" \
+                or ctl.attach() != ["worker-0"]:
+            raise AssertionError(f"(b) registration: {first}")
+        i = 0
+        while True:
+            line = lines.get(timeout=120)
+            if line is None:
+                raise AssertionError("(b) the worker exited early")
+            st = json.loads(line)
+            digests[st["global_step"]] = st["digest"]
+            last_epoch = st["epoch"]
+            if ctl.sync()["worker-0"] < 0:
+                raise AssertionError("(b) the mirror lost the worker")
+            score(last_epoch)
+            if det.suspects():
+                raise AssertionError(f"(b) a live worker was called a "
+                                     f"suspect: {det.log[-1]}")
+            if i >= PLANES_KILL_AT:
+                break
+            i += 1
+        proc.send_signal(signal.SIGKILL)
+        t_kill = time.monotonic()
+        proc.wait(timeout=60)
+        while (line := lines.get(timeout=60)) is not None:
+            st = json.loads(line)
+            digests[st["global_step"]] = st["digest"]
+        suspect_ms = None
+        while "worker-0" not in ctl.failed() or suspect_ms is None:
+            if time.monotonic() > t_kill + 4 * HB_TIMEOUT_S + 10:
+                raise AssertionError(f"(b) expiry {ctl.failed()}, suspects "
+                                     f"{det.suspects()}")
+            time.sleep(0.1)
+            score(last_epoch)
+            if suspect_ms is None and "worker-0" in det.suspects():
+                suspect_ms = (time.monotonic() - t_kill) * 1e3
+        detect_ms = (time.monotonic() - t_kill) * 1e3
+        plane = obs.LineagePlane(lin_dir, service="standby")
+        (runner, report), launches, _ = _counted(
+            lambda: ctl.rebuild("worker-0", wc.build_txn_job(),
+                                steps_per_epoch=WC_SPE, seed=WC_SEED,
+                                logical_time=True, lineage=plane))
+        rebuilt_step, digest = runner.global_step, runner.state_digest()
+        newest = max(set(runner.coordinator.storage.completed_ids())
+                     - set(ctl.ignored_checkpoints()))
+        if digests.get(rebuilt_step) != digest:
+            raise AssertionError(f"(b) the rebuild at step {rebuilt_step} "
+                                 f"has digest {digest}; the worker "
+                                 f"reported {digests.get(rebuilt_step)}")
+        (sink_vid,) = sorted(runner.txn_logs)
+        part_dir = os.path.join(sink_dir, f"v{sink_vid}")
+        runner.attach_file_sink(sink_vid, part_dir, token=1)
+
+        def run_on():
+            for _ in range(PLANES_RUN_ON):
+                runner.run_epoch(complete_checkpoint=True)
+        _, run_on_launches, _ = _counted(run_on)
+        runner.coordinator.storage._close_ledger()
+        plane.close()
+        # A never-failed control over the same epochs: with logical time
+        # the committed egress is a function of the seed.
+        n_epochs = runner.executor.epoch_id
+        control_dir = os.path.join(root, "sink-control")
+        control = ClusterRunner(wc.build_txn_job(), steps_per_epoch=WC_SPE,
+                                seed=WC_SEED, logical_time=True,
+                                checkpoint_dir=os.path.join(root, "ck-ctl"),
+                                device=DEVICE)
+        control.attach_file_sink(sink_vid, control_dir)
+        for i in range(n_epochs):
+            control.run_epoch(complete_checkpoint=(
+                i % WC_COMPLETE_EVERY == 0 or i == n_epochs - 1))
+        control.coordinator.storage._close_ledger()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        ctl.close()
+        jm.close()
+        bundles = mgr.bundles()
+        _reset_planes()
+    launches = {k: launches[k] + run_on_launches[k] for k in launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"(b) no kernel launch: {launches}")
+
+    # The merged timeline, through the CLI as an operator reads it.
+    files = sorted(os.path.join(tl_dir, f) for f in os.listdir(tl_dir))
+    rc, rep = _cli_json(["timeline", *files, "--report", "json"])
+    recs = obs.read_timeline(files)
+    verbs = {}
+    for r in recs:
+        if r["kind"] in ("msg.send", "msg.recv"):
+            verbs.setdefault(r["verb"], set()).add(r["kind"])
+    if rc != 0 or not rep["ok"] or rep["inversions"] or len(files) != 2 \
+            or set(verbs) != {"HEARTBEAT", "DETERMINANT_REQUEST"} \
+            or any(v != {"msg.send", "msg.recv"} for v in verbs.values()):
+        raise AssertionError(f"(b) merged timeline: rc {rc}, {rep}, "
+                             f"verbs {verbs}")
+    # The incident: one bundle, its analysis naming the killed worker.
+    if len(bundles) != 1:
+        raise AssertionError(f"(b) incident bundles {bundles}")
+    _rc, expl = _cli_json(["incident", "explain", "--dir", root,
+                           "--report", "json"])
+    trig = expl["trigger"]
+    named = [e for e in expl["causal_chain"]
+             if e.get("kind") == "health.gray-suspect"]
+    if trig.get("kind") != "health.gray-suspect" \
+            or trig.get("worker") != "worker-0" \
+            or [e.get("worker") for e in named] != ["worker-0"]:
+        raise AssertionError(f"(b) incident explain: {expl}")
+    # Lineage across the failover, against the committed part files.
+    lin_files = sorted(os.path.join(lin_dir, f) for f in os.listdir(lin_dir))
+    observations = obs.read_observations(lin_files)
+    lrep = obs.reconstruct(observations)
+    dyes = {}
+    for o in observations:
+        if o["kind"] == "dye":
+            dyes[o["service"]] = dyes.get(o["service"], 0) + 1
+    fs = FileSystemSink(part_dir)
+    committed = fs.committed_epochs()
+    finals = {"-".join(f.split("-")[:3]) for f in os.listdir(part_dir)
+              if f.endswith(".final")}
+    # Exactly once: each (epoch, subtask) part is final under one token,
+    # and the committed records equal the never-failed control's.
+    per_part, control_parts = {}, set()
+    for f in os.listdir(part_dir):
+        if f.endswith(".final"):
+            key = FileSystemSink._parse(f)[:2]
+            per_part[key] = per_part.get(key, 0) + 1
+    for f in os.listdir(control_dir):
+        if f.endswith(".final"):
+            control_parts.add(FileSystemSink._parse(f)[:2])
+    twice = sorted(k for k, c in per_part.items() if c > 1)
+    got_recs = fs.read_committed()
+    want_recs = FileSystemSink(control_dir).read_committed()
+    if twice or set(per_part) != control_parts \
+            or not np.array_equal(got_recs, want_recs):
+        raise AssertionError(
+            f"(b) exactly-once egress: parts final twice {twice}; parts "
+            f"{sorted(per_part)} vs the control's {sorted(control_parts)}; "
+            f"{got_recs.shape[0]} committed records vs the control's "
+            f"{want_recs.shape[0]}")
+    fence_epoch = report.from_epoch + report.steps_replayed // WC_SPE
+    sinks = [s for p in lrep["keys"].values() for s in p["sinks"]]
+    by_token = {}
+    for f in os.listdir(part_dir):
+        if f.endswith(".final"):
+            by_token["-".join(f.split("-")[:3])] = f.split("-")[3][:2]
+    sides = {"sealed_by_worker": sum(s["epoch"] < fence_epoch for s in sinks),
+             "sealed_by_standby": sum(s["epoch"] >= fence_epoch
+                                      for s in sinks),
+             "committed_by_standby": sum(by_token.get(s["part"]) == "t1"
+                                         for s in sinks)}
+    no_dye = [k for k, p in lrep["keys"].items() if "no-dye" in p["broken"]]
+    uncommitted = sorted({s["part"] for s in sinks} - finals)
+    if len(lin_files) != 2 or set(dyes) != {"worker-0", "standby"} \
+            or no_dye or uncommitted or not sinks \
+            or committed != list(range(len(committed))) or not committed:
+        raise AssertionError(
+            f"(b) lineage: files {lin_files}, dye records {dyes}, no-dye "
+            f"{no_dye}, uncommitted parts {uncommitted}, sinks {sides}, "
+            f"committed epochs {committed}")
+    log("[planes] (b) two-process failover with the planes on: " + json.dumps(
+        dict(timeline=dict(records=rep["records"], by_kind=rep["by_kind"],
+                           inversions=len(rep["inversions"]),
+                           files=len(files)),
+             incident=dict(bundles=len(bundles), trigger=trig,
+                           verdict=expl["verdict"],
+                           chain=[e["kind"] for e in expl["causal_chain"]]),
+             detector=dict(scores=scores[0], suspect_ms=round(suspect_ms, 3),
+                           expiry_ms=round(detect_ms, 3),
+                           threshold_ms=PLANES_HB_HIGH_MS),
+             rebuild=dict(global_step=rebuilt_step, digest=digest,
+                          from_epoch=report.from_epoch,
+                          newest_completed_checkpoint=newest,
+                          steps_replayed=report.steps_replayed,
+                          recovery_ms=round(report.recovery_ms, 3)),
+             lineage=dict(keys=len(lrep["keys"]), dye_records=dyes,
+                          sinks=sides,
+                          no_terminus=len(lrep["broken_keys"]),
+                          observations=lrep["observations"]),
+             committed_epochs=len(committed),
+             egress=dict(parts=len(per_part), records=int(got_recs.shape[0]),
+                         equal_to_control=True, parts_final_twice=0),
+             kernel_launches=launches,
+             phase_seconds=round(time.monotonic() - t_phase, 3),
+             device=dev_line)))
+    return launches
+
+
+def phase_planes_spanning(dev_line, root):
+    """(c) Phase 13 (a)'s spanned job with the HLC plane on in this
+    process (the JobMaster) and both slot workers (``--timeline-dir``):
+    the merged timeline has no causality inversion, and every DEPLOY and
+    FETCH_EDGE receive orders after its send."""
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.runtime import scheduler as sch
+    from clonos_tpu_torch.runtime.leader import FileLeaderElection
+    from clonos_tpu_torch.runtime.remote import JobMasterServer
+    t_phase = time.monotonic()
+    tl_dir = os.path.join(root, "span-timelines")
+    os.makedirs(tl_dir)
+    _reset_planes()
+    obs.configure_timeline("jm", path=os.path.join(tl_dir,
+                                                   "timeline-jm.jsonl"))
+    lease = os.path.join(root, "planes.lease")
+    jm = JobMasterServer(heartbeat_timeout_s=SLOT_HB_TIMEOUT_S)
+    election = FileLeaderElection(lease, "jm-0", lease_ttl_s=600.0)
+    if not election.try_acquire():
+        raise AssertionError("(c) the lease was not granted")
+    sched = sch.SlotPoolScheduler(
+        jm, election, SPAN_SPEC, runner_kw=runner_kw(),
+        feed_batch=SPAN_FEED_BATCH, target_epochs=PLANES_SPAN_EPOCHS,
+        complete_every=SPAN_COMPLETE_EVERY,
+        checkpoint_root=os.path.join(root, "planes-ck"),
+        deploy_timeout_s=240.0, device=DEVICE)
+    procs = {}
+    try:
+        for eid in ("a", "b"):
+            procs[eid] = _slotworker(jm.address, eid, 2, lease,
+                                     PLANES_SPAN_SLEEP, timeline_dir=tl_dir)
+        _registered(jm, ["a", "b"])
+        if sched.deploy() != {0: "a", 1: "b"}:
+            raise AssertionError(f"(c) placements {sched.placements}")
+        for eid, g in (("a", 0), ("b", 1)):
+            _until(procs[eid][1], lambda st, g=g: st.get("finished") == g,
+                   f"(c) {eid} finished")
+    except BaseException:
+        _worker_errors(lease, {e: p for e, (p, _) in procs.items()})
+        raise
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        sched.close()
+        jm.close()
+        _reset_planes()
+    files = sorted(os.path.join(tl_dir, f) for f in os.listdir(tl_dir))
+    merged = obs.merge_records(obs.read_timeline(files))
+    inversions = obs.causality_inversions(merged)
+    streamed = obs.causality_inversions_stream(obs.iter_merged(files))
+    sends = {tuple(r["hlc"]): i for i, r in enumerate(merged)
+             if r["kind"] == "msg.send"}
+    counts, unordered = {}, []
+    for i, r in enumerate(merged):
+        if r["kind"] == "msg.recv" and r["verb"] in ("DEPLOY", "FETCH_EDGE"):
+            counts[r["verb"]] = counts.get(r["verb"], 0) + 1
+            if sends.get(tuple(r["sent"]), len(merged)) >= i:
+                unordered.append(r)
+    if inversions or streamed or unordered or len(files) != 3 \
+            or counts.get("DEPLOY") != 2 or not counts.get("FETCH_EDGE"):
+        raise AssertionError(f"(c) merged timeline: {len(files)} files, "
+                             f"inversions {inversions or streamed}, "
+                             f"receives {counts}, unordered {unordered[:3]}")
+    log("[planes] (c) spanned job with the HLC on, DEPLOY and FETCH_EDGE "
+        "ordered: " + json.dumps(dict(
+            records=len(merged), receives=counts, inversions=0,
+            seals=sum(r["kind"] == "epoch.seal" for r in merged),
+            phase_seconds=round(time.monotonic() - t_phase, 3),
+            device=dev_line)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3715,6 +4255,17 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[slots] phase 13: {time.monotonic() - t13:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[config] phase 14: {PHASE14_REDUCTIONS}")
+    t14 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_planes_", dir=SCRATCH)
+    try:
+        cost_launches = phase_planes_cost(dev_line, root)
+        failover_launches = phase_planes_failover(dev_line, root)
+        phase_planes_spanning(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[planes] phase 14: {time.monotonic() - t14:.1f} s")
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -3726,7 +4277,9 @@ def main() -> int:
         "socket_wordcount": socket_launches,
         "host_loss": host_loss_launches, "read_tier": read_tier,
         "spanning": spanning_launches,
-        "multitenant": multitenant_launches})))
+        "multitenant": multitenant_launches,
+        "planes_cost": cost_launches,
+        "planes_failover": failover_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

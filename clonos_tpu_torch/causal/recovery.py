@@ -35,6 +35,8 @@ from clonos_tpu_torch.api.operators import (BlockContext, Operator,
                                             TwoInputOperator)
 from clonos_tpu_torch.api.records import RecordBatch, empty
 from clonos_tpu_torch.causal import determinant as det
+from clonos_tpu_torch.obs.incident import get_incidents
+from clonos_tpu_torch.obs.timeline import get_timeline
 from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -109,6 +111,12 @@ class AuditValidator:
                 channel, reason = d
                 event("recovery.audit.divergence", epoch=e,
                       channel=channel, reason=reason)
+                # The replayed epoch went off-script: bundle the evidence
+                # before the abort policy may tear recovery down (a no-op
+                # while the incident plane is off).
+                get_incidents().signal("audit.divergence", epoch=e,
+                                       channel=channel, reason=reason,
+                                       source="recovery-validator")
                 if self.on_divergence == "abort":
                     raise AuditDivergenceError(
                         f"epoch {e} channel {channel}: {reason} — replay "
@@ -444,6 +452,11 @@ class RecoveryManager:
         get_tracer().event("recovery.fsm", state=s.name,
                            flat=self.flat_subtask, vertex=self.vertex_id,
                            subtask=self.subtask)
+        tl = get_timeline()
+        if tl.enabled:
+            tl.record("recovery.fsm", state=s.name,
+                      flat=self.flat_subtask, vertex=self.vertex_id,
+                      subtask=self.subtask)
 
     # --- events -------------------------------------------------------------
 

@@ -1,5 +1,5 @@
-"""Command-line front end of the port (``clonos_tpu/cli.py``'s ``run``,
-``info`` and ``worker``).
+"""Command-line front end of the port (``clonos_tpu/cli.py``): the job,
+process, dispatcher and observability verbs.
 
 The CLI builds a job from ``module:function`` and drives an in-process
 ``ClusterRunner`` on the card (``--device cuda``, the default; it raises
@@ -16,6 +16,12 @@ Usage:
     python -m clonos_tpu_torch submit <module:function> \\
         --dispatcher HOST:PORT [--tenant T] [--slots N] [--wait] ...
     python -m clonos_tpu_torch jobs --dispatcher HOST:PORT [--json]
+    python -m clonos_tpu_torch audit <checkpoint-dir> [--diff DIR2] [--job ID]
+    python -m clonos_tpu_torch top HOST:PORT [--once]
+    python -m clonos_tpu_torch trace trace-*.jsonl [--chrome OUT]
+    python -m clonos_tpu_torch timeline timeline-*.jsonl [--report json]
+    python -m clonos_tpu_torch incident {list,show,explain} [--dir DIR]
+    python -m clonos_tpu_torch lineage lineage-*.jsonl [--key K]
 
 ``worker`` is the TaskExecutor process: it registers with a remote
 JobMaster (naming its device and which path frames its deltas) and
@@ -31,6 +37,14 @@ it advertises slots and runs only the task slices a JobMaster deploys
 onto it, on its ``--device``. ``dispatcher`` is the multi-tenant
 JobMaster (``runtime/dispatcher.py``) that slot workers register with;
 ``submit`` and ``jobs`` are its clients.
+
+The observability verbs read what the planes wrote: ``audit`` prints or
+diffs epoch ledgers, ``top`` renders a metrics endpoint, ``trace``
+summarizes or converts tracer files, ``timeline`` merges the per-process
+HLC timelines (``--timeline-dir`` on ``run``, ``worker``, ``slotworker``
+and ``dispatcher``) and proves them causal, ``incident`` lists and
+explains incident bundles, and ``lineage`` reconstructs dyed records'
+paths (``worker --lineage-dir``, or a DEPLOY header's dye config).
 """
 
 from __future__ import annotations
@@ -64,6 +78,19 @@ def _setup_tracer(args, service: str):
     os.makedirs(args.trace_dir, exist_ok=True)
     return obs.configure(service, path=os.path.join(
         args.trace_dir, f"trace-{service}.jsonl"))
+
+
+def _setup_timeline(args, service: str):
+    """Opt-in causal timeline: ``--timeline-dir`` installs the process
+    TimelineStore (and an HLC, so every cross-process message carries a
+    causal stamp) writing timeline-<service>.jsonl there. Returns the
+    store or None."""
+    if getattr(args, "timeline_dir", None) is None:
+        return None
+    from clonos_tpu_torch.obs import configure_timeline
+    os.makedirs(args.timeline_dir, exist_ok=True)
+    return configure_timeline(service, path=os.path.join(
+        args.timeline_dir, f"timeline-{service}.jsonl"))
 
 
 def _setup_profile(args) -> None:
@@ -111,6 +138,7 @@ def cmd_run(args) -> int:
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
 
     tracer = _setup_tracer(args, "run")
+    _setup_timeline(args, "run")
     _setup_profile(args)
     job = _load_job(args.job)
     runner = ClusterRunner(job, steps_per_epoch=args.steps_per_epoch,
@@ -180,11 +208,20 @@ def cmd_worker(args) -> int:
                                                  TaskExecutorClient)
 
     _setup_tracer(args, args.executor_id)
+    _setup_timeline(args, args.executor_id)
     _setup_profile(args)
+    if args.lineage_dir is not None:
+        from clonos_tpu_torch.obs import configure_lineage
+        configure_lineage(args.lineage_dir, service=args.executor_id)
     job = _load_job(args.job)
     runner = ClusterRunner(job, steps_per_epoch=args.steps_per_epoch,
                            checkpoint_dir=args.checkpoint_dir,
-                           seed=args.seed, device=args.device)
+                           seed=args.seed, logical_time=args.logical_time,
+                           device=args.device)
+    if args.sink_dir is not None:
+        for vid in sorted(runner.txn_logs):
+            runner.attach_file_sink(vid, os.path.join(args.sink_dir,
+                                                      f"v{vid}"))
     endpoint = HostLogEndpoint(runner.executor, host=args.bind_host)
     host, _, port = args.jm.partition(":")
     tx = TaskExecutorClient(
@@ -230,6 +267,7 @@ def cmd_slotworker(args) -> int:
     from clonos_tpu_torch.runtime.scheduler import SliceWorker
 
     tracer = _setup_tracer(args, args.executor_id)
+    _setup_timeline(args, args.executor_id)
     _setup_profile(args)
     host, _, port = args.jm.partition(":")
     worker = SliceWorker(
@@ -272,6 +310,7 @@ def cmd_dispatcher(args) -> int:
     from clonos_tpu_torch.runtime.dispatcher import Dispatcher
 
     _setup_tracer(args, "dispatcher")
+    _setup_timeline(args, "dispatcher")
     _setup_profile(args)
     if args.audit:
         from clonos_tpu_torch.obs import configure_audit
@@ -377,6 +416,752 @@ def cmd_jobs(args) -> int:
     return 0
 
 
+def _find_ledgers(root):
+    """Ledger files under ``root``: the path itself (file or dir with
+    ledger.jsonl), per-group ``g*/ledger.jsonl`` subdirs (slot-pool
+    layout), or per-job ``<job_id>/g*/ledger.jsonl`` trees (dispatcher
+    layout — every job's artifacts live under ``<root>/<job_id>/``).
+    Returns [(label, entries)] sorted by label; dispatcher-layout
+    labels carry the job-id prefix (``<job_id>/g0/ledger.jsonl``)."""
+    import glob
+    from clonos_tpu_torch.runtime.checkpoint import read_ledger_file
+
+    if os.path.isfile(root):
+        return [(os.path.basename(root), read_ledger_file(root))]
+    direct = os.path.join(root, "ledger.jsonl")
+    if os.path.exists(direct):
+        return [("ledger.jsonl", read_ledger_file(direct))]
+    out = []
+    for pat in (os.path.join(root, "*", "ledger.jsonl"),
+                os.path.join(root, "*", "*", "ledger.jsonl")):
+        for p in sorted(glob.glob(pat)):
+            label = os.path.relpath(p, root)
+            out.append((label, read_ledger_file(p)))
+    return sorted(out)
+
+
+def _ledger_job_ids(ledgers):
+    """Job ids present in a dispatcher-layout ledger set: the leading
+    path component of every ``<job_id>/g*/ledger.jsonl`` label."""
+    jobs = set()
+    for label, _ in ledgers:
+        parts = label.split(os.sep)
+        if len(parts) >= 3:
+            jobs.add(parts[0])
+    return sorted(jobs)
+
+
+def cmd_audit(args) -> int:
+    """Print or diff a job's epoch audit ledger (``python -m clonos_tpu_torch audit``):
+    the per-epoch digests obs/audit.py sealed at each checkpoint
+    barrier. ``--diff`` compares against a second run's ledger and
+    exits 1 on the first divergence (epoch + channel named). A
+    dispatcher root holds MANY jobs' ledgers (``<root>/<job_id>/g*/``);
+    ``--job`` selects one (labels lose the job prefix so they line up
+    against a single-job run's), and a diff over an ambiguous
+    multi-job root exits 2 listing the available job ids."""
+    from clonos_tpu_torch.obs import audit as _audit_mod
+
+    ledgers = _find_ledgers(args.dir)
+    if not ledgers:
+        if args.report == "json":
+            print(json.dumps({"match": False, "groups": {},
+                              "problems": [f"no ledger.jsonl under "
+                                           f"{args.dir}"]}))
+        else:
+            print(f"no ledger.jsonl under {args.dir}", file=sys.stderr)
+        return 1
+    job_ids = _ledger_job_ids(ledgers)
+    job = getattr(args, "job", None)
+    if job:
+        pre = job + os.sep
+        picked = [(label[len(pre):], entries)
+                  for label, entries in ledgers
+                  if label.startswith(pre)]
+        if not picked:
+            print(f"no ledgers for job {job!r} under {args.dir} "
+                  f"(available job ids: "
+                  f"{', '.join(job_ids) or 'none'})", file=sys.stderr)
+            return 2
+        ledgers = picked
+    elif args.diff and len(job_ids) > 1:
+        print(f"ambiguous: {args.dir} holds ledgers for "
+              f"{len(job_ids)} jobs ({', '.join(job_ids)}) — pass "
+              f"--job <id> to pick one", file=sys.stderr)
+        return 2
+    if args.diff:
+        other_ledgers = _find_ledgers(args.diff)
+        if job:
+            pre = job + os.sep
+            picked = [(label[len(pre):], entries)
+                      for label, entries in other_ledgers
+                      if label.startswith(pre)]
+            # The compared run may itself be single-job (no prefix);
+            # fall through to its raw labels then.
+            other_ledgers = picked or other_ledgers
+        other = dict(other_ledgers)
+        problems = []
+        groups = {}
+        for label, entries in ledgers:
+            # Layout-aware: epochs sealed under the same cut compare
+            # bit for bit; across a live re-cut the group-directory
+            # mapping compares the partition-invariant channels.
+            lines = _audit_mod.diff_ledgers_cross(entries,
+                                                  other.get(label, []))
+            groups[label] = {"entries": len(entries),
+                             "epochs": len({e.get("epoch")
+                                            for e in entries}),
+                             "problems": lines}
+            problems += [f"{label}: {line}" for line in lines]
+        if args.report == "json":
+            # CI convention: one machine-readable line, exit 0/1.
+            print(json.dumps({"match": not problems, "groups": groups,
+                              "problems": problems}))
+            return 1 if problems else 0
+        for line in problems:
+            print(line)
+        if not problems:
+            print(f"ledgers match ({sum(len(e) for _, e in ledgers)} "
+                  f"entries)")
+        return 1 if problems else 0
+    if args.report == "json":
+        groups = {label: {"entries": len(entries),
+                          "epochs": len({e.get("epoch")
+                                         for e in entries})}
+                  for label, entries in ledgers}
+        print(json.dumps({"match": True, "groups": groups,
+                          "problems": []}))
+        return 0
+    if args.json:
+        print(json.dumps({label: entries for label, entries in ledgers},
+                         indent=2))
+        return 0
+    for label, entries in ledgers:
+        # last-wins per epoch: a rebuilt runner re-seals replayed epochs
+        by_epoch = {e["epoch"]: e for e in entries}
+        print(f"# {label} — {len(by_epoch)} epochs "
+              f"({len(entries)} entries)")
+        for ep in sorted(by_epoch):
+            e = by_epoch[ep]
+            dets = " ".join(f"{k}={v}" for k, v in
+                            sorted((e.get("det_counts") or {}).items()))
+            print(f"epoch {ep:>4}  records {e.get('records', 0):>8}  "
+                  f"channels {len(e.get('channels') or {}):>3}  "
+                  f"combined {e.get('combined', '?')}  {dets}")
+    return 0
+
+
+def _top_rows(snap):
+    """Fold a JobMaster ``/metrics.json`` snapshot into per-worker rows.
+
+    Keys arrive flattened as ``worker.<eid>.<metric>`` where ``<metric>``
+    is the worker's own snapshot name (e.g.
+    ``group.g0.job.bench.audit.epochs-sealed``); suffix-match so the row
+    survives arbitrary group/job nesting. Histogram values are the
+    flattened ``{count, mean, p50, p99}`` dicts snapshot() emits."""
+    workers = {}
+
+    def row(eid):
+        return workers.setdefault(eid, {
+            "slots": None, "groups": set(), "sealed": 0, "validated": 0,
+            "ring": None, "lag": None, "ft": None,
+            "spill_host": None, "spill_disk": None, "phases": {}})
+
+    for key, v in snap.items():
+        if not key.startswith("worker."):
+            continue
+        eid, _, rest = key[len("worker."):].partition(".")
+        if not eid or not rest:
+            continue
+        r = row(eid)
+        if rest == "slots" and isinstance(v, (int, float)):
+            r["slots"] = int(v)
+            continue
+        if rest.startswith("group."):
+            r["groups"].add(rest.split(".", 2)[1])
+        elif rest.startswith("job."):
+            # multi-tenant prefix: job.<jid>.group.<g>.<metric>
+            jparts = rest.split(".")
+            if len(jparts) >= 4 and jparts[2] == "group":
+                r["groups"].add(f"{jparts[1]}:g{jparts[3]}")
+        num = isinstance(v, (int, float)) and not isinstance(v, bool)
+        if num and rest.endswith(".audit.epochs-sealed"):
+            r["sealed"] += int(v)
+        elif num and rest.endswith(".audit.epochs-validated"):
+            r["validated"] += int(v)
+        elif num and (rest.endswith(".backpressure.inflight-occupancy")
+                      or rest.endswith(".causal-log.max-occupancy")):
+            r["ring"] = max(r["ring"] or 0.0, float(v))
+        elif num and rest.endswith(".recovery.replay-lag-steps"):
+            r["lag"] = max(r["lag"] or 0, int(v))
+        elif num and rest.endswith(".overhead.ft-fraction"):
+            r["ft"] = max(r["ft"] or 0.0, float(v))
+        elif num and rest.endswith(".spill.host-epochs"):
+            r["spill_host"] = (r["spill_host"] or 0) + int(v)
+        elif num and rest.endswith(".spill.disk-epochs"):
+            r["spill_disk"] = (r["spill_disk"] or 0) + int(v)
+        elif (isinstance(v, dict) and ".recovery." in rest
+              and rest.endswith("-ms") and v.get("count")):
+            phase = rest.rsplit(".recovery.", 1)[1][:-len("-ms")]
+            r["phases"][phase] = float(v.get("p50") or v.get("mean") or 0)
+    return workers
+
+
+def _top_table(snap) -> str:
+    """Render one ``python -m clonos_tpu_torch top`` frame from a /metrics.json dict."""
+    rows = _top_rows(snap)
+    lines = [f"{'WORKER':<18} {'SLOTS':>5} {'GROUPS':>6} {'SEALED':>6} "
+             f"{'VALID':>5} {'RING':>6} {'LAG':>5} {'FT%':>7} "
+             f"{'SPILL':>7}  RECOVERY p50 ms"]
+    for eid in sorted(rows):
+        r = rows[eid]
+        slots = "-" if r["slots"] is None else str(r["slots"])
+        ring = "-" if r["ring"] is None else f"{r['ring']:.2f}"
+        lag = "-" if r["lag"] is None else str(r["lag"])
+        ft = "-" if r["ft"] is None else f"{r['ft'] * 100:.2f}"
+        # tier residency: host-tier / disk-tier sealed epochs held
+        # (the spill.* gauges; storage/tiered.py)
+        spill = ("-" if r["spill_host"] is None and r["spill_disk"] is None
+                 else f"{r['spill_host'] or 0}/{r['spill_disk'] or 0}")
+        phases = " ".join(f"{k}={v:.0f}"
+                          for k, v in sorted(r["phases"].items()))
+        lines.append(f"{eid:<18} {slots:>5} {len(r['groups']):>6} "
+                     f"{r['sealed']:>6} {r['validated']:>5} {ring:>6} "
+                     f"{lag:>5} {ft:>7} {spill:>7}  {phases}")
+    if not rows:
+        lines.append("(no worker.* metrics yet)")
+    # Per-job section (multi-tenant dispatcher): one row per job id
+    # from the cluster.job.<jid>.* rollups remote.cluster_metrics()
+    # computes, plus the dispatcher's tenant admission gauges.
+    jobs = {}
+    for k, v in snap.items():
+        if k.startswith("cluster.job."):
+            jid, _, metric = k[len("cluster.job."):].partition(".")
+            if jid and metric:
+                jobs.setdefault(jid, {})[metric] = v
+
+    def _cell(m, name):
+        v = m.get(name)
+        return "-" if v is None else str(v)
+
+    if jobs:
+        lines.append("")
+        lines.append(f"{'JOB':<20} {'GROUPS':>6} {'SEALED':>6} "
+                     f"{'VALID':>5} {'DIV':>4} {'XONCE':>5}")
+        for jid in sorted(jobs):
+            m = jobs[jid]
+            lines.append(
+                f"{jid:<20} {_cell(m, 'groups'):>6} "
+                f"{_cell(m, 'audit.epochs-sealed'):>6} "
+                f"{_cell(m, 'audit.epochs-validated'):>5} "
+                f"{_cell(m, 'audit.divergences'):>4} "
+                f"{_cell(m, 'audit.exactly-once-ok'):>5}")
+    # Soak status row: the open-loop driver's soak.* gauges (rate vs
+    # target, backlog, SLO breaches, fault + audit tallies). Matched by
+    # suffix too, so the row survives a worker.<eid> prefix.
+    soak = {}
+    for k, v in sorted(snap.items()):
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k.startswith("soak."):
+            soak[k[len("soak."):]] = v
+        elif ".soak." in k:
+            soak.setdefault(k.rsplit(".soak.", 1)[1], v)
+    if soak:
+        lines.append("")
+        lines.append("soak: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(soak.items())))
+    # Serve status row: the read tier's serve.* gauges (read QPS, p99
+    # read latency, per-replica staleness-epochs, reroutes) — same
+    # suffix matching, so the row survives a worker.<eid> prefix on
+    # metrics that rode a HEARTBEAT into cluster_metrics().
+    serve = {}
+    for k, v in sorted(snap.items()):
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k.startswith("serve."):
+            serve[k[len("serve."):]] = v
+        elif ".serve." in k:
+            serve.setdefault(k.rsplit(".serve.", 1)[1], v)
+    if serve:
+        lines.append("")
+        lines.append("serve: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(serve.items())))
+    # Autoscale status row: the closed-loop controller's autoscale.*
+    # gauges (decision/action tallies, cooldown, target vs actual cut)
+    # — same suffix matching as soak:/serve:.
+    autoscale = {}
+    for k, v in sorted(snap.items()):
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k.startswith("autoscale."):
+            autoscale[k[len("autoscale."):]] = v
+        elif ".autoscale." in k:
+            autoscale.setdefault(k.rsplit(".autoscale.", 1)[1], v)
+    if autoscale:
+        lines.append("")
+        lines.append("autoscale: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(autoscale.items())))
+    # Health status row: the gray-failure detector's cluster.health.*
+    # gauges (sustained suspects, events, fences scored) — same suffix
+    # matching as soak:/serve:, so the row survives any prefix.
+    health = {}
+    for k, v in sorted(snap.items()):
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k.startswith("cluster.health."):
+            health[k[len("cluster.health."):]] = v
+        elif ".cluster.health." in k:
+            health.setdefault(k.rsplit(".cluster.health.", 1)[1], v)
+    if health:
+        lines.append("")
+        lines.append("health: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(health.items())))
+    # Incidents status row: the flight recorder's incident.* gauges
+    # (bundles captured, dedup/rate-limit drops, signals seen) — same
+    # suffix matching as soak:/serve:/health:.
+    incidents = {}
+    for k, v in sorted(snap.items()):
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k.startswith("incident."):
+            incidents[k[len("incident."):]] = v
+        elif ".incident." in k:
+            incidents.setdefault(k.rsplit(".incident.", 1)[1], v)
+    if incidents:
+        lines.append("")
+        lines.append("incidents: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(incidents.items())))
+    # Lineage status row: the dye plane's lineage.* gauges (records
+    # dyed, observations logged, epochs scanned) — same convention.
+    lineage = {}
+    for k, v in sorted(snap.items()):
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if k.startswith("lineage."):
+            lineage[k[len("lineage."):]] = v
+        elif ".lineage." in k:
+            lineage.setdefault(k.rsplit(".lineage.", 1)[1], v)
+    if lineage:
+        lines.append("")
+        lines.append("lineage: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(lineage.items())))
+    tenant = {k: v for k, v in sorted(snap.items())
+              if (k.startswith("tenant.")
+                  or k.startswith("dispatcher."))
+              and isinstance(v, (int, float))}
+    if tenant:
+        lines.append("")
+        lines.append("tenants: " + "  ".join(
+            f"{k}={v}" for k, v in tenant.items()))
+    cluster = {k: v for k, v in sorted(snap.items())
+               if k.startswith("cluster.")
+               and not k.startswith("cluster.job.")
+               and not k.startswith("cluster.health.")
+               and isinstance(v, (int, float))}
+    if cluster:
+        lines.append("")
+        lines.append("cluster: " + "  ".join(
+            f"{k[len('cluster.'):]}={v}" for k, v in cluster.items()))
+    # Trace-ring truncation: a nonzero dropped count means the flight
+    # recorder (and /trace) no longer holds the full run.
+    dropped = snap.get("trace.dropped-records")
+    if isinstance(dropped, (int, float)) and dropped:
+        lines.append("")
+        lines.append(f"trace: dropped-records={int(dropped)} "
+                     f"(flight-recorder ring truncated)")
+    return "\n".join(lines)
+
+
+def cmd_top(args) -> int:
+    """Live per-worker cluster view (``python -m clonos_tpu_torch top``): poll a
+    JobMaster metrics endpoint's /metrics.json and render slots, sealed/
+    validated epochs, ring occupancy, replay lag, overhead fraction, and
+    last recovery phase times per worker. ``--once`` prints a single
+    snapshot (scriptable); otherwise redraws every ``--interval`` s
+    until interrupted."""
+    import urllib.request
+
+    url = args.endpoint
+    if "://" not in url:
+        url = "http://" + url
+    url = url.rstrip("/") + "/metrics.json"
+
+    def fetch():
+        with urllib.request.urlopen(url, timeout=5.0) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+
+    if args.once:
+        print(_top_table(fetch()))
+        return 0
+    try:
+        while True:
+            frame = _top_table(fetch())
+            sys.stdout.write("\x1b[2J\x1b[H")   # clear + home
+            sys.stdout.write(f"clonos_tpu_torch top — {url} — "
+                             f"{time.strftime('%H:%M:%S')}\n\n")
+            sys.stdout.write(frame + "\n")
+            sys.stdout.flush()
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_trace(args) -> int:
+    """Dump / convert recorded trace files (``python -m clonos_tpu_torch trace``):
+    summary by default, Chrome trace_event JSON with ``--chrome`` (the
+    output is validated before writing — Perfetto-loadable or error)."""
+    from clonos_tpu_torch import obs
+
+    records = obs.load_jsonl(args.files)
+    if args.trace_id:
+        records = [r for r in records if r.get("trace") == args.trace_id]
+    if args.chrome:
+        doc = obs.to_chrome(records)
+        n = obs.validate_chrome(doc)
+        with open(args.chrome, "w") as f:
+            json.dump(doc, f)
+        print(json.dumps({"events": n, "out": args.chrome}))
+        return 0
+    summary = obs.summarize(records)
+    timeline = summary.pop("timeline")
+    print(json.dumps(summary, indent=2, default=str))
+    if args.timeline:
+        for ev in timeline:
+            dur = (f" dur={ev['dur'] * 1e3:.1f}ms"
+                   if ev.get("dur") is not None else "")
+            print(f"{ev['ts']:.6f} [{ev['service']}] "
+                  f"{ev['ph']} {ev['name']}{dur}")
+    return 0
+
+
+def cmd_timeline(args) -> int:
+    """Merge, check, filter, diff and export causal timelines
+    (``python -m clonos_tpu_torch timeline``): any number of per-process
+    timeline-*.jsonl files reconstruct ONE HLC-ordered incident
+    timeline; ``--report json`` is the causality gate (exit 1 on any
+    inversion); ``--diff`` compares two runs structurally; ``--chrome``
+    exports through the same validated trace_event path as
+    ``python -m clonos_tpu_torch trace``."""
+    from clonos_tpu_torch import obs
+
+    if args.self_check:
+        findings = obs.timeline_self_check()
+        print(json.dumps({"ok": not findings, "check": "hlc-causality",
+                          "inversions": findings}))
+        return 0 if not findings else 1
+
+    if not args.files:
+        print("timeline: at least one timeline-*.jsonl file required "
+              "(or --self-check)", file=sys.stderr)
+        return 2
+
+    def _match(rec) -> bool:
+        if args.kind and not str(rec.get("kind", "")).startswith(
+                args.kind):
+            return False
+        if args.job is not None and str(
+                rec.get("job", rec.get("service", ""))) != args.job:
+            return False
+        if args.epoch is not None and rec.get("epoch") != args.epoch:
+            return False
+        if args.worker is not None:
+            cands = [rec.get("worker"), rec.get("flat"),
+                     rec.get("subtask")]
+            targets = rec.get("targets")
+            if isinstance(targets, list):
+                cands.extend(targets)
+            if args.worker not in {str(c) for c in cands
+                                   if c is not None}:
+                return False
+        return True
+
+    # The default and --report paths STREAM: a k-way heap merge over
+    # per-file cursors (obs.iter_merged) keeps memory O(open files),
+    # not O(total events) — a long soak's timelines merge flat.
+    # --trace/--diff/--chrome mix in unsorted sources or need the full
+    # set in hand, so they still materialize.
+    if not (args.trace or args.diff is not None or args.chrome):
+        # inversions are checked over the FULL merged stream — filters
+        # narrow what is shown, never what is proven
+        inversions = obs.causality_inversions_stream(
+            obs.iter_merged(args.files))
+        if inversions:
+            # A broken receive rule IS an incident: when a flight
+            # recorder is armed in this process, the first inversion
+            # lands a bundle (Null manager: no-op).
+            from clonos_tpu_torch.obs.incident import get_incidents
+            get_incidents().signal(
+                "timeline.inversion", rule=inversions[0]["rule"],
+                detail=inversions[0]["detail"],
+                count=len(inversions))
+        if args.report == "json":
+            by_kind: dict = {}
+            total = shown_n = 0
+            for r in obs.iter_merged(args.files):
+                total += 1
+                if not _match(r):
+                    continue
+                shown_n += 1
+                k = str(r.get("kind", "?"))
+                by_kind[k] = by_kind.get(k, 0) + 1
+            print(json.dumps({"ok": not inversions, "records": total,
+                              "shown": shown_n,
+                              "by_kind": dict(sorted(by_kind.items())),
+                              "inversions": inversions}))
+            return 0 if not inversions else 1
+        for r in obs.iter_merged(args.files):
+            if not _match(r):
+                continue
+            hlc = r.get("hlc")
+            stamp = (f"{hlc[0]}.{hlc[1]}@{hlc[2]}" if hlc
+                     else f"~{r.get('ts', 0):.6f}")
+            extras = " ".join(
+                f"{k}={v}" for k, v in sorted(r.items())
+                if k not in ("kind", "ts", "hlc", "service", "pid"))
+            print(f"{stamp:<40} [{r.get('service')}] "
+                  f"{r.get('kind')} {extras}".rstrip())
+        if inversions:
+            print(f"\nCAUSALITY INVERSIONS: {len(inversions)}",
+                  file=sys.stderr)
+            for f in inversions:
+                print(f"  {f['rule']}: {f['detail']} "
+                      f"(verb={f.get('verb')})", file=sys.stderr)
+        return 0 if not inversions else 1
+
+    records = obs.read_timeline(args.files)
+    if args.trace:
+        records = records + obs.from_trace_records(
+            obs.load_jsonl(args.trace))
+    # inversions are checked over the FULL merged set — filters narrow
+    # what is shown, never what is proven
+    inversions = obs.causality_inversions(records)
+    merged = obs.merge_records(records)
+    shown = [r for r in merged if _match(r)]
+
+    if args.diff is not None:
+        other = obs.read_timeline(args.diff)
+        findings = obs.diff_timelines(shown,
+                                      [r for r in obs.merge_records(other)
+                                       if _match(r)])
+        if args.report == "json":
+            print(json.dumps({"match": not findings,
+                              "only_a": sum(f["count"] for f in findings
+                                            if f["only"] == "a"),
+                              "only_b": sum(f["count"] for f in findings
+                                            if f["only"] == "b")}))
+        else:
+            for f in findings:
+                print(f"only in {'A' if f['only'] == 'a' else 'B'} "
+                      f"(x{f['count']}): "
+                      f"{json.dumps(f['record'], sort_keys=True)}")
+            print(f"{'match' if not findings else 'DIVERGED'}: "
+                  f"{len(findings)} differing record shapes")
+        return 0 if not findings else 1
+
+    if args.chrome:
+        doc = obs.to_chrome(obs.to_trace_records(shown))
+        n = obs.validate_chrome(doc)
+        with open(args.chrome, "w") as f:
+            json.dump(doc, f)
+        print(json.dumps({"events": n, "out": args.chrome}))
+        return 0
+
+    if args.report == "json":
+        by_kind: dict = {}
+        for r in shown:
+            k = str(r.get("kind", "?"))
+            by_kind[k] = by_kind.get(k, 0) + 1
+        print(json.dumps({"ok": not inversions, "records": len(merged),
+                          "shown": len(shown),
+                          "by_kind": dict(sorted(by_kind.items())),
+                          "inversions": inversions}))
+        return 0 if not inversions else 1
+
+    for r in shown:
+        hlc = r.get("hlc")
+        stamp = (f"{hlc[0]}.{hlc[1]}@{hlc[2]}" if hlc
+                 else f"~{r.get('ts', 0):.6f}")
+        extras = " ".join(
+            f"{k}={v}" for k, v in sorted(r.items())
+            if k not in ("kind", "ts", "hlc", "service", "pid"))
+        print(f"{stamp:<40} [{r.get('service')}] "
+              f"{r.get('kind')} {extras}".rstrip())
+    if inversions:
+        print(f"\nCAUSALITY INVERSIONS: {len(inversions)}",
+              file=sys.stderr)
+        for f in inversions:
+            print(f"  {f['rule']}: {f['detail']} "
+                  f"(verb={f.get('verb')})", file=sys.stderr)
+    return 0 if not inversions else 1
+
+
+def cmd_incident(args) -> int:
+    """Incident forensics (``python -m clonos_tpu_torch incident``): list, dump and
+    root-cause-localize the flight-recorder bundles an IncidentManager
+    landed under ``<dir>/incidents/``. ``explain`` runs the pure
+    deterministic analyzer (obs/rootcause.py) — same bundle, same
+    bytes, in any process; ``--report json`` prints the canonical
+    one-line report and exits 0 (localized) / 1 (could not localize).
+    ``--self-check`` is the conftest gate: synthetic bundles through
+    the full pipeline, byte-identity enforced."""
+    from clonos_tpu_torch.obs import incident as inc
+    from clonos_tpu_torch.obs import rootcause as rc
+
+    if args.self_check:
+        findings = inc.incident_self_check()
+        print(json.dumps({"ok": not findings, "check": "incident-forensics",
+                          "schema": inc.bundle_schema_fingerprint(),
+                          "findings": findings}))
+        return 0 if not findings else 1
+
+    if args.action is None:
+        print("incident: an action (list|show|explain) or --self-check "
+              "is required", file=sys.stderr)
+        return 2
+
+    bdir = os.path.join(args.dir, "incidents")
+    if os.path.isdir(args.dir) and os.path.basename(
+            os.path.normpath(args.dir)) == "incidents":
+        bdir = args.dir            # already pointed at the bundle dir
+    try:
+        names = sorted(n for n in os.listdir(bdir)
+                       if n.startswith("incident-")
+                       and n.endswith(".json"))
+    except OSError:
+        names = []
+    paths = [os.path.join(bdir, n) for n in names]
+
+    if args.action == "list":
+        if not paths:
+            print(f"no incident bundles under {bdir}")
+            return 0
+        print(f"{'seq':>4}  {'kind':<20} {'epoch':>5}  "
+              f"{'fingerprint':<16} file")
+        for path in paths:
+            try:
+                b = inc.load_bundle(path)
+            except (OSError, ValueError):
+                print(f"  ??  {'<unreadable>':<20} {'':>5}  {'':<16} "
+                      f"{os.path.basename(path)}")
+                continue
+            info = b.get("bundle", {})
+            trig = b.get("trigger", {})
+            ep = trig.get("epoch")
+            print(f"{info.get('seq', 0):>4}  "
+                  f"{trig.get('kind', '?'):<20} "
+                  f"{'-' if ep is None else ep:>5}  "
+                  f"{info.get('fingerprint', '?'):<16} "
+                  f"{os.path.basename(path)}")
+        return 0
+
+    # show/explain take a bundle: a path, a seq number, or a substring
+    def _resolve(target):
+        if target is None:
+            return paths[-1] if paths else None   # newest
+        if os.path.isfile(target):
+            return target
+        if target.isdigit():
+            want = f"incident-{int(target):04d}-"
+            for path in paths:
+                if os.path.basename(path).startswith(want):
+                    return path
+        for path in paths:
+            if target in os.path.basename(path):
+                return path
+        return None
+
+    path = _resolve(args.bundle)
+    if path is None:
+        print(f"incident: no bundle matching "
+              f"{args.bundle!r} under {bdir}", file=sys.stderr)
+        return 2
+    try:
+        bundle = inc.load_bundle(path)
+    except (OSError, ValueError) as e:
+        print(f"incident: cannot read {path}: {e}", file=sys.stderr)
+        return 1
+
+    if args.action == "show":
+        print(json.dumps(bundle, indent=2, sort_keys=True))
+        return 0
+
+    report = rc.analyze_bundle(bundle)
+    ok = str(report.get("verdict", "")).startswith("localized")
+    if args.report == "json":
+        sys.stdout.write(rc.render_report(report))
+        return 0 if ok else 1
+    print(f"bundle: {path}")
+    print(rc.format_report(report))
+    return 0 if ok else 1
+
+
+def cmd_lineage(args) -> int:
+    """Record-level lineage (``python -m clonos_tpu_torch lineage``): reconstruct dyed
+    records' causal paths from any number of per-process
+    ``lineage-*.jsonl`` observation files (source offset → every
+    vertex/step → sink part or serve read, with the ORDER/TIMESTAMP/RNG
+    determinant rows that influenced them). The reconstructor is pure
+    and order-free, so any process renders the same bytes
+    (obs/lineage.render_trace — the rootcause convention).
+    ``--report json`` is the CI gate: the canonical one-line report,
+    exit 0 (every path reaches a terminus) / 1 (broken paths);
+    ``--key`` traces one record; ``--chrome`` exports the paths through
+    the same validated trace_event writer as ``python -m clonos_tpu_torch trace``;
+    ``--self-check`` is the conftest gate (synthetic observations
+    through the full join, byte-identity enforced)."""
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.obs import lineage as lin
+
+    if args.self_check:
+        findings = lin.lineage_self_check()
+        print(json.dumps({"ok": not findings, "check": "record-lineage",
+                          "schema": lin.lineage_schema_fingerprint(),
+                          "findings": findings}))
+        return 0 if not findings else 1
+
+    if not args.files:
+        print("lineage: at least one lineage-*.jsonl file required "
+              "(or --self-check)", file=sys.stderr)
+        return 2
+    try:
+        observations = lin.read_observations(args.files)
+    except (OSError, ValueError) as e:
+        print(f"lineage: {e}", file=sys.stderr)
+        return 1
+
+    if args.key is not None:
+        report = lin.trace_key(observations, args.key)
+        if args.report == "json":
+            sys.stdout.write(lin.render_trace(report))
+            return 0 if report["ok"] else 1
+        path = report["path"]
+        if path is None:
+            print(f"lineage: key {args.key} was never dyed/observed",
+                  file=sys.stderr)
+            return 1
+        full = lin.reconstruct(observations)
+        full["keys"] = {str(args.key): path}
+        print(lin.format_trace(dict(full, ok=report["ok"],
+                                    broken_keys=path["broken"])),
+              end="")
+        return 0 if report["ok"] else 1
+
+    report = lin.reconstruct(observations)
+    if args.chrome:
+        doc = obs.to_chrome(lin.to_trace_records(report))
+        n = obs.validate_chrome(doc)
+        with open(args.chrome, "w") as f:
+            json.dump(doc, f)
+        print(json.dumps({"events": n, "out": args.chrome}))
+        return 0
+    if args.report == "json":
+        sys.stdout.write(lin.render_trace(report))
+        return 0 if report["ok"] else 1
+    print(lin.format_trace(report), end="")
+    return 0 if report["ok"] else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="clonos_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -393,6 +1178,9 @@ def main(argv=None) -> int:
     pr.add_argument("--trace-dir", default=None,
                     help="record trace spans to trace-run.jsonl here "
                          "(off by default)")
+    pr.add_argument("--timeline-dir", default=None,
+                    help="record HLC-stamped causal events to "
+                         "timeline-run.jsonl here (off by default)")
     _add_profile_args(pr)
     _add_device_arg(pr)
     pr.set_defaults(fn=cmd_run)
@@ -429,6 +1217,21 @@ def main(argv=None) -> int:
     pw.add_argument("--trace-dir", default=None,
                     help="record trace spans to "
                          "trace-<executor-id>.jsonl here")
+    pw.add_argument("--timeline-dir", default=None,
+                    help="record HLC-stamped causal events to "
+                         "timeline-<executor-id>.jsonl here")
+    pw.add_argument("--lineage-dir", default=None,
+                    help="dye records and write their lineage "
+                         "observations to lineage-<executor-id>.jsonl "
+                         "here (off by default)")
+    pw.add_argument("--sink-dir", default=None,
+                    help="back each transactional sink vertex V with "
+                         "durable part files under <dir>/v<V>")
+    pw.add_argument("--logical-time", action="store_true",
+                    help="stamp records from the step count instead of "
+                         "the wall clock, so the job's output is a "
+                         "function of --seed (a standby rebuilds it with "
+                         "logical_time=True)")
     pw.add_argument("--profile", action="store_true",
                     help="attribute fault-tolerance overhead per section "
                          "(overhead.* metrics; off by default)")
@@ -465,6 +1268,11 @@ def main(argv=None) -> int:
                          "trace-<executor-id>.jsonl here; DEPLOY "
                          "headers make the spans join the JobMaster's "
                          "trace id (off by default)")
+    ps.add_argument("--timeline-dir", default=None,
+                    help="record HLC-stamped causal events to "
+                         "timeline-<executor-id>.jsonl here; merges "
+                         "with the JobMaster's through `timeline` (off "
+                         "by default)")
     _add_profile_args(ps)
     _add_device_arg(ps)
     ps.set_defaults(fn=cmd_slotworker)
@@ -511,6 +1319,9 @@ def main(argv=None) -> int:
     pc.add_argument("--trace-dir", default=None,
                     help="per-job trace files "
                          "(trace-jm.<job-id>.jsonl) land here")
+    pc.add_argument("--timeline-dir", default=None,
+                    help="record HLC-stamped causal events to "
+                         "timeline-dispatcher.jsonl here")
     _add_profile_args(pc)
     _add_device_arg(pc)
     pc.set_defaults(fn=cmd_dispatcher)
@@ -547,6 +1358,142 @@ def main(argv=None) -> int:
     po.add_argument("--cancel", default=None, metavar="JOB_ID",
                     help="cancel this job instead of listing")
     po.set_defaults(fn=cmd_jobs)
+
+    pt = sub.add_parser("trace", help="summarize or convert recorded "
+                                      "trace JSON-lines files")
+    pt.add_argument("files", nargs="+",
+                    help="trace-*.jsonl files (a run's set of "
+                         "per-process files reconstructs one timeline)")
+    pt.add_argument("--chrome", default=None, metavar="OUT",
+                    help="write Chrome trace_event JSON (load in "
+                         "Perfetto / about:tracing)")
+    pt.add_argument("--trace-id", default=None,
+                    help="keep only records of this trace id")
+    pt.add_argument("--timeline", action="store_true",
+                    help="also print the dominant trace's ordered "
+                         "event timeline")
+    pt.set_defaults(fn=cmd_trace)
+
+    pm = sub.add_parser("timeline",
+                        help="merge, check and export causal timelines "
+                             "(HLC-ordered, cross-process)")
+    pm.add_argument("files", nargs="*",
+                    help="timeline-*.jsonl files (each process writes "
+                         "one; together they reconstruct ONE causally-"
+                         "ordered incident timeline)")
+    pm.add_argument("--trace", action="append", default=[],
+                    metavar="FILE",
+                    help="also merge tracer trace-*.jsonl files "
+                         "(wall-clock ordered within their process)")
+    pm.add_argument("--kind", default=None,
+                    help="show only records whose kind starts with "
+                         "this (e.g. msg., epoch.seal, health.)")
+    pm.add_argument("--job", default=None,
+                    help="show only records of this job / service")
+    pm.add_argument("--worker", default=None,
+                    help="show only records naming this worker / "
+                         "flat subtask")
+    pm.add_argument("--epoch", type=int, default=None,
+                    help="show only records of this epoch")
+    pm.add_argument("--diff", default=None, metavar="FILE",
+                    help="second run's timeline file(s); structural "
+                         "record diff (volatile fields ignored), "
+                         "exit 1 on divergence")
+    pm.add_argument("--chrome", default=None, metavar="OUT",
+                    help="write Chrome trace_event JSON of the merged "
+                         "timeline (validated; load in Perfetto)")
+    pm.add_argument("--report", choices=["json"], default=None,
+                    help="machine-readable summary for CI: one JSON "
+                         "line {ok, records, by_kind, inversions}; "
+                         "exit 0 iff zero causality inversions")
+    pm.add_argument("--self-check", action="store_true",
+                    help="run the deterministic in-memory HLC "
+                         "causality self-check instead of reading "
+                         "files (the conftest gate)")
+    pm.set_defaults(fn=cmd_timeline)
+
+    pn = sub.add_parser("incident",
+                        help="list / show / root-cause-explain the "
+                             "flight-recorder bundles an incident "
+                             "manager landed")
+    pn.add_argument("action", nargs="?",
+                    choices=["list", "show", "explain"],
+                    help="list bundles, dump one, or run the "
+                         "deterministic root-cause analyzer on one")
+    pn.add_argument("bundle", nargs="?", default=None,
+                    help="bundle selector for show/explain: a path, a "
+                         "seq number, or a filename substring "
+                         "(default: the newest bundle)")
+    pn.add_argument("--dir", default=".",
+                    help="run workdir holding incidents/ (or the "
+                         "incidents/ dir itself); default cwd")
+    pn.add_argument("--report", choices=["json"], default=None,
+                    help="explain: one canonical JSON line (byte-"
+                         "identical across processes); exit 0 "
+                         "localized / 1 not")
+    pn.add_argument("--self-check", action="store_true",
+                    help="run the deterministic forensics self-check "
+                         "on synthetic bundles (no files); exit 0/1")
+    pn.set_defaults(fn=cmd_incident)
+
+    pg = sub.add_parser("lineage",
+                        help="reconstruct dyed records' end-to-end "
+                             "causal paths from lineage-*.jsonl "
+                             "observation files")
+    pg.add_argument("files", nargs="*",
+                    help="per-process lineage-*.jsonl files (any "
+                         "subset joins; torn tails from a SIGKILLed "
+                         "writer are tolerated)")
+    pg.add_argument("--key", type=int, default=None, metavar="K",
+                    help="trace one record key end to end; exit 1 if "
+                         "its path is broken or it was never dyed")
+    pg.add_argument("--report", choices=["json"], default=None,
+                    help="one canonical JSON line (byte-identical "
+                         "across processes); exit 0 when every dyed "
+                         "path reaches a terminus / 1 on broken paths")
+    pg.add_argument("--chrome", default=None, metavar="OUT",
+                    help="export the paths as a validated Chrome "
+                         "trace_event file (chrome://tracing, "
+                         "Perfetto)")
+    pg.add_argument("--self-check", action="store_true",
+                    help="run the deterministic lineage self-check on "
+                         "synthetic observations (no files); exit 0/1")
+    pg.set_defaults(fn=cmd_lineage)
+
+    pa = sub.add_parser("audit", help="print or diff a job's epoch "
+                                      "audit ledger")
+    pa.add_argument("dir", help="checkpoint dir (or slot-pool "
+                                "checkpoint root with g*/ subdirs, or a "
+                                "ledger.jsonl file)")
+    pa.add_argument("--diff", default=None, metavar="DIR",
+                    help="second run's checkpoint dir; exit 1 naming "
+                         "the first diverging epoch and channel per "
+                         "group (layout-aware: epochs sealed under "
+                         "different cuts of one job compare via the "
+                         "key-group directory)")
+    pa.add_argument("--job", default=None, metavar="ID",
+                    help="select one job's ledgers under a dispatcher "
+                         "root (<dir>/<job-id>/g*/ledger.jsonl); "
+                         "without it a --diff over a multi-job root "
+                         "exits 2 listing the available job ids")
+    pa.add_argument("--json", action="store_true",
+                    help="dump raw ledger entries as JSON")
+    pa.add_argument("--report", choices=["json"], default=None,
+                    help="machine-readable summary for CI: one JSON "
+                         "line {match, groups, problems}; exit code "
+                         "stays 0 on match / 1 on divergence")
+    pa.set_defaults(fn=cmd_audit)
+
+    pp = sub.add_parser("top", help="live per-worker cluster view from "
+                                    "a JobMaster metrics endpoint")
+    pp.add_argument("endpoint",
+                    help="metrics endpoint, host:port or http://... "
+                         "(the server started with --metrics-port)")
+    pp.add_argument("--once", action="store_true",
+                    help="print one snapshot and exit (scriptable)")
+    pp.add_argument("--interval", type=float, default=2.0,
+                    help="redraw period in live mode (seconds)")
+    pp.set_defaults(fn=cmd_top)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -28,6 +28,28 @@ def build_job():
     return env.build()
 
 
+#: :func:`build_txn_job`'s window: under logical time (1 ms a step) it
+#: fires every 16 steps, so a few epochs already commit records
+TXN_WINDOW_MS = 16
+
+
+def build_txn_job():
+    """:func:`build_job` with an exactly-once sink: the window counts go
+    to a transactional sink (``sink(transactional=True)``), whose epochs
+    commit with their checkpoints (back it with part files through
+    ``ClusterRunner.attach_file_sink``, or the worker's ``--sink-dir``).
+    Its windows are ``TXN_WINDOW_MS`` long."""
+    env = StreamEnvironment(name="socket-window-wordcount",
+                            num_key_groups=64)
+    (env.synthetic_source(vocab=VOCAB, batch_size=64, parallelism=4,
+                          name="words")
+        .key_by()
+        .window_count(num_keys=VOCAB, window_size=TXN_WINDOW_MS,
+                      name="window")
+        .sink(name="print", transactional=True))
+    return env.build()
+
+
 def build_socket_job(host: str = "localhost", port: int = 9999):
     """The literal socket variant: lines ``key[:value]`` over TCP, read by
     a :class:`~clonos_tpu_torch.api.feeds.SocketFeedReader` registered on

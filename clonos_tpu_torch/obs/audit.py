@@ -1,8 +1,9 @@
 """Exactly-once auditing: per-epoch digest seal + process-global switch.
 
-Port of ``clonos_tpu/obs/audit.py`` (the auditor, the digest extraction
-and the global switch; mapping ledgers across differently partitioned
-runs is not ported yet). A zero-overhead :class:`NullAuditor` is the
+Port of ``clonos_tpu/obs/audit.py``: the auditor, the digest extraction,
+the global switch and the ledger diff that maps two differently
+partitioned runs onto each other (:func:`diff_ledgers_cross`; the
+rescale protocol that seals such ledgers is not ported yet). A zero-overhead :class:`NullAuditor` is the
 default (``enabled`` is a class attribute, so an audit-off fence pays one
 attribute load and no device read); :func:`configure_audit` installs a
 live :class:`Auditor`.
@@ -152,6 +153,145 @@ def digest_epoch_window(epoch: int, window: dict,
             dg.fold(f"ringsum/v{vid}", csum.to_bytes(8, "little"),
                     count=total)
     return dg
+
+
+# --- cross-partition ledger mapping ------------------------------------------
+
+
+def key_group_directory(old_parallelism: int, new_parallelism: int,
+                        num_key_groups: int
+                        ) -> tuple:
+    """The old↔new group directory of a re-cut: for every key group,
+    ``(kg, old_subtask, new_subtask)`` under the reference range
+    assignment (``kg * parallelism // num_key_groups`` —
+    parallel/routing.subtask_for_key_group). The reference's
+    ``ClusterRunner.rescale_live`` walks it to migrate ownership, and
+    :func:`diff_ledgers_cross` uses the same assignment to know two
+    differently-cut ledgers describe one job."""
+    old_p, new_p, g = (int(old_parallelism), int(new_parallelism),
+                       int(num_key_groups))
+    if min(old_p, new_p, g) < 1:
+        raise ValueError(
+            f"key_group_directory: positive sizes required, got "
+            f"old={old_p} new={new_p} groups={g}")
+    return tuple((kg, (kg * old_p) // g, (kg * new_p) // g)
+                 for kg in range(g))
+
+
+def moved_key_groups(directory) -> tuple:
+    """Key groups whose owner changes across the re-cut."""
+    return tuple(kg for kg, old_s, new_s in directory if old_s != new_s)
+
+
+def channel_directory(layout_a, layout_b) -> Dict[int, dict]:
+    """Map two partition layouts of the SAME topology onto each other:
+    ``{vertex_id: {"parallelism": (pa, pb), "log_flats": (range_a,
+    range_b)}}`` where ``log_flats`` are the ``log/<flat>`` channel id
+    ranges each side's vertex occupies in the stacked-log layout
+    (JobGraph.subtask_base). Raises if the layouts disagree on the
+    vertex set — that is a different job, not a re-cut."""
+    la = {int(v): int(p) for v, p in layout_a}
+    lb = {int(v): int(p) for v, p in layout_b}
+    if sorted(la) != sorted(lb):
+        raise ValueError(
+            f"channel_directory: vertex sets differ "
+            f"({sorted(la)} vs {sorted(lb)}) — not two cuts of one job")
+    out: Dict[int, dict] = {}
+    base_a = base_b = 0
+    for vid in sorted(la):
+        pa, pb = la[vid], lb[vid]
+        out[vid] = {
+            "parallelism": (pa, pb),
+            "log_flats": (range(base_a, base_a + pa),
+                          range(base_b, base_b + pb)),
+        }
+        base_a += pa
+        base_b += pb
+    return out
+
+
+def _diff_entry_mapped(ea: dict, eb: dict) -> List[str]:
+    """Layout-invariant comparison of two ledger entries sealed under
+    DIFFERENT cuts: per-vertex ring record counts and ``ringsum``
+    content fingerprints must match exactly (the record streams are
+    partition-independent); ``log/<flat>`` channels are structural
+    per-lane surfaces — their flat ids are checked against the stamped
+    layouts via the channel directory, their content is not comparable
+    across cuts."""
+    ep = int(ea["epoch"])
+    out: List[str] = []
+    dirmap = channel_directory(ea["layout"], eb["layout"])
+    ca = ea.get("channels") or {}
+    cb = eb.get("channels") or {}
+    for side, chans, idx in (("first", ca, 0), ("second", cb, 1)):
+        flats = {int(name[len("log/"):]) for name in chans
+                 if name.startswith("log/")}
+        legal = {f for v in dirmap.values()
+                 for f in v["log_flats"][idx]}
+        stray = sorted(flats - legal)
+        if stray:
+            out.append(
+                f"epoch {ep}: {side} ledger has log channel(s) for "
+                f"flat(s) {stray} outside its stamped layout")
+    for name in sorted(set(ca) | set(cb)):
+        if not name.startswith(("ring/", "ringsum/")):
+            continue
+        a, b = ca.get(name), cb.get(name)
+        if a is None or b is None:
+            missing = "first" if a is None else "second"
+            out.append(f"epoch {ep} channel {name}: missing from "
+                       f"{missing} ledger")
+            continue
+        if int(a["count"]) != int(b["count"]):
+            out.append(
+                f"epoch {ep} channel {name}: record count "
+                f"{b['count']} != expected {a['count']}")
+        elif name.startswith("ringsum/") and a["fp"] != b["fp"]:
+            out.append(
+                f"epoch {ep} channel {name}: content sum {b['fp']} != "
+                f"expected {a['fp']} (count matches: a record was "
+                f"lost AND another duplicated, or content changed)")
+    return out
+
+
+def diff_ledgers_cross(expected: List[dict],
+                       actual: List[dict]) -> List[str]:
+    """Ledger diff that survives a re-cut: epochs whose entries carry
+    the SAME partition layout (or none — pre-layout ledgers) compare
+    exactly (obs/digest.diff — every channel, bit for bit); epochs
+    sealed under DIFFERENT cuts of the same topology compare through
+    the group directory on the layout-invariant channels. The CLI's
+    ``audit A --diff B`` surface and the root-cause analyzer's epoch
+    bisection (obs/rootcause.py)."""
+    from clonos_tpu_torch.obs import digest as _digest
+
+    ea = {int(e["epoch"]): e for e in expected}
+    aa = {int(e["epoch"]): e for e in actual}
+    out: List[str] = []
+    for ep in sorted(set(ea) | set(aa)):
+        if ep not in aa:
+            out.append(f"epoch {ep}: missing from second ledger")
+            continue
+        if ep not in ea:
+            out.append(f"epoch {ep}: missing from first ledger")
+            continue
+        la = ea[ep].get("layout")
+        lb = aa[ep].get("layout")
+        if la == lb:
+            d = _digest.diff(_digest.EpochDigest.from_entry(ea[ep]),
+                             _digest.EpochDigest.from_entry(aa[ep]))
+            if d is not None:
+                out.append(f"epoch {ep} channel {d[0]}: {d[1]}")
+        elif la is None or lb is None:
+            out.append(
+                f"epoch {ep}: one ledger is layout-stamped and the "
+                f"other is not — cannot choose exact vs mapped diff")
+        else:
+            try:
+                out.extend(_diff_entry_mapped(ea[ep], aa[ep]))
+            except ValueError as e:
+                out.append(f"epoch {ep}: {e}")
+    return out
 
 
 # --- process-global auditor --------------------------------------------------

@@ -149,6 +149,69 @@ def adopt_profile(header: Dict[str, Any]) -> None:
         obs.configure_profile()
 
 
+# --- hlc-context convention --------------------------------------------------
+# The same shape for the causal timeline (obs/hlc.py, obs/timeline.py):
+# a cross-process control message (DEPLOY, HEARTBEAT, FETCH_EDGE,
+# DETERMINANT_REQUEST, the query and serve verbs) may carry an ``hlc``
+# field, the sender's hybrid-logical-clock stamp. The receiver folds it
+# into its own clock, so the two processes' timeline records merge into
+# one causal order whatever their wall clocks say. A disabled clock
+# attaches nothing.
+
+def attach_hlc(header: Dict[str, Any],
+               verb: Optional[str] = None) -> Dict[str, Any]:
+    """Tick the process HLC and stamp a JSON header (in place); records a
+    ``msg.send`` timeline entry carrying the same stamp (minted under the
+    timeline's lock, so each process's file stays in stamp order)."""
+    h = obs.get_hlc()
+    if h.enabled:
+        stamp = obs.get_timeline().record_stamped("msg.send", h.tick,
+                                                  verb=verb)
+        header["hlc"] = {"ts": [stamp[0], stamp[1]], "node": stamp[2]}
+    return header
+
+
+def adopt_hlc(header: Dict[str, Any],
+              verb: Optional[str] = None) -> None:
+    """Fold a received header's ``hlc`` stamp into the process clock
+    (no-op when either side has no clock); records a ``msg.recv``
+    timeline entry echoing the sender's stamp, so causality is checkable
+    per record."""
+    h = obs.get_hlc()
+    ctx = header.get("hlc")
+    if h.enabled and isinstance(ctx, dict) and "ts" in ctx:
+        sent = (int(ctx["ts"][0]), int(ctx["ts"][1]),
+                str(ctx.get("node", "?")))
+        obs.get_timeline().record_stamped(
+            "msg.recv", lambda: h.observe(sent), verb=verb,
+            sent=list(sent))
+
+
+# --- lineage-context convention ----------------------------------------------
+# The same shape for the record-lineage plane (obs/lineage.py): a
+# JobMaster with lineage on stamps its dye config (root, k, salt) on
+# DEPLOY headers, so every worker dyes the same records (the dye is a
+# pure key-hash function). A disabled plane attaches nothing.
+
+def attach_lineage(header: Dict[str, Any]) -> Dict[str, Any]:
+    """Stamp the process lineage plane's dye config on a JSON header (in
+    place)."""
+    ctx = obs.get_lineage().wire_config()
+    if ctx is not None:
+        header["lineage"] = ctx
+    return header
+
+
+def adopt_lineage(header: Dict[str, Any]) -> None:
+    """Enable process-wide lineage per a received header's ``lineage``
+    field (no-op without one, or when this process already has a plane;
+    runners built after adoption inherit it)."""
+    ctx = header.get("lineage")
+    if ctx and not obs.get_lineage().enabled:
+        obs.configure_lineage(str(ctx["root"]), k=int(ctx.get("k", 4)),
+                              salt=int(ctx.get("salt", 0)))
+
+
 class ControlServer:
     """Threaded request/response endpoint. ``handler(mtype, payload) ->
     (mtype, payload)`` runs per request on a server thread; one TCP

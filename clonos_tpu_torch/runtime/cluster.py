@@ -86,7 +86,10 @@ from clonos_tpu_torch.causal.epoch import EpochTracker
 from clonos_tpu_torch.graph.job_graph import JobGraph, PartitionType
 from clonos_tpu_torch.inflight import log as ifl
 from clonos_tpu_torch.obs import audit as _audit
+from clonos_tpu_torch.obs import incident as obs_incident
+from clonos_tpu_torch.obs import lineage as obs_lineage
 from clonos_tpu_torch.obs import profile as _prof
+from clonos_tpu_torch.obs.timeline import get_timeline
 from clonos_tpu_torch.obs.trace import configure as configure_tracer
 from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.parallel import routing
@@ -280,6 +283,7 @@ class ClusterRunner:
                  latency_marker_every: Optional[int] = None,
                  audit: Optional[bool] = None,
                  audit_on_divergence: Optional[str] = None,
+                 lineage=None,
                  overlap_recovery: bool = True,
                  overlap_epoch: bool = False,
                  incremental_checkpoints: bool = False,
@@ -408,6 +412,25 @@ class ClusterRunner:
             self.profiler.bind(g)
         g.gauge("audit.enabled", lambda: int(self.auditor.enabled))
         g.gauge("audit.last-sealed-epoch", lambda: self.auditor.last_epoch)
+        # Incident bundles: a live process IncidentManager's capture
+        # counters ride the heartbeat piggyback; the default registers
+        # nothing.
+        _inc = obs_incident.get_incidents()
+        if _inc.enabled:
+            _inc.register_gauges(self.metrics)
+        # Record lineage, bound per runner like the auditor: None
+        # inherits the process plane (configured, or adopted from a
+        # DEPLOY header); runners sharing a process pass their own plane
+        # so each writes its own file. The NullLineage default scans and
+        # registers nothing.
+        self.lineage = (lineage if lineage is not None
+                        else obs_lineage.get_lineage())
+        if self.lineage.enabled:
+            self.lineage.register_gauges(self.metrics)
+        #: vertex id -> parallelism, for the seal scan's key-group and
+        #: subtask attribution
+        self._lineage_topology = {v.vertex_id: v.parallelism
+                                  for v in job.vertices}
         # Live exactly-once health, from host mirrors (no device read):
         # how much of the in-flight rings un-truncated history holds, and
         # how many supersteps a failure now would replay.
@@ -585,9 +608,9 @@ class ClusterRunner:
 
     def attach_file_sink(self, vertex_id: int, root: str, token: int = 0):
         """Back a transactional sink with durable part files
-        (``runtime/filesink.py``): pendings persist at every seal, commits
-        are atomic renames, and stale pendings at or below ``token`` are
-        swept now."""
+        (``runtime/filesink.py``): pendings persist at every seal, and here
+        for epochs already sealed; commits are atomic renames, and stale
+        pendings at or below ``token`` are swept here."""
         from clonos_tpu_torch.runtime.filesink import FileSystemSink
         if vertex_id not in self.txn_logs:
             raise ValueError(
@@ -597,6 +620,11 @@ class ClusterRunner:
         tl.pre_committer = fs.write_pending
         tl.committer = fs.commit
         fs.sweep_pending(keep_epochs=tl.pending_epochs())
+        # Epochs sealed before the sink was attached (a standby rebuild
+        # seals its replayed epochs) persist their pendings under this
+        # token now, so their commit finds them.
+        for e in tl.sealed_epochs():
+            fs.write_pending(e, tl.pending_shards(e))
         return fs
 
     @property
@@ -745,9 +773,9 @@ class ClusterRunner:
         checkpoint trigger. ``window_fn``/``snap_fn`` say where the state
         comes from (the live carry, or the pipelined capture), so the
         digests are byte-identical either way. One window extraction
-        feeds both the audit digest and the serve feeds."""
+        feeds the audit digest, the serve feeds and the lineage scan."""
         win = (window_fn() if self.auditor.enabled or self.serve_feeds
-               else None)
+               or self.lineage.enabled else None)
         if self.auditor.enabled:
             t = _time.monotonic()
             with prof.section("digest-seal"):
@@ -765,11 +793,27 @@ class ClusterRunner:
             self.epoch_tracker.notify_epoch_sealed(closed, dg)
             self._m_audit_sealed.inc()
         self.last_sealed_epoch = max(self.last_sealed_epoch, closed)
+        tl = get_timeline()
+        if tl.enabled:
+            tl.record("epoch.seal", epoch=int(closed),
+                      audited=bool(self.auditor.enabled))
         if self.serve_feeds:
             t = _time.monotonic()
             for fn in list(self.serve_feeds):
                 fn(closed, win)
             phases["fence.serve-feed"] = (_time.monotonic() - t) * 1e3
+        # Lineage at the seal: scan the same window for dyed keys, and the
+        # epoch's sealed transaction shards for the sink termini (sealed
+        # on the driving thread before the pipelined tail starts).
+        if self.lineage.enabled and win is not None:
+            t = _time.monotonic()
+            self.lineage.observe_epoch(
+                closed, win, num_key_groups=self.job.num_key_groups,
+                topology=self._lineage_topology,
+                parts={vid: txl.pending_shards(closed)
+                       for vid, txl in self.txn_logs.items()})
+            phases["fence.lineage-observe"] = (
+                _time.monotonic() - t) * 1e3
         t = _time.monotonic()
         with prof.section("snapshot"):
             self.coordinator.trigger(closed, snap_fn(),
@@ -864,7 +908,8 @@ class ClusterRunner:
         phases: Dict[str, float] = {}
         # clonos: overlap-window-begin
         handles = ex.capture_fence(
-            with_window=self.auditor.enabled or bool(self.serve_feeds))
+            with_window=self.auditor.enabled or bool(self.serve_feeds)
+            or self.lineage.enabled)
         snap = self._stage_feed_offsets(closed, ex.lean_snapshot())
         storage = self.coordinator.storage
         if storage.wants_host:
@@ -1054,6 +1099,31 @@ class ClusterRunner:
                 overlap_finalize: Optional[bool] = None,
                 pre_patch_join: Optional[Callable[[], None]] = None
                 ) -> RecoveryReport:
+        """:meth:`_recover_impl`, which lands an incident bundle
+        (obs/incident.py) when the protocol itself fails: a recovery that
+        cannot complete is the moment its evidence (ledgers, determinant
+        windows, the timeline) is about to become unreachable. A plain
+        pass-through while the incident plane is off."""
+        try:
+            return self._recover_impl(
+                drill=drill, host_rows=host_rows,
+                overlap_finalize=overlap_finalize,
+                pre_patch_join=pre_patch_join)
+        except Exception as e:
+            obs_incident.get_incidents().signal(
+                "recovery.failure",
+                epoch=int(getattr(self.auditor, "last_epoch", -1)),
+                error=f"{type(e).__name__}: {str(e)[:200]}",
+                drill=bool(drill),
+                failed=sorted(self.failed))
+            raise
+
+    def _recover_impl(self, drill: bool = False,
+                      host_rows: Optional[Dict[int, Tuple[np.ndarray, int]]]
+                      = None,
+                      overlap_finalize: Optional[bool] = None,
+                      pre_patch_join: Optional[Callable[[], None]] = None
+                      ) -> RecoveryReport:
         """Run the causal-recovery protocol for all failed subtasks, in
         topological order.
 
@@ -1712,17 +1782,44 @@ class ClusterRunner:
             raise rec.RecoveryError(
                 "bootstrap_standby: no durable completed non-ignored "
                 f"checkpoint in {checkpoint_dir}")
-        ckpt = storage.read(max(ids))
-        runner.standbys.on_completed_checkpoint(ckpt)
-        runner.coordinator.mark_ignored(ignored)
-        spe = ex.steps_per_epoch
-        from_epoch = ckpt.checkpoint_id + 1
         L = job.total_subtasks()
         missing = [f for f in range(L) if f not in mirror_rows]
         if missing:
             raise rec.RecoveryError(
                 f"bootstrap_standby: mirror rows missing for subtasks "
                 f"{missing}")
+        # The mirrored rows replay on top of the checkpoint whose log
+        # heads they start at. A mirror synced before the owner's refresh
+        # still starts at an older checkpoint's heads than the newest
+        # completed one (the coordinator retains two), and replaying it
+        # onto the newer one would land on a wrong state.
+        starts = [int(mirror_rows[f][1]) for f in range(L)]
+        ckpt, candidates = None, []
+        for cid in sorted(ids, reverse=True):
+            cand = storage.read(cid)
+            heads = [int(h) for h in np.asarray(cand.carry.log_heads)]
+            if heads == starts:
+                ckpt = cand
+                break
+            candidates.append(f"{cid}: {heads}")
+        if ckpt is None:
+            err = rec.RecoveryError(
+                f"bootstrap_standby: no completed checkpoint's log heads "
+                f"equal the mirror starts {starts} (candidates "
+                f"{'; '.join(candidates)})")
+            obs_incident.get_incidents().signal(
+                "recovery.failure", error=str(err)[:200],
+                source="bootstrap_standby")
+            raise err
+        runner.standbys.on_completed_checkpoint(ckpt)
+        runner.coordinator.mark_ignored(ignored)
+        # Completing checkpoint max(ids) committed every epoch up to it:
+        # restored from an older one, the replay and the live rerun of
+        # those epochs must not commit their sink records a second time.
+        for tl in runner.txn_logs.values():
+            tl.mark_committed_through(max(ids))
+        spe = ex.steps_per_epoch
+        from_epoch = ckpt.checkpoint_id + 1
         # The fence's absolute superstep: ring heads count supersteps; a
         # job without rings pins it by the checkpoint cadence.
         if ckpt.carry.ring_heads:
@@ -1861,6 +1958,13 @@ class ClusterRunner:
             report = runner.recover(host_rows=mirror_rows,
                                     pre_patch_join=_join_ledgers)
             t_sub = _time.monotonic()   # recover() attributes its own time
+            # The dead runner sealed every replayed epoch at its fence:
+            # their transactions are sealed here too, so they commit with
+            # the next completed checkpoint (a file sink attached after
+            # this persists their pendings again). Epochs it already
+            # committed seal nothing (mark_committed_through).
+            for j in range(k):
+                runner._seal_txns(from_epoch + j)
 
             # The depth-1 edge buffers (the batch produced at step
             # fence+n-1, consumed by the next live step) are outside the

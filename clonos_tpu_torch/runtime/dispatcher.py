@@ -42,9 +42,9 @@ therefore driving-thread-only; admission decisions use the accounting
 view (live advertised slots minus held) instead of touching the pool.
 
 Every job's scheduler keeps its mirrors on the dispatcher's ``device``
-(default the card; raises without one). Not ported here: the
-``job.failure`` incident signal (ROADMAP Queue 1 item 6; a no-op while
-the incident plane is off).
+(default the card; raises without one). A job that fails lands a
+``job.failure`` incident bundle (obs/incident.py; a no-op while the
+incident plane is off).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ import collections
 
 from clonos_tpu_torch import device as _device
 from clonos_tpu_torch.obs import NullTracer, Tracer, get_tracer
+from clonos_tpu_torch.obs.incident import get_incidents
 from clonos_tpu_torch.parallel import transport as tp
 from clonos_tpu_torch.runtime import remote as rm
 from clonos_tpu_torch.runtime.leader import (FileLeaderElection,
@@ -471,9 +472,13 @@ class Dispatcher:
             rec.state = state
             if error:
                 rec.error = error
-        # The reference signals a "job.failure" incident here when the
-        # state is FAILED (a no-op while the incident plane is off); the
-        # incident plane waits for ROADMAP Queue 1 item 6.
+        if state == "FAILED":
+            # A terminal job failure is an incident trigger: the bundle
+            # lands before the job's scheduler and tracer are gone (a
+            # no-op while the incident plane is off).
+            get_incidents().signal(
+                "job.failure", job_id=rec.job_id, tenant=rec.tenant,
+                error=(error or "")[:200])
 
     def _deploy_ready(self) -> bool:
         with self._lock:

@@ -482,6 +482,19 @@ def _slice_ring_window(el: ifl.EdgeLogState, lo: int, hi: int, n: int
     return out[:, :int(n)], m.sum(dim=(1, 2), dtype=torch.int32)
 
 
+def iter_ring_steps(window: Dict[str, Any]):
+    """Deterministic scan order over one ``epoch_window`` dict's ring
+    section: ``(vertex_id, step_seq, keys, values, timestamps)`` tuples,
+    vertices ascending, steps in epoch-relative order, records in the
+    (lane, slot) order :func:`_slice_ring_window` compacted them in. The
+    lineage plane's dye scan (obs/lineage.py) reads windows through
+    this, so the window's shape stays owned here."""
+    rings = window.get("rings", {}) or {}
+    for vid in sorted(rings, key=int):
+        for seq, (keys, values, stamps) in enumerate(rings[vid]):
+            yield int(vid), seq, keys, values, stamps
+
+
 def canonical_carry(carry: JobCarry) -> JobCarry:
     """The carry with all logically-dead storage zeroed — the equality
     domain of the bit-identical-recovery property."""

@@ -82,12 +82,18 @@ def _call_with_retry(client: tp.ControlClient, mtype: int,
             _time.sleep(min(backoff_s * (2 ** (attempts - 1)), 1.0))
 
 
+def _verb(mtype: int) -> str:
+    return "QUERY_STATE" if mtype == tp.QUERY_STATE else "QUERY_BATCH"
+
+
 def _client_call(client: tp.ControlClient, mtype: int, payload: dict,
                  address, timeout_s: float, retries: int,
                  backoff_s: float) -> dict:
     """Request/response with the typed error mapping shared by both
     clients: a rejection raises :class:`QueryRejectedError`, any other
-    ERROR frame ``KeyError``."""
+    ERROR frame ``KeyError``. Reads carry the process HLC stamp."""
+    if mtype in (tp.QUERY_STATE, tp.QUERY_BATCH):
+        tp.attach_hlc(payload, verb=_verb(mtype))
     rt, resp = _call_with_retry(client, mtype, tp.pack_json(payload),
                                 address, timeout_s, retries, backoff_s)
     out = tp.unpack_json(resp)
@@ -171,6 +177,7 @@ class QueryableStateEndpoint:
                 {"epoch": epoch, "staleness_epochs": 0,
                  "role": "owner", "reads": self.reads})
         req = tp.unpack_json(payload)
+        tp.adopt_hlc(req, verb=_verb(mtype))
         got = self._resolve(req)
         if len(got) == 2:
             return got

@@ -74,6 +74,7 @@ class JobMasterServer:
             return tp.OK, tp.pack_json({"registered": True})
         if mtype == tp.HEARTBEAT:
             info = tp.unpack_json(payload)
+            tp.adopt_hlc(info, verb="HEARTBEAT")
             with self._lock:
                 self._last[info["executor_id"]] = time.monotonic()
                 metrics = info.get("metrics")
@@ -194,6 +195,14 @@ class JobMasterServer:
                     int(rec["div"] == 0)
         return out
 
+    def heartbeat_ages_ms(self) -> Dict[str, float]:
+        """Milliseconds since each registered executor's last beat: the
+        heartbeat evidence a gray-failure snapshot (obs/detect.py) is
+        built from."""
+        now = time.monotonic()
+        with self._lock:
+            return {e: (now - t) * 1e3 for e, t in self._last.items()}
+
     def expired(self) -> List[str]:
         now = time.monotonic()
         with self._lock:
@@ -239,6 +248,7 @@ class TaskExecutorClient:
                         msg.update(self._payload_fn() or {})
                     except Exception:
                         pass       # the beat matters more than the extras
+                tp.attach_hlc(msg, verb="HEARTBEAT")
                 self._client.call_json(tp.HEARTBEAT, msg)
                 self.missed_beats = 0
             except (OSError, RuntimeError):
@@ -350,6 +360,7 @@ class HostLogEndpoint:
         known = req.get("known_heads", {})
         encoding = req.get("encoding", "flat")
         tp.adopt_trace(req)
+        tp.adopt_hlc(req, verb="DETERMINANT_REQUEST")
         tr = get_tracer()
         deltas = []
         floors: Dict[int, int] = {}
@@ -532,8 +543,10 @@ class RemoteReplicaMirror:
         the same truncation: it rebases to the delta's start and absorbs
         from there."""
         known = {str(f): self.head(f) for f in self.flats}
-        req = tp.attach_trace({"flats": self.flats, "known_heads": known,
-                               "encoding": self.encoding})
+        req = tp.attach_hlc(
+            tp.attach_trace({"flats": self.flats, "known_heads": known,
+                             "encoding": self.encoding}),
+            verb="DETERMINANT_REQUEST")
         rt, resp = self._client.call(tp.DETERMINANT_REQUEST,
                                      tp.pack_json(req))
         if rt == tp.ERROR:

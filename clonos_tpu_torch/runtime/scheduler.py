@@ -43,12 +43,12 @@ rebuild) on its own device, and names it in its REGISTER info; the
 scheduler keeps its mirrors on its own device. Both default to the card
 and raise without one.
 
-Not ported here: ``RescaleCoordinator`` / ``RescaleProtocolError`` (with
-``rescale_live``, ROADMAP Queue 1 item 7), and the HLC and lineage
-planes' wire stamps (``attach_hlc`` / ``adopt_hlc``, ``attach_lineage``
-/ ``adopt_lineage``, item 6); with those planes off the reference
-attaches nothing, so the DEPLOY and FETCH_EDGE headers are the
-reference's.
+The HLC and lineage planes ride the DEPLOY and FETCH_EDGE headers as in
+the reference (``attach_hlc`` / ``adopt_hlc``, ``attach_lineage`` /
+``adopt_lineage``); with those planes off nothing is attached, so the
+headers are the reference's either way. Not ported here:
+``RescaleCoordinator`` / ``RescaleProtocolError`` (with
+``rescale_live``, ROADMAP Queue 1 item 7).
 
 Known limits (as in the reference): a rebuilt slice re-exports only what
 its replayed rings retain; slices co-hosted on one worker step
@@ -335,7 +335,7 @@ class EdgeExportServer:
             return tp.ERROR, tp.pack_json({"error": f"bad mtype {mtype}"})
         req = tp.unpack_json(payload)
         tp.adopt_trace(req)
-        # (The HLC plane's adopt_hlc waits for ROADMAP Queue 1 item 6.)
+        tp.adopt_hlc(req, verb="FETCH_EDGE")
         eidx, start, count = (int(req["edge"]), int(req["start"]),
                               int(req["count"]))
         with self._lock:
@@ -406,9 +406,9 @@ class RemoteEdgeFeedReader:
             with self._lock:
                 rt, resp = self._client.call(
                     tp.FETCH_EDGE,
-                    tp.pack_json(tp.attach_trace(
+                    tp.pack_json(tp.attach_hlc(tp.attach_trace(
                         {"edge": self._edge, "start": start,
-                         "count": n})))
+                         "count": n}), verb="FETCH_EDGE")))
             if rt == tp.ERROR:
                 raise RuntimeError(tp.unpack_json(resp)["error"])
             hlen = int.from_bytes(resp[:4], "little")
@@ -679,13 +679,15 @@ class SliceWorker:
         group = int(tdd["group"])
         jid = str(tdd.get("job_id") or "")
         attempt = int(tdd.get("attempt", 0))
-        # Join the deploying JobMaster's trace, audit and profiling
-        # stances (each job's JobMaster runs its own tracer; the context
-        # is kept on the slice and re-adopted before every epoch). The
-        # HLC and lineage planes wait for ROADMAP Queue 1 item 6.
+        # Join the deploying JobMaster's trace, audit, profiling and
+        # lineage stances (each job's JobMaster runs its own tracer; the
+        # context is kept on the slice and re-adopted before every
+        # epoch), and fold its HLC stamp into this process's clock.
         tp.adopt_trace(tdd)
         tp.adopt_audit(tdd)
         tp.adopt_profile(tdd)
+        tp.adopt_lineage(tdd)
+        tp.adopt_hlc(tdd, verb="DEPLOY")
         tr = get_tracer()
         self._task_state(group, "DEPLOYING", job_id=jid, attempt=attempt)
         job = _load_job(tdd["job"])
@@ -1026,9 +1028,9 @@ class SlotPoolScheduler:
         ctx = self._tr().wire_context()
         if ctx is not None:
             hdr["trace"] = ctx
-        # (The HLC and lineage stamps wait for ROADMAP Queue 1 item 6;
-        # with those planes off the reference attaches nothing.)
-        tdd = tp.attach_profile(tp.attach_audit(hdr))
+        tdd = tp.attach_hlc(
+            tp.attach_lineage(tp.attach_profile(tp.attach_audit(hdr))),
+            verb="DEPLOY")
         span_kw = {"job": self.job_id} if self.job_id else {}
         t0 = time.monotonic()
         with self._tr().span("deploy", group=group, worker=worker_id,

@@ -55,12 +55,13 @@ import torch
 
 from clonos_tpu_torch import device as _device
 from clonos_tpu_torch.parallel import routing
+from clonos_tpu_torch.obs.lineage import get_lineage
 from clonos_tpu_torch.parallel import transport as tp
 from clonos_tpu_torch.runtime.query import (QueryableStateClient,
                                             QueryableStateEndpoint,
                                             QueryRejectedError,
                                             QueryTimeoutError, _client_call,
-                                            owner_subtask_np)
+                                            _verb, owner_subtask_np)
 
 #: padded gather sizes: a mixed read load sees O(log max_batch) shapes
 _MIN_BUCKET = 64
@@ -325,6 +326,7 @@ class ReplicaServeEndpoint:
         if mtype not in (tp.QUERY_STATE, tp.QUERY_BATCH):
             return tp.ERROR, tp.pack_json({"error": f"bad mtype {mtype}"})
         req = tp.unpack_json(payload)
+        tp.adopt_hlc(req, verb=_verb(mtype))
         if req["vertex"] != self.replica.vertex_id or \
                 req.get("state", "acc") != self.replica.state_name:
             return tp.ERROR, tp.pack_json(
@@ -496,8 +498,13 @@ class ServeRouter:
     latency, not exceptions."""
 
     def __init__(self, owner, replicas: Sequence, num_key_groups: int,
-                 staleness_bound: int = 2, status_ttl_s: float = 0.05):
+                 staleness_bound: int = 2, status_ttl_s: float = 0.05,
+                 lineage=None):
         self.owner = owner
+        #: lineage plane for serve-read termini (obs/lineage.py); None
+        #: resolves to the process plane per read, so a router built
+        #: before the plane was configured still records. Dyed keys only.
+        self.lineage = lineage
         self.replicas = list(replicas)
         self.num_key_groups = int(num_key_groups)
         self.staleness_bound = int(staleness_bound)
@@ -562,6 +569,9 @@ class ServeRouter:
 
     # --- reads -----------------------------------------------------------
 
+    def _lineage(self):
+        return self.lineage if self.lineage is not None else get_lineage()
+
     def query(self, vertex: int, key: int, state: str = "acc") -> dict:
         t0 = _time.monotonic()
         i = self.replica_for_group(self.key_group(key))
@@ -585,6 +595,10 @@ class ServeRouter:
         out = dict(out)
         out["replica"] = str(out.get("served_by", "owner"))
         out["rerouted"] = rerouted
+        lin = self._lineage()
+        if lin.enabled:
+            lin.observe_serve(key, epoch=int(out.get("epoch", -1)),
+                              replica=out["replica"], rerouted=rerouted)
         self.reads += 1
         self.recent_ms.append((_time.monotonic() - t0) * 1e3)
         return out
@@ -636,6 +650,12 @@ class ServeRouter:
                 served[p] = who
         for p in routed_away:
             rerouted[p] = True
+        lin = self._lineage()
+        if lin.enabled:
+            for p, k in enumerate(keys):
+                lin.observe_serve(k, epoch=int(epochs[p] or -1),
+                                  replica=str(served[p]),
+                                  rerouted=rerouted[p])
         self.reads += n
         self.recent_ms.append((_time.monotonic() - t0) * 1e3)
         return {"values": values, "epochs": epochs,
@@ -671,7 +691,8 @@ class ServeTier:
         self.router = ServeRouter(
             self.owner_client, self.clients,
             num_key_groups=runner.job.num_key_groups,
-            staleness_bound=staleness_bound)
+            staleness_bound=staleness_bound,
+            lineage=getattr(runner, "lineage", None))
         # The owner's snapshot refreshes at every fence, before
         # completion truncates.
         runner.fence_hooks.append(self._on_fence)

@@ -50,6 +50,9 @@ class TransactionLog:
         #: epoch -> block copies not yet sharded, in block order
         self._copies: Dict[int, list] = {}
         self.committed: List[Tuple[int, np.ndarray]] = []
+        #: epochs at or below this were committed by an earlier incarnation
+        #: (:meth:`mark_committed_through`): their records are dropped
+        self.committed_through = -1
         self._lock = threading.Lock()
 
     # --- pre-commit side -----------------------------------------------------
@@ -72,6 +75,8 @@ class TransactionLog:
         ``[K, P, cap]`` RecordBatch, to the epoch's pending transaction;
         they are sharded per subtask when the epoch settles."""
         with self._lock:
+            if epoch <= self.committed_through:
+                return
             self._open(epoch)
             self._copies.setdefault(epoch, []).append(copy)
 
@@ -97,6 +102,8 @@ class TransactionLog:
         shards are pre-committed."""
         self._settle(epoch)
         with self._lock:
+            if epoch <= self.committed_through:
+                return
             txn = self._pending.setdefault(epoch, _Txn(epoch))
             txn.sealed = True
             merged = self._merged_shards(txn)
@@ -130,6 +137,18 @@ class TransactionLog:
             for e, recs in done:
                 self.committer(e, recs)
 
+    def mark_committed_through(self, epoch: int) -> None:
+        """An earlier incarnation already committed every epoch up to
+        ``epoch`` (a standby restored an older checkpoint than the newest
+        completed one): drop their pending transactions, and absorb, seal
+        or rebuild nothing for them again, so no record commits twice."""
+        with self._lock:
+            self.committed_through = max(self.committed_through, epoch)
+            for e in [e for e in self._pending if e <= epoch]:
+                del self._pending[e]
+            for e in [e for e in self._copies if e <= epoch]:
+                del self._copies[e]
+
     def drop_uncommitted_shards(self, sub: int) -> List[int]:
         """Sink-subtask failure: its pending shards lived with the task
         and are lost; recovery rebuilds them from replayed outputs."""
@@ -148,6 +167,8 @@ class TransactionLog:
         persist it again if the epoch already sealed (the replayed bytes
         are bit-identical: abort and regenerate)."""
         with self._lock:
+            if epoch <= self.committed_through:
+                return
             txn = self._pending.setdefault(epoch, _Txn(epoch))
             txn.shards[sub] = [records]
             sealed = txn.sealed
@@ -173,3 +194,9 @@ class TransactionLog:
     def pending_epochs(self) -> List[int]:
         with self._lock:
             return sorted(self._pending)
+
+    def sealed_epochs(self) -> List[int]:
+        """Pending epochs already sealed (pre-committed, awaiting their
+        checkpoint's completion)."""
+        with self._lock:
+            return sorted(e for e, t in self._pending.items() if t.sealed)

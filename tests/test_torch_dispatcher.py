@@ -1,5 +1,5 @@
-"""PyTorch port, the multi-tenant dispatcher's units (mirror of 14 of the
-16 tests of the reference's ``tests/test_dispatcher.py``): fair-share
+"""PyTorch port, the multi-tenant dispatcher's units (mirror of the 16
+tests of the reference's ``tests/test_dispatcher.py``): fair-share
 admission (quotas, strict-FIFO queueing, typed rejection, slot release),
 per-job lease scoping and worker-side fencing lanes, the SUBMIT_JOB /
 JOB_STATUS / CANCEL_JOB wire surface, per-job cluster-metric rollups and
@@ -8,14 +8,18 @@ admission verdicts and observer streams over a seeded random sequence of
 requests, cancels, drains and releases, and the wire replies to one
 sequence of client calls, byte for byte. Tolerance: exact.
 
-Two reference tests wait for ROADMAP Queue 1 item 6 (the CLI's ``top``
-and ``audit`` are not ported yet):
-``test_top_table_renders_per_job_and_tenant_sections`` and
-``test_audit_job_scoped_ledgers_and_ambiguity``.
+The CLI's per-job views are held to the reference too: ``top``'s
+per-job and tenant sections render the reference's table, and ``audit
+--job`` resolves a dispatcher root's ledgers with the reference's exit
+codes and output.
 
 The two-process, multi-job SIGKILL test is
 ``tests/test_torch_multitenant.py``; everything here runs in-process.
 """
+
+import argparse
+import json
+import os
 
 import numpy as np
 import pytest
@@ -440,3 +444,95 @@ def test_slot_pool_job_scoped_keys_share_one_pool():
     assert sorted(pool.drop_worker("a")) == [("blue-002", 0),
                                              ("red-001", 0)]
     assert pool.drop_worker("a") == []
+
+
+# --- the CLI's per-job views -------------------------------------------------
+
+
+def test_top_table_renders_per_job_and_tenant_sections():
+    from clonos_tpu.cli import _top_table as jtop
+    from clonos_tpu_torch.cli import _top_rows, _top_table
+
+    snap = {
+        "worker.a.slots": 4,
+        "worker.a.job.red-001.group.0.job.wc.audit.epochs-sealed": 4,
+        "cluster.job.red-001.groups": 1,
+        "cluster.job.red-001.audit.epochs-sealed": 4,
+        "cluster.job.red-001.audit.epochs-validated": 2,
+        "cluster.job.red-001.audit.divergences": 0,
+        "cluster.job.red-001.audit.exactly-once-ok": 1,
+        "cluster.audit.exactly-once-ok": 1,
+        "tenant.red.slots-held": 1,
+        "tenant.red.quota": 2,
+        "dispatcher.queue-depth": 0,
+    }
+    rows = _top_rows(snap)
+    assert rows["a"]["groups"] == {"red-001:g0"}
+    assert rows["a"]["sealed"] == 4
+    out = _top_table(snap)
+    assert out == jtop(snap)
+    assert "XONCE" in out and "red-001" in out
+    assert "tenant.red.slots-held=1" in out
+    assert "dispatcher.queue-depth=0" in out
+    cluster_line = [ln for ln in out.splitlines()
+                    if ln.startswith("cluster: ")]
+    assert cluster_line and "job.red-001" not in cluster_line[0]
+
+
+def _write_ledger(path, epochs=3):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for ep in range(epochs):
+            f.write(json.dumps({"epoch": ep, "combined": f"d{ep}",
+                                "records": 8 * (ep + 1),
+                                "channels": {}, "det_counts": {}}) + "\n")
+
+
+def _audit_args(**kw):
+    base = dict(dir="", diff=None, job=None, report="text", json=False)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _audit_both(capsys, **kw):
+    """The port's ``cmd_audit`` and the reference's on the same
+    arguments: their exit codes and outputs must be equal."""
+    from clonos_tpu.cli import cmd_audit as jaudit
+    from clonos_tpu_torch.cli import cmd_audit
+    rc = cmd_audit(_audit_args(**kw))
+    out = capsys.readouterr()
+    assert (rc, out.out, out.err) == (
+        jaudit(_audit_args(**kw)), *capsys.readouterr())
+    return rc, out.out, out.err
+
+
+def test_audit_job_scoped_ledgers_and_ambiguity(tmp_path, capsys):
+    from clonos_tpu_torch.cli import _find_ledgers, _ledger_job_ids
+
+    root = tmp_path / "ck"
+    _write_ledger(str(root / "red-001" / "g0" / "ledger.jsonl"))
+    _write_ledger(str(root / "blue-002" / "g0" / "ledger.jsonl"))
+    ledgers = _find_ledgers(str(root))
+    assert [lab for lab, _ in ledgers] == [
+        os.path.join("blue-002", "g0", "ledger.jsonl"),
+        os.path.join("red-001", "g0", "ledger.jsonl")]
+    assert _ledger_job_ids(ledgers) == ["blue-002", "red-001"]
+
+    rc, out, _ = _audit_both(capsys, dir=str(root), job="red-001")
+    assert rc == 0 and "g0" in out and "blue-002" not in out
+    rc, _, err = _audit_both(capsys, dir=str(root), job="nope-9")
+    assert rc == 2 and "available job ids: blue-002, red-001" in err
+    rc, _, err = _audit_both(capsys, dir=str(root), diff=str(root))
+    assert rc == 2 and "ambiguous" in err
+
+    single = tmp_path / "single"
+    _write_ledger(str(single / "g0" / "ledger.jsonl"))
+    rc, out, _ = _audit_both(capsys, dir=str(root), diff=str(single),
+                             job="red-001")
+    assert rc == 0 and "ledgers match" in out
+    bad = tmp_path / "bad"
+    _write_ledger(str(bad / "g0" / "ledger.jsonl"), epochs=2)
+    assert _audit_both(capsys, dir=str(root), diff=str(bad),
+                       job="red-001")[0] == 1
+    assert _audit_both(capsys, dir=str(root), diff=str(bad),
+                       job="red-001", report="json")[0] == 1

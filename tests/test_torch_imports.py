@@ -167,6 +167,25 @@ def test_slot_pool_modules_import_alone_without_jax(module):
     assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
 
 
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.obs.hlc", "clonos_tpu_torch.obs.timeline",
+    "clonos_tpu_torch.obs.incident", "clonos_tpu_torch.obs.rootcause",
+    "clonos_tpu_torch.obs.detect", "clonos_tpu_torch.obs.lineage",
+    "clonos_tpu_torch.obs.audit"])
+def test_cross_process_plane_modules_import_alone_without_jax(module):
+    """The cross-process observability planes (hybrid logical clocks and
+    the causal timeline, incident bundles and their root-cause analysis,
+    gray-failure detection, record lineage, and the audit's cross-layout
+    diff; their references are JAX-free) each import alone in a fresh
+    interpreter without ``jax`` or ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "clonos_tpu")

@@ -13,14 +13,15 @@ bit-identical to the dead worker's reported fences and to a no-failure
 control — while green is never redeployed and keeps fencing at a bounded
 cadence through the recovery storm. Worker ``b`` is killed only at a
 moment both mirrors cover (the reference test kills on sight, which can
-leave a mirror one fence behind a completed checkpoint, and the rebuild
-then lands on a wrong state; ROADMAP Queue 3). Afterwards the audit
-rollups prove
-exactly-once per job. The reference test's ``cmd_audit`` lines wait for
-ROADMAP Queue 1 item 6 (the CLI's ``audit`` is not ported yet); the
-ledger files they read are checked here directly. Tolerance: exact.
+leave a mirror one fence behind a completed checkpoint; the reference's
+rebuild then lands on a wrong state, and the port's restores the older
+checkpoint the mirror starts at, ``tests/test_torch_remote.py``).
+Afterwards the audit rollups prove exactly-once per job, and the CLI's
+``audit --job`` resolves one job's ledgers while an unscoped diff over
+the multi-job root refuses as ambiguous. Tolerance: exact.
 """
 
+import argparse
 import json
 import os
 import signal
@@ -32,6 +33,7 @@ import time
 import numpy as np
 
 from clonos_tpu_torch.causal import determinant as det
+from clonos_tpu_torch.cli import cmd_audit
 from clonos_tpu_torch.examples import wordcount as twc
 from clonos_tpu_torch.obs import configure_audit, reset_audit
 from clonos_tpu_torch.parallel import transport as tp
@@ -286,7 +288,9 @@ def test_two_tenants_recover_independently_third_unharmed(tmp_path):
                         f"{jid} fence {s['global_step']} diverges"
 
         # Job-scoped durable artifacts: each tenant's ledger lives under
-        # <root>/<job_id>/g0/ and holds every epoch its runs sealed.
+        # <root>/<job_id>/g0/ and holds every epoch its runs sealed;
+        # `audit --job` resolves it while an unscoped diff over the
+        # multi-job root refuses (ambiguous).
         for jid, n in (("red-001", 20), ("blue-002", 20),
                        ("green-003", 30)):
             path = os.path.join(ckroot, jid, "g0", "ledger.jsonl")
@@ -294,6 +298,15 @@ def test_two_tenants_recover_independently_third_unharmed(tmp_path):
                 epochs = {json.loads(ln)["epoch"] for ln in f
                           if ln.strip()}
             assert epochs == set(range(n)), jid
+
+        def ns(**kw):
+            base = dict(dir=ckroot, diff=None, job=None, report="text",
+                        json=False)
+            base.update(kw)
+            return argparse.Namespace(**base)
+
+        assert cmd_audit(ns(job="red-001")) == 0
+        assert cmd_audit(ns(diff=ckroot)) == 2
 
         m = disp.metrics_extra()
         for jid in ("red-001", "blue-002", "green-003"):

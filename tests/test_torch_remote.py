@@ -28,6 +28,7 @@ from clonos_tpu.runtime.cluster import ClusterRunner as JaxRunner
 from clonos_tpu.runtime.cluster import HeartbeatMonitor as JaxMonitor
 from clonos_tpu_torch.api.environment import StreamEnvironment
 from clonos_tpu_torch.causal import serde
+from clonos_tpu_torch.causal.recovery import RecoveryError
 from clonos_tpu_torch.examples import wordcount as twc
 from clonos_tpu_torch.inflight import log as ifl
 from clonos_tpu_torch.parallel import transport as tp
@@ -472,3 +473,264 @@ def test_host_loss_rebuild_from_mirror_and_checkpoint(tmp_path):
             proc.wait(timeout=30)
         ctl.close()
         jm.close()
+
+
+# --- the standby's restore choice -------------------------------------------
+
+
+def _stale_mirror_run(tmp_path, sync_first_at, build=twc.build_job,
+                      sink_root=None, **kw):
+    """The wordcount job with 8-step epochs, seed 5, checkpoints completed
+    at ``i % 3 == 0``, and its endpoint and mirror in this process. After
+    each run the endpoint refreshes and the mirror syncs, except after run
+    ``sync_first_at``, where the mirror syncs first (the watcher's sync
+    racing the worker's refresh). ``build`` swaps the job, ``sink_root``
+    backs its transactional sink with part files and ``kw`` extends the
+    runner's options. Returns the dead runner's digests by global step and
+    the mirror's rows."""
+    ck = str(tmp_path / "ck")
+    job = build()
+    runner = ClusterRunner(job, steps_per_epoch=8, checkpoint_dir=ck,
+                           seed=5, device="cpu", **kw)
+    if sink_root is not None:
+        runner.attach_file_sink(_sink_vertex(job), sink_root)
+    ep = remote.HostLogEndpoint(runner.executor)
+    L = job.total_subtasks()
+    m = remote.RemoteReplicaMirror(ep.address, list(range(L)),
+                                   device="cpu")
+    digests = {}
+    try:
+        for i in range(7):
+            runner.run_epoch(complete_checkpoint=(i % 3 == 0))
+            digests[runner.global_step] = runner.state_digest()
+            if i == sync_first_at:
+                m.sync()
+                ep.refresh()
+            else:
+                ep.refresh()
+                m.sync()
+        rows = {f: m.rows_with_start(f) for f in range(L)}
+    finally:
+        m.close()
+        ep.close()
+        runner.coordinator.storage._close_ledger()
+    return ck, digests, rows
+
+
+def test_bootstrap_restores_the_checkpoint_the_mirror_starts_at(tmp_path):
+    """The mirror synced after run 6 but before its refresh still starts
+    at checkpoint 3's log heads (fence 32) while checkpoint 6 (fence 56)
+    is the newest completed one. The reference restores checkpoint 6 and
+    replays the 16 mirrored steps onto it (global step 72, a state no run
+    reported). The port restores checkpoint 3 and lands on step 48 with
+    the dead runner's digest there."""
+    ck, digests, rows = _stale_mirror_run(tmp_path, sync_first_at=6)
+    assert sorted(digests)[-1] == 56
+    rebuilt, report = ClusterRunner.bootstrap_standby(
+        twc.build_job(), ck, rows, steps_per_epoch=8, seed=5,
+        device="cpu")
+    assert report.from_epoch == 4 and report.steps_replayed == 16
+    assert rebuilt.global_step == 48
+    assert rebuilt.state_digest() == digests[48]
+    rebuilt.coordinator.storage._close_ledger()
+
+
+def test_bootstrap_refresh_then_sync_restores_the_newest(tmp_path):
+    """The other order: the mirror holds run 6's fence and starts at
+    checkpoint 6's heads, so the newest checkpoint is restored and the
+    rebuild lands on step 56 with the dead runner's digest."""
+    ck, digests, rows = _stale_mirror_run(tmp_path, sync_first_at=None)
+    rebuilt, report = ClusterRunner.bootstrap_standby(
+        twc.build_job(), ck, rows, steps_per_epoch=8, seed=5,
+        device="cpu")
+    assert report.from_epoch == 7
+    assert rebuilt.global_step == 56
+    assert rebuilt.state_digest() == digests[56]
+    rebuilt.coordinator.storage._close_ledger()
+
+
+def test_bootstrap_raises_when_no_checkpoint_matches_the_mirror(tmp_path):
+    """A mirror that starts at no retained checkpoint's log heads is
+    refused, naming the starts and each candidate's heads: with
+    checkpoint 3 ignored only checkpoint 6 remains, and the stale mirror
+    starts at checkpoint 3's heads."""
+    ck, _digests, rows = _stale_mirror_run(tmp_path, sync_first_at=6)
+    with pytest.raises(RecoveryError,
+                       match="no completed checkpoint's log heads") as ei:
+        ClusterRunner.bootstrap_standby(
+            twc.build_job(), ck, rows, ignored_checkpoints=[3],
+            steps_per_epoch=8, seed=5, device="cpu")
+    assert "mirror starts" in str(ei.value) and "6: [" in str(ei.value)
+
+
+def test_host_loss_rebuild_kill_on_sight(tmp_path):
+    """The reference test's own schedule against the port's worker: sync
+    after every status line and SIGKILL as soon as the epoch-7 line is
+    read, with no wait for a covering mirror. Whichever side of the
+    worker's refresh the last sync lands on, the rebuild restores the
+    checkpoint the mirror starts at and reproduces a digest the worker
+    reported."""
+    jm = remote.JobMasterServer(heartbeat_timeout_s=1.5)
+    ctl = remote.JobMasterController(jm, device="cpu")
+    ckdir = str(tmp_path / "ck")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "clonos_tpu_torch", "worker",
+         "clonos_tpu_torch.examples.wordcount:build_job",
+         "--jm", f"127.0.0.1:{jm.address[1]}", "--checkpoint-dir", ckdir,
+         "--executor-id", "worker-0", "--epochs", "64",
+         "--steps-per-epoch", "8", "--complete-every", "3", "--seed", "5",
+         "--heartbeat-interval", "0.3", "--epoch-sleep", "0.05",
+         "--device", "cpu"],
+        cwd=_REPO, env=env, stdout=subprocess.PIPE, text=True)
+    digests = {}
+    try:
+        assert json.loads(proc.stdout.readline())["registered"] == \
+            "worker-0"
+        assert ctl.attach() == ["worker-0"]
+        for line in iter(proc.stdout.readline, ""):
+            st = json.loads(line)
+            ctl.sync()
+            digests[st["global_step"]] = st["digest"]
+            if st["epoch"] >= 7:
+                break
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+        for line in proc.stdout:
+            try:
+                st = json.loads(line)
+            except ValueError:
+                break
+            digests[st["global_step"]] = st["digest"]
+        _poll(lambda: "worker-0" in ctl.failed(), 4 * 1.5 + 6.0,
+              "missed heartbeats not seen")
+        runner, report = ctl.rebuild("worker-0", twc.build_job(),
+                                     steps_per_epoch=8, seed=5)
+        assert runner.global_step in digests
+        assert runner.state_digest() == digests[runner.global_step], (
+            "rebuilt state diverges from the dead worker's digest")
+        assert report.steps_replayed == runner.global_step - \
+            runner._fence_step[report.from_epoch]
+        runner.run_epoch(complete_checkpoint=True)
+        runner.inject_failure([5])
+        runner.recover()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        ctl.close()
+        jm.close()
+
+
+def _txn_wordcount():
+    from clonos_tpu_torch.examples import wordcount as wc
+    return wc.build_txn_job()
+
+
+def _sink_vertex(job):
+    (sink,) = [v.vertex_id for v in job.vertices
+               if type(v.operator).__name__ == "TransactionalSinkOperator"]
+    return sink
+
+
+def _finals_per_part(root):
+    """(epoch, subtask) -> how many ``.final`` part files hold it."""
+    from clonos_tpu_torch.runtime.filesink import FileSystemSink
+    n = {}
+    for fn in os.listdir(root):
+        if fn.endswith(".final"):
+            key = FileSystemSink._parse(fn)[:2]
+            n[key] = n.get(key, 0) + 1
+    return n
+
+
+def test_bootstrap_commits_the_replayed_sealed_epochs(tmp_path):
+    """A transactional sink across a standby rebuild: the dead runner
+    sealed epoch 7 (its pendings on disk) but its checkpoint never
+    completed. The rebuild seals the replayed epoch again, the standby's
+    file sink (a new token) persists its pendings, and the next completed
+    checkpoint commits it: the committed part files hold every epoch, and
+    their records equal a never-failed runner's."""
+    from clonos_tpu_torch.runtime.filesink import FileSystemSink
+    kw = dict(steps_per_epoch=16, seed=5, logical_time=True, device="cpu")
+    job = _txn_wordcount()
+    (sink,) = [v.vertex_id for v in job.vertices
+               if type(v.operator).__name__ == "TransactionalSinkOperator"]
+    dead = ClusterRunner(job, checkpoint_dir=str(tmp_path / "ck"), **kw)
+    dead.attach_file_sink(sink, str(tmp_path / "sink"))
+    ep = remote.HostLogEndpoint(dead.executor)
+    L = job.total_subtasks()
+    m = remote.RemoteReplicaMirror(ep.address, list(range(L)), device="cpu")
+    try:
+        for i in range(8):
+            dead.run_epoch(complete_checkpoint=(i % 3 == 0))
+            ep.refresh()
+            m.sync()
+        rows = {f: m.rows_with_start(f) for f in range(L)}
+    finally:
+        m.close()
+        ep.close()
+        dead.coordinator.storage._close_ledger()
+    assert FileSystemSink(str(tmp_path / "sink")).committed_epochs() == \
+        list(range(7))
+    rebuilt, report = ClusterRunner.bootstrap_standby(
+        _txn_wordcount(), str(tmp_path / "ck"), rows, **kw)
+    assert (report.from_epoch, rebuilt.global_step) == (7, 128)
+    rebuilt.attach_file_sink(sink, str(tmp_path / "sink"), token=1)
+    for _ in range(3):
+        rebuilt.run_epoch(complete_checkpoint=True)
+    rebuilt.coordinator.storage._close_ledger()
+
+    control = ClusterRunner(_txn_wordcount(),
+                            checkpoint_dir=str(tmp_path / "ck2"), **kw)
+    control.attach_file_sink(sink, str(tmp_path / "sink2"))
+    for i in range(11):
+        control.run_epoch(complete_checkpoint=(i % 3 == 0 or i >= 8))
+    control.coordinator.storage._close_ledger()
+    got = FileSystemSink(str(tmp_path / "sink"))
+    want = FileSystemSink(str(tmp_path / "sink2"))
+    assert got.committed_epochs() == want.committed_epochs() == \
+        list(range(11))
+    assert want.read_committed().shape[0] > 0
+    assert np.array_equal(got.read_committed(), want.read_committed())
+
+
+def test_bootstrap_from_an_older_checkpoint_commits_each_epoch_once(
+        tmp_path):
+    """The stale-mirror rebuild with a file-backed transactional sink. The
+    dead runner completed checkpoint 6, which committed epochs 0-6; the
+    standby restores checkpoint 3, replays epochs 4-5 and reruns epoch 6
+    live. None of those commits again under the standby's token: every
+    (epoch, subtask) part is final exactly once, and the committed records
+    equal a never-failed runner's over the same epochs."""
+    from clonos_tpu_torch.runtime.filesink import FileSystemSink
+    kw = dict(logical_time=True)
+    sink_root = str(tmp_path / "sink")
+    ck, _digests, rows = _stale_mirror_run(
+        tmp_path, sync_first_at=6, build=_txn_wordcount,
+        sink_root=sink_root, **kw)
+    job = _txn_wordcount()
+    rebuilt, report = ClusterRunner.bootstrap_standby(
+        job, ck, rows, steps_per_epoch=8, seed=5, device="cpu", **kw)
+    assert (report.from_epoch, rebuilt.global_step) == (4, 48)
+    rebuilt.attach_file_sink(_sink_vertex(job), sink_root, token=1)
+    for _ in range(4):
+        rebuilt.run_epoch(complete_checkpoint=True)
+    rebuilt.coordinator.storage._close_ledger()
+
+    control = ClusterRunner(_txn_wordcount(), steps_per_epoch=8, seed=5,
+                            checkpoint_dir=str(tmp_path / "ck2"),
+                            device="cpu", **kw)
+    control.attach_file_sink(_sink_vertex(job), str(tmp_path / "sink2"))
+    for i in range(10):
+        control.run_epoch(complete_checkpoint=(i % 3 == 0 or i >= 6))
+    control.coordinator.storage._close_ledger()
+    finals = _finals_per_part(sink_root)
+    assert finals == _finals_per_part(str(tmp_path / "sink2"))
+    assert set(finals.values()) == {1}, (
+        "an (epoch, subtask) part was committed twice")
+    got = FileSystemSink(sink_root)
+    want = FileSystemSink(str(tmp_path / "sink2"))
+    assert got.committed_epochs() == list(range(10))
+    assert want.read_committed().shape[0] > 0
+    assert np.array_equal(got.read_committed(), want.read_committed())

@@ -758,7 +758,7 @@ def test_job_spans_two_workers_with_fenced_per_task_recovery(tmp_path):
         # stop b, read what it printed, and kill it if the mirror runs
         # from the newest completed checkpoint to b's last reported step;
         # else resume it and try at its next line. (The reference test
-        # kills on sight; ROADMAP Queue 3.)
+        # kills on sight.)
         digests_b = {}
         while True:
             last, seen = _read_status(qb, at_fence)
