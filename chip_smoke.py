@@ -125,6 +125,26 @@ Phases:
      13 (a)'s spanned job with the HLC on, its DEPLOY and FETCH_EDGE
      receives ordered after their sends.
 
+ 15. live rescaling and the autoscaler (``[rescale]``), on the headline's
+     widths with a hash exchange into its sinks: (a) ``restore_rescaled``
+     8 -> 16 and 8 -> 4 lanes from a completed checkpoint, the sink
+     multiset of the next 2 epochs equal to a never-rescaled control's,
+     every table holding only its owner's keys, every ``keyed_hist``
+     launch of the re-cut equal to its plain version; (b) ``rescale_live``
+     8 -> 16 on phase 7's runner: the protocol's transitions in order,
+     in-flight records drained, the fenced-off runner refused, a twin
+     killed in the first epoch at 16 lanes recovered equal to the re-cut
+     run, the stall, the first epoch and records/s at 8 and 16 lanes; (c)
+     a read tier on the reduce with a reader thread through the re-cut,
+     0 client errors, re-homed replicas equal to the owner, a replica
+     added and dropped; (d) an ``AutoscaleController`` on the live runner
+     and tier deciding 16 -> 8 once on a seeded load trace and executing
+     it through ``rescale_live``, cooldown and a failed subtask holding,
+     a replay from its log executing nothing, the same trace logging the
+     same bytes, ``scale.decision`` records in the timeline; every
+     epoch's ledger equal to a never-rescaled control's through the
+     key-group directory, and the exact diff not.
+
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -273,9 +293,39 @@ SKEW_SHAPES = (
     ("skew-zipf", 512 * PAR, EDGE_CAPACITY, VOCAB, False),
     ("skew-hot", 512 * PAR, EDGE_CAPACITY, VOCAB, False),
 )
+#: phase 15's shapes. A re-cut routes one block (R=1) of each hash edge's
+#: buffer at the new parallelism: the source edge's 8 x 1,024 slots into
+#: 16 or 4 x 1,024 (8 -> 16, 8 -> 4) and its 16 x 1,024 into 8 x 1,024
+#: (16 -> 8); the window -> reduce edge's static-route slots (8 x 1,152
+#: into 4 x 1,152; 16 x 1,280 into 8 x 1,152; into 16 x 1,280 its 20,480
+#: slots exceed the histogram's 16,384 and take the element scatter); the
+#: sink edge's 8 x 1,024 into 8 x 1,024. In steady state at 16 and 4
+#: keyed lanes: the source exchange (512 steps of 8 x 128 records into 16
+#: or 4 x 1,024 slots), the reduce -> sink exchange (the reduce's 16 x
+#: 1,280, 8 x 1,152 or 4 x 1,152 slots into 8 x 1,024) and the window's
+#: rows (512 steps x 16 or 4 lanes)
+RESCALE_SHAPES = tuple(
+    (label, r, b, nk, counts)
+    for label, r, b, nk in (
+        ("recut-8to16", 1, PAR * EDGE_CAPACITY, 16 * EDGE_CAPACITY),
+        ("recut-8to4", 1, PAR * EDGE_CAPACITY, 4 * EDGE_CAPACITY),
+        ("recut-8to4", 1, PAR * 1152, 4 * 1152),
+        ("recut-16to8", 1, 16 * EDGE_CAPACITY, PAR * EDGE_CAPACITY),
+        ("recut-16to8", 1, 16 * 1280, PAR * 1152),
+        ("recut-sink", 1, PAR * EDGE_CAPACITY, PAR * EDGE_CAPACITY),
+        ("route-16", 512, PAR * BATCH, 16 * EDGE_CAPACITY),
+        ("route-4", 512, PAR * BATCH, 4 * EDGE_CAPACITY),
+        ("sink-route-16", 512, 16 * 1280, PAR * EDGE_CAPACITY),
+        ("sink-route-8", 512, PAR * 1152, PAR * EDGE_CAPACITY),
+        ("sink-route-4", 512, 4 * 1152, PAR * EDGE_CAPACITY))
+    for counts in (True, False)) + (
+    ("window-16", 512 * 16, EDGE_CAPACITY, VOCAB, False),
+    ("window-4", 512 * 4, EDGE_CAPACITY, VOCAB, False))
+RESCALE_LABELS = {s[0] for s in RESCALE_SHAPES}
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
-    {s[0] for s in C45_SHAPES + WC_SHAPES + FLOOR_SHAPES + SKEW_SHAPES})
+    {s[0] for s in C45_SHAPES + WC_SHAPES + FLOOR_SHAPES + SKEW_SHAPES
+     + RESCALE_SHAPES})
 #: the route shape as views one element into their buffers (the kernel's
 #: unaligned branch): checked bit for bit, not timed
 ALIGN_SHAPES = (("align", 512, PAR * BATCH, PAR * EDGE_CAPACITY, True),)
@@ -402,7 +452,7 @@ def phase_kernels():
     profiled = []
     for i, (label, r, b, nk, counts) in enumerate(
             MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES
-            + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES):
+            + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES + RESCALE_SHAPES):
         keys, vals, valid = _inputs(r, b, nk, 100 + i, dev, label)
         aligned = all(a.data_ptr() % 16 == 0 for a in (keys, vals, valid))
         smem_optin, sms = hist._device_info(keys.get_device())
@@ -4179,6 +4229,565 @@ def phase_planes_spanning(dev_line, root):
             device=dev_line)))
 
 
+# --- phase 15 ---------------------------------------------------------------
+
+#: the re-cut job: the headline's widths with its keyed stages at 8, 16 or
+#: 4 lanes and one more hash exchange (reduce -> keyBy -> 8 sinks), so only
+#: keyed vertices change parallelism (restore_rescaled refuses a FORWARD
+#: edge into a rescaled vertex, and a non-keyed vertex that moves)
+RESCALE_UP = 16
+RESCALE_DOWN = 4
+#: (b): epochs timed a side; the first epoch after the 8 -> 16 re-cut is
+#: the kill epoch of the faulted twin, killed this many steps in
+RESCALE_TIMED = 2
+RESCALE_KILL_STEPS = 300
+RESCALE_KILL = (1, 11)          # window subtask 11 of 16
+RESCALE_READ_KEYS = 32
+RESCALE_READ_SEED = 29
+RESCALE_STALENESS_BOUND = 2
+#: (d): the seeded load trace, per fence: L(ow) or H(igh); the controller
+#: decides 16 -> 8 at the fifth fence, the next two hold in cooldown (the
+#: high load would scale up), the eighth holds on a killed subtask
+AUTOSCALE_SEED = 23
+AUTOSCALE_TRACE = "LHHLLHHHL"
+AUTOSCALE_KILL_AT = 7
+AUTOSCALE_KILL = (2, 3)          # reduce subtask 3 of 8
+
+PHASE15_REDUCTIONS = (
+    f"the headline's widths ({PAR} sources x {BATCH} records a step -> "
+    f"keyBy -> windows over {VOCAB} keys, window_size={WINDOW_SIZE} -> "
+    f"keyBy(static) -> reduces -> keyBy -> {PAR} sinks; {NUM_KEY_GROUPS} "
+    f"key groups, edge capacity {EDGE_CAPACITY}) with the keyed stages at "
+    f"{PAR}, {RESCALE_UP} and {RESCALE_DOWN} lanes; cuts: phase 4's "
+    f"(logical_time=True, steps_per_epoch={STEPS_PER_EPOCH}, "
+    f"block_steps={BLOCK_STEPS}), and the reduce -> sink edge a hash "
+    f"exchange at {PAR} sinks (bench: forward) so that only keyed vertices "
+    f"change parallelism, as the reference's own re-cut jobs "
+    f"(soak/driver.py:1214-1234, tests/test_rescale.py:33-45); "
+    f"(b)-(d) on phase 7's runner (pipelined fence, audit on, checkpoints "
+    f"on disk), {RESCALE_TIMED} timed epochs a side; (d) load from a "
+    f"seeded trace ({AUTOSCALE_TRACE}, RandomState({AUTOSCALE_SEED})) in "
+    f"place of the load-spike chaos event (not ported)")
+
+
+def build_rescale_job(keyed_par):
+    from clonos_tpu_torch.api.environment import StreamEnvironment
+    env = StreamEnvironment(name="bench-allround-rescale",
+                            num_key_groups=NUM_KEY_GROUPS,
+                            default_edge_capacity=EDGE_CAPACITY)
+    (env.synthetic_source(vocab=VOCAB, batch_size=BATCH, parallelism=PAR)
+        .key_by()
+        .window_count(num_keys=VOCAB, window_size=WINDOW_SIZE,
+                      parallelism=keyed_par, name="window")
+        .key_by()
+        .reduce(num_keys=VOCAB, parallelism=keyed_par, name="reduce")
+        .key_by()
+        .sink(parallelism=PAR))
+    return env.build()
+
+
+def _sink_multiset(runner, epochs):
+    """Run ``epochs`` completed epochs; the sink's valid records as a
+    sorted ``[3, n]`` (key, value, timestamp) array."""
+    vid = next(v.vertex_id for v in runner.job.vertices
+               if not runner.job.out_edges(v.vertex_id))
+    got = []
+
+    def absorb(outs, _epoch):
+        b = outs.sinks[vid]
+        m = b.valid
+        got.append(torch.stack([b.keys[m], b.values[m], b.timestamps[m]]))
+    runner.executor.on_block_outputs = absorb
+    try:
+        for _ in range(epochs):
+            runner.run_epoch(complete_checkpoint=True)
+        runner.drain_fence()
+    finally:
+        runner.executor.on_block_outputs = None
+    cat = torch.cat(got, dim=1).cpu().numpy()
+    return cat[:, np.lexsort(cat[::-1])]
+
+
+def _checked_hist(shapes):
+    """A context that routes ``routing.keyed_hist`` through a wrapper:
+    each call launches the kernel (counted as always), then its plain
+    version on the same inputs (not counted), which must agree bit for
+    bit; ``shapes`` collects (R, B, nk, counts, max abs err)."""
+    import contextlib
+
+    from clonos_tpu_torch.ops import histogram as hist
+    from clonos_tpu_torch.parallel import routing
+
+    @contextlib.contextmanager
+    def ctx():
+        real = routing.keyed_hist
+
+        def checked(keys, vals, valid, nk, want_counts=True):
+            out = real(keys, vals, valid, nk, want_counts)
+            plain = hist.keyed_hist_plain(keys, vals, valid, nk, want_counts)
+            err = int((out[0].to(torch.int64)
+                       - plain[0].to(torch.int64)).abs().max())
+            if want_counts:
+                err = max(err, int((out[1].to(torch.int64)
+                                    - plain[1].to(torch.int64)).abs().max()))
+            shapes.append((*keys.shape, nk, want_counts, err))
+            return out
+        routing.keyed_hist = checked
+        try:
+            yield
+        finally:
+            routing.keyed_hist = real
+    return ctx()
+
+
+def _owned_only(runner, what):
+    """Each keyed table of the runner holds only the keys its lane owns."""
+    from clonos_tpu_torch.parallel import routing
+    for v in runner.job.vertices:
+        st = runner.executor.carry.op_states[v.vertex_id]
+        if not isinstance(st, dict) or "acc" not in st:
+            continue
+        acc = st["acc"]
+        kg = routing.key_group(torch.arange(acc.shape[-1], dtype=torch.int32,
+                                            device=acc.device),
+                               NUM_KEY_GROUPS)
+        owner = routing.subtask_for_key_group(kg, v.parallelism,
+                                              NUM_KEY_GROUPS)
+        lane = torch.arange(v.parallelism, device=acc.device)[:, None]
+        if bool(((acc != 0) & (owner[None, :] != lane)).any()):
+            raise AssertionError(f"{what}: {v.name} holds keys its lanes "
+                                 f"do not own")
+
+
+def phase_rescale_restore(dev_line, rows):
+    """(a) ``restore_rescaled`` 8 -> 16 and 8 -> 4 from a completed
+    checkpoint on the card: the sink multiset over the next 2 epochs
+    equals a never-rescaled control's, each table holds only its owner's
+    keys, and every ``keyed_hist`` launch of the re-cut equals its plain
+    version. Returns the re-cuts' kernel launches (the unchecked calls)."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    t0 = time.monotonic()
+    kw = dict(device=DEVICE, **runner_kw())
+    ctl = ClusterRunner(build_rescale_job(PAR), **kw)
+    ctl.run_epoch(complete_checkpoint=True)
+    ckpt = ctl.standbys.latest
+    want = _sink_multiset(ctl, 2)
+    del ctl
+    launches = {"keyed_hist": 0, "keyed_hist_sums": 0}
+    out = {}
+    for p_new in (RESCALE_UP, RESCALE_DOWN):
+        jobs = lambda: (build_rescale_job(p_new), build_rescale_job(PAR))
+        t_m = time.monotonic()
+        res, counts, syncs = _counted(
+            lambda: ClusterRunner.restore_rescaled(*jobs(), ckpt, **kw),
+            count_syncs=True)
+        sync()
+        migrate_ms = (time.monotonic() - t_m) * 1e3
+        for k in launches:
+            launches[k] += counts[k]
+        shapes = []
+        with _checked_hist(shapes):
+            ClusterRunner.restore_rescaled(*jobs(), ckpt, **kw)
+        bad = [s for s in shapes if s[-1] != 0]
+        if bad or not shapes:
+            raise AssertionError(f"(a) 8->{p_new}: re-cut kernel != plain "
+                                 f"at {bad} (of {len(shapes)} launches)")
+        _owned_only(res, f"(a) 8->{p_new}")
+        # A planned restart starts a fresh epoch 0; the caller resumes
+        # causal time at the fence (logical time reads the step count),
+        # as the reference's own test resumes its clock.
+        res.executor.step_input_history = [(0, 0)] * STEPS_PER_EPOCH
+        got = _sink_multiset(res, 2)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(
+                f"(a) 8->{p_new}: sink multiset {got.shape[1]} records != "
+                f"the never-rescaled control's {want.shape[1]}")
+        del res
+        if torch.device(DEVICE).type == "cuda":
+            torch.cuda.empty_cache()
+        out[f"8->{p_new}"] = dict(
+            migrate_ms=round(migrate_ms, 3), syncs=syncs,
+            kernel_launches=counts,
+            launch_shapes=sorted({f"R={r} B={b} nk={nk} counts={c}"
+                                  for r, b, nk, c, _ in shapes}),
+            sink_records=int(got.shape[1]))
+    timed = {f"{r['label']} R={r['R']} B={r['B']} nk={r['nk']} "
+             f"counts={r['counts']}": dict(
+                 device_us=(None if r.get("device_ms") is None
+                            else round(r["device_ms"] * 1e3, 3)),
+                 bound_us=round(r["bound_ms"] * 1e3, 3),
+                 scatter_add_events_us=round(r["library_ms"] * 1e3, 3),
+                 plain_ms=round(r["plain_ms"], 4), branch=r["branch"],
+                 grid=r["grid"])
+             for r in (rows or []) if r["label"] in RESCALE_LABELS
+             and "ms" in r}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"(a) no kernel launch in the re-cuts: "
+                             f"{launches}")
+    log("[rescale] (a) restore_rescaled from a completed checkpoint, sink "
+        "multiset over 2 epochs == never-rescaled control, tables "
+        "owner-only, re-cut launches == plain: " + json.dumps(dict(
+            recuts=out, kernel_shapes=timed,
+            seconds=round(time.monotonic() - t0, 1), device=dev_line)))
+    return launches
+
+
+def _rescale_runner(root, tag, keyed_par):
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    return ClusterRunner(build_rescale_job(keyed_par),
+                         **_rescale_runner_kw(root, tag))
+
+
+def _rescale_runner_kw(root, tag):
+    return dict(device=DEVICE, audit=True, latency_marker_every=64,
+                overlap_epoch=True, checkpoint_dir=os.path.join(root, tag),
+                **runner_kw())
+
+
+def _timed_epochs(runner, n):
+    """Source records/s over ``n`` completed epochs, drained."""
+    sync()
+    r0 = _source_records(runner)
+    t0 = time.monotonic()
+    for _ in range(n):
+        runner.run_epoch(complete_checkpoint=True)
+    runner.drain_fence()
+    sync()
+    return (_source_records(runner) - r0) / (time.monotonic() - t0)
+
+
+def _recut(runner, keyed_par, root, tag):
+    """``rescale_live`` to ``keyed_par`` lanes, timed (the fence stall:
+    drain, migrate and the new-shape restore point) with its
+    synchronising calls on this thread; the fenced-off runner must
+    refuse to run."""
+    from clonos_tpu_torch.causal.recovery import RecoveryError
+    seen = []
+    sync()
+    t0 = time.monotonic()
+    (new, stats), syncs = _sync_count(
+        lambda: runner.rescale_live(
+            build_rescale_job(keyed_par),
+            observers=[lambda kind, **f: seen.append(kind)],
+            **_rescale_runner_kw(root, tag)), this_thread=True)
+    sync()
+    stall_ms = (time.monotonic() - t0) * 1e3
+    kinds = [k for k, _ in stats["transitions"]]
+    order = {"fence": 0, "drain": 1, "migrate": 1, "redirect": 2}
+    problems = []
+    if kinds != seen or kinds[0] != "fence" or kinds[-1] != "redirect" \
+            or [order[k] for k in kinds] != sorted(order[k] for k in kinds):
+        problems.append(f"transitions out of protocol order: {kinds}")
+    if kinds.count("migrate") != stats["groups"]:
+        problems.append(f"{kinds.count('migrate')} migrates for "
+                        f"{stats['groups']} groups")
+    if stats["drained_records"] <= 0:
+        problems.append("no in-flight record drained")
+    if not stats["moved_key_groups"] or min(
+            stats["moved_key_groups"].values()) <= 0:
+        problems.append(f"moved key groups {stats['moved_key_groups']}")
+    try:
+        runner.run_epoch()
+        problems.append("the fenced-off runner ran an epoch")
+    except RecoveryError:
+        pass
+    if problems:
+        raise AssertionError(f"re-cut to {keyed_par}: " + "; ".join(problems))
+    reading = dict(
+        stall_ms=round(stall_ms, 3), migrate_ms=round(stats["migrate_ms"], 3),
+        syncs=syncs, fence_checkpoint=stats["fence_checkpoint"],
+        groups=stats["groups"], drained_records=stats["drained_records"],
+        moved_key_groups=stats["moved_key_groups"],
+        transitions={k: kinds.count(k) for k in order})
+    return new, reading
+
+
+def _read_tier_reader(tier, stats, stop):
+    rng = np.random.RandomState(RESCALE_READ_SEED)
+    while not stop.is_set():
+        keys = [int(k) for k in rng.randint(0, VOCAB, RESCALE_READ_KEYS)]
+        try:
+            out = tier.router.query_batch(tier.vertex_id, keys)
+            if len(out["values"]) != RESCALE_READ_KEYS:
+                raise AssertionError(f"{len(out['values'])} values")
+            stats["reads"] += 1
+            stats["staleness"].append(max(out["staleness_epochs"]))
+        except Exception as e:       # a client-visible error
+            stats["errors"].append(repr(e))
+        stop.wait(SERVE_READ_GAP_S)
+
+
+def _replica_equals_owner(tier, what):
+    """After a drained fence every replica answers the owner's values,
+    subtasks and epoch, fence-fresh."""
+    keys = list(range(VOCAB))
+    owner = tier.owner_client.query_batch(tier.vertex_id, keys)
+    for i, c in enumerate(tier.clients):
+        rep = c.query_batch(tier.vertex_id, keys)
+        if (rep["values"], rep["subtasks"], rep["epoch"]) != (
+                owner["values"], owner["subtasks"], owner["epoch"]) \
+                or rep["staleness_epochs"] != 0:
+            raise AssertionError(f"(c) {what}: replica {i} != owner at "
+                                 f"epoch {owner['epoch']}")
+    return owner
+
+
+def phase_rescale_live(dev_line, root):
+    """(b) ``rescale_live`` 8 -> 16 on phase 7's runner under a read tier
+    (c), a faulted twin killed in the first epoch after the re-cut, then
+    (d) the autoscaler deciding and executing 16 -> 8; every epoch's
+    ledger equal, through the group directory, to a never-rescaled
+    control's. Returns the live path's kernel launches."""
+    import dataclasses
+    import threading
+
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.autoscale import (AutoscaleController, DecisionLog,
+                                            PolicyConfig, ScalePolicy,
+                                            SignalAggregator)
+    from clonos_tpu_torch.obs import audit as audit_mod
+    from clonos_tpu_torch.obs.detect import GrayFailureDetector, GraySnapshot
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    from clonos_tpu_torch.runtime import serve
+    t_phase = time.monotonic()
+    keyed = lambda r: r.job.vertices[1].parallelism
+    state = {"live": _rescale_runner(root, "live", PAR)}
+    ctl = _rescale_runner(root, "control", PAR)
+    twin = _rescale_runner(root, "twin", PAR)
+    readings = {}
+
+    def body():
+        live = state["live"]
+        live.run_epoch(complete_checkpoint=True)
+        readings["records_per_s_8"] = _timed_epochs(live, RESCALE_TIMED)
+        for _ in range(1 + RESCALE_TIMED):
+            twin.run_epoch(complete_checkpoint=True)
+        # (c) the tier and its reader, through the re-cut
+        tier = serve.build_serve_tier(live, _reduce_vid(live.job),
+                                      n_replicas=2,
+                                      staleness_bound=RESCALE_STALENESS_BOUND)
+        stats = {"reads": 0, "errors": [], "staleness": []}
+        stop = threading.Event()
+        reader = threading.Thread(target=_read_tier_reader,
+                                  args=(tier, stats, stop),
+                                  name="rescale-reader", daemon=True)
+        live.run_epoch(complete_checkpoint=True)
+        live.drain_fence()
+        reader.start()
+        twin.run_epoch(complete_checkpoint=True)
+        try:
+            live16, readings["recut_8_to_16"] = _recut(
+                live, RESCALE_UP, root, "live")
+            state["live"] = live16
+            reads_mid = stats["reads"]
+            tier.rehome(live16)
+            sync()
+            t0 = time.monotonic()
+            live16.run_epoch(complete_checkpoint=True)
+            live16.drain_fence()
+            sync()
+            readings["first_epoch_after_recut_ms"] = (
+                (time.monotonic() - t0) * 1e3)
+        finally:
+            stop.set()
+            reader.join(timeout=30.0)
+        # The faulted twin: re-cut at the same fence, a window subtask
+        # killed RESCALE_KILL_STEPS into the first epoch at 16 lanes,
+        # recovered, equal to the re-cut run that never failed.
+        twin16, _ = _recut(twin, RESCALE_UP, root, "twin")
+        for _ in range(RESCALE_KILL_STEPS):
+            twin16.step()
+        flats = [twin16.job.subtask_base(RESCALE_KILL[0]) + RESCALE_KILL[1]]
+        twin16.inject_failure(flats)
+        rep = twin16.recover()
+        twin16.run_epoch(complete_checkpoint=True)
+        twin16.drain_fence()
+        _assert_same(live16, twin16, "(b) recovery at 16 lanes")
+        if twin16.auditor.ledger() != live16.auditor.ledger():
+            raise AssertionError("(b) the recovered twin's ledger != the "
+                                 "re-cut run's")
+        readings["twin_recovery"] = dict(
+            flats=flats, steps_replayed=rep.steps_replayed,
+            recovery_ms=round(rep.recovery_ms, 3))
+        del twin16
+        _replica_equals_owner(tier, "after the re-home")
+        if stats["errors"] or stats["reads"] <= reads_mid:
+            raise AssertionError(
+                f"(c) {len(stats['errors'])} client-visible errors "
+                f"{stats['errors'][:3]}, {stats['reads']} reads "
+                f"({reads_mid} before the re-home)")
+        if max(stats["staleness"]) > RESCALE_STALENESS_BOUND:
+            raise AssertionError(f"(c) staleness {max(stats['staleness'])} "
+                                 f"past the bound")
+        i = tier.add_replica()
+        live16.run_epoch(complete_checkpoint=True)
+        live16.drain_fence()
+        _replica_equals_owner(tier, f"added replica {i}")
+        dropped = tier.drop_replica()
+        _replica_equals_owner(tier, f"replica {dropped} dropped")
+        routed = tier.router.query_batch(tier.vertex_id, list(range(VOCAB)))
+        if tier.router.errors or len(routed["values"]) != VOCAB:
+            raise AssertionError(f"(c) {tier.router.errors} router errors")
+        readings["read_tier"] = dict(
+            reader_batches=stats["reads"], client_errors=0,
+            staleness_peak=max(stats["staleness"]),
+            reroutes=tier.router.reroutes, replica_reads=tier.router
+            .replica_reads, owner_reads=tier.router.owner_reads,
+            added=i, dropped=dropped)
+        readings["records_per_s_16"] = _timed_epochs(live16, RESCALE_TIMED)
+        return tier
+
+    def autoscale(tier):
+        """(d) The controller at each drained fence, on the live runner and
+        the tier; its worker re-cut is ``rescale_live``."""
+        rng = np.random.RandomState(AUTOSCALE_SEED)
+        loads = [round(float(rng.uniform(0.2, 0.5) if c == "L"
+                             else rng.uniform(1.5, 2.5)), 2)
+                 for c in AUTOSCALE_TRACE]
+        log_path = os.path.join(root, "scale.det")
+        policy = lambda: ScalePolicy(PolicyConfig(
+            sustain_fences=2, cooldown_fences=3, max_step=PAR,
+            min_workers=PAR, max_workers=RESCALE_UP, min_replicas=2,
+            max_replicas=2))
+        executed = []
+
+        def execute(target):
+            new, reading = _recut(state["live"], target, root, "live")
+            state["live"] = new
+            tier.rehome(new)
+            executed.append(dict(target=target, **reading))
+        ctl_as = AutoscaleController(
+            policy(), log=DecisionLog(log_path), execute_workers=execute,
+            healthy=lambda: not state["live"].failed)
+        detector = GrayFailureDetector()
+        agg = SignalAggregator()
+        decisions, signals = [], []
+        for i, load in enumerate(loads):
+            live = state["live"]
+            live.run_epoch(complete_checkpoint=True)
+            live.drain_fence()
+            epoch = live.executor.epoch_id - 1
+            if i == AUTOSCALE_KILL_AT:
+                live.inject_failure(
+                    [live.job.subtask_base(AUTOSCALE_KILL[0])
+                     + AUTOSCALE_KILL[1]])
+            detector.on_fence(GraySnapshot.build(
+                epoch=epoch,
+                hb_age_ms={f"subtask-{s}": a
+                           for s, a in live.heartbeats.ages_ms().items()},
+                staleness={r.name: r.staleness_epochs()
+                           for r in tier.replicas}))
+            s = dataclasses.replace(agg.sample_from(
+                live.metrics.snapshot(), epoch=epoch, workers=keyed(live),
+                failed_subtasks=len(live.failed),
+                unfenced=live.fence_tail_in_flight(),
+                gray_suspects=len(detector.suspects())), load=load)
+            signals.append(s)
+            d, _ = ctl_as.on_fence(epoch, s)
+            decisions.append(d)
+            if live.failed:
+                live.recover()
+        return ctl_as, decisions, signals, executed, log_path, policy, loads
+
+    def run():
+        tier = body()
+        try:
+            obs.reset_timeline()
+            tl = obs.configure_timeline("autoscale")
+            try:
+                out = autoscale(tier)
+                marks = [r for r in tl.records()
+                         if r["kind"] == "scale.decision"]
+            finally:
+                obs.reset_timeline()
+                obs.reset_hlc()
+            _replica_equals_owner(tier, "after the autoscaler's re-cut")
+        finally:
+            tier.close()
+        return out, marks
+
+    (out, marks), launches, _ = _counted(run)
+    ctl_as, decisions, signals, executed, log_path, policy, loads = out
+    live = state["live"]
+    n_epochs = live.executor.epoch_id
+    for _ in range(n_epochs):
+        ctl.run_epoch(complete_checkpoint=True)
+    ctl.drain_fence()
+
+    problems = []
+    # (b) exactly once across both re-cuts, through the group directory
+    led, led_ctl = live.auditor.ledger(), ctl.auditor.ledger()
+    cross = audit_mod.diff_ledgers_cross(led_ctl, led)
+    if cross or len(led) != n_epochs:
+        problems.append(f"(b) cross diff {cross[:3]} ({len(led)} of "
+                        f"{n_epochs} epochs)")
+    if not diff_ledgers(led_ctl, led):
+        problems.append("(b) the exact diff is empty: the mapped path "
+                        "never engaged")
+    # (d) decisions
+    acts = [d.action for d in decisions]
+    reasons = [d.reason for d in decisions]
+    scaled = [d for d in decisions if d.scales]
+    if len(scaled) != 1 or len(executed) != 1 or ctl_as.rescales_executed \
+            != 1 or executed[0]["target"] != PAR:
+        problems.append(f"(d) decisions {acts}, executed {executed}")
+    k = decisions.index(scaled[0]) if scaled else 0
+    if reasons[k + 1:k + 3] != ["cooldown", "cooldown"]:
+        problems.append(f"(d) no cooldown after the re-cut: {reasons}")
+    if reasons[AUTOSCALE_KILL_AT] != "unhealthy":
+        problems.append(f"(d) the fence with a failed subtask decided "
+                        f"{reasons[AUTOSCALE_KILL_AT]}")
+    if len(marks) != len(decisions):
+        problems.append(f"(d) {len(marks)} scale.decision records for "
+                        f"{len(decisions)} decisions")
+    digest = ctl_as.log.digest()
+    replayed = []
+    c2 = AutoscaleController(policy(), log=DecisionLog(log_path),
+                             execute_workers=replayed.append)
+    for s in signals:
+        c2.on_fence(s.epoch, s)
+    if replayed or c2.rescales_executed or c2.log.digest() != digest \
+            or c2.replayed_decisions != len(decisions):
+        problems.append(f"(d) replay executed {replayed}, digest "
+                        f"{c2.log.digest()} != {digest}")
+    twice = []
+    for _ in range(2):
+        c3 = AutoscaleController(policy(), execute_workers=lambda t: None)
+        for s in signals:
+            c3.on_fence(s.epoch, s)
+        twice.append(c3.log.to_bytes())
+    if twice[0] != twice[1] or twice[0] != ctl_as.log.to_bytes():
+        problems.append("(d) the same trace logged different bytes")
+    if min(launches.values()) == 0:
+        problems.append(f"no kernel launch: {launches}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    log("[rescale] (b) rescale_live 8->16 on the pipelined audited runner, "
+        "then (d) 16->8 by the autoscaler: transitions in protocol order, "
+        "the stale runner refused, diff_ledgers_cross == [] against a "
+        "never-rescaled control, the exact diff non-empty: " + json.dumps(
+            dict(recut_8_to_16=readings["recut_8_to_16"],
+                 first_epoch_after_recut_ms=round(
+                     readings["first_epoch_after_recut_ms"], 3),
+                 twin_recovery=readings["twin_recovery"],
+                 source_records_per_s={
+                     "8": round(readings["records_per_s_8"], 1),
+                     "16": round(readings["records_per_s_16"], 1)},
+                 epochs=n_epochs, kernel_launches=launches,
+                 device=dev_line)))
+    log("[rescale] (c) the read tier through the re-cut, 0 client errors, "
+        "replicas == owner after the re-home, add/drop: "
+        + json.dumps(dict(readings["read_tier"], device=dev_line)))
+    log("[rescale] (d) the autoscaler: " + json.dumps(dict(
+        loads=loads, actions=acts, reasons=reasons,
+        executed=executed, replay_executed=0,
+        log_digest=digest, log_rows=len(ctl_as.log),
+        timeline_records=len(marks), device=dev_line)))
+    log(f"[rescale] phase 15 (b)-(d): {time.monotonic() - t_phase:.1f} s "
+        f"({dev_line})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4266,6 +4875,17 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[planes] phase 14: {time.monotonic() - t14:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[config] phase 15: {PHASE15_REDUCTIONS}")
+    t15 = time.monotonic()
+    recut_launches = phase_rescale_restore(dev_line, rows)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_rescale_", dir=SCRATCH)
+    try:
+        live_launches = phase_rescale_live(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[rescale] phase 15: {time.monotonic() - t15:.1f} s ({dev_line})")
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -4279,7 +4899,9 @@ def main() -> int:
         "spanning": spanning_launches,
         "multitenant": multitenant_launches,
         "planes_cost": cost_launches,
-        "planes_failover": failover_launches})))
+        "planes_failover": failover_launches,
+        "rescale_restore": recut_launches,
+        "rescale_live": live_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -127,6 +127,37 @@ class Operator:
         """The statically-known key of each output slot, or None."""
         return None
 
+    def rescale_keyed_state(self, state: Any, new_parallelism: int,
+                            num_key_groups: int) -> Any:
+        """Remap checkpointed state to another parallelism by key-group
+        ownership (the split/merge of a planned rescale). Dense-table
+        operators sum the disjoint per-subtask rows and keep, per new
+        subtask, the keys it now owns; operators without a keyed
+        rescaling story raise."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support rescaling")
+
+
+def rescale_dense_table(table: torch.Tensor, new_parallelism: int,
+                        num_key_groups: int,
+                        fill: int = 0) -> torch.Tensor:
+    """Remap a dense keyed table ``[P, ..., K]`` to ``new_parallelism``:
+    the int32 sum over the old subtask axis (rows are disjoint by key
+    ownership; the sum wraps as the reference's does), then per new
+    subtask only the keys the new key-group assignment routes to it
+    (``fill``, the operator's init value, elsewhere)."""
+    nk = table.shape[-1]
+    dev = table.device
+    total = (table - fill).sum(dim=0, dtype=torch.int32) + fill
+    kg = routing.key_group(torch.arange(nk, dtype=torch.int32, device=dev),
+                           num_key_groups)
+    owner = routing.subtask_for_key_group(kg, new_parallelism,
+                                          num_key_groups)
+    sub = torch.arange(new_parallelism, dtype=torch.int32, device=dev)
+    mask = (owner[None, :] == sub[:, None]).reshape(
+        (new_parallelism,) + (1,) * (total.dim() - 1) + (nk,))
+    return torch.where(mask, total[None], fill).to(torch.int32)
+
 
 class TwoInputOperator(Operator):
     """Base for vertices with two input edges. The lockstep superstep
@@ -274,6 +305,11 @@ class KeyedReduceOperator(Operator):
         return {"acc": torch.full((parallelism, self.num_keys),
                                   self.init_value, dtype=torch.int32,
                                   device=device)}
+
+    def rescale_keyed_state(self, state, new_parallelism, num_key_groups):
+        return {"acc": rescale_dense_table(
+            state["acc"], new_parallelism, num_key_groups,
+            fill=self.init_value)}
 
     def process(self, state, batch, ctx):
         acc = state["acc"]
@@ -442,6 +478,15 @@ class TumblingWindowCountOperator(Operator):
             valid=fire[:, :, None] & (emit != 0)))
         return ({"acc": acc_end[-1],
                  "window": torch.maximum(w0, rm[-1])}, out)
+
+    def rescale_keyed_state(self, state, new_parallelism, num_key_groups):
+        # Window ids are lockstep across subtasks (shared causal time):
+        # carry the max forward, materialised (the step loop writes
+        # operator state in place; an expanded view would alias).
+        return {"acc": rescale_dense_table(state["acc"], new_parallelism,
+                                           num_key_groups),
+                "window": state["window"].max().expand(
+                    new_parallelism).clone()}
 
     def static_out_keys(self) -> Optional[np.ndarray]:
         # Dense table emission: slot i always carries key i.

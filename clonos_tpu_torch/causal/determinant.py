@@ -43,6 +43,7 @@ LANE_TAG = 0
 LANE_RC = 1
 LANE_P = 2  # first payload lane
 ROW_DTYPE = np.int32
+ROW_BYTES = NUM_LANES * 4
 
 _I32_MASK = 0xFFFFFFFF
 
@@ -246,6 +247,38 @@ class BufferBuiltDeterminant(Determinant):
         return cls(num_records=int(row[LANE_P]))
 
 
+@dataclasses.dataclass(frozen=True)
+class ScaleDeterminant(Determinant):
+    """One autoscaling decision, logged before it acts, so a recovered
+    controller replays it instead of deciding again. ``record_count``
+    carries the decision's sequence number (nonzero: a SCALE row never
+    reads as a per-step sync anchor); ``signal_crc`` pins the signal
+    snapshot the policy saw. SCALE rows live in the controller's own
+    host-side log, never in a task's determinant stream."""
+
+    TAG: ClassVar[int] = SCALE
+    record_count: int = 0      # decision sequence number (1-based)
+    epoch: int = 0             # completed fence the decision was made at
+    action: int = 0            # 0 hold / 1 scale-workers / 2 scale-replicas
+    delta: int = 0             # signed step (bounded by policy max_step)
+    target: int = 0            # resulting worker/replica count
+    signal_crc: int = 0        # crc32 of the canonical signal snapshot
+
+    def _payload(self):
+        ehi, elo = split64(self.epoch)
+        return (ehi, elo, self.action, self.delta, self.target,
+                self.signal_crc)
+
+    @classmethod
+    def _from_row(cls, row):
+        return cls(record_count=int(row[LANE_RC]),
+                   epoch=join64(int(row[LANE_P]), int(row[LANE_P + 1])),
+                   action=int(row[LANE_P + 2]),
+                   delta=int(row[LANE_P + 3]),
+                   target=int(row[LANE_P + 4]),
+                   signal_crc=int(row[LANE_P + 5]) & _I32_MASK)
+
+
 _TAG_TO_CLASS: Dict[int, Type[Determinant]] = {
     ORDER: OrderDeterminant,
     TIMESTAMP: TimestampDeterminant,
@@ -255,6 +288,7 @@ _TAG_TO_CLASS: Dict[int, Type[Determinant]] = {
     SOURCE_CHECKPOINT: SourceCheckpointDeterminant,
     IGNORE_CHECKPOINT: IgnoreCheckpointDeterminant,
     BUFFER_BUILT: BufferBuiltDeterminant,
+    SCALE: ScaleDeterminant,
 }
 
 
@@ -272,6 +306,15 @@ def unpack_batch(rows: np.ndarray) -> List[Determinant]:
 def to_bytes(rows: np.ndarray) -> bytes:
     """Wire/digest serialization: contiguous little-endian int32 rows."""
     return np.ascontiguousarray(np.asarray(rows).astype("<i4")).tobytes()
+
+
+def from_bytes(data: bytes) -> np.ndarray:
+    """Inverse of :func:`to_bytes`."""
+    arr = np.frombuffer(data, dtype="<i4")
+    if arr.size % NUM_LANES:
+        raise ValueError(
+            f"byte length {len(data)} is not a whole number of rows")
+    return arr.reshape(-1, NUM_LANES).astype(ROW_DTYPE)
 
 
 def sync_anchors(rows: np.ndarray) -> np.ndarray:

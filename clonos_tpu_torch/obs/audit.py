@@ -40,6 +40,9 @@ class NullAuditor:
     def seal(self, digest: EpochDigest) -> None:
         pass
 
+    def adopt(self, entries) -> None:
+        pass
+
     def ledger(self) -> List[dict]:
         return []
 
@@ -73,6 +76,14 @@ class Auditor(NullAuditor):
     def seal(self, digest: EpochDigest) -> None:
         with self._lock:
             self._sealed[digest.epoch] = digest.to_entry()
+
+    def adopt(self, entries) -> None:
+        """Carry a predecessor incarnation's sealed entries forward (a
+        live re-cut: one ledger spans the handoff). Where both sealed an
+        epoch, the existing seal wins."""
+        with self._lock:
+            for e in entries:
+                self._sealed.setdefault(int(e["epoch"]), dict(e))
 
     def ledger(self) -> List[dict]:
         with self._lock:

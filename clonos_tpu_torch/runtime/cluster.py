@@ -2014,6 +2014,288 @@ class ClusterRunner:
             runner._mgroup.histogram(f"recovery.{name}-ms").update(pm[name])
         return runner, report
 
+    # --- planned and live rescaling ------------------------------------------
+
+    @classmethod
+    def restore_rescaled(cls, job_new: JobGraph, job_old: JobGraph,
+                         ckpt: cp.CompletedCheckpoint,
+                         **runner_kw) -> "ClusterRunner":
+        """Restore a completed checkpoint into a job whose keyed vertices
+        run at a DIFFERENT parallelism (the planned-rescale restart).
+        Dense keyed state splits and merges by key-group ownership
+        (``Operator.rescale_keyed_state``); the checkpointed depth-1
+        edge buffers are re-cut through the hash exchange at the new
+        parallelism (``route_hash_block``: the keyed-histogram kernel on
+        the card), and an overflow of the new cut's capacity raises. The
+        restored incarnation starts a fresh causal-log epoch 0, and its
+        ``record_counts`` and ``rr_offsets`` stay fresh (``[L]`` changes
+        with the parallelism), as in the reference.
+
+        Constraints: the topology (vertex and edge counts, operator
+        types, edge partition kinds) must match; a rescaled vertex's
+        input edges must be HASH; vertices without a keyed rescaling
+        story keep their parallelism."""
+        if len(job_new.vertices) != len(job_old.vertices) or \
+                len(job_new.edges) != len(job_old.edges):
+            raise rec.RecoveryError(
+                "restore_rescaled: topology mismatch between jobs")
+        runner = cls(job_new, **runner_kw)
+        cpy = lambda t: tree_map(lambda x: x.clone(), runner._on_device(t))
+        snap = ckpt.carry
+        carry = runner.executor.carry
+        ops = list(carry.op_states)
+        for v_new, v_old in zip(job_new.vertices, job_old.vertices):
+            if type(v_new.operator) is not type(v_old.operator):
+                raise rec.RecoveryError(
+                    f"restore_rescaled: vertex {v_new.vertex_id} operator "
+                    f"type changed")
+            vid = v_new.vertex_id
+            st = cpy(snap.op_states[vid])
+            if v_new.parallelism == v_old.parallelism:
+                ops[vid] = st
+            else:
+                for eidx in job_new.in_edges(vid):
+                    if job_new.edges[eidx].partition != PartitionType.HASH:
+                        raise rec.RecoveryError(
+                            f"restore_rescaled: vertex {vid} rescaled but "
+                            f"input edge {eidx} is not HASH-partitioned")
+                ops[vid] = v_new.operator.rescale_keyed_state(
+                    st, v_new.parallelism, job_new.num_key_groups)
+        bufs = list(carry.edge_bufs)
+        drops = []
+        for eidx, (e_new, e_old) in enumerate(zip(job_new.edges,
+                                                  job_old.edges)):
+            if e_new.partition != e_old.partition:
+                raise rec.RecoveryError(
+                    f"restore_rescaled: edge {eidx} partition changed")
+            old_buf = cpy(snap.edge_bufs[eidx])
+            dst_p = job_new.vertices[e_new.dst].parallelism
+            if e_new.partition == PartitionType.HASH:
+                raw = RecordBatch(*(x[None] for x in old_buf))
+                routed, dropped = routing.route_hash_block(
+                    raw, dst_p, job_new.num_key_groups, e_new.capacity)
+                drops.append((eidx, dst_p, e_new.capacity,
+                              dropped.sum(dtype=torch.int64)))
+                bufs[eidx] = RecordBatch(*(x[0] for x in routed))
+            else:
+                want = tuple(bufs[eidx].keys.shape)
+                if tuple(old_buf.keys.shape) != want:
+                    raise rec.RecoveryError(
+                        f"restore_rescaled: edge {eidx} buffer shape "
+                        f"{tuple(old_buf.keys.shape)} != {want} and the "
+                        f"edge is not HASH-rescalable")
+                bufs[eidx] = old_buf
+        if drops:
+            # Rescaling DOWN concentrates old lanes' records; an overflow
+            # would silently lose in-flight records. One read for every
+            # edge's drop count.
+            lost = torch.stack([d[3] for d in drops]).cpu().tolist()
+            for (eidx, dst_p, capacity, _), n in zip(drops, lost):
+                if n > 0:
+                    raise rec.RecoveryError(
+                        f"restore_rescaled: edge {eidx} buffer overflows "
+                        f"capacity {capacity} at parallelism {dst_p} — "
+                        f"widen the edge capacity of the rescaled job")
+        runner.executor.carry = carry._replace(
+            op_states=tuple(ops), edge_bufs=tuple(bufs))
+        return runner
+
+    def rescale_live(self, job_new: JobGraph,
+                     observers: Sequence = (),
+                     feed_readers: Optional[Dict[int, object]] = None,
+                     **runner_kw
+                     ) -> Tuple["ClusterRunner", Dict[str, Any]]:
+        """Elastic re-cut under live traffic: at THIS runner's completed
+        checkpoint fence, stand up a new incarnation of the job at a
+        different keyed parallelism and hand off exactly once. The
+        protocol is fence → drain → migrate → redirect, walked through a
+        :class:`~clonos_tpu_torch.runtime.scheduler.RescaleCoordinator`
+        whose ``transition_observers`` (and ``observers``) see every
+        step:
+
+        fence    — the latest completed checkpoint, which must be the
+                   current fence, is the handoff point (the pipelined
+                   fence is drained first, so its write has landed);
+        drain    — the old lanes' in-flight edge buffers captured in that
+                   checkpoint are counted into the migration payload;
+        migrate  — keyed state splits and merges by key-group ownership
+                   and the drained buffers re-route at the new
+                   parallelism (``restore_rescaled``); the old→new group
+                   directories come from ``obs/audit.key_group_directory``;
+        redirect — the new incarnation adopts the epoch cursor, the host
+                   mirrors of the fence, the ledger and the RNG stream,
+                   re-fences the handoff checkpoint in the new shape, and
+                   the OLD incarnation is fenced off: every subtask
+                   failed, so a stale ``run_epoch``/``step`` raises.
+
+        ``runner_kw`` builds the new runner (its device defaults to this
+        runner's). Returns ``(new_runner, stats)``; the caller rebinds
+        its handle and re-homes any read tier (``ServeTier.rehome``)."""
+        from clonos_tpu_torch.runtime.executor import LogicalTimeSource
+        from clonos_tpu_torch.runtime.scheduler import RescaleCoordinator
+        if self.failed:
+            raise rec.RecoveryError(
+                f"rescale_live: failed subtasks {sorted(self.failed)} — "
+                f"recover() first; a re-cut needs a healthy fence")
+        self.drain_fence()
+        if self.executor.step_in_epoch != 0:
+            raise rec.RecoveryError(
+                f"rescale_live: mid-epoch (step {self.executor.step_in_epoch}"
+                f"/{self.executor.steps_per_epoch}) — a re-cut happens at "
+                f"an epoch fence; finish the epoch first")
+        ids = self.coordinator.storage.completed_ids()
+        if not ids:
+            raise rec.RecoveryError(
+                "rescale_live: no completed checkpoint — the fence the "
+                "re-cut hands off at does not exist yet")
+        ckpt = self.coordinator.storage.read(max(ids))
+        if ckpt.checkpoint_id != self.executor.epoch_id - 1:
+            raise rec.RecoveryError(
+                f"rescale_live: latest completed checkpoint "
+                f"{ckpt.checkpoint_id} is not the current fence "
+                f"(epoch {self.executor.epoch_id - 1}) — run the epoch "
+                f"to completion (complete_checkpoint=True) first")
+        runner_kw.setdefault("device", self.device)
+        tr = get_tracer()
+        job_old = self.job
+
+        # One protocol group per OLD lane of each rescaled vertex.
+        rescaled = [(v_new, v_old)
+                    for v_new, v_old in zip(job_new.vertices,
+                                            job_old.vertices)
+                    if v_new.parallelism != v_old.parallelism]
+        lanes: List[Tuple[int, int]] = []   # (vertex_id, old lane)
+        for v_new, v_old in rescaled:
+            lanes += [(v_old.vertex_id, s)
+                      for s in range(v_old.parallelism)]
+        coord = RescaleCoordinator(len(lanes))
+        events: List[tuple] = []
+        coord.transition_observers.append(
+            lambda kind, **f: events.append((kind, tuple(sorted(f.items())))))
+        coord.transition_observers.extend(observers)
+
+        # Per-old-lane in-flight counts: the depth-1 edge buffers the
+        # fence checkpoint captured, brought to the host in one copy.
+        valid = _device.HostCopy(
+            {eidx: ckpt.carry.edge_bufs[eidx].valid
+             for vid, _ in lanes for eidx in job_old.in_edges(vid)}).wait()
+        inflight = [0] * len(lanes)
+        for g, (vid, lane) in enumerate(lanes):
+            for eidx in job_old.in_edges(vid):
+                inflight[g] += int(np.asarray(valid[eidx])[lane].sum())
+            if inflight[g]:
+                coord.note_inflight(g, inflight[g])
+        coord.fence(ckpt.checkpoint_id)
+
+        # Migration from the SAME fence checkpoint.
+        t_mig = _time.monotonic()
+        runner = type(self).restore_rescaled(job_new, job_old, ckpt,
+                                             **runner_kw)
+        for vid, reader in (feed_readers or {}).items():
+            runner.executor.register_feed(vid, reader)
+        directories = {
+            v_old.vertex_id: _audit.key_group_directory(
+                v_old.parallelism, v_new.parallelism,
+                job_new.num_key_groups)
+            for v_new, v_old in rescaled}
+        for g, (vid, lane) in enumerate(lanes):
+            if inflight[g]:
+                coord.drain(g, inflight[g])
+            coord.migrate(g)
+        migrate_ms = (_time.monotonic() - t_mig) * 1e3
+
+        # Epoch continuity (bootstrap_standby's zero-replay recipe): the
+        # new incarnation resumes at the fence with the same epoch
+        # cursor, global step and host-RNG position, and the host mirrors
+        # of the ring bounds the next fence truncates by.
+        ex = runner.executor
+        dev = runner.device
+        from_epoch = ckpt.checkpoint_id + 1
+        if ckpt.carry.ring_heads:
+            fence = int(_device.HostCopy(ckpt.carry.ring_heads[0]).wait())
+        else:
+            fence = from_epoch * ex.steps_per_epoch
+        runner.global_step = fence
+        ex._steps_executed = fence
+        ex.step_input_history = [(0, 0)] * fence
+        if runner.latency is not None:
+            runner.latency._seen = fence
+        ex.epoch_id = from_epoch
+        ex.step_in_epoch = 0
+        runner._fence_step[from_epoch] = fence
+        ex._epoch_first[from_epoch] = fence
+        runner._ring_tail_mirror = fence
+        ex._ring_tail = fence
+        c = ex.carry
+        host = _device.HostCopy({"heads": c.logs.head, "starts": [
+            el.epoch_starts for el in c.out_rings]}).wait()
+        with runner._ck_heads_lock:
+            runner._ck_log_heads[ckpt.checkpoint_id] = np.asarray(
+                host["heads"]).astype(np.int64)
+        new_rings = []
+        for el, starts in zip(c.out_rings, host["starts"]):
+            starts = np.array(starts)
+            starts[from_epoch % starts.shape[0]] = fence
+            new_rings.append(el._replace(
+                head=_device.scalar(fence, dev),
+                tail=_device.scalar(fence, dev),
+                epoch_starts=_device.upload(starts, dev),
+                latest_epoch=_device.scalar(from_epoch, dev),
+                epoch_base=_device.scalar(from_epoch, dev)))
+        ex.carry = c._replace(out_rings=tuple(new_rings))
+        ex.fast_forward_host_rng(fence)
+        # A live time source carries over (a fresh one would restart
+        # causal time and shift every window fire); logical time is bound
+        # to its executor, whose rebuilt history already resumes here.
+        if not isinstance(self.executor.time_source, LogicalTimeSource):
+            ex.time_source = self.executor.time_source
+
+        # One audit chain spans the re-cut: post-re-cut epochs diff
+        # against pre-re-cut ones through the group directory
+        # (diff_ledgers_cross).
+        if runner.auditor.enabled and self.auditor.enabled:
+            runner.auditor.adopt(self.auditor.ledger())
+        runner.last_sealed_epoch = max(runner.last_sealed_epoch,
+                                       self.last_sealed_epoch)
+
+        # The durable restore point in the NEW shape: a failure in the
+        # first post-re-cut epoch recovers at the new parallelism.
+        runner.coordinator.trigger(ckpt.checkpoint_id, ex.lean_snapshot(),
+                                   async_write=False, owned=True)
+        # The fence's SOURCE_CHECKPOINT rows open the new epoch's source
+        # logs, as the old incarnation's fence wrote them (the reference
+        # leaves them out, so the first epoch after a re-cut back to the
+        # old layout seals one row short of a never-rescaled run's).
+        if runner._source_flats:
+            hist = self.executor.step_input_history
+            ex.append_async_many(
+                runner._source_flats, det.SourceCheckpointDeterminant(
+                    record_count=ex.global_record_stamp(),
+                    checkpoint_id=ckpt.checkpoint_id,
+                    timestamp=hist[-1][0] if hist else 0))
+        runner.coordinator.ack_all(ckpt.checkpoint_id)
+
+        # Redirect; the old incarnation is fenced off.
+        coord.redirect()
+        self.failed = set(range(job_old.total_subtasks()))
+        for f in self.failed:
+            self.heartbeats.mark_dead(f)
+
+        stats = {
+            "fence_checkpoint": ckpt.checkpoint_id,
+            "from_epoch": from_epoch,
+            "groups": len(lanes),
+            "drained_records": int(sum(inflight)),
+            "moved_key_groups": {
+                vid: len(_audit.moved_key_groups(d))
+                for vid, d in directories.items()},
+            "migrate_ms": migrate_ms,
+            "transitions": events,
+        }
+        tr.event("rescale.redirect", **{k: v for k, v in stats.items()
+                                        if k != "transitions"})
+        return runner, stats
+
     # --- recovery helpers ----------------------------------------------------
 
     def _on_device(self, tree):

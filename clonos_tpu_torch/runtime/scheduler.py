@@ -46,9 +46,12 @@ and raise without one.
 The HLC and lineage planes ride the DEPLOY and FETCH_EDGE headers as in
 the reference (``attach_hlc`` / ``adopt_hlc``, ``attach_lineage`` /
 ``adopt_lineage``); with those planes off nothing is attached, so the
-headers are the reference's either way. Not ported here:
-``RescaleCoordinator`` / ``RescaleProtocolError`` (with
-``rescale_live``, ROADMAP Queue 1 item 7).
+headers are the reference's either way.
+
+- **Live re-cut control plane** (:class:`RescaleCoordinator`): the
+  fence -> drain -> migrate -> redirect walk that
+  ``ClusterRunner.rescale_live`` drives, with guards that raise
+  :class:`RescaleProtocolError` on any out-of-order step.
 
 Known limits (as in the reference): a rebuilt slice re-exports only what
 its replayed rings retain; slices co-hosted on one worker step
@@ -85,6 +88,140 @@ from clonos_tpu_torch.utils import metrics as met
 
 class NotLeaderError(RuntimeError):
     """A scheduler action was attempted without holding the lease."""
+
+
+class RescaleProtocolError(RuntimeError):
+    """A live re-cut step was attempted out of protocol order."""
+
+
+class RescaleCoordinator:
+    """Control plane of ONE live re-cut: fence → drain → migrate →
+    redirect (the reference's ``verify/models.py`` ``RepartitionModel``
+    is the checked abstraction of this object; its observation stream
+    is the reference coordinator's, call for call).
+
+    The JobMaster-side driver (``ClusterRunner.rescale_live``) walks it
+    through the protocol while doing the data-plane work beside each
+    step:
+
+    - :meth:`fence` — a COMPLETED checkpoint fence is the cut point;
+      the old incarnation stops admitting records.
+    - :meth:`drain` — the old incarnation hands group ``g``'s buffered
+      in-flight edge records into the migration payload (in the real
+      re-cut they ride the checkpoint's edge buffers through
+      ``route_hash_block``; "drained" here means *accounted for*, the
+      opposite of dying with the old incarnation).
+    - :meth:`migrate` — group ``g``'s keyed state moves to the N±k
+      incarnation. Guarded on an empty in-flight count: migrating over
+      a non-empty buffer is the ``migrate-skips-drain`` record-loss
+      bug the model proves bites.
+    - :meth:`redirect` — traffic cuts over. Guarded on every group
+      having migrated (``redirect-before-migrate`` restarts unmigrated
+      groups empty).
+
+    Guards raise :class:`RescaleProtocolError`: the implementation
+    refuses the model's seeded bugs. ``transition_observers``
+    (``fn(kind, **fields)``) emit the observation stream."""
+
+    PHASES = ("PRE", "FENCED", "REDIRECTED")
+
+    def __init__(self, num_groups: int):
+        if int(num_groups) < 1:
+            raise ValueError("RescaleCoordinator needs >= 1 group")
+        self.num_groups = int(num_groups)
+        self.phase = "PRE"
+        self.inflight = [0] * self.num_groups
+        self.migrated = [False] * self.num_groups
+        self.fence_checkpoint: Optional[int] = None
+        #: transition observers: ``fn(kind, **fields)`` on every
+        #: protocol step
+        self.transition_observers: List = []
+
+    def _observe(self, kind: str, **fields) -> None:
+        for fn in self.transition_observers:
+            fn(kind, **fields)
+
+    def _check_group(self, group: int) -> int:
+        group = int(group)
+        if not 0 <= group < self.num_groups:
+            raise ValueError(f"group {group} out of range "
+                             f"[0, {self.num_groups})")
+        return group
+
+    def note_inflight(self, group: int, n: int = 1) -> None:
+        """Pre-fence bookkeeping: ``n`` records entered (``n > 0``) or
+        left (``n < 0``) group ``group``'s in-flight edge buffers. Not
+        a protocol transition — nothing is observed."""
+        group = self._check_group(group)
+        if self.phase == "REDIRECTED":
+            raise RescaleProtocolError(
+                "note_inflight after redirect — the old incarnation "
+                "no longer owns any group")
+        if self.inflight[group] + n < 0:
+            raise RescaleProtocolError(
+                f"group {group} in-flight count would go negative "
+                f"({self.inflight[group]} {n:+d})")
+        self.inflight[group] += int(n)
+
+    def fence(self, checkpoint_id: int) -> None:
+        """A completed checkpoint fence: the cut point. PRE → FENCED."""
+        if self.phase != "PRE":
+            raise RescaleProtocolError(
+                f"fence in phase {self.phase} — one re-cut per "
+                f"coordinator")
+        self.phase = "FENCED"
+        self.fence_checkpoint = int(checkpoint_id)
+        self._observe("fence", checkpoint_id=self.fence_checkpoint)
+
+    def drain(self, group: int, n: int = 1) -> None:
+        """``n`` buffered records of ``group`` handed into the
+        migration payload."""
+        group = self._check_group(group)
+        if self.phase != "FENCED":
+            raise RescaleProtocolError(
+                f"drain({group}) in phase {self.phase} — draining is "
+                f"only legal between fence and redirect")
+        if self.migrated[group]:
+            raise RescaleProtocolError(
+                f"drain({group}) after the group migrated — the old "
+                f"incarnation no longer owns it (stale writer)")
+        if self.inflight[group] < n:
+            raise RescaleProtocolError(
+                f"drain({group}, {n}) exceeds the {self.inflight[group]} "
+                f"record(s) in flight")
+        self.inflight[group] -= int(n)
+        self._observe("drain", group=group, n=int(n))
+
+    def migrate(self, group: int) -> None:
+        """Group ``group``'s keyed state moves to the new incarnation."""
+        group = self._check_group(group)
+        if self.phase != "FENCED":
+            raise RescaleProtocolError(
+                f"migrate({group}) in phase {self.phase}")
+        if self.migrated[group]:
+            raise RescaleProtocolError(f"group {group} already migrated")
+        if self.inflight[group] != 0:
+            raise RescaleProtocolError(
+                f"migrate({group}) with {self.inflight[group]} in-flight "
+                f"record(s) undrained — they would die with the old "
+                f"incarnation at redirect (records lost)")
+        self.migrated[group] = True
+        self._observe("migrate", group=group)
+
+    def redirect(self) -> None:
+        """Traffic cuts over to the new incarnation. FENCED →
+        REDIRECTED; the old incarnation is fenced off."""
+        if self.phase != "FENCED":
+            raise RescaleProtocolError(
+                f"redirect in phase {self.phase}")
+        missing = [g for g in range(self.num_groups)
+                   if not self.migrated[g]]
+        if missing:
+            raise RescaleProtocolError(
+                f"redirect with group(s) {missing} unmigrated — they "
+                f"would restart empty on the new incarnation")
+        self.phase = "REDIRECTED"
+        self._observe("redirect")
 
 
 def _load_job(spec: str) -> JobGraph:

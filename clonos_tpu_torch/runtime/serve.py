@@ -282,6 +282,39 @@ class ReadReplica:
             self._dev = None
             self._dev_epoch = -1
 
+    def rehome(self, new_runner) -> None:
+        """Re-attach to the new incarnation after a live re-cut
+        (``ClusterRunner.rescale_live``). The key-group owner map changes
+        with the vertex's parallelism, so the old view, its restore point
+        and its device table (all of the old shape) are dropped and the
+        replica re-adopts from the new runner's restore point (the re-cut
+        re-fences the handoff checkpoint in the new shape). Until then it
+        has no view: the router reroutes to the owner, and clients see
+        staleness, never an error."""
+        with self._lock:
+            try:
+                self.runner.serve_feeds.remove(self._on_seal)
+            except ValueError:
+                pass
+            self.runner = new_runner
+            v = new_runner.job.vertices[self.vertex_id]
+            self.parallelism = v.parallelism
+            self.num_key_groups = new_runner.job.num_key_groups
+            self.tailable = bool(getattr(v.operator, "emits_running_value",
+                                         False))
+            self.alive = True
+            self._arr = None
+            self._epoch = -1
+            self._owner_of = None
+            self._restore = None
+            self._dev = None
+            self._dev_epoch = -1
+        new_runner.serve_feeds.append(self._on_seal)
+        new_runner.coordinator.subscribe_completed_state(self._on_checkpoint)
+        ck = new_runner.standbys.latest
+        if ck is not None:
+            self._on_checkpoint(ck)
+
     def close(self) -> None:
         with self._lock:
             try:
@@ -674,20 +707,17 @@ class ServeTier:
         self.vertex_id = int(vertex_id)
         self.state_name = state
         self.timeout_s = float(timeout_s)
+        #: replicas made so far: names are never reused, even where an
+        #: index is (a drop, then an add)
+        self._n_created = 0
         self.owner_endpoint = QueryableStateEndpoint(runner)
         self.owner_client = QueryableStateClient(
             self.owner_endpoint.address, timeout_s=timeout_s)
         self.replicas: List[ReadReplica] = []
         self.endpoints: List[ReplicaServeEndpoint] = []
         self.clients: List[ReplicaStateClient] = []
-        for i in range(n_replicas):
-            rep = ReadReplica(runner, self.vertex_id, state=state,
-                              name=f"replica-{i}")
-            ep = ReplicaServeEndpoint(rep)
-            self.replicas.append(rep)
-            self.endpoints.append(ep)
-            self.clients.append(ReplicaStateClient(
-                ep.address, timeout_s=self.timeout_s))
+        for _ in range(n_replicas):
+            self._build_replica()
         self.router = ServeRouter(
             self.owner_client, self.clients,
             num_key_groups=runner.job.num_key_groups,
@@ -697,6 +727,58 @@ class ServeTier:
         # completion truncates.
         runner.fence_hooks.append(self._on_fence)
         self._register_gauges()
+
+    def _build_replica(self) -> ReadReplica:
+        """One replica with its endpoint and client, appended to the
+        tier's lists (not yet visible to the router)."""
+        rep = ReadReplica(self.runner, self.vertex_id, state=self.state_name,
+                          name=f"replica-{self._n_created}")
+        self._n_created += 1
+        ep = ReplicaServeEndpoint(rep)
+        self.replicas.append(rep)
+        self.endpoints.append(ep)
+        self.clients.append(ReplicaStateClient(ep.address,
+                                               timeout_s=self.timeout_s))
+        return rep
+
+    def add_replica(self) -> int:
+        """Grow the tier by one replica at runtime. It adopts the latest
+        restore point at once and fills at the next seal, so it serves
+        with honest staleness from its first read; the router's
+        ``kg % R`` map takes the new count once it is published under
+        the router's lock. Returns its index."""
+        i = len(self.replicas)
+        self._build_replica()
+        with self.router._lock:
+            self.router.replicas.append(self.clients[i])
+            self.router._status.append(None)
+            self.router._status_at.append(0.0)
+        g = self.runner.metrics.group("serve")
+        g.gauge(f"replica.{i}.staleness-epochs",
+                lambda i=i: self.replicas[i].staleness_epochs())
+        return i
+
+    def drop_replica(self) -> int:
+        """Shrink the tier by its last replica. The router stops routing
+        to it under its lock before the endpoint closes, so a read that
+        already picked it reroutes to the owner (staleness, never an
+        error); its staleness gauge is unregistered. Never below one
+        replica. Returns the dropped index."""
+        if len(self.replicas) <= 1:
+            raise ValueError("cannot drop the last read replica")
+        i = len(self.replicas) - 1
+        with self.router._lock:
+            self.router.replicas.pop()
+            self.router._status = [None] * len(self.router.replicas)
+            self.router._status_at = [0.0] * len(self.router.replicas)
+        client = self.clients.pop()
+        ep = self.endpoints.pop()
+        rep = self.replicas.pop()
+        client.close()
+        ep.close()
+        rep.close()
+        self.runner.metrics.unregister(f"serve.replica.{i}.staleness-epochs")
+        return i
 
     def _on_fence(self, closed: int) -> None:
         # On the pipelined fence the seal is still in flight: the
@@ -722,6 +804,27 @@ class ServeTier:
 
     def mark_reads(self, n: int) -> None:
         self._meter.mark(n)
+
+    def rehome(self, new_runner) -> None:
+        """Re-home the tier after a live re-cut: the owner endpoint
+        snapshots the NEW runner, every replica re-adopts in the new
+        shape, and the fence hook and gauges move over. Reads issued
+        during the handoff reroute to the owner."""
+        try:
+            self.runner.fence_hooks.remove(self._on_fence)
+        except ValueError:
+            pass
+        self.runner = new_runner
+        self.owner_endpoint.runner = new_runner
+        self.owner_endpoint.refresh()
+        for rep in self.replicas:
+            rep.rehome(new_runner)
+        # Probes cached against the old incarnation would route on its
+        # staleness for a TTL.
+        with self.router._lock:
+            self.router._status = [None] * len(self.router.replicas)
+        new_runner.fence_hooks.append(self._on_fence)
+        self._register_gauges()
 
     def kill_replica(self, i: int) -> None:
         self.replicas[i % len(self.replicas)].kill()

@@ -186,6 +186,22 @@ def test_cross_process_plane_modules_import_alone_without_jax(module):
     assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
 
 
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.autoscale", "clonos_tpu_torch.autoscale.signals",
+    "clonos_tpu_torch.autoscale.policy",
+    "clonos_tpu_torch.autoscale.controller"])
+def test_autoscale_modules_import_alone_without_jax(module):
+    """The autoscaler (signals, policy, controller; their references are
+    JAX-free) imports alone in a fresh interpreter without ``jax`` or
+    ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "clonos_tpu")

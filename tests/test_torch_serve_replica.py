@@ -301,3 +301,61 @@ def test_serving_leaves_the_sealed_ledger_unchanged(tmp_path):
     assert len(with_tier) == 4
     assert diff_ledgers(without, with_tier) == []
     assert diff_ledgers(ref, with_tier) == []
+
+
+def test_serve_tier_rehomes_across_live_recut(tmp_path):
+    """A live 2->4 re-cut under a read tier: reads in the handoff window
+    answer the last fence (never an error); after ``tier.rehome(new)``
+    the replica re-adopts in the new shape and serves the next fences
+    with the owner's exact values, subtasks and epoch stamps, each
+    answer equal to the reference tier's at the same point."""
+    def recut_job(env_cls, keyed_par):
+        env = env_cls(name=f"serve-recut-{keyed_par}", num_key_groups=16,
+                      default_edge_capacity=64)
+        (env.synthetic_source(vocab=NUM_KEYS, batch_size=8, parallelism=2)
+            .key_by().reduce(num_keys=NUM_KEYS, parallelism=keyed_par,
+                             name="r")
+            .key_by().sink(parallelism=2))
+        return env.build()
+
+    kw = _kw()
+    answers = {}
+    for name, cls, env_cls, tier_fn, dev in (
+            ("port", ClusterRunner, StreamEnvironment, build_serve_tier,
+             {"device": "cpu"}),
+            ("ref", JaxRunner, JaxEnv, jax_tier, {})):
+        d = str(tmp_path / name)
+        r = cls(recut_job(env_cls, 2), checkpoint_dir=d, **dev, **kw)
+        tier = tier_fn(r, VID, n_replicas=1)
+        try:
+            r.run_epoch(complete_checkpoint=True)
+            r.drain_fence()
+            before = tier.clients[0].query_batch(VID, KEYS)
+            r2, stats = r.rescale_live(recut_job(env_cls, 4),
+                                       checkpoint_dir=d, **dev, **kw)
+            assert stats["transitions"][-1][0] == "redirect"
+            mid = tier.clients[0].query_batch(VID, KEYS)
+            assert mid["epoch"] == before["epoch"]
+            assert mid["values"] == before["values"]
+            tier.rehome(r2)
+            again = tier.clients[0].query_batch(VID, KEYS)
+            assert again["epoch"] == before["epoch"]
+            assert again["values"] == before["values"]
+            routed = tier.router.query_batch(VID, KEYS)
+            assert routed["values"] == before["values"]
+            r2.run_epoch(complete_checkpoint=True)
+            r2.drain_fence()
+            after = tier.clients[0].query_batch(VID, KEYS)
+            owner = tier.owner_client.query_batch(VID, KEYS)
+            assert after["epoch"] > before["epoch"]
+            assert after["epoch"] == owner["epoch"]
+            assert after["values"] == owner["values"]
+            assert after["subtasks"] == owner["subtasks"]
+            assert max(owner["subtasks"]) > 1, "4-wide ownership visible"
+            assert after["staleness_epochs"] == 0
+            assert tier.router.errors == 0
+            answers[name] = (before, mid, again, after, owner,
+                             tier.replicas[0].status())
+        finally:
+            tier.close()
+    assert answers["port"] == answers["ref"]
