@@ -144,6 +144,21 @@ Phases:
      same bytes, ``scale.decision`` records in the timeline; every
      epoch's ledger equal to a never-rescaled control's through the
      key-group directory, and the exact diff not.
+ 16. the soak and chaos harness (``[soak]``) at the headline's widths as
+     phase 15 cuts them, 256-step epochs, 8-step chunks: (a) the paced
+     loop's chunk back to back (records/s, chunk ms, launches and
+     synchronising calls a chunk, which must be 0, and the chunk's
+     ``keyed_hist`` shapes, each checked in phase 2); (b) the open-loop
+     soak at half of (a)'s rate with a 2-replica read tier on the reduce
+     and a kill cascade, a gray worker, a leader loss, a storage stall, a
+     backlog, a replica kill and a live re-cut to 16 lanes over a window ->
+     reduce buffer that holds records: the verdict passes exactly once, 0
+     read errors, reads rerouted, the staleness peak above its final
+     value, the runner's ledger equal to its control twin's through the
+     group directory; (c) one unlogged perturbation fails the run with a
+     ring divergence; (d) a load spike makes the autoscaler re-cut the job
+     itself, with no operator event, at most one action per cooldown, a
+     clean audit, and its decision log replayed to the same digest.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -296,10 +311,10 @@ SKEW_SHAPES = (
 #: phase 15's shapes. A re-cut routes one block (R=1) of each hash edge's
 #: buffer at the new parallelism: the source edge's 8 x 1,024 slots into
 #: 16 or 4 x 1,024 (8 -> 16, 8 -> 4) and its 16 x 1,024 into 8 x 1,024
-#: (16 -> 8); the window -> reduce edge's static-route slots (8 x 1,152
-#: into 4 x 1,152; 16 x 1,280 into 8 x 1,152; into 16 x 1,280 its 20,480
-#: slots exceed the histogram's 16,384 and take the element scatter); the
-#: sink edge's 8 x 1,024 into 8 x 1,024. In steady state at 16 and 4
+#: (16 -> 8); the sink edge's 8 x 1,024 into 8 x 1,024. The window ->
+#: reduce edge's buffer is placed by its new static plan, no kernel; the
+#: rows for its slots through the hash exchange (8 x 1,152 into 4 x
+#: 1,152; 16 x 1,280 into 8 x 1,152) stay as readings. In steady state at 16 and 4
 #: keyed lanes: the source exchange (512 steps of 8 x 128 records into 16
 #: or 4 x 1,024 slots), the reduce -> sink exchange (the reduce's 16 x
 #: 1,280, 8 x 1,152 or 4 x 1,152 slots into 8 x 1,024) and the window's
@@ -322,10 +337,21 @@ RESCALE_SHAPES = tuple(
     ("window-16", 512 * 16, EDGE_CAPACITY, VOCAB, False),
     ("window-4", 512 * 4, EDGE_CAPACITY, VOCAB, False))
 RESCALE_LABELS = {s[0] for s in RESCALE_SHAPES}
+#: phase 16's shapes: the paced loop's ``step()`` is a K=1 block, so each
+#: hash exchange routes one step (R=1) — the source edge's 8 x 128 records
+#: into 8 x 1,024 slots, the reduce -> sink edge's 8 x 1,152 static-route
+#: slots into 8 x 1,024 — and the window counts one step's 8 lanes
+SOAK_SHAPES = (
+    ("soak-route", 1, PAR * BATCH, PAR * EDGE_CAPACITY, True),
+    ("soak-route", 1, PAR * BATCH, PAR * EDGE_CAPACITY, False),
+    ("soak-window", PAR, EDGE_CAPACITY, VOCAB, False),
+    ("soak-sink-route", 1, PAR * 1152, PAR * EDGE_CAPACITY, True),
+    ("soak-sink-route", 1, PAR * 1152, PAR * EDGE_CAPACITY, False),
+)
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
     {s[0] for s in C45_SHAPES + WC_SHAPES + FLOOR_SHAPES + SKEW_SHAPES
-     + RESCALE_SHAPES})
+     + RESCALE_SHAPES + SOAK_SHAPES})
 #: the route shape as views one element into their buffers (the kernel's
 #: unaligned branch): checked bit for bit, not timed
 ALIGN_SHAPES = (("align", 512, PAR * BATCH, PAR * EDGE_CAPACITY, True),)
@@ -452,7 +478,8 @@ def phase_kernels():
     profiled = []
     for i, (label, r, b, nk, counts) in enumerate(
             MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES
-            + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES + RESCALE_SHAPES):
+            + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES + RESCALE_SHAPES
+            + SOAK_SHAPES):
         keys, vals, valid = _inputs(r, b, nk, 100 + i, dev, label)
         aligned = all(a.data_ptr() % 16 == 0 for a in (keys, vals, valid))
         smem_optin, sms = hist._device_info(keys.get_device())
@@ -2958,6 +2985,7 @@ def phase_serve_ingest(dev_line):
     tiered run's kernel launches."""
     from clonos_tpu_torch.obs.digest import diff_ledgers
     from clonos_tpu_torch.runtime import serve
+    from clonos_tpu_torch.soak.slo import quantile
     control = _serve_runner(DEVICE, overlap_epoch=True, audit=True)
     rate_off, syncs_off, _, _ = _ingest(control, None, -1)
     runner = _serve_runner(DEVICE, overlap_epoch=True, audit=True)
@@ -2969,8 +2997,8 @@ def phase_serve_ingest(dev_line):
         final = tier.staleness()
         router = tier.router
         lat = sorted(router.recent_ms)
-        p50 = serve._quantile(lat, 0.5)
-        p99 = serve._quantile(lat, 0.99)
+        p50 = quantile(lat, 0.5)
+        p99 = quantile(lat, 0.99)
         reroutes, reads = router.reroutes, router.reads
         revivals = [r.revivals for r in tier.replicas]
         snap = runner.metrics.snapshot()
@@ -4787,6 +4815,430 @@ def phase_rescale_live(dev_line, root):
         f"({dev_line})")
     return launches
 
+# --- phase 16 ---------------------------------------------------------------
+
+#: the soak's epochs (the bench's are 4,096 steps), 8-step chunks, every
+#: second checkpoint completed; the ring and the log hold 8 epochs
+SOAK_SPE = 256
+SOAK_CHUNK = 8
+SOAK_COMPLETE_EVERY = 2
+SOAK_RING = 1 << (8 * SOAK_SPE - 1).bit_length()
+SOAK_LOG = 1 << (2 * 8 * SOAK_SPE * DETS_PER_STEP).bit_length()
+SOAK_MAX_EPOCHS = 1024
+#: logical time runs this many steps ahead, so the 256-step window fires
+#: on each epoch's last step and every fence follows a firing: each re-cut
+#: then drains a window -> reduce buffer that holds records
+SOAK_TIME_SHIFT = 1
+#: (a) back-to-back chunks for this long; (b) the offered rate as a share
+#: of (a)'s records/s, the soak clock's length and its SLO windows; (c)
+#: and (d) their lengths
+SOAK_CAPACITY_S = 5.0
+SOAK_RATE_SHARE = 0.5
+SOAK_DURATION_S = 45.0
+SOAK_WINDOW_S = 5.0
+SOAK_BAIT_S = 10.0
+SOAK_LOOP_S = 20.0
+SOAK_READS = 32
+SOAK_RECUT = 16
+SOAK_LEASE_TTL_S = 2.0
+#: (b)'s schedule, each event at this share of the soak clock
+SOAK_EVENTS = (
+    (0.10, "kill {kill}"),
+    (0.18, "gray {gray} delay=20ms for 3s"),
+    (0.27, "leader-loss hold=500ms"),
+    (0.33, "stall delay=100ms for 9s"),
+    (0.56, "backlog for 5s"),
+    (0.68, "replica-kill 0"),
+    (0.74, "rescale {recut}"),
+)
+#: (c)'s bait and (d)'s spike, at these shares of their soak clocks
+SOAK_BAIT_AT = 0.5
+SOAK_SPIKE = (0.3, 4.0, 0.4)        # at, factor, for (shares, x, share)
+
+PHASE16_REDUCTIONS = (
+    f"the headline's widths as phase 15 cuts them ({PAR} sources x {BATCH} "
+    f"records a step -> keyBy -> windows over {VOCAB} keys, window_size="
+    f"{WINDOW_SIZE} -> keyBy(static) -> reduces -> keyBy -> {PAR} sinks; "
+    f"{NUM_KEY_GROUPS} key groups, edge capacity {EDGE_CAPACITY}), keyed "
+    f"stages at {PAR} lanes ({SOAK_RECUT} after (b)'s re-cut); a pipelined "
+    f"audited runner, a sequential control twin and a FileLeaderElection "
+    f"(ttl {SOAK_LEASE_TTL_S:g} s) built here (build_soak_fixture fixes 16 "
+    f"key groups, a window that never fires and toy widths), re-cuts armed "
+    f"as arm_rescaler arms them; cuts: steps_per_epoch={SOAK_SPE} (bench "
+    f"4096), chunk_steps={SOAK_CHUNK}, complete_every={SOAK_COMPLETE_EVERY}, "
+    f"inflight_ring_steps={SOAK_RING}, log_capacity={SOAK_LOG}, "
+    f"logical_time=True shifted {SOAK_TIME_SHIFT} step so the window fires "
+    f"on each epoch's last step, the sink edge a hash exchange; (a) "
+    f"{SOAK_CAPACITY_S:g} s of back-to-back chunks; (b) "
+    f"{SOAK_RATE_SHARE:g} of (a)'s records/s for {SOAK_DURATION_S:g} s "
+    f"({SOAK_WINDOW_S:g} s SLO windows), a 2-replica read tier on the "
+    f"reduce with {SOAK_READS} reads a pump; (c) {SOAK_BAIT_S:g} s with one "
+    f"nondet; (d) {SOAK_LOOP_S:g} s with a load-spike")
+
+
+class _ShiftedLogicalTime:
+    """Logical time ``SOAK_TIME_SHIFT`` steps ahead of the executor's step
+    count (both twins run it, so their ledgers stay comparable)."""
+
+    def __init__(self, executor):
+        self._ex = executor
+
+    def now(self) -> int:
+        return (len(self._ex.step_input_history)
+                + SOAK_TIME_SHIFT) & 0x7FFFFFFF
+
+
+def _soak_runner(root, tag, keyed_par, overlap):
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    r = ClusterRunner(build_rescale_job(keyed_par), **_soak_kw(root, tag,
+                                                              overlap))
+    r.executor.time_source = _ShiftedLogicalTime(r.executor)
+    return r
+
+
+def _soak_kw(root, tag, overlap):
+    return dict(device=DEVICE, steps_per_epoch=SOAK_SPE,
+                log_capacity=SOAK_LOG, max_epochs=SOAK_MAX_EPOCHS,
+                inflight_ring_steps=SOAK_RING, block_steps=SOAK_SPE,
+                logical_time=True, seed=SEED, audit=True,
+                checkpoint_dir=os.path.join(root, tag),
+                overlap_epoch=overlap)
+
+
+def _arm_soak_rescaler(r, root, tag, overlap, drained):
+    """``build_soak_fixture``'s ``arm_rescaler`` at these widths: a closure
+    that re-cuts ``r`` at its completed fence through ``rescale_live`` and
+    re-arms the new incarnation. It also counts the records the window ->
+    reduce (static) buffer holds at the fence into ``drained`` (one read,
+    at the re-cut only) and re-binds the shifted time to the new executor."""
+    edge = next(e for e in r.executor.compiled.static_route)
+
+    def rescale(target):
+        held = int(r.executor.carry.edge_bufs[edge].valid.sum())
+        nr, stats = r.rescale_live(build_rescale_job(int(target)),
+                                   **_soak_kw(root, tag, overlap))
+        nr.executor.time_source = _ShiftedLogicalTime(nr.executor)
+        drained.append(dict(tag=tag, target=int(target),
+                            static_buffer_records=held))
+        _arm_soak_rescaler(nr, root, tag, overlap, drained)
+        return nr, stats
+    r._soak_rescaler = rescale
+    return r
+
+
+def _soak_trio(root, sub, drained):
+    from clonos_tpu_torch.runtime.leader import FileLeaderElection
+    d = os.path.join(root, sub)
+    runner = _arm_soak_rescaler(_soak_runner(d, "run", PAR, True), d, "run",
+                                True, drained)
+    control = _arm_soak_rescaler(_soak_runner(d, "control", PAR, False), d,
+                                 "control", False, drained)
+    election = FileLeaderElection(os.path.join(d, "lease"), "soak-driver",
+                                  lease_ttl_s=SOAK_LEASE_TTL_S)
+    election.try_acquire()
+    return runner, control, election
+
+
+def _launch_shapes(fn):
+    """Run ``fn`` logging the (R, B, nk, counts) of every keyed_hist call
+    (kernel or plain version); returns (result, sorted distinct shapes)."""
+    from clonos_tpu_torch.ops import histogram as hist
+    seen = set()
+    originals = hist.keyed_hist_cuda, hist.keyed_hist_plain
+
+    def logged(orig):
+        def call(keys, vals, valid, nk, want_counts=True):
+            seen.add((keys.shape[0], keys.shape[1], nk, bool(want_counts)))
+            return orig(keys, vals, valid, nk, want_counts)
+        return call
+    hist.keyed_hist_cuda, hist.keyed_hist_plain = map(logged, originals)
+    try:
+        out = fn()
+    finally:
+        hist.keyed_hist_cuda, hist.keyed_hist_plain = originals
+    return out, sorted(seen)
+
+
+def _soak_capacity(r):
+    """(a) The paced loop's chunk (``SOAK_CHUNK`` x ``step()``) back to back
+    for ``SOAK_CAPACITY_S``, with the loop's fences (every
+    ``SOAK_COMPLETE_EVERY``-th completed, drained, older pendings
+    discarded): records/s over the whole wall, chunk host ms, keyed_hist
+    launches and synchronising calls (this thread) per chunk."""
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    ex = r.executor
+    fences = [0]
+
+    def fence_if_due():
+        if ex.step_in_epoch >= SOAK_SPE:
+            complete = fences[0] % SOAK_COMPLETE_EVERY == 0
+            r.run_epoch(complete_checkpoint=complete)
+            fences[0] += 1
+            if complete:
+                r.drain_fence()
+                r.coordinator.discard_pending_through(ex.epoch_id - 1)
+
+    chunk = lambda: [r.step() for _ in range(SOAK_CHUNK)]
+    r.run_epoch(complete_checkpoint=True)
+    r.drain_fence()
+    chunk()
+    fence_if_due()
+    _, shapes = _launch_shapes(chunk)
+    fence_if_due()
+    ms, syncs, launches = [], [], []
+    fences[0] = 0
+    sync()
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < SOAK_CAPACITY_S or ex.step_in_epoch:
+        n0 = keyed_hist.launches
+        t = time.monotonic()
+        _, n = _sync_count(chunk, this_thread=True)
+        ms.append((time.monotonic() - t) * 1e3)
+        syncs.append(n)
+        launches.append(keyed_hist.launches - n0)
+        fence_if_due()
+    sync()
+    wall = time.monotonic() - t0
+    records = len(ms) * SOAK_CHUNK * PAR * BATCH
+    return dict(
+        records_per_s=records / wall, chunks=len(ms), fences=fences[0],
+        wall_s=round(wall, 3),
+        chunk_ms_p50=round(float(np.percentile(ms, 50)), 3),
+        chunk_ms_p99=round(float(np.percentile(ms, 99)), 3),
+        keyed_hist_launches_per_chunk=sorted(set(launches)),
+        syncs_per_chunk=(None if syncs[0] is None
+                         else sorted(set(syncs))),
+        launch_shapes=[list(x) for x in shapes])
+
+
+def _watch_fences(runner, harness, rows):
+    """Append to ``rows``, at each fence of ``runner``, the fence tail it
+    joined last (``fence-tail`` and ``fence.snapshot`` ms, each tail
+    once), tagged with whether the soak's ``stall`` is active."""
+    last = [None]
+
+    def note(_closed):
+        ph = runner.last_fence_phases
+        if ph and ph is not last[0]:
+            last[0] = ph
+            rows.append((harness._stall_orig is not None,
+                         ph.get("fence-tail", 0.0),
+                         ph.get("fence.snapshot", 0.0)))
+    runner.fence_hooks.append(note)
+
+
+def _fence_reading(rows):
+    out = {}
+    for stalled, key in ((True, "stalled"), (False, "unstalled")):
+        mine = [r for r in rows if r[0] == stalled]
+        out[key] = dict(
+            fences=len(mine),
+            fence_tail_ms_max=round(max((r[1] for r in mine),
+                                        default=0.0), 3),
+            snapshot_ms_max=round(max((r[2] for r in mine), default=0.0),
+                                  3))
+    return out
+
+
+def _soak_verdict_line(v):
+    lat = v["latency"]
+    return dict(
+        pass_=v["pass"], rate_target=v["rate_target"],
+        rate_achieved=v["rate_achieved"], records=v["records"],
+        duration_s=v["duration_s"],
+        corrected_p50_ms=lat["p50_ms"], corrected_p99_ms=lat["p99_ms"],
+        actual_p99_ms=lat["actual_send_p99_ms"],
+        windows_breached=v["windows_breached"],
+        faults=v["faults"]["by_kind"],
+        recoveries_ms=v["faults"]["recoveries_ms"],
+        exactly_once=v["audit"]["exactly_once"],
+        epochs_checked=v["audit"]["epochs_checked"],
+        divergences=v["audit"]["divergences"], truncated=v["truncated"])
+
+
+def phase_soak(dev_line, root, rows=None):
+    """(a) closed-loop capacity, (b) the open-loop soak with every operator
+    fault under a read tier, (c) the audit bait, (d) the closed loop with
+    the autoscaler. Every keyed_hist shape of a steady chunk must be one
+    that phase 2 held against the plain version (``rows``; None skips the
+    check). Returns the phase's kernel launches."""
+    from clonos_tpu_torch.autoscale import (AutoscaleController,
+                                            DecisionLog, PolicyConfig,
+                                            ScalePolicy)
+    from clonos_tpu_torch.obs import audit as audit_mod
+    from clonos_tpu_torch.runtime import serve
+    from clonos_tpu_torch.soak import (ServeLoad, SLOSpec, SoakConfig,
+                                       SoakDriver, default_kill_targets,
+                                       parse_schedule)
+    t_phase = time.monotonic()
+    problems = []
+    readings = {}
+    drained = []
+    rps = PAR * BATCH
+
+    def cfg(rate, duration):
+        return SoakConfig(rate=rate, duration_s=duration,
+                          window_s=SOAK_WINDOW_S, chunk_steps=SOAK_CHUNK,
+                          complete_every=SOAK_COMPLETE_EVERY)
+
+    def run():
+        # (a) and (b) on one runner pair: (b)'s audit covers (a)'s epochs
+        runner, control, election = _soak_trio(root, "b", drained)
+        cap = _soak_capacity(runner)
+        readings["a"] = cap
+        held = {(r["R"], r["B"], r["nk"], r["counts"]) for r in rows or ()}
+        if rows is not None and not set(
+                map(tuple, cap["launch_shapes"])) <= held:
+            problems.append(f"(a) chunk shapes {cap['launch_shapes']} not "
+                            f"all checked in phase 2")
+        if cap["syncs_per_chunk"] not in (None, [0]):
+            problems.append(f"(a) synchronising calls in a steady chunk: "
+                            f"{cap['syncs_per_chunk']} "
+                            f"({SYNC_SITES[-3:]})")
+        rate = SOAK_RATE_SHARE * cap["records_per_s"]
+        targets = default_kill_targets(runner.job)
+        text = "\n".join(
+            f"at {share * SOAK_DURATION_S:.3f}s " + ev.format(
+                kill=",".join(map(str, targets[:3])), gray=targets[1],
+                recut=SOAK_RECUT)
+            for share, ev in SOAK_EVENTS)
+        vid = _reduce_vid(runner.job)
+        tier = serve.build_serve_tier(runner, vid, n_replicas=2)
+        fences = []
+        try:
+            load = ServeLoad(tier, vid, num_keys=VOCAB,
+                             reads_per_pump=SOAK_READS,
+                             window_s=SOAK_WINDOW_S)
+            driver = SoakDriver(runner, cfg(rate, SOAK_DURATION_S),
+                                schedule=parse_schedule(text),
+                                spec=SLOSpec(exactly_once=True),
+                                control=control, election=election,
+                                records_per_step=rps, read_load=load)
+            _watch_fences(runner, driver.harness, fences)
+            v = driver.run()
+        finally:
+            tier.close()
+        h = driver.harness
+        recut = [d for d in drained if d["tag"] == "run"]
+        cross = audit_mod.diff_ledgers_cross(
+            h.control.auditor.ledger(), h.runner.auditor.ledger())
+        s = v["serve"]
+        if not (v["pass"] and v["audit"]["exactly_once"] is True
+                and not v["audit"]["divergences"]):
+            problems.append(f"(b) verdict {_soak_verdict_line(v)}")
+        kinds = {ev.split()[0] for _, ev in SOAK_EVENTS}
+        if set(v["faults"]["by_kind"]) != kinds:
+            problems.append(f"(b) faults fired {v['faults']['by_kind']}")
+        if s["errors"] or s["reroutes"] <= 0 \
+                or s["staleness_peak"] <= s["staleness_final"]:
+            problems.append(f"(b) serve errors {s['errors']} "
+                            f"({s['last_error']}), reroutes {s['reroutes']}, "
+                            f"staleness peak {s['staleness_peak']} final "
+                            f"{s['staleness_final']}")
+        if len(recut) != 1 or recut[0]["static_buffer_records"] <= 0:
+            problems.append(f"(b) re-cuts {recut}: none over a static "
+                            f"buffer that holds records")
+        if cross:
+            problems.append(f"(b) cross diff {cross[:3]}")
+        # One entry each, in the schedule's order: the kill's recovery, the
+        # leader-loss pause, the re-cut's fence stall.
+        rec_ms = v["faults"]["recoveries_ms"]
+        named = (dict(zip(("kill_recovery_ms", "leader_pause_ms",
+                           "recut_stall_ms"), rec_ms))
+                 if len(rec_ms) == 3 else {})
+        readings["b"] = dict(
+            _soak_verdict_line(v), schedule=v["schedule"], **named,
+            recut=dict(v["faults"]["rescale_stats"][0]
+                       if v["faults"]["rescale_stats"] else {},
+                       static_buffer_records=(
+                           recut[0]["static_buffer_records"]
+                           if recut else None)),
+            stall=_fence_reading(fences),
+            serve={k: s[k] for k in (
+                "reads", "errors", "reroutes", "replica_reads",
+                "owner_reads", "p50_read_ms", "p99_read_ms",
+                "staleness_peak", "staleness_final", "replica_kills")},
+            kills_mid_fence_tail=v["faults"]["kills_mid_fence_tail"],
+            kill_rediff_problems=v["faults"]["kill_rediff_problems"],
+            cross_diff=cross, rate=round(rate, 1))
+        del driver, h, runner, control, tier, load
+        torch.cuda.empty_cache()
+
+        # (c) the audit bait: one unlogged perturbation must fail the run
+        runner, control, election = _soak_trio(root, "c", [])
+        driver = SoakDriver(
+            runner, cfg(rate, SOAK_BAIT_S),
+            schedule=parse_schedule(
+                f"at {SOAK_BAIT_AT * SOAK_BAIT_S:.3f}s nondet"),
+            spec=SLOSpec(exactly_once=True), control=control,
+            election=election, records_per_step=rps)
+        v = driver.run()
+        div = v["audit"]["divergences"]
+        if v["pass"] or not any("ring" in d for d in div):
+            problems.append(f"(c) the bait passed: {_soak_verdict_line(v)}")
+        readings["c"] = dict(pass_=v["pass"], divergences=div[:2],
+                             epochs_checked=v["audit"]["epochs_checked"],
+                             faults=v["faults"]["by_kind"])
+        del driver, runner, control
+        torch.cuda.empty_cache()
+
+        # (d) the closed loop: the autoscaler re-cuts the job itself
+        runner, control, election = _soak_trio(root, "d", drained)
+        log_path = os.path.join(root, "d", "scale.det")
+        policy = lambda: ScalePolicy(PolicyConfig(
+            sustain_fences=2, cooldown_fences=3, min_workers=4,
+            max_workers=16))
+        ctl = AutoscaleController(policy(), log=DecisionLog(log_path))
+        at, factor, dur = SOAK_SPIKE
+        driver = SoakDriver(
+            runner, cfg(rate, SOAK_LOOP_S),
+            schedule=parse_schedule(
+                f"at {at * SOAK_LOOP_S:.3f}s load-spike {factor:g}x for "
+                f"{dur * SOAK_LOOP_S:.3f}s"),
+            spec=SLOSpec(exactly_once=True), control=control,
+            election=election, records_per_step=rps, autoscaler=ctl)
+        v = driver.run()
+        a = v["autoscale"]
+        c2 = AutoscaleController(policy(), log=DecisionLog(log_path))
+        if not (v["pass"] and v["audit"]["exactly_once"] is True
+                and a["autoscale_rescales"] >= 1
+                and a["operator_rescale_events"] == 0
+                and a["max_actions_per_cooldown"] <= 1
+                and c2.log.digest() == ctl.log.digest()
+                and len(c2.log) == len(ctl.log)):
+            problems.append(f"(d) {_soak_verdict_line(v)}, autoscale "
+                            f"{a}, replayed digest {c2.log.digest()}")
+        cross = audit_mod.diff_ledgers_cross(
+            driver.harness.control.auditor.ledger(),
+            driver.runner.auditor.ledger())
+        if cross:
+            problems.append(f"(d) cross diff {cross[:3]}")
+        readings["d"] = dict(
+            _soak_verdict_line(v), decisions=a["decisions"],
+            by_action=a["by_action"],
+            autoscale_rescales=a["autoscale_rescales"],
+            operator_rescale_events=a["operator_rescale_events"],
+            max_actions_per_cooldown=a["max_actions_per_cooldown"],
+            rescale_stats=a["rescale_stats"], log_digest=a["log_digest"],
+            replayed_digest=c2.log.digest(),
+            recuts_over_static_buffers=[
+                d for d in drained if d["tag"] == "run"][1:])
+        del driver, runner, control
+        torch.cuda.empty_cache()
+
+    _, launches, _ = _counted(run)
+    if min(launches.values()) == 0:
+        problems.append(f"no kernel launch: {launches}")
+    for part in ("a", "b", "c", "d"):
+        if part in readings:
+            log(f"[soak] ({part}) " + json.dumps(dict(
+                readings[part], device=dev_line)))
+    if problems:
+        raise AssertionError("phase 16: " + "; ".join(problems))
+    log(f"[soak] phase 16: {time.monotonic() - t_phase:.1f} s, kernel "
+        f"launches {json.dumps(launches)} ({dev_line})")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4886,6 +5338,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[rescale] phase 15: {time.monotonic() - t15:.1f} s ({dev_line})")
+    torch.cuda.empty_cache()
+    log(f"[config] phase 16: {PHASE16_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_soak_", dir=SCRATCH)
+    try:
+        soak_launches = phase_soak(dev_line, root, rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -4901,7 +5360,7 @@ def main() -> int:
         "planes_cost": cost_launches,
         "planes_failover": failover_launches,
         "rescale_restore": recut_launches,
-        "rescale_live": live_launches})))
+        "rescale_live": live_launches, "soak": soak_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
 """Command-line front end of the port (``clonos_tpu/cli.py``): the job,
-process, dispatcher and observability verbs.
+process, dispatcher, observability and soak verbs.
 
 The CLI builds a job from ``module:function`` and drives an in-process
 ``ClusterRunner`` on the card (``--device cuda``, the default; it raises
@@ -22,6 +22,8 @@ Usage:
     python -m clonos_tpu_torch timeline timeline-*.jsonl [--report json]
     python -m clonos_tpu_torch incident {list,show,explain} [--dir DIR]
     python -m clonos_tpu_torch lineage lineage-*.jsonl [--key K]
+    python -m clonos_tpu_torch soak [--rate R] [--duration S] \\
+        [--schedule DSL|FILE] [--autoscale] [--report json] [--out FILE] ...
 
 ``worker`` is the TaskExecutor process: it registers with a remote
 JobMaster (naming its device and which path frames its deltas) and
@@ -45,6 +47,12 @@ HLC timelines (``--timeline-dir`` on ``run``, ``worker``, ``slotworker``
 and ``dispatcher``) and proves them causal, ``incident`` lists and
 explains incident bundles, and ``lineage`` reconstructs dyed records'
 paths (``worker --lineage-dir``, or a DEPLOY header's dye config).
+
+``soak`` (``soak/``) paces a runner and its fault-free control twin at a
+fixed rate through a chaos schedule and writes the verdict (corrected
+latency, SLO windows, faults, the exactly-once audit) to ``--out``
+(default: the next free ``SOAK_r0N.json`` in the working directory);
+``--report json`` prints one line and exits 0 on pass, 1 on fail.
 """
 
 from __future__ import annotations
@@ -1162,6 +1170,200 @@ def cmd_lineage(args) -> int:
     return 0 if report["ok"] else 1
 
 
+def cmd_soak(args) -> int:
+    """Open-loop soak run (``clonos_tpu_torch soak``): paced load at a fixed
+    ingestion rate, a seeded (or explicit) chaos schedule, windowed SLO
+    evaluation on coordinated-omission-corrected latency, and the
+    exactly-once audit re-validated against a fault-free control twin
+    after every injected fault. Writes the full verdict to a durable
+    ``SOAK_r0N.json`` artifact and exits 0 (pass) / 1 (fail)."""
+    import os
+    import tempfile
+    from clonos_tpu_torch.soak import (ChaosSchedule, SLOSpec, SoakConfig,
+                                       SoakDriver, build_soak_fixture,
+                                       default_kill_targets,
+                                       next_autoscale_artifact_path,
+                                       next_soak_artifact_path,
+                                       parse_schedule)
+
+    tracer = _setup_tracer(args, "soak")
+    _setup_timeline(args, "soak")
+    _setup_profile(args)
+    if args.detect_gray:
+        from clonos_tpu_torch.obs import configure_detector
+        configure_detector()
+    workdir = args.workdir or tempfile.mkdtemp(prefix="clonos-soak-")
+    if args.incidents:
+        # Flight recorder: any failure signal during the soak (audit
+        # divergence, SLO breach, gray suspect, conformance mismatch)
+        # lands a durable forensic bundle under <workdir>/incidents/;
+        # `clonos_tpu_torch incident explain` localizes it afterwards.
+        from clonos_tpu_torch.obs import configure_incidents
+        configure_incidents(workdir, service="soak")
+    if args.lineage:
+        # Record-level dye (obs/lineage.py): arm the process plane so
+        # build_soak_fixture gives BOTH twins per-twin planes with the
+        # same dye config — k records per epoch dyed by key hash, every
+        # hop/sink observed at the seals; `clonos_tpu_torch lineage
+        # <workdir>/lineage-*.jsonl` reconstructs the paths afterwards.
+        from clonos_tpu_torch.obs import configure_lineage
+        configure_lineage(workdir, service="soak")
+    runner, control, election = build_soak_fixture(
+        workdir, rate=args.rate, duration_s=args.duration,
+        steps_per_epoch=args.steps_per_epoch, par=args.parallelism,
+        batch=args.batch, seed=args.seed, audit=not args.no_audit,
+        device=args.device)
+
+    if args.schedule is not None:
+        text = args.schedule
+        if os.path.exists(text):
+            with open(text) as f:
+                text = f.read()
+        schedule = parse_schedule(text)
+    else:
+        # one kill/gray candidate per vertex class (a cascade must not
+        # take every replica of one vertex with it); fire times stay
+        # inside the paced window
+        targets = default_kill_targets(runner.job)
+        schedule = ChaosSchedule.seeded(
+            args.seed, args.duration, targets,
+            kinds=tuple(args.faults.split(",")) if args.faults
+            else ("kill", "gray", "leader-loss"),
+            n_events=args.events, cascade=args.cascade)
+
+    spec = SLOSpec(max_p99_ms=args.max_p99_ms,
+                   min_throughput=args.min_throughput,
+                   max_recovery_ms=args.max_recovery_ms,
+                   exactly_once=not args.no_audit)
+    cfg = SoakConfig(rate=args.rate, duration_s=args.duration,
+                     window_s=args.window,
+                     chunk_steps=args.chunk_steps,
+                     complete_every=args.complete_every)
+    autoscaler = None
+    if args.autoscale:
+        # the closed loop: a deterministic policy engine evaluates at
+        # every completed fence and re-cuts the job itself (zero
+        # operator rescale events); every decision + signal snapshot
+        # lands in the SCALE determinant log under the workdir, so a
+        # recovered controller REPLAYS it instead of re-deciding.
+        from clonos_tpu_torch.autoscale import (AutoscaleController,
+                                                DecisionLog, PolicyConfig,
+                                                ScalePolicy)
+        autoscaler = AutoscaleController(
+            ScalePolicy(PolicyConfig(
+                min_workers=1, max_workers=max(args.parallelism * 2,
+                                               args.parallelism + 2))),
+            log=DecisionLog(os.path.join(workdir, "scale.det")))
+    driver = SoakDriver(runner, cfg, schedule=schedule, spec=spec,
+                        control=control, election=election,
+                        records_per_step=args.parallelism * args.batch,
+                        autoscaler=autoscaler)
+
+    endpoint = None
+    if args.metrics_port is not None:
+        from clonos_tpu_torch.utils.metrics import MetricsEndpoint
+        endpoint = MetricsEndpoint(runner.metrics,
+                                   port=args.metrics_port,
+                                   tracer=tracer,
+                                   history=_make_history(args))
+        print(f"# metrics: http://{endpoint.address[0]}:"
+              f"{endpoint.address[1]}/metrics", file=sys.stderr)
+    try:
+        verdict = driver.run()
+    finally:
+        if endpoint is not None:
+            endpoint.close()
+
+    out_path = args.out or (next_autoscale_artifact_path()
+                            if args.autoscale
+                            else next_soak_artifact_path())
+    with open(out_path, "w") as f:
+        json.dump(verdict, f, indent=2)
+    rc = 0 if verdict["pass"] else 1
+    if args.report == "json":
+        # CI convention: one machine-readable line, exit 0/1.
+        lat = verdict["latency"]
+        line = {
+            "pass": verdict["pass"],
+            "rate_target": verdict["rate_target"],
+            "rate_achieved": verdict["rate_achieved"],
+            "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+            "windows_breached": verdict["windows_breached"],
+            "faults": verdict["faults"]["injected"],
+            "survived": verdict["faults"]["survived"],
+            "exactly_once": verdict["audit"]["exactly_once"],
+            "divergences": len(verdict["audit"]["divergences"]),
+            "artifact": out_path}
+        if "autoscale" in verdict:
+            asc = verdict["autoscale"]
+            line["autoscale_decisions"] = asc["decisions"]
+            line["autoscale_rescales"] = asc["autoscale_rescales"]
+            line["operator_rescale_events"] = \
+                asc["operator_rescale_events"]
+        if "health" in verdict:
+            hl = verdict["health"]
+            line["gray_suspects"] = hl["suspects"]
+            line["gray_replay_ok"] = hl["replay_bit_identical"]
+        if args.incidents:
+            from clonos_tpu_torch.obs.incident import get_incidents
+            line["incidents"] = get_incidents().captured
+        if args.lineage:
+            line["lineage_dyed"] = runner.lineage.dyed
+            line["lineage_observations"] = runner.lineage.observations
+        print(json.dumps(line))
+        return rc
+    lat = verdict["latency"]
+    print(f"soak {'PASS' if verdict['pass'] else 'FAIL'}: "
+          f"{verdict['rate_achieved']:.0f}/{verdict['rate_target']:.0f} "
+          f"rec/s over {verdict['duration_s']:.1f}s")
+    print(f"latency (corrected): p50={lat['p50_ms']}ms "
+          f"p99={lat['p99_ms']}ms p99.9={lat['p999_ms']}ms "
+          f"(actual-send p99={lat['actual_send_p99_ms']}ms)")
+    f_ = verdict["faults"]
+    print(f"faults: {f_['injected']} injected, {f_['survived']} "
+          f"survived {f_['by_kind']}; recoveries "
+          f"{[round(m) for m in f_['recoveries_ms']]} ms")
+    a = verdict["audit"]
+    print(f"audit: exactly_once={a['exactly_once']} "
+          f"({a['epochs_checked']} epochs checked, "
+          f"{len(a['divergences'])} divergences)")
+    if "health" in verdict:
+        hl = verdict["health"]
+        print(f"health: suspects={hl['suspects']} "
+              f"gray_events={hl['gray_events']} "
+              f"fences_scored={hl['fences_scored']} "
+              f"replay_ok={hl['replay_bit_identical']}")
+    if "autoscale" in verdict:
+        asc = verdict["autoscale"]
+        print(f"autoscale: {asc['decisions']} decisions "
+              f"{asc['by_action']}; {asc['autoscale_rescales']} "
+              f"self-directed re-cuts, "
+              f"{asc['operator_rescale_events']} operator events; "
+              f"max {asc['max_actions_per_cooldown']} action(s) per "
+              f"{asc['cooldown_fences']}-fence cooldown; "
+              f"log {asc['log_digest']}")
+    for d in a["divergences"]:
+        print(f"  divergence: {d}")
+    for w in verdict["windows"]:
+        for b in w["breaches"]:
+            print(f"  window {w['window']} breach: {b}")
+    if args.incidents:
+        from clonos_tpu_torch.obs.incident import get_incidents
+        mgr = get_incidents()
+        if mgr.captured:
+            print(f"incidents: {mgr.captured} bundle(s) under "
+                  f"{mgr.dir} — `clonos_tpu_torch incident explain "
+                  f"--dir {workdir}`")
+    if args.lineage:
+        lin = runner.lineage
+        print(f"lineage: {lin.dyed} records dyed, "
+              f"{lin.observations} observations across "
+              f"{lin.epochs_observed} epochs — `clonos_tpu_torch lineage "
+              f"{workdir}/lineage-*.jsonl`")
+    print(f"artifact: {out_path}")
+    return rc
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="clonos_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1483,6 +1685,111 @@ def main(argv=None) -> int:
                          "line {match, groups, problems}; exit code "
                          "stays 0 on match / 1 on divergence")
     pa.set_defaults(fn=cmd_audit)
+
+    pk = sub.add_parser("soak", help="open-loop soak: fixed-rate load "
+                                     "+ chaos schedule + SLO windows + "
+                                     "exactly-once audit under fault")
+    pk.add_argument("--rate", type=float, default=2000.0,
+                    help="ingestion rate the token bucket sustains "
+                         "(records/sec); chunks falling behind are "
+                         "charged from their intended-send instant")
+    pk.add_argument("--duration", type=float, default=60.0,
+                    help="paced-phase length (seconds of soak clock)")
+    pk.add_argument("--window", type=float, default=5.0,
+                    help="SLO evaluation window width (seconds)")
+    pk.add_argument("--seed", type=int, default=11,
+                    help="seeds BOTH the job and the generated chaos "
+                         "schedule — same seed, same run, bit for bit")
+    pk.add_argument("--schedule", default=None, metavar="DSL|FILE",
+                    help="explicit chaos schedule: DSL text (';'-"
+                         "separated) or a path to a schedule file; "
+                         "overrides the seeded generator")
+    pk.add_argument("--faults", default=None,
+                    metavar="KIND[,KIND...]",
+                    help="fault kinds for the seeded generator "
+                         "(default kill,gray,leader-loss; add nondet "
+                         "to prove the audit catches an unlogged "
+                         "perturbation — that run MUST exit 1)")
+    pk.add_argument("--events", type=int, default=None,
+                    help="events in the seeded schedule (default: one "
+                         "per kind)")
+    pk.add_argument("--cascade", type=int, default=3,
+                    help="subtasks per cascading kill")
+    pk.add_argument("--max-p99-ms", type=float, default=None,
+                    help="SLO: per-window corrected p99 bound")
+    pk.add_argument("--min-throughput", type=float, default=None,
+                    help="SLO: per-window records/sec floor")
+    pk.add_argument("--max-recovery-ms", type=float, default=None,
+                    help="SLO: bound on any single recovery/pause")
+    pk.add_argument("--no-audit", action="store_true",
+                    help="skip the control twin + exactly-once "
+                         "re-validation (halves the compute; the "
+                         "verdict then rests on SLO windows alone)")
+    pk.add_argument("--steps-per-epoch", type=int, default=64)
+    pk.add_argument("--parallelism", type=int, default=2)
+    pk.add_argument("--batch", type=int, default=8)
+    pk.add_argument("--chunk-steps", type=int, default=8,
+                    help="supersteps per token-bucket release")
+    pk.add_argument("--complete-every", type=int, default=2,
+                    help="complete every Nth checkpoint (in-between "
+                         "fences stay pending: checkpoint-under-load)")
+    pk.add_argument("--autoscale", action="store_true",
+                    help="close the loop: a deterministic policy "
+                         "engine samples the metric rollup at every "
+                         "completed fence and re-cuts the job itself "
+                         "(rescale_live) — decisions ride the SCALE "
+                         "determinant log so recovery replays them; "
+                         "the verdict lands in AUTOSCALE_r0N.json")
+    pk.add_argument("--workdir", default=None,
+                    help="checkpoint/lease dir (default: a fresh "
+                         "tempdir)")
+    pk.add_argument("--out", default=None, metavar="FILE",
+                    help="verdict artifact path (default: next free "
+                         "SOAK_r0N.json in the cwd, AUTOSCALE_r0N."
+                         "json with --autoscale)")
+    pk.add_argument("--report", choices=["json"], default=None,
+                    help="machine-readable summary for CI: one JSON "
+                         "line; exit 0 pass / 1 fail either way")
+    pk.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics + /metrics.json with the "
+                         "soak.* gauges while running (0 = ephemeral; "
+                         "point `clonos_tpu_torch top` here)")
+    pk.add_argument("--trace-dir", default=None,
+                    help="record soak/chaos/breach trace spans to "
+                         "trace-soak.jsonl here")
+    pk.add_argument("--timeline-dir", default=None,
+                    help="record the unified causal timeline (chaos / "
+                         "epoch seals / scale decisions / SLO breaches "
+                         "/ gray suspicion, HLC-stamped) to "
+                         "timeline-soak.jsonl here (off by default: "
+                         "zero overhead)")
+    pk.add_argument("--incidents", action="store_true",
+                    help="arm the incident flight recorder: failure "
+                         "signals (audit divergence, SLO breach, gray "
+                         "suspect, conformance mismatch) land durable "
+                         "forensic bundles under <workdir>/incidents/ "
+                         "for `clonos_tpu_torch incident explain` (off by "
+                         "default: zero overhead, zero wire fields)")
+    pk.add_argument("--lineage", action="store_true",
+                    help="arm the record-level lineage plane: a "
+                         "deterministic sampler dyes k records per "
+                         "epoch by key hash (the control twin dyes "
+                         "the SAME records, zero coordination) and "
+                         "every fence logs their hops, determinant "
+                         "rows, and sink/serve termini to "
+                         "<workdir>/lineage-*.jsonl for `clonos_tpu_torch "
+                         "lineage` (off by default: zero overhead, "
+                         "zero wire fields)")
+    pk.add_argument("--detect-gray", action="store_true",
+                    help="score the gray-failure detector at every "
+                         "completed fence (cluster.health.* gauges, "
+                         "health.gray-suspect timeline events, and a "
+                         "health section in the verdict; feeds the "
+                         "autoscaler's unhealthy arm)")
+    _add_profile_args(pk)
+    _add_device_arg(pk)
+    pk.set_defaults(fn=cmd_soak)
+
 
     pp = sub.add_parser("top", help="live per-worker cluster view from "
                                     "a JobMaster metrics endpoint")

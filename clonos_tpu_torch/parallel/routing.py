@@ -399,6 +399,59 @@ class StaticRoutePlan:
             dropped.index_add_(1, drop_t, dv.to(torch.int32))
         return routed, dropped
 
+    def key_slots(self, src_parallelism: int, num_key_groups: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """The plan's inverse, on the host: for each key, the target and
+        slot at which the producer subtask that owns the key delivers it
+        (``-1`` where no slot carries the key)."""
+        t, c = np.nonzero(self.ok)
+        keys = self.slot_keys[t, c].astype(np.int64)
+        mine = self.src_p[t, c] == _static_targets(keys, src_parallelism,
+                                                   num_key_groups)
+        lane = np.full(int(keys.max()) + 1, -1, np.int32)
+        slot = np.full_like(lane, -1)
+        lane[keys[mine]] = t[mine]
+        slot[keys[mine]] = c[mine]
+        return lane, slot
+
+    def place(self, batch: RecordBatch, src_parallelism: int,
+              num_key_groups: int) -> Tuple[RecordBatch, torch.Tensor]:
+        """Place a buffer of records (any shape) into the plan's ``[T,
+        cap]`` layout by key: each valid record goes to the slot its key's
+        owning producer fills (:meth:`key_slots`). The inverse is built
+        once per device and uploaded once. Returns the placed batch and
+        the count of valid records that found no slot of their own (a key
+        the plan does not carry, or two records on one slot), as a
+        device scalar."""
+        dev = batch.keys.device
+        key = f"place:{src_parallelism}:{num_key_groups}:{dev}"
+        if key not in self._on_device:
+            self._on_device[key] = tuple(
+                torch.from_numpy(a).to(torch.int64).to(dev)
+                for a in self.key_slots(src_parallelism, num_key_groups))
+        lane, slot = self._on_device[key]
+        T, cap = self.slot_keys.shape
+        k = batch.keys.reshape(-1).to(torch.int64)
+        valid = batch.valid.reshape(-1)
+        known = valid & (k >= 0) & (k < lane.numel())
+        kk = torch.where(known, k, 0)
+        known = known & (lane[kk] >= 0)
+        dst = torch.where(known, lane[kk] * cap + slot[kk], T * cap)
+        hits = torch.zeros(T * cap + 1, dtype=torch.int32, device=dev)
+        hits.index_add_(0, dst, known.to(torch.int32))
+        unplaced = ((valid & ~known).sum(dtype=torch.int64)
+                    + (hits[:-1] - 1).clamp(min=0).sum(dtype=torch.int64))
+
+        def put(src):
+            out = torch.zeros(T * cap + 1, dtype=src.dtype, device=dev)
+            out.scatter_(0, dst, src.reshape(-1))
+            return out[:-1].reshape(T, cap)
+
+        placed = RecordBatch(put(batch.keys), put(batch.values),
+                             put(batch.timestamps),
+                             hits[:-1].reshape(T, cap) > 0)
+        return zero_invalid(placed), unplaced
+
 
 def _static_targets(slot_keys: np.ndarray, parallelism: int,
                     num_key_groups: int) -> np.ndarray:

@@ -2031,6 +2031,18 @@ class ClusterRunner:
         ``record_counts`` and ``rr_offsets`` stay fresh (``[L]`` changes
         with the parallelism), as in the reference.
 
+        A HASH edge that the NEW job routes statically
+        (``CompiledJob.static_route``: the window -> reduce edge) is
+        placed by that plan instead, whatever the old edge was: each
+        valid record goes to the slot whose static key is its own, on
+        its key's new owner, since the consumer reads every slot as the
+        key the plan assigns it. The plan's inverse is built on the host
+        and uploaded once; a valid record whose key has no slot raises,
+        in the same read as the drop counts. This is a repair: the
+        reference routes such a buffer through the hash exchange, which
+        places records at arrival ranks, and its reduce then folds them
+        into the wrong keys.
+
         Constraints: the topology (vertex and edge counts, operator
         types, edge partition kinds) must match; a rescaled vertex's
         input edges must be HASH; vertices without a keyed rescaling
@@ -2063,6 +2075,7 @@ class ClusterRunner:
                     st, v_new.parallelism, job_new.num_key_groups)
         bufs = list(carry.edge_bufs)
         drops = []
+        static = runner.executor.compiled.static_route
         for eidx, (e_new, e_old) in enumerate(zip(job_new.edges,
                                                   job_old.edges)):
             if e_new.partition != e_old.partition:
@@ -2070,12 +2083,19 @@ class ClusterRunner:
                     f"restore_rescaled: edge {eidx} partition changed")
             old_buf = cpy(snap.edge_bufs[eidx])
             dst_p = job_new.vertices[e_new.dst].parallelism
-            if e_new.partition == PartitionType.HASH:
+            if eidx in static:
+                placed, unplaced = static[eidx].place(
+                    old_buf, job_new.vertices[e_new.src].parallelism,
+                    job_new.num_key_groups)
+                drops.append((eidx, dst_p, e_new.capacity, unplaced,
+                              "static"))
+                bufs[eidx] = placed
+            elif e_new.partition == PartitionType.HASH:
                 raw = RecordBatch(*(x[None] for x in old_buf))
                 routed, dropped = routing.route_hash_block(
                     raw, dst_p, job_new.num_key_groups, e_new.capacity)
                 drops.append((eidx, dst_p, e_new.capacity,
-                              dropped.sum(dtype=torch.int64)))
+                              dropped.sum(dtype=torch.int64), "hash"))
                 bufs[eidx] = RecordBatch(*(x[0] for x in routed))
             else:
                 want = tuple(bufs[eidx].keys.shape)
@@ -2088,9 +2108,14 @@ class ClusterRunner:
         if drops:
             # Rescaling DOWN concentrates old lanes' records; an overflow
             # would silently lose in-flight records. One read for every
-            # edge's drop count.
+            # edge's drop count (and every static placement's misses).
             lost = torch.stack([d[3] for d in drops]).cpu().tolist()
-            for (eidx, dst_p, capacity, _), n in zip(drops, lost):
+            for (eidx, dst_p, capacity, _, how), n in zip(drops, lost):
+                if n > 0 and how == "static":
+                    raise rec.RecoveryError(
+                        f"restore_rescaled: edge {eidx} buffer holds {n} "
+                        f"record(s) with no slot of their own in its static "
+                        f"plan at parallelism {dst_p}")
                 if n > 0:
                     raise rec.RecoveryError(
                         f"restore_rescaled: edge {eidx} buffer overflows "

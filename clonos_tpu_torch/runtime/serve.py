@@ -74,14 +74,6 @@ def _bucket(n: int) -> int:
     return b
 
 
-def _quantile(samples: Sequence[float], q: float) -> float:
-    """Empirical quantile, 0 for no samples (the reference's
-    ``soak.slo.quantile``)."""
-    if not len(samples):
-        return 0.0
-    return float(np.quantile(np.asarray(samples, dtype=np.float64), q))
-
-
 def _gather_fn(parallelism: int, num_key_groups: int):
     """One fused read for a whole key batch: key -> ``hash32`` -> key
     group -> owning subtask -> table entry (the device twin of
@@ -786,6 +778,7 @@ class ServeTier:
         self.owner_endpoint.refresh(epoch=closed)
 
     def _register_gauges(self) -> None:
+        from clonos_tpu_torch.soak.slo import quantile
         g = self.runner.metrics.group("serve")
         router = self.router
         g.gauge("reads", lambda: router.reads)
@@ -794,7 +787,7 @@ class ServeTier:
         g.gauge("owner-reads", lambda: router.owner_reads)
         g.gauge("read-errors", lambda: router.errors)
         g.gauge("p99-read-ms", lambda: round(
-            _quantile(list(router.recent_ms), 0.99), 3))
+            quantile(list(router.recent_ms), 0.99), 3))
         g.gauge("replicas-alive",
                 lambda: sum(1 for r in self.replicas if r.alive))
         self._meter = g.meter("reads-per-sec")

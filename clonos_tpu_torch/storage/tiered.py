@@ -87,6 +87,9 @@ class TieredEpochStore:
         self.spool_dir = spool_dir
         self.durable = durable and spool_dir is not None
         self.host_budget_epochs = host_budget_epochs
+        #: chaos hook (the soak's ``stall`` fault): a sleep before each
+        #: segment write, on the writer thread
+        self.write_delay_s = 0.0
         if spool_dir:
             os.makedirs(spool_dir, exist_ok=True)
         self._epochs: Dict[int, _Epoch] = {}
@@ -248,6 +251,8 @@ class TieredEpochStore:
             digest = ep.digest
         arrays = _host_arrays(staged)
         start = ep.start if ep.start is not None else _least_start(arrays)
+        if self.write_delay_s:
+            time.sleep(self.write_delay_s)      # chaos `stall` fault
         t0 = time.monotonic()
         try:
             nbytes, checksum = write_segment(

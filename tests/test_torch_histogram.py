@@ -81,7 +81,8 @@ H100_SMEM_OPTIN = 232448
 H100_SMS = 132
 PLAN_SHAPES = sorted({s[1:] for s in chip_smoke.MAIN_SHAPES
                       + chip_smoke.C45_SHAPES + chip_smoke.WC_SHAPES
-                      + chip_smoke.EDGE_SHAPES + chip_smoke.FLOOR_SHAPES}
+                      + chip_smoke.EDGE_SHAPES + chip_smoke.FLOOR_SHAPES
+                      + chip_smoke.SOAK_SHAPES}
                      | {(512, 1024, 16384, True)})
 
 

@@ -202,6 +202,24 @@ def test_autoscale_modules_import_alone_without_jax(module):
     assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
 
 
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.soak", "clonos_tpu_torch.soak.slo",
+    "clonos_tpu_torch.soak.chaos", "clonos_tpu_torch.soak.serveload",
+    "clonos_tpu_torch.soak.driver", "clonos_tpu_torch.runtime.serve"])
+def test_soak_modules_import_alone_without_jax(module):
+    """The soak harness (SLO tracker, chaos DSL, serve load, driver;
+    ``slo`` and ``chaos`` are JAX-free in the reference, and the port keeps
+    its own copies), and the read tier that takes its ``quantile``, each
+    import alone in a fresh interpreter without ``jax`` or
+    ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "clonos_tpu")

@@ -7,6 +7,8 @@ edge buffers, sink multisets, refusals (error class and message prefix),
 ledgers and the re-cut's ``stats`` — plus seeded call sequences through
 both coordinators."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import jax.numpy as jnp
@@ -35,6 +37,8 @@ from clonos_tpu_torch.utils.tree import tree_leaves
 
 VOCAB = 23
 SINK_VID = 3
+#: the window -> reduce edge, statically routed
+STATIC_EDGE = 1
 
 
 class TickTime:
@@ -504,16 +508,89 @@ def test_rescale_live_round_trip_seals_as_never_rescaled(tmp_path):
 def test_recut_over_an_in_flight_static_route_buffer_as_the_reference(
         tmp_path):
     """A re-cut at a fence whose window -> reduce buffer holds records
-    (the window fired on the epoch's last step): ``restore_rescaled``
-    re-routes that statically routed buffer through the hash exchange,
-    placing records at arrival ranks where the reduce reads static key
-    slots, and the reduce's output diverges from a never-rescaled
-    control's. A fault of the reference (ROADMAP Queue 3), which the
-    port reproduces exactly: both packages report the same divergence."""
+    (the window fired on the epoch's last step). The port places that
+    statically routed buffer by the new job's static plan, and its
+    ledger equals a never-rescaled control's epoch for epoch. The
+    reference re-routes it through the hash exchange, placing records at
+    arrival ranks where the reduce reads static key slots, and its
+    reduce's output diverges (a fault of the reference, ROADMAP Queue 3
+    item 5, held here as found)."""
     diffs = _round_trip(tmp_path, cuts=(2,), epochs=4)
-    assert diffs["port"] == diffs["ref"]
-    assert diffs["port"][0].startswith(
+    assert diffs["port"] == []
+    assert diffs["ref"][0].startswith(
         "epoch 2 channel ringsum/v2: content sum")
+
+
+@pytest.mark.parametrize("overlap", [False, True],
+                         ids=["sequential", "pipelined"])
+@pytest.mark.parametrize("start,cuts,epochs", [
+    (2, ((4, 2),), 4),
+    (4, ((2, 2),), 4),
+    (2, ((4, 2), (2, 4)), 6),
+], ids=["2to4", "4to2", "2to4to2"])
+def test_recut_places_a_fired_static_route_buffer_by_the_new_plan(
+        tmp_path, start, cuts, epochs, overlap):
+    """The port's re-cuts over a window -> reduce buffer that holds
+    records (the window fires on the last step of epochs 2 and 4): 2 ->
+    4, 4 -> 2 and the round trip 2 -> 4 -> 2, with the sequential and the
+    pipelined fence, each seal every epoch equal to a never-rescaled
+    control's (``diff_ledgers_cross``)."""
+    kw = dict(_live_kw(), overlap_epoch=overlap)
+    ctl = _port(_job(StreamEnvironment, start, start),
+                checkpoint_dir=str(tmp_path / "c"), audit=True, **kw)
+    ctl.executor.time_source = TickTime()
+    for _ in range(epochs):
+        ctl.run_epoch(complete_checkpoint=True)
+    ctl.drain_fence()
+    d = str(tmp_path / "r")
+    r = _port(_job(StreamEnvironment, start, start), checkpoint_dir=d,
+              audit=True, **kw)
+    r.executor.time_source = TickTime()
+    done = 0
+    for p, at in cuts:
+        while done < at:
+            r.run_epoch(complete_checkpoint=True)
+            done += 1
+        r.drain_fence()
+        held = int(r.executor.carry.edge_bufs[STATIC_EDGE].valid.sum())
+        assert STATIC_EDGE in r.executor.compiled.static_route
+        assert held > 0, f"the static buffer at fence {at} is empty"
+        r, stats = r.rescale_live(_job(StreamEnvironment, p, p),
+                                  checkpoint_dir=d, audit=True,
+                                  device="cpu", **kw)
+        assert stats["drained_records"] >= held
+    while done < epochs:
+        r.run_epoch(complete_checkpoint=True)
+        done += 1
+    r.drain_fence()
+    assert audit_mod.diff_ledgers_cross(ctl.auditor.ledger(),
+                                        r.auditor.ledger()) == []
+
+
+def test_restore_rescaled_refuses_a_static_record_without_a_slot(
+        tmp_path):
+    """A valid record in a statically routed buffer whose key the new
+    plan carries in no slot cannot be placed: ``restore_rescaled``
+    raises rather than drop it."""
+    kw = _live_kw()
+    r = _port(_job(StreamEnvironment, 2, 2),
+              checkpoint_dir=str(tmp_path / "r"), **kw)
+    r.executor.time_source = TickTime()
+    for _ in range(2):
+        r.run_epoch(complete_checkpoint=True)
+    ckpt = r.standbys.latest
+    buf = ckpt.carry.edge_bufs[STATIC_EDGE]
+    assert _np(buf.valid).any()
+    bad = buf._replace(keys=np.where(_np(buf.valid), VOCAB + 5,
+                                     _np(buf.keys)).astype(np.int32))
+    bufs = list(ckpt.carry.edge_bufs)
+    bufs[STATIC_EDGE] = bad
+    ckpt = dataclasses.replace(
+        ckpt, carry=ckpt.carry._replace(edge_bufs=tuple(bufs)))
+    with pytest.raises(rec.RecoveryError, match="no slot of their own"):
+        ClusterRunner.restore_rescaled(
+            _job(StreamEnvironment, 4, 4), r.job, ckpt, device="cpu",
+            **kw)
 
 
 def test_rescale_live_guards_refuse_bad_fences(tmp_path):
