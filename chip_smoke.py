@@ -159,6 +159,23 @@ Phases:
      ring divergence; (d) a load spike makes the autoscaler re-cut the job
      itself, with no operator event, at most one action per cooldown, a
      clean audit, and its decision log replayed to the same digest.
+ 17. the sharded deployment (``[mesh]``) at phase 7's widths and settings
+     on a ``torch.distributed`` task mesh, each run through 2 completed
+     epochs, 1 pending, the window subtask on rank 1 killed and
+     recovered, 1 completed epoch, against an unsharded control on the
+     same schedule: (a) one rank over NCCL, (b) two ranks sharing the
+     card over gloo, each collective staged through pinned host memory
+     (records/s a rank, collective ms, collectives and synchronising
+     calls a block), (c) the kill recovered on its rank (recovery ms,
+     ``restore_bytes`` against ``checkpoint_bytes``, every other live
+     shard unchanged): each ledger and digest equal to the control's,
+     ``per_shard_health`` of shape (n, 3), every keyed_hist launch of the
+     first epoch equal to its plain version at a shape phase 2 timed;
+     (d) ``python -m clonos_tpu_torch dryrun --devices 2`` on the card's
+     two gloo ranks; (e) (b)-(c) again with the pipelined fence, whose
+     worker gathers each fence to rank 0 over its own gloo group; and
+     what NCCL says when two ranks share one card, printed as it said
+     it.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -5240,6 +5257,357 @@ def phase_soak(dev_line, root, rows=None):
     return launches
 
 
+# --- phase 17 ---------------------------------------------------------------
+
+PHASE17_REDUCTIONS = (
+    "the headline job at phase 7's widths and settings (1,024-step epochs, "
+    "512-step blocks, audit on, checkpoints on disk, the sequential fence) "
+    "on a torch.distributed task mesh: one rank over NCCL, and two ranks "
+    "sharing the one card over gloo, every collective staged through "
+    "pinned host memory (a reading of that protocol, not of a link "
+    "between cards), with the sequential fence and then the pipelined "
+    "one; schedule: 2 completed epochs, 1 pending, the window "
+    "subtask on rank 1 killed and recovered, 1 completed epoch")
+#: the killed subtask: window lane 6, in rank 1's vertex block (4-7) of
+#: two; its log row and record count sit in rank 0's log block (0-15)
+MESH_KILL = (1, 6)
+#: seconds each rank of phase 17 may run
+MESH_RANK_TIMEOUT_S = 300
+
+
+def _checked_everywhere(shapes):
+    """:func:`_checked_hist` over both call sites of ``keyed_hist`` (the
+    exchange's and the operators'): each call launches the kernel
+    (counted) and then its plain version on the same inputs (not
+    counted), which must agree bit for bit."""
+    import contextlib
+
+    from clonos_tpu_torch.api import operators
+    from clonos_tpu_torch.ops import histogram as hist
+    from clonos_tpu_torch.parallel import routing
+
+    @contextlib.contextmanager
+    def ctx():
+        real = hist.keyed_hist
+
+        def checked(keys, vals, valid, nk, want_counts=True):
+            out = real(keys, vals, valid, nk, want_counts)
+            plain = hist.keyed_hist_plain(
+                keys.reshape(-1, keys.shape[-1]),
+                vals.reshape(-1, keys.shape[-1]),
+                valid.reshape(-1, keys.shape[-1]), nk, want_counts)
+            err = int((out[0].reshape(plain[0].shape).to(torch.int64)
+                       - plain[0].to(torch.int64)).abs().max())
+            if want_counts:
+                err = max(err, int((out[1].reshape(plain[1].shape)
+                                    .to(torch.int64)
+                                    - plain[1].to(torch.int64)).abs().max()))
+            shapes.append((*plain[0].shape[:1], keys.shape[-1], nk,
+                           bool(want_counts), err))
+            return out
+        routing.keyed_hist = operators.keyed_hist = checked
+        try:
+            yield
+        finally:
+            routing.keyed_hist = operators.keyed_hist = real
+    return ctx()
+
+
+def _mesh_counts(r):
+    """The whole record-count vector of a sharded runner (one all-gather
+    of that leaf alone)."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    ex = r.executor
+    return dist_.all_gather_tree(
+        ex.carry.record_counts, ex.compiled.placements().record_counts,
+        ex.mesh).cpu().numpy()
+
+
+def _mesh_schedule(r, kill_flat, checked=None):
+    """Phase 17's schedule on runner ``r`` (sharded or not): epoch 0 (under
+    ``checked`` when given), epochs 1-2 timed (the second left pending),
+    the kill and its recovery, one completed epoch. Returns readings."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    sharded = r.mesh is not None
+    counts = (lambda: _mesh_counts(r)) if sharded else (
+        lambda: r.executor.carry.record_counts.cpu().numpy())
+    if checked is not None:
+        with checked:
+            r.run_epoch(complete_checkpoint=True)
+    else:
+        r.run_epoch(complete_checkpoint=True)
+    rc0 = counts()
+    sync()
+    dist_.reset_stats()
+    t0 = time.monotonic()
+
+    def two():
+        for complete in (True, False):
+            r.run_epoch(complete_checkpoint=complete)
+        r.drain_fence()
+    _, syncs = _sync_count(two)
+    sync()
+    wall = time.monotonic() - t0
+    stats = dict(dist_.STATS)
+    rc1 = counts()
+    lo, hi = r.executor.compiled.vblock[0]
+    blocks = 2 * (STEPS_PER_EPOCH // BLOCK_STEPS)
+    out = dict(
+        source_records_per_s=float((rc1[:PAR] - rc0[:PAR]).sum()) / wall,
+        own_source_records_per_s=float(
+            (rc1[lo:hi] - rc0[lo:hi]).sum()) / wall,
+        epochs_wall_s=wall, blocks=blocks,
+        synchronising_calls_per_block=(syncs / blocks
+                                       if syncs is not None else None),
+        collectives_per_block=stats["collectives"] / blocks,
+        collective_ms_per_block=stats["seconds"] * 1e3 / blocks,
+        collective_mb_per_block=stats["bytes"] / blocks / 1e6,
+        per_shard_health=(r.per_shard_health().tolist() if sharded
+                          else None))
+    from clonos_tpu_torch.runtime.executor import canonical_carry
+    from clonos_tpu_torch.utils.tree import (tree_flatten_with_path,
+                                             tree_leaves)
+    before = [x.clone() for x in
+              tree_leaves(canonical_carry(r.executor.carry))]
+    r.inject_failure([kill_flat])
+    sync()
+    t = time.monotonic()
+    report = r.recover()
+    sync()
+    out["recovery_ms"] = (time.monotonic() - t) * 1e3
+    after = tree_leaves(canonical_carry(r.executor.carry))
+    out["report"] = dict(
+        restore_bytes=report.restore_bytes,
+        checkpoint_bytes=report.checkpoint_bytes,
+        steps_replayed=report.steps_replayed,
+        records_replayed=report.records_replayed,
+        managers=len(report.managers),
+        phase_ms={k: round(v, 3) for k, v in report.phase_ms.items()})
+    # Every live shard of this rank but its logs (which took the healthy
+    # tasks' IGNORE_CHECKPOINT rows) equal to before the kill, dead
+    # storage aside: the rebuilt rows of the killed subtask included.
+    paths = [p for p, _ in tree_flatten_with_path(r.executor.carry)]
+    out["unchanged"] = all(
+        torch.equal(a, b) for p, a, b in zip(paths, before, after)
+        if p[0] not in ("logs", "replicas"))
+    r.run_epoch(complete_checkpoint=True)
+    r.drain_fence()
+    out["pipelined"] = "fence.overlap-saved" in r.last_fence_phases
+    return out
+
+
+def _mesh_runner(root, tag, mesh, device, overlap=False):
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    return ClusterRunner(build_job(), device=device, audit=True,
+                         checkpoint_dir=os.path.join(root, tag), mesh=mesh,
+                         overlap_epoch=overlap, **runner_kw())
+
+
+def _mesh_rank(ctx, root, tag, overlap=False):
+    """One rank of a phase 17 mesh: the headline through
+    :func:`_mesh_schedule`, every keyed_hist launch of its first epoch
+    held against the plain version. Returns its readings, launches (from
+    0 at its start), ledger (rank 0) and state digest."""
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.parallel import distributed as dist_
+    mesh = dist_.task_mesh(device=ctx.device)
+    r = _mesh_runner(root, tag, mesh, ctx.device, overlap)
+    flat = r.job.subtask_base(MESH_KILL[0]) + MESH_KILL[1]
+    shapes = []
+    sync()
+    keyed_hist.launches = keyed_hist.launches_counts = 0
+    out = _mesh_schedule(r, flat, _checked_everywhere(shapes))
+    sync()
+    out["launches"] = {"keyed_hist": keyed_hist.launches_counts,
+                       "keyed_hist_sums": (keyed_hist.launches
+                                           - keyed_hist.launches_counts)}
+    out["shapes"] = sorted({s[:4] for s in shapes})
+    out["max_abs_err"] = max((s[4] for s in shapes), default=None)
+    out["checked_launches"] = len(shapes)
+    out["ledger"] = r.coordinator.read_ledger() if ctx.process_id == 0 \
+        else None
+    out["digest"] = r.state_digest()
+    out["backend"] = ctx.backend
+    out["rank"] = ctx.process_id
+    return out
+
+
+_NCCL_PROBE = r"""
+import sys, torch, torch.distributed as dist
+rank = int(sys.argv[2])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=sys.argv[1], world_size=2,
+                        rank=rank)
+x = torch.ones(1, device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("all_reduce returned", x.item())
+dist.destroy_process_group()
+"""
+
+
+def _nccl_two_ranks_one_card(root):
+    """Two NCCL ranks on the one card: what NCCL says, returned verbatim
+    (its error lines), each rank under a 120 s limit."""
+    rdv = "file://" + os.path.join(root, "nccl_rdv")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NCCL_PROBE, rdv, str(r)],
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    lines = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            out += "\n(killed at its 120 s limit)"
+        said = [ln.strip() for ln in out.splitlines() if any(
+            w in ln for w in ("Error", "error", "Duplicate", "returned",
+                              "limit"))]
+        lines.append((p.returncode, said[-6:] or out.splitlines()[-6:]))
+    return lines
+
+
+def phase_mesh(dev_line, root, rows):
+    """(a) the headline on a one-rank NCCL mesh, (b) two ranks sharing the
+    card over gloo, (c) the window kill on rank 1 recovered there, (e)
+    (b)-(c) with the pipelined fence, each ledger and digest equal to an
+    unsharded runner's on the same schedule; (d) the ``dryrun`` verb on
+    2 ranks; and what NCCL says of two ranks on one device. Every keyed_hist launch of each mesh run's
+    first epoch equals its plain version, and each launched shape has a
+    phase 2 row. Returns {path: launches}."""
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.parallel import distributed as dist_
+    t_phase = time.monotonic()
+    row_of = {}
+    for r in rows:               # the first timed row of each shape
+        if "ms" in r:
+            row_of.setdefault((r["R"], r["B"], r["nk"], r["counts"]), r)
+    launches = {}
+
+    control = _mesh_runner(root, "control", None, DEVICE)
+    flat = control.job.subtask_base(MESH_KILL[0]) + MESH_KILL[1]
+    sync()
+    keyed_hist.launches = keyed_hist.launches_counts = 0
+    ctl = _mesh_schedule(control, flat)
+    sync()
+    launches["mesh_control"] = {
+        "keyed_hist": keyed_hist.launches_counts,
+        "keyed_hist_sums": keyed_hist.launches - keyed_hist.launches_counts}
+    ctl_ledger = control.coordinator.read_ledger()
+    ctl_digest = control.state_digest()
+    control.coordinator.storage._close_ledger()
+    del control
+    torch.cuda.empty_cache()
+    log("[mesh] unsharded control: " + json.dumps(dict(
+        {k: v for k, v in ctl.items() if k != "per_shard_health"},
+        device=dev_line), default=float))
+
+    # (a) one rank over NCCL, in this process (its group is this process).
+    ctx = dist_.initialize("file://" + os.path.join(root, "nccl1_rdv"), 1,
+                           0, device="cuda", backend="nccl")
+    try:
+        one = _mesh_rank(ctx, root, "nccl1")
+    finally:
+        dist_.shutdown()
+    torch.cuda.empty_cache()
+    # (b, c) two ranks sharing the card over gloo, each its own process;
+    # (e) the same with the pipelined fence (its worker's gathers on the
+    # fence group).
+    def gloo_pair(tag, overlap):
+        return dist_.spawn(
+            "chip_smoke:_mesh_rank", 2,
+            {"root": root, "tag": tag, "overlap": overlap}, device="cuda",
+            backend="gloo", share_device=True,
+            timeout_s=MESH_RANK_TIMEOUT_S,
+            workdir=os.path.join(root, f"ranks-{tag}"))
+    two = gloo_pair("gloo2", False)
+    piped = gloo_pair("gloo2-pipelined", True)
+    problems = []
+    for name, res in (("nccl-1rank", [one]), ("gloo-2rank", two),
+                      ("gloo-2rank-pipelined", piped)):
+        n = len(res)
+        d = diff_ledgers(ctl_ledger, res[0]["ledger"])
+        if d:
+            problems.append(f"{name}: ledger differs from the control's: "
+                            f"{d[:3]}")
+        if len(res[0]["ledger"]) != len(ctl_ledger):
+            problems.append(f"{name}: {len(res[0]['ledger'])} ledger "
+                            f"entries, control {len(ctl_ledger)}")
+        for r in res:
+            if r["digest"] != ctl_digest:
+                problems.append(f"{name} rank {r['rank']}: state digest "
+                                f"differs from the control's")
+            if r["max_abs_err"] != 0 or not r["checked_launches"]:
+                problems.append(f"{name} rank {r['rank']}: kernel vs plain "
+                                f"max abs err {r['max_abs_err']} over "
+                                f"{r['checked_launches']} launches")
+            if not all(r["launches"].values()):
+                problems.append(f"{name} rank {r['rank']}: a kernel was "
+                                f"not launched: {r['launches']}")
+            if not r["unchanged"]:
+                problems.append(f"{name} rank {r['rank']}: a live shard "
+                                f"changed through the recovery")
+            for s in r["shapes"]:
+                if s not in row_of:
+                    problems.append(f"{name}: launched shape {s} has no "
+                                    f"phase 2 row")
+            if np.asarray(r["per_shard_health"]).shape != (n, 3):
+                problems.append(f"{name}: per_shard_health shape "
+                                f"{np.asarray(r['per_shard_health']).shape}")
+        modes = [r["pipelined"] for r in res]
+        if modes != [name.endswith("pipelined")] * n:
+            problems.append(f"{name}: pipelined fence per rank {modes}")
+        owners = [r["report"]["managers"] for r in res]
+        if owners != ([1] if n == 1 else [0, 1]):
+            problems.append(f"{name}: managers per rank {owners} (the "
+                            f"kill must replay on rank {n - 1} alone)")
+        for r in res:
+            launches[f"mesh_{name}_rank{r['rank']}"] = r["launches"]
+            log(f"[mesh] {name} rank {r['rank']}: " + json.dumps(dict(
+                {k: v for k, v in r.items()
+                 if k not in ("ledger", "digest", "shapes")},
+                shapes=[dict(R=s[0], B=s[1], nk=s[2], counts=s[3],
+                             phase2_label=row_of.get(s, {}).get("label"),
+                             device_ms=row_of.get(s, {}).get("device_ms"),
+                             bound_ms=row_of.get(s, {}).get("bound_ms"),
+                             library_ms=row_of.get(s, {}).get("library_ms"))
+                        for s in r["shapes"]],
+                ledger_equal_control=not diff_ledgers(ctl_ledger,
+                                                      res[0]["ledger"]),
+                device=dev_line), default=float))
+    # (d) the dryrun verb on 2 ranks sharing the card.
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "clonos_tpu_torch", "dryrun", "--devices",
+         "2", "--backend", "gloo", "--device", "cuda", "--timeout",
+         str(MESH_RANK_TIMEOUT_S)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=MESH_RANK_TIMEOUT_S + 60)
+    if proc.returncode != 0:
+        problems.append(f"dryrun exited {proc.returncode}: "
+                        f"{proc.stderr[-1500:]}")
+    else:
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not (line["ok"] and line["n_devices"] == 2
+                and len(line["per_shard_records_per_sec"]) == 2):
+            problems.append(f"dryrun line: {line}")
+        log(f"[mesh] dryrun --devices 2 --backend gloo --device cuda "
+            f"({time.monotonic() - t:.1f} s): {json.dumps(line)} | "
+            f"{dev_line}")
+    # What NCCL says of two ranks on one card (printed, not hidden).
+    for rank, (rc, said) in enumerate(_nccl_two_ranks_one_card(root)):
+        log(f"[mesh] NCCL, two ranks on one card, rank {rank}: exit {rc}; "
+            + " | ".join(said))
+    log(f"[mesh] phase 17: {time.monotonic() - t_phase:.1f} s "
+        f"({dev_line}); no reading across two cards exists (one card)")
+    if problems:
+        raise AssertionError("phase 17: " + "; ".join(problems))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5345,6 +5713,13 @@ def main() -> int:
         soak_launches = phase_soak(dev_line, root, rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 17: {PHASE17_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=SCRATCH)
+    try:
+        mesh_launches = phase_mesh(dev_line, root, rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -5360,7 +5735,8 @@ def main() -> int:
         "planes_cost": cost_launches,
         "planes_failover": failover_launches,
         "rescale_restore": recut_launches,
-        "rescale_live": live_launches, "soak": soak_launches})))
+        "rescale_live": live_launches, "soak": soak_launches,
+        **mesh_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

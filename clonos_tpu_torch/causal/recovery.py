@@ -157,6 +157,10 @@ class ReplayPlan:
     #: ``pad_steps``. When set, ``det_rows`` stays empty.
     det_device: Optional[Tuple[torch.Tensor, torch.Tensor,
                                torch.Tensor]] = None
+    #: the subtask's row in ``checkpoint_op_state`` (default: ``subtask``;
+    #: 0 when the state is already the one-subtask slice a rank of a
+    #: sharded job received)
+    state_row: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -341,8 +345,8 @@ class LogReplayer:
             both = _device.upload(np.stack([times_np, rngs_np]), device)
             times, rngs = both[0], both[1]
 
-        state = tree_map(lambda x: x[plan.subtask:plan.subtask + 1],
-                         plan.checkpoint_op_state)
+        row = plan.subtask if plan.state_row is None else plan.state_row
+        state = tree_map(lambda x: x[row:row + 1], plan.checkpoint_op_state)
         subtask = _device.scalar(plan.subtask, device)
         out_chunks: List[RecordBatch] = []
         emit_chunks: List[torch.Tensor] = []

@@ -55,11 +55,14 @@ class ReplicationPlan:
     def num_replicas(self) -> int:
         return len(self.pairs)
 
-    def owner_index(self, device) -> torch.Tensor:
+    def owner_index(self, device, rows=None) -> torch.Tensor:
         """Owner flat id of every replica row, on ``device`` (uploaded
-        without a host sync)."""
-        return _device.upload(np.asarray([o for o, _ in self.pairs],
-                                         np.int64), device)
+        without a host sync). ``rows=(lo, hi)``: only the replica block a
+        rank of a sharded job holds."""
+        owners = [o for o, _ in self.pairs]
+        if rows is not None:
+            owners = owners[rows[0]:rows[1]]
+        return _device.upload(np.asarray(owners, np.int64), device)
 
     def replicas_held_by(self, holder_flat: int) -> List[int]:
         """Replica row indices held by one subtask."""

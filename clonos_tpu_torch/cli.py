@@ -8,6 +8,7 @@ without one) or, when asked, on the CPU (``--device cpu``).
 Usage:
     python -m clonos_tpu_torch run <module:function> [--epochs N] ...
     python -m clonos_tpu_torch info <module:function>
+    python -m clonos_tpu_torch dryrun [--devices N] [--backend gloo|nccl]
     python -m clonos_tpu_torch worker <module:function> --jm HOST:PORT \\
         --checkpoint-dir DIR [--epochs N] [--complete-every K] ...
     python -m clonos_tpu_torch dispatcher --lease PATH [--quota T=N] ...
@@ -26,13 +27,18 @@ Usage:
         [--schedule DSL|FILE] [--autoscale] [--report json] [--out FILE] ...
 
 ``worker`` is the TaskExecutor process: it registers with a remote
-JobMaster (naming its device and which path frames its deltas) and
-heartbeats, writes durable checkpoints, prints one JSON
+JobMaster (naming its device, its process id and which path frames its
+deltas) and heartbeats, writes durable checkpoints, prints one JSON
 status line per epoch with the state digest, and serves its determinant
 logs at every fence to the standby host's mirrors
-(``runtime/remote.py``). It is one process on one card: the multi-host
-bootstrap flags (``--coordinator``, ``--num-processes``,
-``--process-id``) are refused.
+(``runtime/remote.py``). The multi-host bootstrap flags
+(``--coordinator``, ``--num-processes``, ``--process-id``, ``--backend``)
+join a ``torch.distributed`` process group first; as in the reference,
+the worker's runner gets no mesh.
+
+``dryrun --devices N`` runs the flagship job's supersteps sharded over N
+rank processes and on one (``parallel/dryrun.py``) and prints one JSON
+line with both rates.
 
 ``slotworker`` is the slot-pool TaskExecutor (``runtime/scheduler.py``):
 it advertises slots and runs only the task slices a JobMaster deploys
@@ -198,19 +204,31 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_dryrun(args) -> int:
+    """The flagship job's supersteps sharded over ``--devices`` ranks and
+    on one rank (``parallel/dryrun.py``): one JSON line."""
+    from clonos_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(args.devices, device=args.device, backend=args.backend,
+                     timeout_s=args.timeout)
+    return 0
+
+
 def cmd_worker(args) -> int:
     """TaskExecutor-process entry point (reference TaskExecutor.java:422):
     run a job under a remote JobMaster — register and heartbeat, serve
     the determinant logs to standby-host mirrors at every epoch fence,
     and write durable checkpoints the JobMaster can rebuild from after
     this host dies. One JSON status line per epoch on stdout."""
-    if args.coordinator is not None or args.num_processes not in (None, 1) \
-            or args.process_id not in (None, 0):
-        raise SystemExit(
-            "worker: --coordinator/--num-processes/--process-id (the "
-            "multi-host bootstrap) are not supported by this package; a "
-            "worker is process 0 of 1 on one card")
+    if args.coordinator is None and (args.num_processes not in (None, 1)
+                                     or args.process_id not in (None, 0)):
+        raise SystemExit("worker: --num-processes/--process-id join a "
+                         "process group only with --coordinator")
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        raise SystemExit("worker: --coordinator needs --num-processes and "
+                         "--process-id")
     from clonos_tpu_torch.ops import native
+    from clonos_tpu_torch.parallel import distributed
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
     from clonos_tpu_torch.runtime.remote import (HostLogEndpoint,
                                                  TaskExecutorClient)
@@ -221,6 +239,12 @@ def cmd_worker(args) -> int:
     if args.lineage_dir is not None:
         from clonos_tpu_torch.obs import configure_lineage
         configure_lineage(args.lineage_dir, service=args.executor_id)
+    # The multi-host bootstrap: join the process group (the backend named
+    # by --backend, else NCCL on the card and gloo on the CPU). As in the
+    # reference, the runner gets no mesh: each worker runs its job whole.
+    ctx = distributed.initialize(args.coordinator, args.num_processes,
+                                 args.process_id, device=args.device,
+                                 backend=args.backend)
     job = _load_job(args.job)
     runner = ClusterRunner(job, steps_per_epoch=args.steps_per_epoch,
                            checkpoint_dir=args.checkpoint_dir,
@@ -239,7 +263,9 @@ def cmd_worker(args) -> int:
               "log_port": endpoint.address[1],
               "num_subtasks": job.total_subtasks(),
               "checkpoint_dir": args.checkpoint_dir, "job": args.job,
-              "process_id": 0, "device": str(runner.device),
+              "process_id": ctx.process_id,
+              "num_processes": ctx.num_processes,
+              "device": str(runner.device),
               "codec": "native" if native.available() else "zlib"})
     print(json.dumps({"registered": args.executor_id,
                       "log_port": endpoint.address[1],
@@ -262,6 +288,7 @@ def cmd_worker(args) -> int:
     finally:
         tx.close()
         endpoint.close()
+        distributed.shutdown()
     return 0
 
 
@@ -1412,10 +1439,13 @@ def main(argv=None) -> int:
                     help="address mirrors should dial (defaults to "
                          "--bind-host)")
     pw.add_argument("--coordinator", default=None,
-                    help="multi-host bootstrap address (not supported: "
-                         "refused when given)")
+                    help="multi-host bootstrap: the process group's "
+                         "address (host:port, or a tcp:// or file:// URL)")
     pw.add_argument("--num-processes", type=int, default=None)
     pw.add_argument("--process-id", type=int, default=None)
+    pw.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="collective backend (default: nccl on the card, "
+                         "gloo on the CPU)")
     pw.add_argument("--trace-dir", default=None,
                     help="record trace spans to "
                          "trace-<executor-id>.jsonl here")
@@ -1439,6 +1469,20 @@ def main(argv=None) -> int:
                          "(overhead.* metrics; off by default)")
     _add_device_arg(pw)
     pw.set_defaults(fn=cmd_worker)
+
+    pd = sub.add_parser("dryrun", help="multi-rank probe: the flagship "
+                                       "job sharded over N ranks and on "
+                                       "one, one JSON line")
+    pd.add_argument("--devices", type=int, default=2,
+                    help="ranks (one process each)")
+    pd.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="collective backend (default: nccl on the card, "
+                         "gloo on the CPU; gloo with --device cuda shares "
+                         "one card through host memory)")
+    pd.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds each rank may run")
+    _add_device_arg(pd)
+    pd.set_defaults(fn=cmd_dryrun)
 
     ps = sub.add_parser("slotworker",
                         help="serve task slots to a slot-pool JobMaster; "

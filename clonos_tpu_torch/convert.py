@@ -67,3 +67,29 @@ def checkpoint_from_numpy(ckpt: Any, device) -> Any:
         carry=carry_from_numpy(ckpt.carry, device),
         wall_time=float(ckpt.wall_time),
         size_bytes=int(getattr(ckpt, "size_bytes", 0) or 0))
+
+
+def shard_carry(full: Any, placements: Any, n: int, rank: int) -> Any:
+    """Rank ``rank``'s shards of a whole carry (numpy, as from the
+    reference's ``jax.device_get``, or tensors): each leaf the rule table
+    shards (``placements``, e.g. ``CompiledJob.placements()``) cut to its
+    contiguous block of ``n``, the others whole."""
+    from clonos_tpu_torch.parallel.distributed import shard_tree
+    return shard_tree(full, placements, n, rank)
+
+
+def unshard_carry(shards: Any, placements: Any) -> Any:
+    """The whole carry from every rank's shards (a list in rank order, each
+    a tree of numpy arrays or tensors): sharded leaves concatenated along
+    their dim, replicated leaves taken from rank 0 — numpy out, to compare
+    leaf by leaf with the reference's carry."""
+    from clonos_tpu_torch.parallel.distributed import shard_dim
+    from clonos_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+    per_rank = [[np.asarray(x.detach().cpu().numpy()
+                            if isinstance(x, torch.Tensor) else x)
+                 for x in tree_leaves(s)] for s in shards]
+    dims = [shard_dim(p) for p in tree_leaves(placements)]
+    out = [per_rank[0][i] if d is None
+           else np.concatenate([r[i] for r in per_rank], axis=d)
+           for i, d in enumerate(dims)]
+    return tree_unflatten(carry_to_numpy(shards[0]), out)

@@ -90,3 +90,22 @@ class HostCopy:
         self._sources = None
         return tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor)
                         else x, self._host)
+
+
+def rank_device(rank: int, world: int, device="cuda",
+                backend: str = "nccl", share: bool = False) -> torch.device:
+    """The device of rank ``rank`` of ``world``: ``cuda:{rank % count}``,
+    or the CPU when asked for. Ranks share a card only when the caller
+    asks (``share=True``) and only over gloo, whose collectives the port
+    stages through host memory; NCCL refuses two ranks on one device."""
+    dev = resolve(device)
+    if dev.type != "cuda":
+        return dev
+    count = torch.cuda.device_count()
+    if world > count and not share:
+        raise RuntimeError(
+            f"{world} ranks over {count} card(s): pass share=True (gloo "
+            f"only) to let ranks share a card")
+    if world > count and backend != "gloo":
+        raise ValueError("ranks share a card only over gloo")
+    return torch.device("cuda", rank % count)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -214,6 +214,21 @@ def _block_to_target_lane(batch: RecordBatch, target: torch.Tensor, lane,
     return zero_invalid(RecordBatch(out_k, out_v, out_t, cnt > 0))
 
 
+def _block_to_target_range(batch: RecordBatch, target: torch.Tensor,
+                            lanes: Tuple[int, int], out_capacity: int
+                            ) -> Tuple[RecordBatch, torch.Tensor]:
+    """Consumer lanes ``[lo, hi)`` of :func:`_block_to_targets` —
+    bit-identical to ``_block_to_targets(...)[0][:, lo:hi]`` and its drops
+    ``[:, lo:hi]``: records for other lanes count as invalid, and a
+    record's slot is still its arrival rank over the whole producer block
+    in (step, lane, slot) order. A rank of a sharded job routes only its
+    own lanes, at the rank-local shape ``[K, hi - lo, cap]``."""
+    lo, hi = lanes
+    mine = batch.valid & (target >= lo) & (target < hi)
+    return _block_to_targets(batch._replace(valid=mine), target - lo,
+                             hi - lo, out_capacity)
+
+
 def _rebalance_targets(shape, parallelism: int,
                        offsets: torch.Tensor) -> torch.Tensor:
     K, P, B = shape
@@ -268,24 +283,30 @@ def route_hash(batch: RecordBatch, parallelism: int, num_key_groups: int,
 
 
 def route_hash_block(batch: RecordBatch, parallelism: int,
-                     num_key_groups: int, out_capacity: int
+                     num_key_groups: int, out_capacity: int,
+                     lanes: Optional[Tuple[int, int]] = None
                      ) -> Tuple[RecordBatch, torch.Tensor]:
     """Block form of :func:`route_hash` over ``[K, P, B]`` stacks; returns
-    (routed ``[K, parallelism, out_capacity]``, dropped ``[K, parallelism]``)."""
+    (routed ``[K, parallelism, out_capacity]``, dropped ``[K, parallelism]``).
+    ``lanes=(lo, hi)``: only those consumer lanes (``[K, hi - lo, ...]``)."""
     kg = key_group(batch.keys, num_key_groups)
-    return _block_to_targets(
-        batch, subtask_for_key_group(kg, parallelism, num_key_groups),
-        parallelism, out_capacity)
+    target = subtask_for_key_group(kg, parallelism, num_key_groups)
+    if lanes is not None:
+        return _block_to_target_range(batch, target, lanes, out_capacity)
+    return _block_to_targets(batch, target, parallelism, out_capacity)
 
 
 def route_rebalance_block(batch: RecordBatch, parallelism: int,
-                          out_capacity: int, offsets: torch.Tensor
+                          out_capacity: int, offsets: torch.Tensor,
+                          lanes: Optional[Tuple[int, int]] = None
                           ) -> Tuple[RecordBatch, torch.Tensor]:
     """Block form of :func:`route_rebalance`; ``offsets`` is the ``[K]``
-    per-step exclusive round-robin cursor."""
-    return _block_to_targets(
-        batch, _rebalance_targets(batch.keys.shape, parallelism, offsets),
-        parallelism, out_capacity)
+    per-step exclusive round-robin cursor. ``lanes`` as in
+    :func:`route_hash_block`."""
+    target = _rebalance_targets(batch.keys.shape, parallelism, offsets)
+    if lanes is not None:
+        return _block_to_target_range(batch, target, lanes, out_capacity)
+    return _block_to_targets(batch, target, parallelism, out_capacity)
 
 
 def route_broadcast_block(batch: RecordBatch, parallelism: int,
@@ -383,12 +404,18 @@ class StaticRoutePlan:
                 t(self.drop_slot, torch.int64), t(self.drop_t, torch.int64))
         return self._on_device[key]
 
-    def apply(self, out: RecordBatch) -> Tuple[RecordBatch, torch.Tensor]:
-        """Route a producer block ``[K, P, B]`` -> ``[K, T, cap]``."""
+    def apply(self, out: RecordBatch,
+              lanes: Optional[Tuple[int, int]] = None
+              ) -> Tuple[RecordBatch, torch.Tensor]:
+        """Route a producer block ``[K, P, B]`` -> ``[K, T, cap]``; with
+        ``lanes=(lo, hi)`` only those targets' rows are gathered."""
         dev = out.keys.device
         src_p, src_slot, ok, drop_p, drop_slot, drop_t = self._tensors(dev)
         K = out.keys.shape[0]
         T = self.src_p.shape[0]
+        lo, hi = lanes if lanes is not None else (0, T)
+        if (lo, hi) != (0, T):
+            src_p, src_slot, ok = src_p[lo:hi], src_slot[lo:hi], ok[lo:hi]
         g = lambda x: x[:, src_p, src_slot]
         valid = g(out.valid) & ok[None]
         routed = zero_invalid(RecordBatch(
@@ -397,7 +424,7 @@ class StaticRoutePlan:
         if len(self.drop_p):
             dv = out.valid[:, drop_p, drop_slot]                   # [K, D]
             dropped.index_add_(1, drop_t, dv.to(torch.int32))
-        return routed, dropped
+        return routed, dropped[:, lo:hi]
 
     def key_slots(self, src_parallelism: int, num_key_groups: int
                   ) -> Tuple[np.ndarray, np.ndarray]:

@@ -312,6 +312,16 @@ def carry_nbytes(carry) -> int:
     return total
 
 
+def snapshot_subtask_slice(snapshot, vertex_id: int, subtask: int) -> Any:
+    """The one-subtask slice of a snapshot's vertex state — what a
+    recovery on a sharded job restores (the failed subtask's row of the
+    ``[P, ...]`` tree) while healthy shards keep their live buffers. A
+    tree of ``[1, ...]`` leaves; scalar leaves pass whole."""
+    return tree_map(lambda x: x[subtask][None]
+                    if len(getattr(x, "shape", ())) > 0 else x,
+                    snapshot.op_states[vertex_id])
+
+
 def snapshot_subtask_nbytes(snapshot, vertex_id: int, subtask: int) -> int:
     """Bytes of one subtask's row of a snapshot's vertex state — what a
     shard-local restore moves, against :func:`carry_nbytes` of the whole

@@ -64,9 +64,11 @@ runner from the typed options (``config/defaults.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 import time as _time
+import types
 import warnings
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Set,
                     Tuple)
@@ -266,10 +268,20 @@ class OverflowError_(RuntimeError):
     was clobbered and the control plane must not keep running."""
 
 
+def _put_row(stack: torch.Tensor, one: torch.Tensor, i: int
+             ) -> torch.Tensor:
+    """``stack`` with its row ``i`` replaced by ``one`` (a copy)."""
+    stack = stack.clone()
+    stack[i] = one
+    return stack
+
+
 class ClusterRunner:
-    """Single-process cluster with failure injection. Drives epochs; at
-    every epoch fence triggers a checkpoint, collects acks from healthy
-    subtasks, and on completion truncates logs and refreshes standbys.
+    """Cluster with failure injection. Drives epochs; at every epoch
+    fence triggers a checkpoint, collects acks from healthy subtasks, and
+    on completion truncates logs and refreshes standbys. With ``mesh=``
+    (a task mesh, passed through to the executor) every rank runs one
+    runner over its shards, making the same calls in the same order.
 
     ``overlap_epoch`` (default False, the strict order) selects the
     pipelined fence for :meth:`run_epoch`; ``overlap_recovery`` (default
@@ -295,6 +307,19 @@ class ClusterRunner:
         self.device = self.executor.device
         compiled = self.executor.compiled
         self.plan = compiled.plan
+        #: the task mesh (``parallel/distributed.py``): every rank runs
+        #: this runner in lockstep; rank 0 owns the audit seal, the ledger
+        #: and the checkpoint files (None: one process, no mesh)
+        self.mesh = compiled.mesh
+        self.rank = compiled.shard
+        if self.mesh is not None:
+            if incremental_checkpoints:
+                raise ValueError("incremental checkpoints are not supported "
+                                 "on a mesh")
+            if self.rank != 0:
+                # Only rank 0 writes checkpoint files and the ledger; the
+                # others run the same coordinator protocol in memory.
+                checkpoint_dir = None
         self.overlap_recovery = overlap_recovery
         self.overlap_epoch = overlap_epoch
         #: the in-flight fence tail (pipelined fence): None, or a dict with
@@ -438,6 +463,20 @@ class ClusterRunner:
         g.gauge("recovery.replay-lag-steps", self._replay_lag_steps)
         # Determinant-log occupancy (one device read per scrape).
         self.watchdog = met.LogOccupancyWatchdog(self.executor, g)
+        # Per-shard health on a mesh: one gauge triple per task-axis
+        # shard, read from the [n, 3] the last fence or recovery left on
+        # its way to the host (a scrape never computes it, so it never
+        # runs a collective; None before the first fence).
+        self._shard_health: Optional[_device.HostCopy] = None
+        self._shard_health_epoch = -1
+        if self.mesh is not None:
+            n_sh = compiled.n_shards
+            g.gauge("mesh.shards", lambda n_sh=n_sh: n_sh)
+            for i in range(n_sh):
+                for col, name in enumerate(("records", "log-rows",
+                                            "ring-slots")):
+                    g.gauge(f"shard.{i}.{name}",
+                            lambda i=i, col=col: self._shard_gauge(i, col))
         #: the validator of the last audited recovery (its ``events``)
         self.last_audit: Optional[rec.AuditValidator] = None
         #: routed edge windows shared by one vertex's failed subtasks
@@ -479,6 +518,10 @@ class ClusterRunner:
             v.vertex_id: TransactionLog(v.vertex_id)
             for v in job.vertices
             if isinstance(v.operator, TransactionalSinkOperator)}
+        if self.mesh is not None and (self.txn_logs
+                                      or compiled.feed_vertices):
+            raise ValueError("transactional sinks and host-fed sources are "
+                             "not supported on a mesh")
         if self.txn_logs:
             self.executor.on_block_outputs = self._absorb_sink_outputs
             self.coordinator.subscribe_completion(
@@ -500,7 +543,7 @@ class ClusterRunner:
         """Start the host copy of the fence snapshot's feed offsets (on the
         thread that queued the blocks); the completion reads it."""
         readers = self.executor.feed_readers
-        if readers:
+        if readers and snap is not None:
             copy = _device.HostCopy(
                 {vid: snap.op_states[vid]["offset"] for vid in readers})
             with self._feed_copies_lock:
@@ -633,6 +676,32 @@ class ClusterRunner:
                 "epochs-validated": self._m_audit_matches.value,
                 "divergences": self._m_audit_div.value}
 
+    def per_shard_health(self) -> Optional[np.ndarray]:
+        """int32 ``[n_shards, 3]`` (records, live log rows, live ring
+        slots) per task-axis shard, cached per epoch. None without a mesh.
+        The fence and the recovery refresh it on every rank; a call in a
+        later epoch computes it, a collective, so every rank must make
+        it."""
+        if self.mesh is None:
+            return None
+        if self._shard_health_epoch != self.executor.epoch_id \
+                or self._shard_health is None:
+            self._refresh_shard_health()
+        return self._shard_health.wait()
+
+    def _refresh_shard_health(self) -> None:
+        """The per-shard sums (one all-reduce, in lockstep on every rank),
+        copied to the host behind the work that made them (no sync)."""
+        self._shard_health = _device.HostCopy(
+            self.executor._per_shard_health())
+        self._shard_health_epoch = self.executor.epoch_id
+
+    def _shard_gauge(self, i: int, col: int) -> Optional[int]:
+        """One ``shard.<i>.*`` gauge: the cached ``[n, 3]``, never
+        computed here."""
+        h = self._shard_health
+        return None if h is None else int(h.wait()[i, col])
+
     def _inflight_occupancy(self) -> float:
         """Fraction of the in-flight rings' capacity holding un-truncated
         steps (rises when checkpoint completion lags the fences)."""
@@ -659,7 +728,7 @@ class ClusterRunner:
         its last mirrored fence, and the two packages' digests of one
         state agree. One device-to-host copy, waited on this thread."""
         import hashlib
-        c = self.executor.carry
+        c = self.executor.full_carry()
         ops, heads, tails, rows, counts = _device.HostCopy(
             (c.op_states, c.logs.head, c.logs.tail, c.logs.rows,
              c.record_counts)).wait()
@@ -741,6 +810,8 @@ class ClusterRunner:
             # Close the attribution window: FT seconds / (FT + compute)
             # since the previous fence.
             prof.rollup()
+        if self.mesh is not None:
+            self._refresh_shard_health()
 
     def step(self) -> None:
         if self.failed:
@@ -776,7 +847,11 @@ class ClusterRunner:
         feeds the audit digest, the serve feeds and the lineage scan."""
         win = (window_fn() if self.auditor.enabled or self.serve_feeds
                or self.lineage.enabled else None)
-        if self.auditor.enabled:
+        # On a mesh the window gathered to rank 0, which seals, writes the
+        # ledger and feeds the subscribers; every rank triggers the
+        # checkpoint (the snapshot's gather is a collective).
+        lead = self.rank == 0
+        if self.auditor.enabled and lead:
             t = _time.monotonic()
             with prof.section("digest-seal"):
                 dg = _audit.digest_epoch_window(closed, win,
@@ -797,7 +872,7 @@ class ClusterRunner:
         if tl.enabled:
             tl.record("epoch.seal", epoch=int(closed),
                       audited=bool(self.auditor.enabled))
-        if self.serve_feeds:
+        if self.serve_feeds and lead:
             t = _time.monotonic()
             for fn in list(self.serve_feeds):
                 fn(closed, win)
@@ -805,7 +880,7 @@ class ClusterRunner:
         # Lineage at the seal: scan the same window for dyed keys, and the
         # epoch's sealed transaction shards for the sink termini (sealed
         # on the driving thread before the pipelined tail starts).
-        if self.lineage.enabled and win is not None:
+        if self.lineage.enabled and win is not None and lead:
             t = _time.monotonic()
             self.lineage.observe_epoch(
                 closed, win, num_key_groups=self.job.num_key_groups,
@@ -910,13 +985,18 @@ class ClusterRunner:
         handles = ex.capture_fence(
             with_window=self.auditor.enabled or bool(self.serve_feeds)
             or self.lineage.enabled)
-        snap = self._stage_feed_offsets(closed, ex.lean_snapshot())
         storage = self.coordinator.storage
-        if storage.wants_host:
-            snap = _device.HostCopy(snap)
+        if self.mesh is not None:
+            # This rank's shards on their way to the host; the worker
+            # gathers them to rank 0 over the fence group.
+            snap = _device.HostCopy(ex.local_lean_snapshot())
+        elif storage.wants_host:
+            snap = _device.HostCopy(
+                self._stage_feed_offsets(closed, ex.lean_snapshot()))
         else:
             # A device-diffing storage dispatches its diff here; its one
             # packed read waits for the join.
+            snap = self._stage_feed_offsets(closed, ex.lean_snapshot())
             snap = storage.stage(snap, closed) or snap
         self._append_source_fence_determinant(closed, phases, prof)
         # clonos: overlap-window-end
@@ -957,9 +1037,12 @@ class ClusterRunner:
             self.epoch_tracker.start_new_epoch(closed + 1)
             # No profiler sections here: the join observes this tail's
             # phases under their section names on the main thread.
-            self._seal_and_trigger(closed, tail["handles"].window,
-                                   lambda: tail["snap"], phases,
-                                   _prof.NullProfiler(), async_write=True)
+            snap_fn = ((lambda: self.executor.gather_snapshot(
+                tail["snap"].wait())) if self.mesh is not None
+                else (lambda: tail["snap"]))
+            self._seal_and_trigger(closed, tail["handles"].window, snap_fn,
+                                   phases, _prof.NullProfiler(),
+                                   async_write=True)
         except BaseException as e:      # raised at the join
             tail["err"] = e
 
@@ -1053,10 +1136,15 @@ class ClusterRunner:
         ex = self.executor
         compiled = ex.compiled
         c = ex.carry
+        # On a mesh each rank zeroes the pieces of the subtask it holds
+        # (its vertex block, log block and replica block, at local rows).
+        llo, lhi = compiled.lblock
+        rlo, rhi = compiled.rblock
         for flat in flat_subtasks:
             self.failed.add(flat)
             self.heartbeats.mark_dead(flat)
             vid, sub = self._vertex_of(flat)
+            vlo, vhi = compiled.vblock[vid]
             fresh = clog.create(compiled.log_capacity, compiled.max_epochs,
                                 self.device)
 
@@ -1066,26 +1154,33 @@ class ClusterRunner:
                 return stack
 
             ops = list(c.op_states)
-            ops[vid] = tree_map(lambda x: put(x, sub, 0), ops[vid])
-            logs = tree_map(lambda s, fr: put(s, flat, fr), c.logs, fresh)
-            held = self.plan.replicas_held_by(flat)
+            logs, rc = c.logs, c.record_counts
+            rings = list(c.out_rings)
+            if vlo <= sub < vhi:
+                ops[vid] = tree_map(lambda x: put(x, sub - vlo, 0), ops[vid])
+                if vid in compiled.ring_index:
+                    ri = compiled.ring_index[vid]
+                    el = rings[ri]
+                    lane = (slice(None), sub - vlo)
+                    rings[ri] = el._replace(
+                        keys=put(el.keys, lane, 0),
+                        values=put(el.values, lane, 0),
+                        timestamps=put(el.timestamps, lane, 0),
+                        valid=put(el.valid, lane, False))
+            if llo <= flat < lhi:
+                logs = tree_map(lambda s_, fr: put(s_, flat - llo, fr),
+                                c.logs, fresh)
+                rc = put(c.record_counts, flat - llo, 0)
+            held = [r - rlo for r in self.plan.replicas_held_by(flat)
+                    if rlo <= r < rhi]
             replicas = c.replicas
             if held:
                 idx = _device.upload(np.asarray(held, np.int64), self.device)
-                replicas = tree_map(lambda s, fr: put(s, idx, fr),
+                replicas = tree_map(lambda s_, fr: put(s_, idx, fr),
                                     c.replicas, fresh)
-            rings = list(c.out_rings)
-            if vid in compiled.ring_index:
-                ri = compiled.ring_index[vid]
-                el = rings[ri]
-                rings[ri] = el._replace(
-                    keys=put(el.keys, (slice(None), sub), 0),
-                    values=put(el.values, (slice(None), sub), 0),
-                    timestamps=put(el.timestamps, (slice(None), sub), 0),
-                    valid=put(el.valid, (slice(None), sub), False))
             c = c._replace(op_states=tuple(ops), logs=logs,
                            replicas=replicas, out_rings=tuple(rings),
-                           record_counts=put(c.record_counts, flat, 0))
+                           record_counts=rc)
         ex.carry = c
 
     def detect_failures(self) -> List[int]:
@@ -1149,32 +1244,13 @@ class ClusterRunner:
         to ``finalize.listener-reattach``."""
         if not self.failed:
             raise rec.RecoveryError("no failed subtasks")
-        # A kill already joined the pipelined fence; recovery never runs
-        # against a half-sealed tail.
-        self._join_fence_tail()
-        if not self.standbys.has_state():
-            raise rec.RecoveryError(
-                "no completed checkpoint to restore standbys from")
+        if self.mesh is not None:
+            if host_rows is not None or pre_patch_join is not None:
+                raise ValueError("host_rows / pre_patch_join are not "
+                                 "supported on a mesh")
+            return self._recover_mesh(drill)
+        t0, failed, ignored = self._recovery_prologue(drill)
         ex = self.executor
-        compiled = ex.compiled
-        t0 = _time.monotonic()
-        topo_pos = {vid: i for i, vid in enumerate(compiled.topo)}
-        failed = tuple(sorted(
-            self.failed, key=lambda f: (topo_pos[self._vertex_of(f)[0]], f)))
-
-        # Ignore checkpoints the dead never acked; back off the interval;
-        # healthy tasks log the ignore decision.
-        ignored: Tuple[int, ...] = ()
-        if not drill:
-            ignored = tuple(self.coordinator.ignore_unacked_for(set(failed)))
-            self.coordinator.backoff()
-            healthy = [f for f in range(self.job.total_subtasks())
-                       if f not in self.failed]
-            for cid in ignored:
-                ex.append_async_many(healthy, det.IgnoreCheckpointDeterminant(
-                    record_count=ex.global_record_stamp(),
-                    checkpoint_id=cid))
-
         ckpt = self.standbys.latest
         from_epoch = ckpt.checkpoint_id + 1
         fence = self._fence_step[from_epoch]
@@ -1184,13 +1260,7 @@ class ClusterRunner:
         checkpoint_bytes = (int(ckpt.size_bytes or 0)
                             or cp.carry_nbytes(ckpt.carry))
         phases: Dict[str, float] = {}
-
-        def _clock(name: str, since: float) -> float:
-            now = _time.monotonic()
-            phases[name] = phases.get(name, 0.0) + (now - since) * 1e3
-            get_tracer().complete(f"recovery.{name}", now - since,
-                                  drill=drill)
-            return now
+        _clock = self._phase_clock(phases, drill)
 
         patched = ex.carry
         nrings = len(patched.out_rings)
@@ -1286,18 +1356,10 @@ class ClusterRunner:
                     share = est <= (1 << 30)
                 self._route_cache_enabled = share
                 prev_vid = vid
-            mgr = rec.RecoveryManager(vid, sub, flat,
-                                      self._make_replayer(vid, sub))
+            mgr = self._recovery_manager(vid, sub, flat)
             managers.append(mgr)
             in_edges = self.job.in_edges(vid)
             out_edges = self.job.out_edges(vid)
-            # FSM: standby -> connections re-established + state restored.
-            mgr.notify_start_recovery(in_edges, out_edges)
-            mgr.notify_state_restoration_complete()
-            for e in in_edges:
-                mgr.notify_new_input_channel(e)
-            for e in out_edges:
-                mgr.notify_new_output_channel(e)
 
             p = prep[flat]
             holders = p["holders"]
@@ -1421,13 +1483,7 @@ class ClusterRunner:
                                          fence, n_steps)
             tp = _clock("replay", tp)
 
-            rebuilt = np.asarray(result.rebuilt_log_rows)
-            if not synthesized and not result.rebuilt_is_view \
-                    and not np.array_equal(rebuilt,
-                                           rows[:rebuilt.shape[0]]):
-                raise rec.RecoveryError(
-                    f"subtask {flat}: replayed determinant stream diverges "
-                    f"from the recovered log")
+            rebuilt = self._check_rebuilt(flat, result, rows, synthesized)
             if pre_patch_join is not None:
                 t_j = _time.monotonic()
                 pre_patch_join()
@@ -1505,29 +1561,11 @@ class ClusterRunner:
                 barrier["err"] = err
             barrier["ms"] = (_time.monotonic() - t_fin0) * 1e3
 
-        def _revive() -> None:
-            for flat in failed:
-                self.heartbeats.revive(flat)
-            self.failed.clear()
-            if not drill:
-                self.coordinator.reset_interval()
-
         def _audit() -> float:
-            # Recompute every replayed closed epoch's digest from the
-            # patched carry against the sealed ledger; the abort policy
-            # raises before the job resumes.
             if not self.auditor.enabled:
                 return 0.0
             t_a = _time.monotonic()
-            validator = rec.AuditValidator(
-                ex, self.coordinator.read_ledger(),
-                on_divergence=self.auditor.on_divergence)
-            self.last_audit = validator
-            try:
-                validator.validate(range(from_epoch, ex.epoch_id))
-            finally:
-                self._m_audit_matches.inc(validator.stats["match"])
-                self._m_audit_div.inc(validator.stats["divergence"])
+            self._validate_replayed(ex, range(from_epoch, ex.epoch_id))
             a_ms = (_time.monotonic() - t_a) * 1e3
             phases["audit"] = phases.get("audit", 0.0) + a_ms
             get_tracer().complete("recovery.audit", a_ms / 1e3, drill=drill)
@@ -1572,7 +1610,7 @@ class ClusterRunner:
         phases["finalize"] = phases.get("finalize", 0.0) + fin_ms
         get_tracer().complete("recovery.finalize", fin_ms / 1e3,
                               drill=drill)
-        _revive()
+        self._revive(failed, drill)
         if overlap:
             if audit_err is not None:
                 raise audit_err
@@ -1581,24 +1619,388 @@ class ClusterRunner:
                 + max(0.0, barrier["ms"] + verify_ms - fin_ms))
         else:
             _audit()
-        report = RecoveryReport(
-            failed_subtasks=failed, from_epoch=from_epoch,
+        return self._close_recovery(
+            t0, failed_subtasks=failed, from_epoch=from_epoch,
             steps_replayed=n_steps, determinants_replayed=total_dets,
             records_replayed=total_records, ignored_checkpoints=ignored,
-            recovery_ms=(_time.monotonic() - t0) * 1e3,
             managers=tuple(managers), phase_ms=phases, drill=drill,
             restore_bytes=restore_bytes, checkpoint_bytes=checkpoint_bytes)
+
+    # --- the steps both recovery paths share ----------------------------------
+
+    def _recovery_prologue(self, drill: bool
+                           ) -> Tuple[float, Tuple[int, ...], Tuple[int, ...]]:
+        """Join the pipelined fence (recovery never runs against a
+        half-sealed tail), check there is a checkpoint to restore, order
+        the failed subtasks topologically, and (not in a drill) ignore
+        the checkpoints the dead never acked, back off the interval and
+        have the healthy tasks log the ignore decision. Returns the
+        recovery's start time, the ordered failed subtasks and the ignored
+        checkpoints."""
+        self._join_fence_tail()
+        if not self.standbys.has_state():
+            raise rec.RecoveryError(
+                "no completed checkpoint to restore standbys from")
+        if self.mesh is not None and not self._ring_mirror_valid:
+            raise rec.RecoveryError("ring bound mirror invalid; a mesh "
+                                    "recovery routes by the host mirror")
+        ex = self.executor
+        t0 = _time.monotonic()
+        topo_pos = {vid: i for i, vid in enumerate(ex.compiled.topo)}
+        failed = tuple(sorted(
+            self.failed, key=lambda f: (topo_pos[self._vertex_of(f)[0]], f)))
+        ignored: Tuple[int, ...] = ()
         if not drill:
+            ignored = tuple(self.coordinator.ignore_unacked_for(set(failed)))
+            self.coordinator.backoff()
+            healthy = [f for f in range(self.job.total_subtasks())
+                       if f not in self.failed]
+            for cid in ignored:
+                ex.append_async_many(healthy, det.IgnoreCheckpointDeterminant(
+                    record_count=ex.global_record_stamp(),
+                    checkpoint_id=cid))
+        return t0, failed, ignored
+
+    @staticmethod
+    def _phase_clock(phases: Dict[str, float], drill: bool
+                     ) -> Callable[[str, float], float]:
+        """A recovery's phase clock: ``clock(name, since)`` adds the wall
+        ms since ``since`` to ``phases[name]``, traces the span and
+        returns now."""
+        def clock(name: str, since: float) -> float:
+            now = _time.monotonic()
+            phases[name] = phases.get(name, 0.0) + (now - since) * 1e3
+            get_tracer().complete(f"recovery.{name}", now - since,
+                                  drill=drill)
+            return now
+        return clock
+
+    def _recovery_manager(self, vid: int, sub: int, flat: int
+                          ) -> rec.RecoveryManager:
+        """A failed subtask's recovery FSM, taken from standby to
+        connections re-established and state restored."""
+        mgr = rec.RecoveryManager(vid, sub, flat,
+                                  self._make_replayer(vid, sub))
+        in_edges = self.job.in_edges(vid)
+        out_edges = self.job.out_edges(vid)
+        mgr.notify_start_recovery(in_edges, out_edges)
+        mgr.notify_state_restoration_complete()
+        for e in in_edges:
+            mgr.notify_new_input_channel(e)
+        for e in out_edges:
+            mgr.notify_new_output_channel(e)
+        return mgr
+
+    @staticmethod
+    def _check_rebuilt(flat: int, result: rec.ReplayResult,
+                       rows: np.ndarray, synthesized: bool) -> np.ndarray:
+        """The replay's rebuilt log rows, which must equal the recovered
+        determinant stream (not checked for a synthesized one)."""
+        rebuilt = np.asarray(result.rebuilt_log_rows)
+        if not synthesized and not result.rebuilt_is_view \
+                and not np.array_equal(rebuilt, rows[:rebuilt.shape[0]]):
+            raise rec.RecoveryError(
+                f"subtask {flat}: replayed determinant stream diverges "
+                f"from the recovered log")
+        return rebuilt
+
+    def _revive(self, failed: Tuple[int, ...], drill: bool) -> None:
+        for flat in failed:
+            self.heartbeats.revive(flat)
+        self.failed.clear()
+        if not drill:
+            self.coordinator.reset_interval()
+
+    def _validate_replayed(self, source: Any, epochs) -> None:
+        """Recompute every replayed closed epoch's digest from ``source``
+        (anything with ``epoch_window``) against the sealed ledger; the
+        abort policy raises before the job resumes."""
+        validator = rec.AuditValidator(
+            source, self.coordinator.read_ledger(),
+            on_divergence=self.auditor.on_divergence)
+        self.last_audit = validator
+        try:
+            validator.validate(epochs)
+        finally:
+            self._m_audit_matches.inc(validator.stats["match"])
+            self._m_audit_div.inc(validator.stats["divergence"])
+
+    def _close_recovery(self, t0: float, **fields) -> RecoveryReport:
+        """The recovery's report (``fields`` are its fields but the wall
+        time), recorded with its metrics unless it was a drill, and its
+        span."""
+        report = RecoveryReport(
+            recovery_ms=(_time.monotonic() - t0) * 1e3, **fields)
+        if not report.drill:
             self.reports.append(report)
             self._m_recovery_ms.update(report.recovery_ms)
             self._m_recovered_records.inc(report.records_replayed)
-            for pname, ms in phases.items():
+            for pname, ms in report.phase_ms.items():
                 self._mgroup.histogram(f"recovery.{pname}-ms").update(ms)
         get_tracer().complete(
-            "recovery", report.recovery_ms / 1e3, drill=drill,
-            failed=list(failed), from_epoch=from_epoch,
-            steps_replayed=n_steps, records_replayed=total_records)
+            "recovery", report.recovery_ms / 1e3, drill=report.drill,
+            failed=list(report.failed_subtasks),
+            from_epoch=report.from_epoch,
+            steps_replayed=report.steps_replayed,
+            records_replayed=report.records_replayed)
         return report
+
+    # --- recovery on a mesh ---------------------------------------------------
+
+    def _vertex_ranks(self, vid: int, sub: int) -> List[int]:
+        """Ranks holding subtask ``sub`` of vertex ``vid`` (every rank when
+        the vertex does not split)."""
+        comp = self.executor.compiled
+        if not comp.sharded(vid):
+            return list(range(comp.n_shards))
+        p = self.job.vertices[vid].parallelism
+        return [sub // (p // comp.n_shards)]
+
+    def _row_ranks(self, row: int, size: int) -> List[int]:
+        """Ranks holding row ``row`` of a leaf of ``size`` rows split by
+        the rule table (every rank when it does not split)."""
+        n = self.executor.compiled.n_shards
+        if n == 1 or size % n:
+            return list(range(n))
+        return [row // (size // n)]
+
+    def _host(self, tree):
+        return _device.HostCopy(tree).wait()
+
+    def _recover_mesh(self, drill: bool = False) -> RecoveryReport:
+        """The recovery protocol on a mesh, run by every rank in lockstep.
+        Each failed subtask replays on the rank that owns it (every rank,
+        for a vertex that does not split):
+
+        - rank 0 sends it the subtask's checkpoint slice
+          (``snapshot_subtask_slice``), its edge-buffer rows, cursors and
+          fence head;
+        - the rank holding the first surviving replica of its log sends
+          that replica row; the ranks holding the upstream ring's lanes
+          send their steps of the replay window;
+        - the owner replays, grafts the operator row and ring lane into
+          its own shards, and sends the rebuilt log row and record count
+          to the rank holding that row of the log block;
+        - the replica rows the revived subtasks held are copied from their
+          owners' log rows, rank to rank.
+
+        No other rank's live shard is rewritten, and nothing gathers the
+        whole carry. Not taken here: the device-resident fast path and
+        the overlapped finalize (a mesh runs no spill, host-fed source or
+        transactional sink)."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        ex = self.executor
+        comp = ex.compiled
+        mesh, axis = self.mesh, comp.task_axis
+        me, n = comp.shard, comp.n_shards
+        t0, failed, ignored = self._recovery_prologue(drill)
+        ckpt = self.standbys.latest
+        from_epoch = ckpt.checkpoint_id + 1
+        fence = self._fence_step[from_epoch]
+        n_steps = self.global_step - fence
+        snap = ckpt.carry if me == 0 else None
+        checkpoint_bytes = dist_.transfer(
+            (int(ckpt.size_bytes or 0) or cp.carry_nbytes(ckpt.carry))
+            if me == 0 else None, 0, range(n), mesh, axis)
+        with self._ck_heads_lock:
+            ck_heads = self._ck_log_heads.get(ckpt.checkpoint_id)
+        phases: Dict[str, float] = {}
+        _clock = self._phase_clock(phases, drill)
+        ch = self._recovery_ch
+        span = -(-n_steps // ch) * ch
+        ring_lo = max(self._ring_tail_mirror,
+                      ex._steps_executed - comp.inflight_ring_steps)
+        self._bounds_cache = {ri: (self._ring_tail_mirror, ex._steps_executed)
+                              for ri in range(len(comp.ring_vertices))}
+        self._route_cache = {}
+        self._route_cache_enabled = False
+        self._route_cache_hits = 0
+        llo, _ = comp.lblock
+        rlo, _ = comp.rblock
+        L, R = comp.L, max(self.plan.num_replicas, 1)
+        carry = ex.carry
+        managers: List[rec.RecoveryManager] = []
+        restore_bytes = total_records = total_dets = 0
+        tp = _clock("restore", t0)
+        for flat in failed:
+            vid, sub = self._vertex_of(flat)
+            v = self.job.vertices[vid]
+            vlo = comp.vblock[vid][0]
+            owners = self._vertex_ranks(vid, sub)
+            lead = me == owners[0]
+            mine = me in owners
+            in_edges = self.job.in_edges(vid)
+            out_edges = self.job.out_edges(vid)
+            # The checkpoint slice, from rank 0.
+            piece = None
+            if me == 0:
+                ops = cp.snapshot_subtask_slice(snap, vid, sub)
+                piece = self._host({
+                    "op": ops,
+                    "edge": {e: tuple(x[sub:sub + 1]
+                                      for x in snap.edge_bufs[e])
+                             for e in in_edges},
+                    "rr": {e: snap.rr_offsets[e] for e in in_edges},
+                    "rc": snap.record_counts[flat],
+                    "head": snap.log_heads[flat]})
+            piece = dist_.transfer(piece, 0, owners, mesh, axis)
+            ck_head = (int(ck_heads[flat]) if ck_heads is not None
+                       else int(piece["head"]) if mine else None)
+            # The first surviving replica of its log, from its holder.
+            holders = [r for r, (o, h) in enumerate(self.plan.pairs)
+                       if o == flat and h not in self.failed]
+            replica = None
+            if holders:
+                r0 = holders[0]
+                src = self._row_ranks(r0, R)[0]
+                one = (self._host(tree_map(lambda x: x[r0 - rlo],
+                                           carry.replicas))
+                       if me == src else None)
+                replica = dist_.transfer(one, src, owners, mesh, axis)
+            elif n_steps > 0 and out_edges:
+                raise rec.RecoveryError(
+                    f"subtask {flat}: no surviving replica holds its "
+                    f"determinant log (sharing depth / replication "
+                    f"factor too shallow for this failure pattern)")
+            # The upstream rings' replay windows, lane blocks from their
+            # ranks (upstreams failed earlier were rebuilt already).
+            windows: Dict[int, RecordBatch] = {}
+            for e in in_edges if n_steps > 0 else ():
+                src_vid = self.job.edges[e].src
+                if fence < ring_lo:
+                    raise rec.RecoveryError(
+                        f"in-flight ring of vertex {src_vid} no longer "
+                        f"holds step {fence} (spill is not supported on "
+                        f"a mesh)")
+                el = carry.out_rings[comp.ring_index[src_vid]]
+                local = ifl.slice_steps_at(el, fence - 1, span)
+                if not comp.sharded(src_vid):
+                    windows[e] = local
+                    continue
+                parts = [dist_.transfer(self._host(local) if me == r
+                                        else None, r, owners, mesh, axis)
+                         for r in range(n)]
+                if mine:
+                    windows[e] = RecordBatch(*(
+                        _device.upload(np.concatenate(f, axis=1),
+                                       self.device)
+                        for f in zip(*parts)))
+            tp = _clock("fetch_determinants", tp)
+            log_piece = None
+            if mine:
+                mgr = self._recovery_manager(vid, sub, flat)
+                synthesized = False
+                one_dev = None
+                if replica is not None:
+                    one_dev = self._on_device(replica)
+                    stack = tree_map(lambda x: x[None], one_dev)
+                    cnt, start = (int(x) for x in self._fetch_meta(
+                        stack, [0], from_epoch).cpu().numpy()[0])
+                    mgr.expect_determinant_responses(1)
+                    mgr.notify_determinant_response(
+                        self._fetch_rows(stack, 0, from_epoch, cnt), start)
+                    rows, start = mgr.merged_determinants()
+                elif n_steps > 0:
+                    synthesized = True
+                    mgr.expect_determinant_responses(0)
+                    rows = self._synthesize_det_rows(fence, n_steps)
+                    start = ck_head
+                else:
+                    mgr.expect_determinant_responses(0)
+                    rows = np.zeros((0, det.NUM_LANES), np.int32)
+                    start = ck_head
+                if lead:
+                    total_dets += len(rows)
+                input_steps = None
+                dev_piece = self._on_device({"edge": piece["edge"],
+                                             "rr": piece["rr"],
+                                             "op": piece["op"]})
+                inputs = [self._replay_inputs(
+                    None, None, e, sub, fence, n_steps, window=windows[e],
+                    edge_row=RecordBatch(*dev_piece["edge"][e]),
+                    rr=dev_piece["rr"][e]) for e in in_edges] \
+                    if n_steps > 0 else [[] for _ in in_edges]
+                if isinstance(v.operator, TwoInputOperator):
+                    input_steps = list(zip(*inputs))
+                elif in_edges:
+                    input_steps = inputs[0]
+                tp = _clock("inputs", tp)
+                plan = rec.ReplayPlan(
+                    vertex_id=vid, subtask=sub, flat_subtask=flat,
+                    from_epoch=from_epoch, input_steps=input_steps,
+                    det_rows=rows, det_start=start,
+                    checkpoint_op_state=dev_piece["op"], n_steps=n_steps,
+                    verify_outputs=not synthesized, state_row=0)
+                result = mgr.run_replay(plan, self.device)
+                if lead:
+                    restore_bytes += rec.plan_restore_nbytes(plan)
+                    total_records += result.records_replayed
+                rebuilt = self._check_rebuilt(flat, result, rows,
+                                              synthesized)
+                tp = _clock("replay", tp)
+                restored = self._restored_log(
+                    one_dev if not synthesized else None, rebuilt, flat,
+                    from_epoch, fence, ck_head)
+                carry = self._graft_lane(carry, vid, sub - vlo, result,
+                                         fence, n_steps)
+                if lead:
+                    log_piece = self._host({
+                        "log": restored,
+                        "rc": int(piece["rc"]) + result.records_replayed})
+                managers.append(mgr)
+            # The rebuilt log row and record count, to the log block's rank.
+            dsts = self._row_ranks(flat, L)
+            log_piece = dist_.transfer(log_piece, owners[0], dsts, mesh, axis)
+            if me in dsts:
+                new = self._on_device(log_piece)
+                put = functools.partial(_put_row, i=flat - llo)
+                carry = carry._replace(
+                    logs=tree_map(put, carry.logs, new["log"]),
+                    record_counts=put(carry.record_counts,
+                                      new["rc"].to(torch.int32)))
+            tp = _clock("patch", tp)
+        # Replica rows the revived subtasks held: replicas equal their
+        # owner's log by construction, so copy the owner's (possibly just
+        # restored) row, from the rank holding it.
+        for flat in failed:
+            for r in self.plan.replicas_held_by(flat):
+                o = self.plan.pairs[r][0]
+                src = self._row_ranks(o, L)[0]
+                dsts = self._row_ranks(r, R)
+                row = (self._host(tree_map(lambda x: x[o - llo], carry.logs))
+                       if me == src else None)
+                row = dist_.transfer(row, src, dsts, mesh, axis)
+                if me in dsts:
+                    carry = carry._replace(replicas=tree_map(
+                        functools.partial(_put_row, i=r - rlo),
+                        carry.replicas, self._on_device(row)))
+        comp.constrain_carry(carry)
+        ex.carry = carry
+        self._bounds_cache = None
+        tp = _clock("replica_rebuild", tp)
+        sums = dist_.all_gather_object(
+            (restore_bytes, total_records, total_dets), mesh, axis)
+        restore_bytes, total_records, total_dets = (
+            sum(x[k] for x in sums) for k in range(3))
+        self._refresh_shard_health()
+        self._revive(failed, drill)
+        if self.auditor.enabled:
+            # Every replayed closed epoch's window gathers to rank 0 (all
+            # ranks take part), which validates them against its ledger.
+            t_a = _time.monotonic()
+            wins = {e: ex.epoch_window(e)
+                    for e in range(from_epoch, ex.epoch_id)}
+            if me == 0:
+                self._validate_replayed(
+                    types.SimpleNamespace(epoch_window=wins.__getitem__),
+                    sorted(wins))
+            phases["audit"] = (_time.monotonic() - t_a) * 1e3
+        return self._close_recovery(
+            t0, failed_subtasks=failed, from_epoch=from_epoch,
+            steps_replayed=n_steps, determinants_replayed=total_dets,
+            records_replayed=total_records, ignored_checkpoints=ignored,
+            managers=tuple(managers), phase_ms=phases, drill=drill,
+            restore_bytes=restore_bytes, checkpoint_bytes=checkpoint_bytes)
 
     def _ring_bounds_dev(self) -> Optional[torch.Tensor]:
         """Device ``[R, 2]`` (tail, head) of every in-flight ring —
@@ -1750,6 +2152,8 @@ class ClusterRunner:
         replay so the feed re-read path serves the recorded offset
         windows: a scheduler slice whose cut in-edges arrive over the
         wire needs them."""
+        if runner_kw.get("mesh") is not None:
+            raise ValueError("bootstrap_standby is not supported on a mesh")
         for e in job.edges:
             if e.partition == PartitionType.REBALANCE:
                 raise rec.RecoveryError(
@@ -2047,6 +2451,8 @@ class ClusterRunner:
         types, edge partition kinds) must match; a rescaled vertex's
         input edges must be HASH; vertices without a keyed rescaling
         story keep their parallelism."""
+        if runner_kw.get("mesh") is not None:
+            raise ValueError("restore_rescaled is not supported on a mesh")
         if len(job_new.vertices) != len(job_old.vertices) or \
                 len(job_new.edges) != len(job_old.edges):
             raise rec.RecoveryError(
@@ -2158,6 +2564,8 @@ class ClusterRunner:
         its handle and re-homes any read tier (``ServeTier.rehome``)."""
         from clonos_tpu_torch.runtime.executor import LogicalTimeSource
         from clonos_tpu_torch.runtime.scheduler import RescaleCoordinator
+        if self.mesh is not None:
+            raise ValueError("rescale_live is not supported on a mesh")
         if self.failed:
             raise rec.RecoveryError(
                 f"rescale_live: failed subtasks {sorted(self.failed)} — "
@@ -2493,8 +2901,12 @@ class ClusterRunner:
             rows[base + 3, det.LANE_TAG] = det.BUFFER_BUILT
         return rows
 
-    def _replay_inputs(self, carry: JobCarry, snap: LeanSnapshot, eidx: int,
-                       sub: int, fence: int, n_steps: int
+    def _replay_inputs(self, carry: Optional[JobCarry],
+                       snap: Optional[LeanSnapshot], eidx: int,
+                       sub: int, fence: int, n_steps: int,
+                       window: Optional[RecordBatch] = None,
+                       edge_row: Optional[RecordBatch] = None,
+                       rr: Optional[torch.Tensor] = None
                        ) -> List[RecordBatch]:
         """The failed consumer's lost inputs on edge ``eidx``: the
         checkpointed depth-1 edge buffer (its input at the first lost step)
@@ -2506,18 +2918,30 @@ class ClusterRunner:
         Coverage comes from the host bound mirror; the round-robin cursor
         stays on the device. Steps the ring no longer holds (below its
         tail, or clobbered by a wrap while the tail stood still) come
-        from the spill tiers, spliced ahead of the ring's steps."""
+        from the spill tiers, spliced ahead of the ring's steps.
+
+        On a mesh the caller passes what this rank does not hold: the
+        producer ring's steps ``[fence - 1, fence - 1 + windows * ch)``
+        over every producer lane (``window``), the checkpointed edge-buffer
+        row (``edge_row``, ``[1, cap]``) and the edge's round-robin cursor
+        (``rr``)."""
         if n_steps <= 0:
             return []
         e = self.job.edges[eidx]
         ch = self._recovery_ch
         ri = self.executor.compiled.ring_index[e.src]
-        el = carry.out_rings[ri]
+        el = carry.out_rings[ri] if window is None else None
         tail, head = self._bounds_cache[ri]
         # Steps the ring physically retains: a wrap clobbers steps below
         # head - ring_steps even while the tail has not moved.
-        ring_lo = max(tail, head - el.ring_steps)
-        rr = snap.rr_offsets[eidx][0].to(torch.int32)
+        ring_lo = max(tail, head - self.executor.compiled.inflight_ring_steps)
+        if rr is None:
+            rr = snap.rr_offsets[eidx]
+        rr = rr[0].to(torch.int32)
+        if edge_row is None:
+            edge_row = RecordBatch(*(b[sub] for b in snap.edge_bufs[eidx]))
+        else:
+            edge_row = RecordBatch(*(b[0] for b in edge_row))
         need = n_steps
         lead = 1
         idx = torch.arange(ch, dtype=torch.int32, device=self.device)
@@ -2537,7 +2961,9 @@ class ClusterRunner:
                 self._route_cache_hits += 1
                 lane = RecordBatch(*(x[:, sub] for x in routed))
             else:
-                raw = ifl.slice_steps_at(el, h_start, ch)
+                raw = (ifl.slice_steps_at(el, h_start, ch) if window is None
+                       else RecordBatch(*(x[i * ch:(i + 1) * ch]
+                                          for x in window)))
                 if h_need and lo_real < ring_lo:
                     raw = self._splice_spilled(
                         raw, ri, e.src, fence, h_start,
@@ -2557,9 +2983,8 @@ class ClusterRunner:
             need -= ch
             lead = 0
             if i == 0:
-                lane = RecordBatch(*(torch.cat([b[sub][None], x[1:]])
-                                     for x, b in zip(lane,
-                                                     snap.edge_bufs[eidx])))
+                lane = RecordBatch(*(torch.cat([b[None], x[1:]])
+                                     for x, b in zip(lane, edge_row)))
             chunks.append(lane)
         return chunks
 
@@ -2674,11 +3099,39 @@ class ClusterRunner:
 
         ``clean_sync``: the stream is pure sync blocks, so the anchors
         are exactly ``i * DETS_PER_STEP`` and ``det_n`` is its row count."""
+        if ck_head is None:
+            ck_head = int(snap.log_heads[flat])
+        one = (tree_map(lambda x: x[replica_src], carry.replicas)
+               if replica_src is not None else None)
+        restored = self._restored_log(one, det_rows, flat, from_epoch,
+                                      fence, ck_head, det_n, clean_sync)
+
+        def put(stack, i, one_):
+            stack = stack.clone()
+            stack[i] = one_
+            return stack
+
+        # A deferred replay's consumed total stays on the device.
+        rc = snap.record_counts[flat] + (
+            result.consumed_d if result.deferred
+            else result.records_replayed)
+        carry = carry._replace(
+            logs=tree_map(lambda s_, r: put(s_, flat, r), carry.logs,
+                          restored),
+            record_counts=put(carry.record_counts, flat, rc))
+        return self._graft_lane(carry, vid, sub, result, fence, n_steps)
+
+    def _restored_log(self, replica: Optional[clog.ThreadLogState],
+                      det_rows: np.ndarray, flat: int, from_epoch: int,
+                      fence: int, ck_head: int, det_n: Optional[int] = None,
+                      clean_sync: bool = False) -> clog.ThreadLogState:
+        """The failed subtask's rebuilt log: the rows from ``ck_head`` on
+        (``replica``'s device bytes when given — the replayed stream was
+        verified equal to it — else the uploaded ``det_rows``) and its
+        epoch index, re-derived from the fence-step ledger."""
         compiled = self.executor.compiled
         dev = self.device
         cap = compiled.log_capacity
-        if ck_head is None:
-            ck_head = int(snap.log_heads[flat])
         n = det_rows.shape[0] if det_n is None else det_n
         if clean_sync:
             ts_pos = np.arange(n // DETS_PER_STEP,
@@ -2711,21 +3164,26 @@ class ClusterRunner:
         restored = clog.create(cap, me, dev)
         base = _device.scalar(ck_head, dev)
         restored = restored._replace(head=base, tail=base.clone())
-        if replica_src is not None:
-            # The replayed stream was verified equal to the recovered one,
-            # so the replica's device bytes ARE the restored log.
-            one = tree_map(lambda x: x[replica_src], carry.replicas)
-            buf, _, _ = clog.get_determinants(one, from_epoch, cap)
+        if replica is not None:
+            buf, _, _ = clog.get_determinants(replica, from_epoch, cap)
             restored = clog.append(restored, buf, n)
         elif n > 0:
             restored = clog.append(restored,
                                    _device.upload(det_rows[:n], dev), n)
         index = _device.upload(np.stack([starts, mask]), dev)
-        restored = restored._replace(
+        return restored._replace(
             epoch_starts=torch.where(index[1] > 0, index[0],
                                      restored.epoch_starts),
             latest_epoch=restored.latest_epoch.clamp(min=latest),
             epoch_base=restored.epoch_base.clamp(min=from_epoch))
+
+    def _graft_lane(self, carry: JobCarry, vid: int, lane: int,
+                    result: rec.ReplayResult, fence: int, n_steps: int
+                    ) -> JobCarry:
+        """The rebuilt operator row and in-flight ring lane of a failed
+        subtask at local row ``lane`` of its vertex's state and ring."""
+        compiled = self.executor.compiled
+        dev = self.device
 
         def put(stack, i, one):
             stack = stack.clone()
@@ -2733,17 +3191,9 @@ class ClusterRunner:
             return stack
 
         ops = list(carry.op_states)
-        ops[vid] = tree_map(lambda live, new: put(live, sub, new[0]),
+        ops[vid] = tree_map(lambda live, new: put(live, lane, new[0]),
                             ops[vid], result.op_state)
-        # A deferred replay's consumed total stays on the device.
-        rc = snap.record_counts[flat] + (
-            result.consumed_d if result.deferred
-            else result.records_replayed)
-        carry = carry._replace(
-            op_states=tuple(ops),
-            logs=tree_map(lambda s, r: put(s, flat, r), carry.logs,
-                          restored),
-            record_counts=put(carry.record_counts, flat, rc))
+        carry = carry._replace(op_states=tuple(ops))
         # Rebuild the failed producer's lane of its in-flight ring from the
         # replayed outputs at their original steps (only the last
         # ring_steps replayed steps fit). Written in place: the ring
@@ -2762,6 +3212,6 @@ class ClusterRunner:
                     for ring_f, chunk_f in zip(
                             (el.keys, el.values, el.timestamps, el.valid),
                             chunk):
-                        ring_f[pos, sub] = chunk_f[a - step:]
+                        ring_f[pos, lane] = chunk_f[a - step:]
                 step += m
         return carry

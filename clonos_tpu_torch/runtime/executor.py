@@ -1,7 +1,11 @@
 """Block executor: the whole job advanced K supersteps at a time.
 
-Port of ``clonos_tpu/runtime/executor.py`` (without mesh sharding, which
-comes with the multi-card slice). Host-fed sources take one pinned,
+Port of ``clonos_tpu/runtime/executor.py``. With a ``mesh`` (a
+``torch.distributed`` task mesh, ``parallel/distributed.py``) every rank
+holds only its shards of the carry, by the rule table, and runs its
+contiguous block of each vertex's subtasks; the exchange and the
+determinant replication become explicit collectives (see
+:meth:`CompiledJob.run_block`). Host-fed sources take one pinned,
 non-blocking upload per block per feed; block listeners (timers) and the
 block-outputs tap (transactional sinks) run after every block on
 host-known values; causal services append through ``append_async_many``.
@@ -51,7 +55,7 @@ from clonos_tpu_torch.inflight import log as ifl
 from clonos_tpu_torch.obs.profile import get_profiler
 from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.parallel import routing
-from clonos_tpu_torch.utils.tree import tree_map
+from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 #: determinants appended per subtask per superstep, in this fixed order:
 #: TIMESTAMP, RNG, ORDER, BUFFER_BUILT.
@@ -112,15 +116,28 @@ class BlockOutputs(NamedTuple):
     consumed: torch.Tensor                   # int32[K, L]
 
 
+def _block(size: int, n: int, r: int) -> Tuple[int, int]:
+    """Rank ``r``'s contiguous block of a dim of ``size`` split over ``n``
+    ranks — the whole dim when it does not split evenly (the rule table's
+    divisibility guard replicates such a leaf)."""
+    if n > 1 and size > 0 and size % n == 0:
+        g = size // n
+        return r * g, (r + 1) * g
+    return 0, size
+
+
 @dataclasses.dataclass
 class CompiledJob:
-    """A job graph lowered to (init_carry, run_block) functions."""
+    """A job graph lowered to (init_carry, run_block) functions. With a
+    ``mesh``, the functions hold and advance one rank's shards."""
 
     job: JobGraph
     log_capacity: int = 1 << 14
     max_epochs: int = 64
     inflight_ring_steps: int = 64
     replication_factor: int = -1
+    mesh: Any = None
+    task_axis: str = "tasks"
 
     def __post_init__(self):
         self.job.validate()
@@ -163,12 +180,100 @@ class CompiledJob:
                     f"{len(plan.drop_p)} overflow slots at capacity "
                     f"{e.capacity}")
             self.static_route[eidx] = plan
+        # The rank's blocks: each vertex's subtasks, the stacked logs and
+        # record counts (L), the replica stack (max(R, 1) rows).
+        self.n_shards, self.shard = 1, 0
+        if self.mesh is not None:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            if len(self.mesh.mesh_dim_names) != 1:
+                raise ValueError("the executor shards over a one-axis task "
+                                 "mesh")
+            self.n_shards = dist_.mesh_size(self.mesh, self.task_axis)
+            self.shard = dist_.mesh_rank(self.mesh, self.task_axis)
+        n, r = self.n_shards, self.shard
+        self.vblock = {v.vertex_id: _block(v.parallelism, n, r)
+                       for v in self.job.vertices}
+        self.lblock = _block(self.L, n, r)
+        self.rblock = _block(max(self.plan.num_replicas, 1), n, r)
+
+    def sharded(self, vid: int) -> bool:
+        """True when vertex ``vid``'s subtasks split over the ranks (else
+        every rank runs all of them)."""
+        lo, hi = self.vblock[vid]
+        return hi - lo < self.job.vertices[vid].parallelism
 
     def owner_idx(self, dev: torch.device) -> torch.Tensor:
         key = str(dev)
         if key not in self._owner_idx:
-            self._owner_idx[key] = self.plan.owner_index(dev)
+            self._owner_idx[key] = self.plan.owner_index(
+                dev, None if self.mesh is None else self.rblock)
         return self._owner_idx[key]
+
+    # --- sharding -----------------------------------------------------------
+
+    def carry_partition_spec(self, carry: "JobCarry"):
+        """Placement tree for the full carry by the rule table
+        (``parallel/distributed.py:CARRY_PARTITION_RULES``): ``Shard(d)``
+        or ``Replicate()`` per leaf. None when no mesh is attached.
+        ``carry`` is the full carry, or its template: placements follow
+        its GLOBAL shapes (see :meth:`global_carry_shapes`)."""
+        if self.mesh is None:
+            return None
+        from clonos_tpu_torch.parallel import distributed as dist_
+        return dist_.infer_partition_spec(carry, self.mesh,
+                                          axis=self.task_axis)
+
+    def carry_shardings(self, carry: "JobCarry"):
+        """:class:`~clonos_tpu_torch.parallel.distributed.NamedPlacement`
+        tree over the task mesh for the full carry, or None without a
+        mesh."""
+        if self.mesh is None:
+            return None
+        from clonos_tpu_torch.parallel import distributed as dist_
+        return dist_.named_shardings(carry, self.mesh, axis=self.task_axis)
+
+    def global_carry_shapes(self) -> "JobCarry":
+        """The full carry's leaf shapes (meta tensors, nothing allocated):
+        the template every rank derives the same placements from."""
+        return self.init_carry(torch.device("meta"), local=False)
+
+    def placements(self) -> "JobCarry":
+        """The carry's placement tree (cached; every leaf ``Replicate()``
+        without a mesh)."""
+        if not hasattr(self, "_placements"):
+            from clonos_tpu_torch.parallel import distributed as dist_
+            template = self.global_carry_shapes()
+            self._placements = (
+                self.carry_partition_spec(template) if self.mesh is not None
+                else dist_.infer_partition_spec(template, 1))
+        return self._placements
+
+    def constrain_carry(self, carry: "JobCarry") -> "JobCarry":
+        """Check every local leaf against its rule-assigned placement: a
+        sharded leaf holds exactly its block of the global dim, a
+        replicated one the whole leaf. Raises on the first leaf that does
+        not; returns the carry unchanged."""
+        if self.mesh is None:
+            return carry
+        from clonos_tpu_torch.parallel import distributed as dist_
+        from clonos_tpu_torch.utils.tree import tree_flatten_with_path
+        glob = tree_flatten_with_path(self.global_carry_shapes())
+        specs = tree_leaves(self.placements())
+        local = tree_flatten_with_path(carry)
+        if len(local) != len(glob):
+            raise ValueError(f"carry has {len(local)} leaves, the job's "
+                             f"carry {len(glob)}")
+        for (path, x), (_, g), sp in zip(local, glob, specs):
+            want = list(g.shape)
+            d = dist_.shard_dim(sp)
+            if d is not None:
+                want[d] //= self.n_shards
+            if list(x.shape) != want:
+                raise ValueError(
+                    f"carry leaf {dist_._path_str(path)}: local shape "
+                    f"{list(x.shape)}, its placement {sp!r} over "
+                    f"{self.n_shards} ranks wants {want}")
+        return carry
 
     def consumer_slot_keys(self, vid: int) -> Optional[np.ndarray]:
         """Static per-slot input keys of vertex ``vid`` ([P, cap], -1 =
@@ -187,33 +292,55 @@ class CompiledJob:
             return self.job.edges[ins[0]].capacity
         return 1
 
-    def init_carry(self, device="cuda") -> JobCarry:
-        dev = _device.resolve(device)
-        op_states = tuple(v.operator.init_state(v.parallelism, dev)
+    def init_carry(self, device="cuda", local: bool = True) -> JobCarry:
+        """The empty carry on ``device``; on a mesh (``local``) only this
+        rank's shards."""
+        dev = (device if isinstance(device, torch.device)
+               and device.type == "meta" else _device.resolve(device))
+        loc = local and self.mesh is not None
+        width = lambda vid: (self.vblock[vid][1] - self.vblock[vid][0]
+                             if loc else self.job.vertices[vid].parallelism)
+        n_logs = self.lblock[1] - self.lblock[0] if loc else self.L
+        n_reps = (self.rblock[1] - self.rblock[0] if loc
+                  else max(self.plan.num_replicas, 1))
+        op_states = tuple(v.operator.init_state(width(v.vertex_id), dev)
                           for v in self.job.vertices)
-        edge_bufs = tuple(
-            empty((self.job.vertices[e.dst].parallelism, e.capacity), dev)
-            for e in self.job.edges)
+        edge_bufs = tuple(empty((width(e.dst), e.capacity), dev)
+                          for e in self.job.edges)
         rr = tuple(torch.zeros((1,), dtype=torch.int32, device=dev)
                    for _ in self.job.edges)
-        logs = clog.v_create(self.L, self.log_capacity, self.max_epochs, dev)
+        logs = clog.v_create(n_logs, self.log_capacity, self.max_epochs, dev)
         out_rings = tuple(
-            ifl.create(self.inflight_ring_steps,
-                       self.job.vertices[vid].parallelism,
+            ifl.create(self.inflight_ring_steps, width(vid),
                        self.vertex_out_capacity(vid), self.max_epochs, dev)
             for vid in self.ring_vertices)
-        replicas = rep.create_replicas(self.plan, self.log_capacity,
-                                       self.max_epochs, dev)
-        return JobCarry(op_states, edge_bufs, rr,
-                        torch.zeros((self.L,), dtype=torch.int32, device=dev),
-                        logs, out_rings, replicas)
+        replicas = clog.v_create(n_reps, self.log_capacity, self.max_epochs,
+                                 dev)
+        carry = JobCarry(op_states, edge_bufs, rr,
+                         torch.zeros((n_logs,), dtype=torch.int32,
+                                     device=dev),
+                         logs, out_rings, replicas)
+        return self.constrain_carry(carry) if loc else carry
 
     def run_block(self, carry: JobCarry, binputs: BlockInputs
                   ) -> Tuple[JobCarry, BlockOutputs]:
         """Advance K supersteps. The in-flight rings of ``carry`` are
         updated in place (see ``inflight.log.append_block``); everything
-        else is returned fresh."""
+        else is returned fresh.
+
+        On a mesh each rank runs its block ``[lo, hi)`` of every sharded
+        vertex's subtasks (``BlockContext.subtask`` holds the global ids)
+        and all of a vertex whose parallelism does not split. A sharded
+        producer's output block is all-gathered along the subtask axis
+        before routing, and each rank routes only its own destination
+        lanes, so slots fill in the unsharded producer order. The emit and
+        consume counts ``[K, P]`` are all-gathered once per block; each
+        rank then builds the determinant rows of its own log block,
+        replica block and record counts, as the rule table deals them.
+        The returned sinks and drops hold the rank's lanes; ``consumed``
+        is the whole ``[K, L]``."""
         job = self.job
+        mesh = self.mesh
         K = binputs.times.shape[0]
         dev = carry.record_counts.device
         if DETS_PER_STEP * K > self.log_capacity:
@@ -243,12 +370,13 @@ class CompiledJob:
 
         for vid in self.topo:
             v = job.vertices[vid]
-            p = v.parallelism
+            lo, hi = self.vblock[vid]
+            p = hi - lo
             in_edges = job.in_edges(vid)
             bctx = BlockContext(
                 times=binputs.times, rng_bits=binputs.rng_bits,
                 epoch=binputs.epoch, step0=binputs.step0,
-                subtask=torch.arange(p, dtype=torch.int32, device=dev))
+                subtask=torch.arange(lo, hi, dtype=torch.int32, device=dev))
             if isinstance(v.operator, TwoInputOperator):
                 ins = (shifted(in_edges[0]), shifted(in_edges[1]))
                 consumed = ins[0].count() + ins[1].count()          # [K, P]
@@ -257,11 +385,15 @@ class CompiledJob:
                 consumed = ins.count()
             elif vid in self.feed_vertices and binputs.feeds:
                 ins = binputs.feeds[self.feed_vertices.index(vid)]
+                if p < v.parallelism:
+                    ins = RecordBatch(*(x[:, lo:hi] for x in ins))
                 consumed = ins.count()
             else:
                 ins = empty((K, p, self.vertex_out_capacity(vid)), dev)
                 consumed = None
             slot_keys = self.consumer_slot_keys(vid)
+            if slot_keys is not None and p < v.parallelism:
+                slot_keys = slot_keys[lo:hi]
             # record_function ranges name the layers in a profiler trace.
             with record_function(f"op:{v.name}"):
                 if slot_keys is not None and hasattr(
@@ -280,9 +412,13 @@ class CompiledJob:
             consumed_parts[vid] = consumed
             emit_parts[vid] = out.count()                         # [K, P]
 
+            whole = out
+            if job.out_edges(vid) and p < v.parallelism:
+                with record_function("exchange-gather"):
+                    whole = _gather_block(out, mesh, self.task_axis)
             for eidx in job.out_edges(vid):
                 with record_function(f"route:{eidx}"):
-                    r, d = self._route_edge(eidx, out, rr_offsets)
+                    r, d = self._route_edge(eidx, whole, rr_offsets)
                 routed[eidx] = r
                 dropped[eidx] = d
                 new_edge_bufs[eidx] = RecordBatch(*(x[-1] for x in r))
@@ -295,13 +431,18 @@ class CompiledJob:
                 with record_function("inflight-ring"):
                     out_rings[ri] = ifl.append_block(out_rings[ri], out)
 
+        if mesh is not None:
+            with record_function("count-gather"):
+                self._gather_counts(emit_parts, consumed_parts)
         emits_all = torch.cat([emit_parts[v.vertex_id]
                                for v in job.vertices], dim=1)      # [K, L]
         consumed_all = torch.cat([consumed_parts[v.vertex_id]
                                   for v in job.vertices], dim=1)
+        llo, lhi = self.lblock
         with record_function("causal-log"):
             rows = self._det_rows(binputs, emits_all)              # [L, 4K, 8]
-            logs = clog.v_append_full(carry.logs, rows)
+            mine = rows if (llo, lhi) == (0, self.L) else rows[llo:lhi]
+            logs = clog.v_append_full(carry.logs, mine)
         with record_function("replicas"):
             if self.plan.num_replicas > 0:
                 # The same determinants land in every downstream replica
@@ -310,26 +451,54 @@ class CompiledJob:
                                               rows[self.owner_idx(dev)])
             else:
                 replicas = carry.replicas
+        consumed_mine = (consumed_all if (llo, lhi) == (0, self.L)
+                         else consumed_all[:, llo:lhi])
         new_carry = JobCarry(
             tuple(op_states), tuple(new_edge_bufs), tuple(rr_offsets),
-            carry.record_counts + consumed_all.sum(dim=0, dtype=torch.int32),
+            carry.record_counts + consumed_mine.sum(dim=0, dtype=torch.int32),
             logs, tuple(out_rings), replicas)
         return new_carry, BlockOutputs(sinks, dropped, consumed_all)
+
+    def _gather_counts(self, emit_parts: Dict[int, torch.Tensor],
+                       consumed_parts: Dict[int, torch.Tensor]) -> None:
+        """Replace each sharded vertex's ``[K, P/n]`` emit and consume
+        counts by the whole ``[K, P]``: one all-gather for all of them."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        vids = [v.vertex_id for v in self.job.vertices if
+                self.sharded(v.vertex_id)]
+        if not vids:
+            return
+        local = torch.stack([torch.cat([parts[v] for v in vids], dim=1)
+                             for parts in (emit_parts, consumed_parts)])
+        allr = dist_.all_gather(local, self.mesh, self.task_axis, dim=0)
+        allr = allr.reshape(self.n_shards, *local.shape)    # [n, 2, K, S]
+        off = 0
+        for v in vids:
+            w = self.vblock[v][1] - self.vblock[v][0]
+            both = torch.cat(list(allr[:, :, :, off:off + w]), dim=2)
+            emit_parts[v], consumed_parts[v] = both[0], both[1]
+            off += w
 
     def _route_edge(self, eidx: int, out: RecordBatch,
                     rr_offsets: List[torch.Tensor]
                     ) -> Tuple[RecordBatch, torch.Tensor]:
         """Route a producer's ``[K, P, cap]`` block over edge ``eidx``;
-        a REBALANCE edge advances its entry of ``rr_offsets``."""
+        a REBALANCE edge advances its entry of ``rr_offsets`` by the
+        block's global count. On a mesh only this rank's destination
+        lanes are routed (``out`` is the whole producer block)."""
         job = self.job
         e = job.edges[eidx]
         dst_p = job.vertices[e.dst].parallelism
+        lo, hi = self.vblock[e.dst]
+        lanes = None if (lo, hi) == (0, dst_p) else (lo, hi)
         if eidx in self.static_route:
-            return self.static_route[eidx].apply(out)
+            return self.static_route[eidx].apply(out, lanes)
         if e.partition == PartitionType.HASH:
             return routing.route_hash_block(out, dst_p, job.num_key_groups,
-                                            e.capacity)
+                                            e.capacity, lanes=lanes)
         if e.partition == PartitionType.FORWARD:
+            if lanes is not None:
+                out = RecordBatch(*(x[:, lo:hi] for x in out))
             return routing.route_forward_block(out, e.capacity)
         if e.partition == PartitionType.REBALANCE:
             counts = out.count().sum(dim=1, dtype=torch.int32)
@@ -339,8 +508,8 @@ class CompiledJob:
             rr_offsets[eidx] = ((rr_offsets[eidx]
                                  + counts.sum(dtype=torch.int32)) % dst_p)
             return routing.route_rebalance_block(out, dst_p, e.capacity,
-                                                 offs)
-        return routing.route_broadcast_block(out, dst_p, e.capacity)
+                                                 offs, lanes=lanes)
+        return routing.route_broadcast_block(out, hi - lo, e.capacity)
 
     def _det_rows(self, binputs: BlockInputs, emits_all: torch.Tensor
                   ) -> torch.Tensor:
@@ -374,6 +543,17 @@ class CompiledJob:
                    for vid, b in outs.sinks.items()},
             dropped={e: d[0] for e, d in outs.dropped.items()},
             consumed=outs.consumed[0])
+
+
+def _gather_block(out: RecordBatch, mesh, axis: str) -> RecordBatch:
+    """Every rank's ``[K, P/n, cap]`` output block as the whole ``[K, P,
+    cap]``, in one all-gather (the four fields packed into one int32
+    tensor)."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    packed = torch.stack([out.keys, out.values, out.timestamps,
+                          out.valid.to(torch.int32)])
+    whole = dist_.all_gather(packed, mesh, axis, dim=2)
+    return RecordBatch(whole[0], whole[1], whole[2], whole[3] != 0)
 
 
 def _canon_log(state: clog.ThreadLogState) -> clog.ThreadLogState:
@@ -516,23 +696,46 @@ class FenceHandles:
     def __init__(self, epoch: int, health: _device.HostCopy,
                  window: Optional[_device.HostCopy],
                  log_counts: np.ndarray, steps: Tuple[int, int],
-                 ring_vids: Sequence[int]):
+                 ring_vids: Sequence[int], executor=None):
         self.epoch = epoch
         self._health = health
         self._window = window
         self._log_counts = log_counts
         self._steps = steps
         self._ring_vids = list(ring_vids)
+        #: on a mesh, the capturing LocalExecutor: :meth:`health` and
+        #: :meth:`window` then gather every rank's piece over its fence
+        #: group (every rank's worker calls both, in this order)
+        self._executor = executor
 
     def health(self) -> np.ndarray:
-        return self._health.wait()
+        vec = self._health.wait()
+        ex = self._executor
+        if ex is None or ex.compiled.n_shards == 1:
+            return vec
+        from clonos_tpu_torch.parallel import distributed as dist_
+        parts = dist_.all_gather_object(vec, ex.mesh, ex.compiled.task_axis,
+                                        group=ex._fence_group)
+        return ex._combine_health(
+            torch.from_numpy(np.stack(parts))).numpy()
 
     def window(self) -> Optional[Dict[str, Any]]:
         """The captured surface in :meth:`LocalExecutor.epoch_window`'s
-        exact shape (None when captured without one). The host-derived
-        bounds the capture sliced by are checked against the device's."""
+        exact shape (None when captured without one; on a mesh, on every
+        rank but 0). The host-derived bounds the capture sliced by are
+        checked against the device's."""
         if self._window is None:
             return None
+        win = self._local_window()
+        ex = self._executor
+        if ex is None or ex.compiled.n_shards == 1:
+            return win
+        from clonos_tpu_torch.parallel import distributed as dist_
+        parts = dist_.gather_object(win, ex.mesh, ex.compiled.task_axis,
+                                    group=ex._fence_group)
+        return None if parts is None else ex._merge_windows(parts)
+
+    def _local_window(self) -> Dict[str, Any]:
         w = self._window.wait()
         L = self._log_counts.shape[0]
         starts, heads = w["bounds"][:L], w["bounds"][L:2 * L]
@@ -549,7 +752,10 @@ class FenceHandles:
                     f"epoch {self.epoch}: ring of vertex {vid} holds steps "
                     f"[{int(s)}, {int(t)}), host expected [{lo}, {hi})")
         cuts = np.concatenate([[0], np.cumsum(self._log_counts)])
-        logs = {f: w["log_rows"][cuts[f]:cuts[f + 1]] for f in range(L)}
+        ex = self._executor
+        flat0 = ex.compiled.lblock[0] if ex is not None else 0
+        logs = {flat0 + f: w["log_rows"][cuts[f]:cuts[f + 1]]
+                for f in range(L)}
         rings: Dict[int, list] = {}
         for vid, (recs, counts) in zip(self._ring_vids, w["rings"]):
             at = np.concatenate([[0], np.cumsum(counts)])
@@ -594,12 +800,22 @@ class LocalExecutor:
                  block_steps: Optional[int] = None,
                  replication_factor: int = -1,
                  seed: int = 0, logical_time: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None, task_axis: str = "tasks"):
         self.device = _device.resolve(device)
+        if mesh is not None and spool_dir is not None:
+            raise ValueError("tiered spill is not supported on a mesh")
         self.compiled = CompiledJob(job, log_capacity=log_capacity,
                                     max_epochs=max_epochs,
                                     inflight_ring_steps=inflight_ring_steps,
-                                    replication_factor=replication_factor)
+                                    replication_factor=replication_factor,
+                                    mesh=mesh, task_axis=task_axis)
+        #: the task mesh (None: the job is one implicit shard)
+        self.mesh = mesh
+        #: the pipelined fence worker's own gloo group over the mesh
+        self._fence_group = None
+        if mesh is not None:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            self._fence_group = dist_.fence_group(mesh, task_axis)
         self.job = job
         self.steps_per_epoch = steps_per_epoch
         self.block_steps = min(block_steps or 512, steps_per_epoch,
@@ -926,7 +1142,29 @@ class LocalExecutor:
 
     def _health_vector(self, carry: JobCarry) -> torch.Tensor:
         """Packed int32 health flags, the total record count and the
-        per-task log heads — one device value, one host read."""
+        per-task log heads — one device value, one host read. On a mesh
+        one all-gather of every rank's :meth:`_local_health`."""
+        out = self._local_health(carry)
+        if self.compiled.n_shards == 1:
+            return out
+        from clonos_tpu_torch.parallel import distributed as dist_
+        allr = dist_.all_gather(out, self.mesh, self.compiled.task_axis)
+        return self._combine_health(allr.reshape(self.compiled.n_shards, -1))
+
+    def _combine_health(self, allr: torch.Tensor) -> torch.Tensor:
+        """Every rank's local health ``[n, m]`` as the job's: the flags of
+        any rank, the record total over the log blocks, every rank's
+        block of heads in flat order."""
+        nf = allr.shape[1] - 1 - (self.compiled.lblock[1]
+                                  - self.compiled.lblock[0])
+        split = self.compiled.lblock != (0, self.compiled.L)
+        rec = (allr[:, nf].sum(dtype=torch.int32) if split
+               else allr[0, nf]).reshape(1)
+        heads = allr[:, nf + 1:].reshape(-1) if split else allr[0, nf + 1:]
+        return torch.cat([allr[:, :nf].max(dim=0).values, rec, heads])
+
+    def _local_health(self, carry: JobCarry) -> torch.Tensor:
+        """:meth:`_health_vector` of this rank's shards."""
         logs = carry.logs
         cap = self.compiled.log_capacity
         flags = [
@@ -948,6 +1186,63 @@ class LocalExecutor:
 
     def health_vector(self) -> np.ndarray:
         return self._health_vector(self.carry).cpu().numpy()
+
+    def _placed(self, tree, specs):
+        """All-gather a tree of this rank's shards into the full tree."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        return dist_.all_gather_tree(tree, specs, self.mesh,
+                                     self.compiled.task_axis)
+
+    def full_carry(self) -> JobCarry:
+        """The whole carry on every rank (the live carry without a mesh):
+        one all-gather of every sharded leaf."""
+        if self.mesh is None:
+            return self.carry
+        return self._placed(self.carry, self.compiled.placements())
+
+    def per_shard_health(self) -> Optional[np.ndarray]:
+        """int32 ``[n_shards, 3]`` (records, live log rows, live ring
+        slots) summed over each rank's contiguous task-axis block, the
+        blocks the reference's mesh deals (a leaf that does not split is
+        cut into ceil-sized blocks, as the reference pads it). None
+        without a mesh. A collective: every rank calls it."""
+        if self.mesh is None:
+            return None
+        return self._per_shard_health().cpu().numpy()
+
+    def _per_shard_health(self) -> torch.Tensor:
+        """:meth:`per_shard_health` left on the device: one all-reduce,
+        no host read."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        comp = self.compiled
+        n, me = comp.n_shards, comp.shard
+        c = self.carry
+        dev = self.device
+
+        def blocks(x: torch.Tensor, sharded: bool) -> torch.Tensor:
+            """[n] block sums: this rank's row of a sharded leaf, every
+            row of a replicated one (rank 0 counts it, once)."""
+            out = torch.zeros((n,), dtype=torch.int32, device=dev)
+            if sharded:
+                out[me] = x.sum(dtype=torch.int32)
+            elif me == 0:
+                g = -(-x.shape[0] // n)
+                pad = torch.zeros((g * n - x.shape[0],) + tuple(x.shape[1:]),
+                                  dtype=x.dtype, device=dev)
+                out = torch.cat([x, pad]).reshape(n, -1).sum(
+                    dim=1, dtype=torch.int32)
+            return out
+
+        lsplit = comp.lblock != (0, comp.L)
+        rec = blocks(c.record_counts, lsplit)
+        rows = blocks(c.logs.head - c.logs.tail, lsplit)
+        ring = torch.zeros((n,), dtype=torch.int32, device=dev)
+        for vid, el in zip(comp.ring_vertices, c.out_rings):
+            # [P(local), ...] per-lane counts of valid slots
+            per_lane = el.valid.sum(dim=(0, 2), dtype=torch.int32)
+            ring = ring + blocks(per_lane, comp.sharded(vid))
+        mine = torch.stack([rec, rows, ring], dim=1)
+        return dist_.all_reduce_sum(mine, self.mesh, comp.task_axis)
 
     def overflow_messages(self, vec: np.ndarray) -> List[str]:
         """Decode :meth:`health_vector` flags into violation strings."""
@@ -998,11 +1293,43 @@ class LocalExecutor:
         valid records in (lane, slot) order. The epoch's steps are sliced
         and compacted on the device; the data crosses to the host in one
         copy after one small read of the window bounds and each ring's
-        count of valid records."""
+        count of valid records.
+
+        On a mesh every rank extracts its own log block and ring lanes and
+        the pieces gather to rank 0, which returns the whole window (in the
+        unsharded order: flats ascending, each step's records lane by
+        lane); the other ranks return None. A collective: every rank calls
+        it."""
+        win = self._local_epoch_window(epoch)
+        if self.compiled.n_shards == 1:
+            return win
+        from clonos_tpu_torch.parallel import distributed as dist_
+        parts = dist_.gather_object(win, self.mesh, self.compiled.task_axis)
+        return None if parts is None else self._merge_windows(parts)
+
+    def _merge_windows(self, parts: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """Every rank's :meth:`epoch_window` piece, in rank order, as the
+        job's window: flats ascending, each step's records lane by lane."""
+        comp = self.compiled
+        logs: Dict[int, np.ndarray] = {}
+        for part in (parts if comp.lblock != (0, comp.L) else parts[:1]):
+            logs.update(part["logs"])
+        rings: Dict[int, list] = {}
+        for vid in parts[0]["rings"]:
+            own = parts if comp.sharded(vid) else parts[:1]
+            steps = zip(*(part["rings"][vid] for part in own))
+            rings[vid] = [tuple(np.concatenate([x[f] for x in step])
+                                for f in range(3)) for step in steps]
+        return {"logs": {f: logs[f] for f in sorted(logs)}, "rings": rings}
+
+    def _local_epoch_window(self, epoch: int) -> Dict[str, Any]:
+        """:meth:`epoch_window` of this rank's shards (flats keyed
+        globally)."""
         c = self.carry
         rings = [(vid, c.out_rings[ri])
                  for vid, ri in sorted(self.compiled.ring_index.items())]
-        L = self.compiled.L
+        L = c.logs.head.shape[0]
+        flat0 = self.compiled.lblock[0]
         ring_bounds = [_window_bounds(el.epoch_starts, el.head, epoch)
                        for _, el in rings]
         small = torch.cat(
@@ -1033,7 +1360,7 @@ class LocalExecutor:
             -1, det.NUM_LANES)
         off = rows.size
         cuts = np.concatenate([[0], np.cumsum(n_log)])
-        logs = {f: rows[cuts[f]:cuts[f + 1]] for f in range(L)}
+        logs = {flat0 + f: rows[cuts[f]:cuts[f + 1]] for f in range(L)}
         out_rings: Dict[int, list] = dict(spilled)
         for (vid, _), n_steps in zip([r for r in rings
                                       if r[0] not in spilled], ring_counts):
@@ -1083,12 +1410,19 @@ class LocalExecutor:
     def vertex_state(self, vertex_id: int):
         """One vertex's operator state as numpy arrays (the reference's
         ``jax.device_get`` of it: same keys, same dtypes)."""
-        return _device.HostCopy(self.carry.op_states[vertex_id]).wait()
+        st = self.carry.op_states[vertex_id]
+        if self.mesh is not None:
+            st = self._placed(st, self.compiled.placements().op_states[
+                vertex_id])
+        return _device.HostCopy(st).wait()
 
     def log_sizes(self) -> np.ndarray:
         """Buffered determinant rows per task log (one device read)."""
         logs = self.carry.logs
-        return (logs.head - logs.tail).cpu().numpy()
+        size = logs.head - logs.tail
+        if self.mesh is not None:
+            size = self._placed(size, self.compiled.placements().logs.head)
+        return size.cpu().numpy()
 
     def append_async_many(self, flat_subtasks: Sequence[int],
                           d: det.Determinant) -> None:
@@ -1110,6 +1444,7 @@ class LocalExecutor:
         counts = np.zeros((L,), np.int32)
         rows1[list(flat_subtasks), 0] = row
         counts[list(flat_subtasks)] = 1
+        llo, lhi = self.compiled.lblock
         with get_profiler().section("async-append"):
             rows_t = _device.upload(rows1, self.device)
             counts_t = _device.upload(counts, self.device)
@@ -1118,13 +1453,15 @@ class LocalExecutor:
             if self.compiled.plan.num_replicas > 0:
                 oi = self.compiled.owner_idx(self.device)
                 replicas = clog.v_append(replicas, rows_t[oi], counts_t[oi])
+            # On a mesh: this rank's block of the stacked logs.
             self.carry = c._replace(
-                logs=clog.v_append(c.logs, rows_t, counts_t),
+                logs=clog.v_append(c.logs, rows_t[llo:lhi],
+                                   counts_t[llo:lhi]),
                 replicas=replicas)
 
-    def lean_snapshot(self) -> LeanSnapshot:
-        """The fence snapshot: deep copies (the live carry's rings are
-        updated in place by later blocks)."""
+    def local_lean_snapshot(self) -> LeanSnapshot:
+        """This rank's shards of the fence snapshot: deep copies (the live
+        carry's rings are updated in place by later blocks)."""
         c = self.carry
         cp = lambda t: tree_map(lambda x: x.clone(), t)
         return LeanSnapshot(
@@ -1132,6 +1469,36 @@ class LocalExecutor:
             rr_offsets=cp(c.rr_offsets), record_counts=cp(c.record_counts),
             log_heads=c.logs.head.clone(),
             ring_heads=tuple(r.head.clone() for r in c.out_rings))
+
+    def lean_snapshot(self) -> Optional[LeanSnapshot]:
+        """The fence snapshot (:meth:`local_lean_snapshot`). On a mesh the
+        sharded leaves gather to rank 0, which gets the whole snapshot,
+        byte for byte an unsharded one's; the other ranks get None."""
+        snap = self.local_lean_snapshot()
+        if self.mesh is None:
+            return snap
+        from clonos_tpu_torch.parallel import distributed as dist_
+        return dist_.gather_tree(snap, self._snapshot_placements(),
+                                 self.mesh, self.compiled.task_axis)
+
+    def _snapshot_placements(self) -> LeanSnapshot:
+        pl = self.compiled.placements()
+        return LeanSnapshot(pl.op_states, pl.edge_bufs, pl.rr_offsets,
+                            pl.record_counts, pl.logs.head,
+                            tuple(r.head for r in pl.out_rings))
+
+    def gather_snapshot(self, local: LeanSnapshot) -> Optional[LeanSnapshot]:
+        """Every rank's host copy of its lean snapshot shards (numpy) as
+        the whole snapshot on rank 0, None on the others: the pipelined
+        fence worker's half of :meth:`lean_snapshot`, over the fence
+        group."""
+        from clonos_tpu_torch.convert import unshard_carry
+        from clonos_tpu_torch.parallel import distributed as dist_
+        parts = dist_.gather_object(local, self.mesh, self.compiled.task_axis,
+                                    group=self._fence_group)
+        if parts is None:
+            return None
+        return unshard_carry(parts, self._snapshot_placements())
 
     def capture_fence(self, with_window: bool = True) -> FenceHandles:
         """Capture the fence surface of the epoch :meth:`run_epoch` just
@@ -1147,7 +1514,9 @@ class LocalExecutor:
         c = self.carry
         closed = self.epoch_id - 1
         lo, hi = self.closed_steps
-        health = _device.HostCopy(self._health_vector(c))
+        # On a mesh: this rank's shards only; the fence worker gathers
+        # them over the fence group (``FenceHandles``).
+        health = _device.HostCopy(self._local_health(c))
         counts = self._log_counts(closed, lo, hi)
         window = None
         if with_window:
@@ -1170,7 +1539,8 @@ class LocalExecutor:
                                      for b in bounds]),
                 "rings": rings})
         return FenceHandles(closed, health, window, counts, (lo, hi),
-                            self.compiled.ring_vertices)
+                            self.compiled.ring_vertices,
+                            executor=self if self.mesh is not None else None)
 
     def _log_counts(self, closed: int, lo: int, hi: int) -> np.ndarray:
         """Host-known row counts of every log's window of epoch ``closed``
@@ -1179,7 +1549,7 @@ class LocalExecutor:
         return np.asarray(
             [DETS_PER_STEP * (hi - lo) + self.async_counts.get((f, closed),
                                                                0)
-             for f in range(self.compiled.L)], np.int64)
+             for f in range(*self.compiled.lblock)], np.int64)
 
     def _log_window(self, closed: int, lo: int, hi: int) -> tuple:
         """Every log's rows of epoch ``closed``, gathered on the device by
@@ -1194,7 +1564,7 @@ class LocalExecutor:
         counts = self._log_counts(closed, lo, hi)
         logs = self.carry.logs
         dev = self.device
-        flat = np.repeat(np.arange(self.compiled.L, dtype=np.int64), counts)
+        flat = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
         rel = np.concatenate([np.arange(n, dtype=np.int64) for n in counts]
                              or [np.zeros(0, np.int64)])
         flat_d = _device.upload(flat, dev)
@@ -1227,8 +1597,15 @@ class LocalExecutor:
     def restore(self, carry, epoch_id: int) -> None:
         """Adopt a checkpointed carry (tensors or numpy arrays) at an
         epoch boundary; leaves are copied onto this executor's device."""
+        if self.mesh is not None:
+            # A whole carry: keep this rank's shards.
+            from clonos_tpu_torch.parallel import distributed as dist_
+            carry = dist_.shard_tree(carry, self.compiled.placements(),
+                                     self.compiled.n_shards,
+                                     self.compiled.shard)
         self.carry = tree_map(
             lambda x: torch.as_tensor(np.asarray(x) if not isinstance(
                 x, torch.Tensor) else x).to(self.device).clone(), carry)
+        self.compiled.constrain_carry(self.carry)
         self.epoch_id = epoch_id
         self.step_in_epoch = 0

@@ -75,3 +75,23 @@ def _rebuild(tree: Any, it: Iterator[Any]) -> Any:
     if tree is None:
         return None
     return next(it)
+
+
+def tree_flatten_with_path(tree: Any, prefix: tuple = ()) -> List[tuple]:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order. A path is a
+    tuple of NamedTuple field names, sequence indices and dict keys — the
+    components ``jax.tree_util.tree_flatten_with_path`` names, so the
+    sharding rules (``parallel/distributed.py``) match the same strings
+    on both packages' carries."""
+    if _is_namedtuple(tree):
+        return [pl for f, t in zip(tree._fields, tree)
+                for pl in tree_flatten_with_path(t, prefix + (f,))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, t in enumerate(tree)
+                for pl in tree_flatten_with_path(t, prefix + (i,))]
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_flatten_with_path(tree[k], prefix + (k,))]
+    if tree is None:
+        return []
+    return [(prefix, tree)]

@@ -2,8 +2,9 @@
 prints the reference CLI's JSON for the two wordcount builders; ``run
 --device cpu`` exits 0 with the reference's top-level keys and metric
 names (and its deterministic metric values); the default device is the
-card, so without one ``run`` raises; a ``worker`` given the multi-host
-bootstrap flags refuses them. Tolerance: exact."""
+card, so without one ``run`` raises; a ``worker`` refuses an incomplete
+multi-host bootstrap, and two workers given a complete one join one
+process group as processes 0 and 1. Tolerance: exact."""
 
 import contextlib
 import io
@@ -73,8 +74,48 @@ def test_run_defaults_to_the_card():
                                   ["--num-processes", "2"],
                                   ["--process-id", "1"]])
 def test_worker_refuses_the_multi_host_bootstrap(flag, tmp_path):
-    with pytest.raises(SystemExit, match="not supported"):
+    """An incomplete bootstrap (a coordinator without the group's size and
+    rank, or those without a coordinator) is refused before anything is
+    written."""
+    with pytest.raises(SystemExit, match="coordinator"):
         cli.main(["worker", _JOB, "--jm", "127.0.0.1:1",
                   "--checkpoint-dir", str(tmp_path), "--device", "cpu",
                   *flag])
     assert not os.listdir(tmp_path)
+
+
+def test_worker_joins_a_process_group(tmp_path):
+    """Two ``worker`` processes with ``--coordinator file://...
+    --num-processes 2`` join one gloo group and register with the
+    JobMaster as processes 0 and 1, then run their epochs to the end."""
+    from clonos_tpu_torch.runtime import remote
+    jm = remote.JobMasterServer(heartbeat_timeout_s=30.0)
+    rdv = "file://" + str(tmp_path / "rendezvous")
+    procs = []
+    try:
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "clonos_tpu_torch", "worker", _JOB,
+                 "--jm", f"{jm.address[0]}:{jm.address[1]}",
+                 "--executor-id", f"w{i}", "--checkpoint-dir",
+                 str(tmp_path / f"ck{i}"), "--epochs", "1",
+                 "--steps-per-epoch", "4", "--logical-time",
+                 "--device", "cpu", "--coordinator", rdv,
+                 "--num-processes", "2", "--process-id", str(i)],
+                cwd=_REPO, env=dict(os.environ, PYTHONPATH=_REPO),
+                stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=240) for p in procs]
+        for p, (out, err) in zip(procs, outs):
+            assert p.returncode == 0, err[-2000:]
+            assert json.loads(out.splitlines()[0])["registered"]
+        assert sorted(jm.registered()) == ["w0", "w1"]
+        assert [(jm.info(f"w{i}")["process_id"],
+                 jm.info(f"w{i}")["num_processes"]) for i in range(2)] \
+            == [(0, 2), (1, 2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        jm.close()

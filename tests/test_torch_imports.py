@@ -331,3 +331,20 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry,
             Dispatcher(lease_path=str(tmp_path / "l"), serve=False)
         else:
             CompiledJob(_job()).init_carry()
+
+
+@pytest.mark.parametrize("module", [
+    "clonos_tpu_torch.parallel.distributed",
+    "clonos_tpu_torch.parallel.dryrun",
+    "clonos_tpu_torch.examples.flagship", "clonos_tpu_torch.convert"])
+def test_sharded_deployment_modules_import_alone_without_jax(module):
+    """The sharded deployment's modules (the torch.distributed backend
+    with its rule table and collectives, the multi-rank dryrun, the
+    flagship job, and the shard/unshard conversion) each import alone in
+    a fresh interpreter without ``jax`` or ``clonos_tpu``."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
