@@ -307,6 +307,14 @@ C45_SHAPES = (
     ("c4-lane", 512, 512, 512, True),
     ("c5-lane", 512, 512, 256, True),
 )
+#: config #4 split over two ranks (phase 18): a rank routes its 8 of 16
+#: destination lanes (8 x 512 slots) of the gathered source block (16 x
+#: 32 records a step) and counts its 8 window lanes (512 steps x 8)
+MESH_C4_SHAPES = (
+    ("c4-route-8", 512, 512, 4096, True),
+    ("c4-route-8", 512, 512, 4096, False),
+    ("c4-window-8", 512 * 8, 512, 499, False),
+)
 #: the wordcount job's shapes (phase 11: 4 x 64 records a step, edge
 #: capacity 256, 1,000 keys): a 16-step block's exchange routes 256
 #: records a step into 1,024 slots, its window counts 64 rows (16 steps x
@@ -368,7 +376,7 @@ SOAK_SHAPES = (
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
     {s[0] for s in C45_SHAPES + WC_SHAPES + FLOOR_SHAPES + SKEW_SHAPES
-     + RESCALE_SHAPES + SOAK_SHAPES})
+     + RESCALE_SHAPES + SOAK_SHAPES + MESH_C4_SHAPES})
 #: the route shape as views one element into their buffers (the kernel's
 #: unaligned branch): checked bit for bit, not timed
 ALIGN_SHAPES = (("align", 512, PAR * BATCH, PAR * EDGE_CAPACITY, True),)
@@ -496,7 +504,7 @@ def phase_kernels():
     for i, (label, r, b, nk, counts) in enumerate(
             MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES
             + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES + RESCALE_SHAPES
-            + SOAK_SHAPES):
+            + SOAK_SHAPES + MESH_C4_SHAPES):
         keys, vals, valid = _inputs(r, b, nk, 100 + i, dev, label)
         aligned = all(a.data_ptr() % 16 == 0 for a in (keys, vals, valid))
         smem_optin, sms = hist._device_info(keys.get_device())
@@ -1813,7 +1821,8 @@ def _reading(report, launches, syncs, dev_line, **extra):
         device=dev_line)
 
 
-def build_c4_job():
+def build_c4_job(transactional=False):
+    """BASELINE config #4; phase 18 (b) asks for a transactional sink."""
     from clonos_tpu_torch.api.environment import StreamEnvironment
     env = StreamEnvironment(name="bench-c4", num_key_groups=C4_KEY_GROUPS,
                             default_edge_capacity=C4_EDGE)
@@ -1821,8 +1830,16 @@ def build_c4_job():
         .key_by().window_count(num_keys=C4_VOCAB, window_size=WINDOW_SIZE,
                                parallelism=C4_PAR)
         .key_by().reduce(num_keys=C4_VOCAB, parallelism=C4_PAR)
-        .sink(parallelism=C4_PAR))
+        .sink(parallelism=C4_PAR, transactional=transactional))
     return env.build()
+
+
+def _c4_kw():
+    """Config #4's runner settings (phase 9): the ring holds one epoch."""
+    return dict(steps_per_epoch=C4_SPE,
+                log_capacity=1 << (C4_SPE * 8 - 1).bit_length(),
+                max_epochs=16, inflight_ring_steps=1 << (C4_SPE - 1)
+                .bit_length(), logical_time=True, seed=C4_SEED)
 
 
 def phase_feeds(dev_line):
@@ -1833,10 +1850,7 @@ def phase_feeds(dev_line):
     inside the replayed span and re-fire once each; the committed feed
     offsets, floors and cursors agree."""
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
-    kw = dict(steps_per_epoch=C4_SPE,
-              log_capacity=1 << (C4_SPE * 8 - 1).bit_length(),
-              max_epochs=16, inflight_ring_steps=1 << (C4_SPE - 1)
-              .bit_length(), logical_time=True, seed=C4_SEED)
+    kw = _c4_kw()
     runs = {k: ClusterRunner(build_c4_job(), device=DEVICE, **kw)
             for k in ("golden", "faulted")}
     golden, faulted = runs["golden"], runs["faulted"]
@@ -5608,6 +5622,419 @@ def phase_mesh(dev_line, root, rows):
     return launches
 
 
+# --- phase 18 ---------------------------------------------------------------
+
+PHASE18_REDUCTIONS = (
+    "the sharded deployment's host boundaries and storage, each sub-phase "
+    "on one NCCL rank, on two gloo ranks sharing the card (collectives "
+    "staged through pinned host memory) and unsharded as its control: "
+    f"(a) bench.py config #4 at full width (16 subtasks a vertex, batch "
+    f"{C4_BATCH}, {C4_VOCAB} keys, edge capacity {C4_EDGE}, 64 key groups, "
+    f"seed {C4_SEED}, phase 9's settings and cuts), audit on; schedule: "
+    f"one completed epoch, {C4_DRILL_AT} steps, a failover drill, the "
+    f"rest of the epoch pending, a connected kill on both ranks recovered; "
+    f"(b) (a)'s job with a transactional file sink, ring and log 2 "
+    f"epochs; one "
+    f"completed and one pending epoch, a sink subtask on rank 1 and a "
+    f"reduce subtask on rank 0 killed and recovered, one completed epoch, "
+    f"against a never-failed run's part files; (c) phase 8 (b)'s "
+    f"deep backlog (spill_probe's settings: {SPILL_SPE}-step epochs, ring "
+    f"{SPILL_BACKLOG_RING}, host budget 1 epoch, {SPILL_FILL} pending "
+    f"epochs) with a window subtask of rank 1 killed; (d) phase 8 (d)'s "
+    f"incremental chain (base every {INC_BASE_EVERY}, pipelined fence) "
+    f"killed after {INC_BASE_EVERY} completed epochs and one pending")
+#: (a): phase 9's drill; the connected kill is phase 9's (a feed source,
+#: a window and a reduce subtask, lanes 2, 3, 7: rank 0's vertex blocks)
+#: with window subtask 11 added, so the kill spans both ranks
+P18_DRILL = [(0, 1), (1, 2), (2, 6)]
+P18_KILL = [(0, 2), (1, 3), (2, 7), (1, 11)]
+#: (b): a reduce subtask of rank 0 and a sink subtask of rank 1
+P18_EGRESS_KILL = [(2, 2), (3, 12)]
+#: (c): window subtask 5, in rank 1's block (4-7) of the headline's 8
+P18_SPILL_KILL = [(1, 5)]
+#: seconds each rank of phase 18 may run
+P18_RANK_TIMEOUT_S = 420
+#: the rank function the two gloo ranks run (a rehearsal names its own)
+P18_RANK_TARGET = "chip_smoke:_p18_rank"
+
+
+def _p18_records(r, lanes):
+    """Source records so far, over every source lane and over this rank's
+    (``lanes``): the mesh's whole count vector, else the carry's."""
+    rc = (_mesh_counts(r) if r.mesh is not None
+          else r.executor.carry.record_counts.cpu().numpy())
+    lo, hi = lanes
+    return float(rc[:C4_PAR].sum()), float(rc[lo:hi].sum())
+
+
+def _p18_launches():
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    return {"keyed_hist": keyed_hist.launches_counts,
+            "keyed_hist_sums": keyed_hist.launches
+            - keyed_hist.launches_counts}
+
+
+def _p18_zero():
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    sync()
+    keyed_hist.launches = keyed_hist.launches_counts = 0
+
+
+def _p18_report(rep):
+    return dict(flats=list(rep.failed_subtasks),
+                steps_replayed=rep.steps_replayed,
+                records_replayed=rep.records_replayed,
+                managers=len(rep.managers),
+                restore_bytes=rep.restore_bytes,
+                checkpoint_bytes=rep.checkpoint_bytes,
+                recovery_ms=round(rep.recovery_ms, 3),
+                phase_ms={k: round(v, 3) for k, v in rep.phase_ms.items()})
+
+
+def _p18_feeds(mesh, device, checked=None):
+    """(a) config #4 with its feed: epoch 0 (under ``checked``), the drill
+    mid-epoch, the rest of the epoch pending (timed), the connected kill
+    and its recovery. Returns readings."""
+    import contextlib
+
+    from clonos_tpu_torch.parallel import distributed as dist_
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    r = ClusterRunner(build_c4_job(), device=device, mesh=mesh, audit=True,
+                      **_c4_kw())
+    reader = _feed_reader(C4_SEED, 4 * C4_SPE * C4_BATCH)
+    r.executor.register_feed(0, reader)
+    with checked or contextlib.nullcontext():
+        r.run_epoch(complete_checkpoint=True)
+    for _ in range(C4_DRILL_AT):
+        r.step()
+    drill_s = r.failover_drill(_flats(r, P18_DRILL))
+    lanes = r.executor.compiled.vblock[0]
+    all0, own0 = _p18_records(r, lanes)
+    steps = C4_SPE - C4_DRILL_AT
+    blocks = -(-steps // r.executor.block_steps)
+    sync()
+    dist_.reset_stats()
+    t0 = time.monotonic()
+    _, syncs = _sync_count(lambda: r.run_epoch(complete_checkpoint=False))
+    sync()
+    wall = time.monotonic() - t0
+    stats = dict(dist_.STATS)
+    all1, own1 = _p18_records(r, lanes)
+    r.inject_failure(_flats(r, P18_KILL))
+    sync()
+    t = time.monotonic()
+    rep = r.recover()
+    sync()
+    out = dict(
+        records_per_s=(all1 - all0) / wall,
+        own_records_per_s=(own1 - own0) / wall, timed_steps=steps,
+        blocks=blocks, synchronising_calls_per_block=(
+            syncs / blocks if syncs is not None else None),
+        collectives_per_block=stats["collectives"] / blocks,
+        collective_ms_per_block=stats["seconds"] * 1e3 / blocks,
+        collective_mb_per_block=stats["bytes"] / blocks / 1e6,
+        drill_ms=drill_s * 1e3, recovery_wall_ms=(time.monotonic() - t)
+        * 1e3, report=_p18_report(rep), lanes=list(lanes),
+        bases=list(reader._base), cursors=list(reader._cursor),
+        checkpoint=r.standbys.latest.checkpoint_id,
+        ledger=r.coordinator.read_ledger() if r.rank == 0 else None,
+        digest=r.state_digest())
+    return out
+
+
+def _p18_hashes(root):
+    """sha1 of every committed part file, by name."""
+    import hashlib
+    return {fn: hashlib.sha1(data).hexdigest()
+            for fn, data in _files(root).items() if fn.endswith(".final")}
+
+
+def _p18_egress(mesh, device, root, kill=True):
+    """(b) config #4 with a transactional file sink under ``root``: one
+    completed epoch, one pending, the kill (unless ``kill`` is False: the
+    never-failed run) recovered, one completed epoch. Returns readings."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = dict(_c4_kw(), inflight_ring_steps=2 * C4_SPE,
+              log_capacity=1 << (2 * C4_SPE * 8 - 1).bit_length())
+    r = ClusterRunner(build_c4_job(transactional=True), device=device,
+                      mesh=mesh, audit=True, **kw)
+    r.executor.register_feed(0, _feed_reader(C4_SEED, 4 * C4_SPE
+                                             * C4_BATCH))
+    fs = r.attach_file_sink(3, root)
+    r.run_epoch(complete_checkpoint=True)
+    r.run_epoch(complete_checkpoint=False)
+    out = {}
+    if kill:
+        r.inject_failure(_flats(r, P18_EGRESS_KILL))
+        sync()
+        rep = r.recover()
+        sync()
+        out["report"] = _p18_report(rep)
+    r.run_epoch(complete_checkpoint=True)
+    if mesh is not None:
+        dist_.barrier(mesh)
+    out.update(committed=fs.committed_epochs(),
+               pending=sorted(f for f in os.listdir(root)
+                              if f.endswith(".pending")),
+               files=_p18_hashes(root) if r.rank == 0 else None,
+               ledger=r.coordinator.read_ledger() if r.rank == 0 else None,
+               digest=r.state_digest())
+    return out
+
+
+def _p18_spill(mesh, device, root):
+    """(c) phase 8 (b)'s deep backlog on ``mesh``: each rank spills its own
+    ring lanes and log block under ``root/rank<r>``; the kill's replay
+    span is SPILL_FILL rings long, refilled from the lane holders' disk
+    tiers. Returns readings."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = _spill_kw(SPILL_BACKLOG_RING, SPILL_FILL)
+    r = ClusterRunner(build_job(), device=device, mesh=mesh, audit=True,
+                      spool_dir=root, spill_host_budget_epochs=1, **kw)
+    r.run_epoch(complete_checkpoint=True)
+    for _ in range(SPILL_FILL):
+        r.run_epoch(complete_checkpoint=False)
+    r.executor.drain_spill()
+    occupancy = r.executor.spill_occupancy()
+    r.inject_failure(_flats(r, P18_SPILL_KILL))
+    sync()
+    rep = r.recover()
+    sync()
+    out = dict(report=_p18_report(rep), occupancy_at_kill=occupancy,
+               movement=r.executor.spill_stats(),
+               gauges={k.split(f"job.{r.job.name}.", 1)[1]: v
+                       for k, v in r.metrics.snapshot().items()
+                       if ".spill." in k},
+               by_rank=r.spill_by_rank(),
+               ledger=r.coordinator.read_ledger() if r.rank == 0 else None,
+               digest=r.state_digest())
+    r.executor.close_spill()
+    # This rank's spool (up to ~1 GB at these widths) goes now.
+    shutil.rmtree(root if mesh is None else os.path.join(
+        root, f"rank{r.rank}"), ignore_errors=True)
+    return out
+
+
+def _p18_incremental(mesh, device, root):
+    """(d) phase 8 (d)'s incremental chain on ``mesh`` (rank 0 writes it
+    from the gathered snapshot): INC_BASE_EVERY completed epochs, one
+    pending, the kill recovered from a delta with a chain of
+    INC_BASE_EVERY - 1 deltas behind it. Returns readings."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = _spill_kw(SPILL_STEADY_RING, INC_BASE_EVERY)
+    r = ClusterRunner(build_job(), device=device, mesh=mesh, audit=True,
+                      overlap_epoch=True, checkpoint_dir=root,
+                      incremental_checkpoints=True,
+                      incremental_base_every=INC_BASE_EVERY, **kw)
+    for _ in range(INC_BASE_EVERY):
+        r.run_epoch(complete_checkpoint=True)
+    r.run_epoch(complete_checkpoint=False)
+    r.drain_fence()
+    out = {}
+    if r.rank == 0:
+        st = r.coordinator.storage
+        restore = r.standbys.latest.checkpoint_id
+        chain = st._chain(restore)
+        sizes = st.delta_bytes_on_disk()
+        out.update(restore=restore, chain=chain,
+                   kinds=[st._index[c][0] for c in chain],
+                   bytes_on_disk={str(c): sizes[c] for c in chain},
+                   delta_over_full=[round(sizes[c] / sizes[chain[0]], 6)
+                                    for c in chain[1:]])
+    r.inject_failure(_flats(r, INC_KILL))
+    sync()
+    rep = r.recover()
+    sync()
+    r.run_epoch(complete_checkpoint=True)
+    r.drain_fence()
+    out.update(report=_p18_report(rep),
+               ledger=r.coordinator.read_ledger() if r.rank == 0 else None,
+               digest=r.state_digest())
+    return out
+
+
+def _p18_all(mesh, device, root, checked=None):
+    """(a)-(d) on ``mesh`` (None: the unsharded control), each with the
+    kernel's launch counts at 0 just before it and read just after.
+    Returns {sub-phase: readings}."""
+    out = {}
+    for name, fn in (
+            ("a", lambda: _p18_feeds(mesh, device, checked)),
+            ("b", lambda: _p18_egress(mesh, device,
+                                      os.path.join(root, "sink"))),
+            ("c", lambda: _p18_spill(mesh, device,
+                                     os.path.join(root, "spill"))),
+            ("d", lambda: _p18_incremental(mesh, device,
+                                           os.path.join(root, "inc")))):
+        _p18_zero()
+        t = time.monotonic()
+        out[name] = fn()
+        sync()
+        out[name]["launches"] = _p18_launches()
+        out[name]["seconds"] = time.monotonic() - t
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _p18_rank(ctx, root, tag):
+    """One rank of a phase 18 mesh: (a)-(d), every keyed_hist launch of
+    (a)'s first epoch held against the plain version."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    mesh = dist_.task_mesh(device=ctx.device)
+    shapes = []
+    out = _p18_all(mesh, ctx.device, os.path.join(root, tag),
+                   _checked_everywhere(shapes))
+    out["shapes"] = sorted({s[:4] for s in shapes})
+    out["max_abs_err"] = max((s[4] for s in shapes), default=None)
+    out["checked_launches"] = len(shapes)
+    out["rank"] = ctx.process_id
+    out["backend"] = ctx.backend
+    return out
+
+
+def _p18_check(name, res, ctl, golden_b, row_of):
+    """Every equality of phase 18 for one mesh run (``res``: its ranks'
+    readings); returns the problems found."""
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    problems = []
+    n = len(res)
+    lead = res[0]
+    for sub in "abcd":
+        d = diff_ledgers(ctl[sub]["ledger"], lead[sub]["ledger"])
+        if d or len(lead[sub]["ledger"]) != len(ctl[sub]["ledger"]):
+            problems.append(f"{name} ({sub}): ledger differs from the "
+                            f"control's: {d[:3]}")
+        for r in res:
+            if r[sub]["digest"] != ctl[sub]["digest"]:
+                problems.append(f"{name} rank {r['rank']} ({sub}): state "
+                                f"digest differs from the control's")
+            if min(r[sub]["launches"].values()) == 0:
+                problems.append(f"{name} rank {r['rank']} ({sub}): a kernel "
+                                f"was not launched: {r[sub]['launches']}")
+    # (a) committed feed offsets: each lane's from the rank that pulls it.
+    own = [None] * C4_PAR
+    for r in res:
+        lo, hi = r["a"]["lanes"]
+        own[lo:hi] = r["a"]["bases"][lo:hi]
+    if own != ctl["a"]["bases"] or min(own) <= 0:
+        problems.append(f"{name} (a): committed offsets {own} != the "
+                        f"control's {ctl['a']['bases']}")
+    mgrs = [r["a"]["report"]["managers"] for r in res]
+    if n > 1 and not all(mgrs):
+        problems.append(f"{name} (a): managers per rank {mgrs} (the kill "
+                        f"spans both ranks)")
+    # (b) the part files: a never-failed unsharded run's, byte for byte.
+    if lead["b"]["files"] != golden_b["files"] or not golden_b["files"]:
+        problems.append(f"{name} (b): committed part files differ from "
+                        f"the never-failed run's")
+    if any(r["b"]["pending"] for r in res):
+        problems.append(f"{name} (b): pendings left "
+                        f"{[r['b']['pending'] for r in res]}")
+    # (c) the refill came from the lane holders' disk tiers.
+    for r in res:
+        if r["c"]["movement"].get("disk_hits", 0) <= 0:
+            problems.append(f"{name} rank {r['rank']} (c): no disk hit: "
+                            f"{r['c']['movement']}")
+        if not r["c"]["report"]["steps_replayed"] > SPILL_BACKLOG_RING:
+            problems.append(f"{name} (c): replayed "
+                            f"{r['c']['report']['steps_replayed']} steps")
+    # (d) a chain of at least two deltas behind the restore point.
+    kinds = lead["d"]["kinds"]
+    if kinds[0] != "full" or kinds[1:].count("delta") < 2:
+        problems.append(f"{name} (d): restore chain {kinds}")
+    for r in res:
+        if r["max_abs_err"] != 0 or not r["checked_launches"]:
+            problems.append(f"{name} rank {r['rank']}: kernel vs plain max "
+                            f"abs err {r['max_abs_err']} over "
+                            f"{r['checked_launches']} launches")
+        for s in r["shapes"]:
+            if s not in row_of:
+                problems.append(f"{name}: launched shape {s} has no phase "
+                                f"2 row")
+    return problems
+
+
+def _p18_line(reading):
+    """A sub-phase's readings as printed: no ledger, digest or files."""
+    return {k: v for k, v in reading.items()
+            if k not in ("ledger", "digest", "files")}
+
+
+def phase_mesh_storage(dev_line, root, rows):
+    """(a) config #4's host-fed source, (b) its transactional file sink,
+    (c) tiered spill and (d) incremental checkpoints, each on one NCCL
+    rank and on two gloo ranks sharing the card, against an unsharded
+    control (for (b)'s files, a never-failed run): sealed ledgers, state
+    digests, committed feed offsets and part files equal. Every
+    keyed_hist launch of (a)'s first epoch on each rank equals its plain
+    version, and each launched shape has a phase 2 row. Returns {path:
+    launches}."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    t_phase = time.monotonic()
+    row_of = {}
+    for r in rows:               # the first timed row of each shape
+        if "ms" in r:
+            row_of.setdefault((r["R"], r["B"], r["nk"], r["counts"]), r)
+    launches = {}
+    ctl = _p18_all(None, DEVICE, os.path.join(root, "control"))
+    _p18_zero()
+    golden_b = _p18_egress(None, DEVICE, os.path.join(root, "golden"),
+                           kill=False)
+    if ctl["b"]["files"] != golden_b["files"]:
+        raise AssertionError("phase 18 (b): the unsharded control's part "
+                             "files differ from the never-failed run's")
+    for sub in "abcd":
+        launches[f"mesh_storage_control_{sub}"] = ctl[sub]["launches"]
+        log(f"[mesh-storage] control ({sub}): " + json.dumps(dict(
+            _p18_line(ctl[sub]), device=dev_line), default=float))
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    ctx = dist_.initialize("file://" + os.path.join(root, "nccl1_rdv"), 1,
+                           0, device=DEVICE,
+                           backend="nccl" if torch.device(DEVICE).type
+                           == "cuda" else "gloo")
+    try:
+        one = _p18_rank(ctx, root, "nccl1")
+    finally:
+        dist_.shutdown()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    two = dist_.spawn(
+        P18_RANK_TARGET, 2, {"root": root, "tag": "gloo2"}, device=DEVICE,
+        backend="gloo", share_device=torch.device(DEVICE).type == "cuda",
+        timeout_s=P18_RANK_TIMEOUT_S,
+        workdir=os.path.join(root, "ranks-gloo2"))
+    problems = []
+    for name, res in (("nccl-1rank", [one]), ("gloo-2rank", two)):
+        problems += _p18_check(name, res, ctl, golden_b, row_of)
+        for r in res:
+            for sub in "abcd":
+                launches[f"mesh_storage_{name}_rank{r['rank']}_{sub}"] = \
+                    r[sub]["launches"]
+                log(f"[mesh-storage] {name} rank {r['rank']} ({sub}): "
+                    + json.dumps(dict(_p18_line(r[sub]), device=dev_line),
+                                 default=float))
+            log(f"[mesh-storage] {name} rank {r['rank']} checked launches: "
+                + json.dumps(dict(
+                    max_abs_err=r["max_abs_err"],
+                    checked_launches=r["checked_launches"],
+                    shapes=[dict(R=s[0], B=s[1], nk=s[2], counts=s[3],
+                                 phase2_label=row_of.get(s, {}).get("label"),
+                                 device_ms=row_of.get(s, {}).get("device_ms"),
+                                 bound_ms=row_of.get(s, {}).get("bound_ms"),
+                                 library_ms=row_of.get(s, {})
+                                 .get("library_ms"))
+                            for s in r["shapes"]], device=dev_line),
+                    default=float))
+    log(f"[mesh-storage] phase 18: {time.monotonic() - t_phase:.1f} s "
+        f"({dev_line})")
+    if problems:
+        raise AssertionError("phase 18: " + "; ".join(problems))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5720,6 +6147,13 @@ def main() -> int:
         mesh_launches = phase_mesh(dev_line, root, rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 18: {PHASE18_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_storage_", dir=SCRATCH)
+    try:
+        mesh_storage_launches = phase_mesh_storage(dev_line, root, rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -5736,7 +6170,7 @@ def main() -> int:
         "planes_failover": failover_launches,
         "rescale_restore": recut_launches,
         "rescale_live": live_launches, "soak": soak_launches,
-        **mesh_launches})))
+        **mesh_launches, **mesh_storage_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

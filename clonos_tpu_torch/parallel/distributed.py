@@ -547,11 +547,61 @@ def shard_tree(tree: Any, specs: Any, n: int, rank: int) -> Any:
 def fence_group(mesh, axis: str = "tasks"):
     """A gloo group over the mesh's ranks for the pipelined fence's worker
     thread: its gathers never interleave with the blocks' collectives on
-    the mesh's own group. Every rank creates it at the same point (a
-    collective); None for a one-rank mesh."""
+    the mesh's own group. The executor makes a second one for the
+    driving thread's host-only agreements (:func:`agree`,
+    :func:`broadcast_int`), which must not interleave with the worker's
+    either. Every rank creates it at the same point (a collective); None
+    for a one-rank mesh."""
     n = mesh_size(mesh, axis)
     return dist.new_group(ranks=list(range(n)), backend="gloo") \
         if n > 1 else None
+
+
+def agree(err: Optional[BaseException], mesh, axis: str = "tasks",
+          group=None) -> None:
+    """Settle a step that may fail on some ranks alone (a feed pull, a
+    re-read below retention, a torn spill segment) before the next
+    collective: one all-reduce of a failure flag over ``group`` (a gloo
+    group, host tensors only). When any rank failed, every rank raises:
+    its own error, else the lowest failed rank's, pickled across with a
+    note naming that rank. So no rank waits in a later collective for a
+    peer that already left."""
+    if mesh_size(mesh, axis) == 1:
+        if err is not None:
+            raise err
+        return
+    t0 = time.monotonic()
+    flag = torch.tensor([0 if err is None else 1], dtype=torch.int32)
+    dist.all_reduce(flag, group=group or _group(mesh, axis))
+    _count(t0, flag.numel() * flag.element_size())
+    if int(flag.item()) == 0:
+        return
+    mine = None
+    if err is not None:
+        try:
+            mine = pickle.loads(pickle.dumps(err))
+        except Exception:
+            mine = RuntimeError(f"{type(err).__name__}: {err}")
+    errs = all_gather_object(mine, mesh, axis, group=group)
+    if err is not None:
+        raise err
+    r, first = next((r, e) for r, e in enumerate(errs) if e is not None)
+    first.add_note(f"raised on rank {r} of {len(errs)}")
+    raise first
+
+
+def broadcast_int(value: Optional[int], mesh, axis: str = "tasks",
+                  src: int = 0, group=None) -> int:
+    """Rank ``src``'s host integer on every rank (the others pass None),
+    over ``group`` (a gloo group: no device tensor, no sync)."""
+    if mesh_size(mesh, axis) == 1:
+        return int(value)
+    t0 = time.monotonic()
+    me = mesh_rank(mesh, axis)
+    box = torch.tensor([int(value) if me == src else 0], dtype=torch.int64)
+    dist.broadcast(box, src=src, group=group or _group(mesh, axis))
+    _count(t0, box.numel() * box.element_size())
+    return int(box.item())
 
 
 def gather_object(obj: Any, mesh, axis: str = "tasks", dst: int = 0,

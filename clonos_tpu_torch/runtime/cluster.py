@@ -104,6 +104,11 @@ from clonos_tpu_torch.storage import SegmentCorruptError, StorageError
 from clonos_tpu_torch.utils import metrics as met
 from clonos_tpu_torch.utils.tree import tree_map
 
+#: the ``spill.*`` gauges: tier occupancy (``spill_occupancy``), then
+#: movement (``spill_stats``)
+_SPILL_OCCUPANCY = ("host_epochs", "disk_epochs", "host_bytes", "disk_bytes")
+_SPILL_KEYS = _SPILL_OCCUPANCY + ("bytes_spilled", "bytes_refilled")
+
 
 class HeartbeatMonitor:
     """Deadline-based liveness tracking. ``clock`` is injectable."""
@@ -312,14 +317,12 @@ class ClusterRunner:
         #: and the checkpoint files (None: one process, no mesh)
         self.mesh = compiled.mesh
         self.rank = compiled.shard
-        if self.mesh is not None:
-            if incremental_checkpoints:
-                raise ValueError("incremental checkpoints are not supported "
-                                 "on a mesh")
-            if self.rank != 0:
-                # Only rank 0 writes checkpoint files and the ledger; the
-                # others run the same coordinator protocol in memory.
-                checkpoint_dir = None
+        if self.mesh is not None and self.rank != 0:
+            # Only rank 0 writes checkpoint files (a delta chain too) and
+            # the ledger; the others run the same coordinator protocol in
+            # memory.
+            checkpoint_dir = None
+            incremental_checkpoints = False
         self.overlap_recovery = overlap_recovery
         self.overlap_epoch = overlap_epoch
         #: the in-flight fence tail (pipelined fence): None, or a dict with
@@ -348,6 +351,11 @@ class ClusterRunner:
         self.coordinator = cp.CheckpointCoordinator(
             storage, num_subtasks=job.total_subtasks(),
             base_interval_steps=steps_per_epoch)
+        if compiled.n_shards > 1:
+            # The first completion listener: nothing on any rank commits,
+            # truncates or releases for a checkpoint before rank 0 holds
+            # it durably.
+            self.coordinator.subscribe_completion(self._completion_gate)
         self.standbys = StandbyPool(num_standby)
         self.coordinator.subscribe_completed_state(
             self.standbys.on_completed_checkpoint)
@@ -402,16 +410,20 @@ class ClusterRunner:
         self.coordinator.subscribe_completion(
             lambda cid: self._m_ckpt_latency_ms.update(
                 self.coordinator.completion_latency_s.get(cid, 0.0) * 1e3))
+        #: on a mesh with spill: every rank's ``spill.*`` readings as the
+        #: last fence gathered them (a list in rank order; None before)
+        self._spill_by_rank: Optional[List[Dict[str, int]]] = None
         if self.executor.spill_logs is not None:
-            # Tier occupancy and movement over every spill owner.
+            # Tier occupancy and movement over every spill owner (on a
+            # mesh: this rank's; ``spill.total.*`` sums every rank's as
+            # the last fence gathered them, never computed in a scrape).
             ex = self.executor
-            for key in ("host_epochs", "disk_epochs", "host_bytes",
-                        "disk_bytes"):
+            for key in _SPILL_KEYS:
                 g.gauge(f"spill.{key.replace('_', '-')}",
-                        lambda k=key: ex.spill_occupancy()[k])
-            for key in ("bytes_spilled", "bytes_refilled"):
-                g.gauge(f"spill.{key.replace('_', '-')}",
-                        lambda k=key: ex.spill_stats().get(k, 0))
+                        lambda k=key: self._spill_reading(k))
+                if compiled.n_shards > 1:
+                    g.gauge(f"spill.total.{key.replace('_', '-')}",
+                            lambda k=key: self._spill_total(k))
         # Exactly-once audit: audit=None inherits the process-global
         # stance, and so does the divergence policy unless
         # audit_on_divergence names one; the default NullAuditor reads
@@ -518,10 +530,6 @@ class ClusterRunner:
             v.vertex_id: TransactionLog(v.vertex_id)
             for v in job.vertices
             if isinstance(v.operator, TransactionalSinkOperator)}
-        if self.mesh is not None and (self.txn_logs
-                                      or compiled.feed_vertices):
-            raise ValueError("transactional sinks and host-fed sources are "
-                             "not supported on a mesh")
         if self.txn_logs:
             self.executor.on_block_outputs = self._absorb_sink_outputs
             self.coordinator.subscribe_completion(
@@ -541,7 +549,10 @@ class ClusterRunner:
     def _stage_feed_offsets(self, closed: int, snap: LeanSnapshot
                             ) -> LeanSnapshot:
         """Start the host copy of the fence snapshot's feed offsets (on the
-        thread that queued the blocks); the completion reads it."""
+        thread that queued the blocks); the completion reads it. On a mesh
+        ``snap`` is this rank's local snapshot: its lanes' offsets, which
+        its own readers commit (the snapshot gathered to rank 0 carries
+        every lane's, in the operator state)."""
         readers = self.executor.feed_readers
         if readers and snap is not None:
             copy = _device.HostCopy(
@@ -567,15 +578,50 @@ class ClusterRunner:
                 del self._feed_offset_copies[k]
         if copy is None:
             return
+        comp = self.executor.compiled
         for vid, off in copy.wait().items():
-            self.executor.feed_readers[vid].notify_checkpoint_complete(
-                [int(x) for x in off])
+            # Lanes another rank owns stay at 0 (never pulled here).
+            full = [0] * self.job.vertices[vid].parallelism
+            lo = comp.vblock[vid][0]
+            full[lo:lo + len(off)] = [int(x) for x in off]
+            self.executor.feed_readers[vid].notify_checkpoint_complete(full)
+
+    def _fence_snapshot(self, closed: int) -> Optional[LeanSnapshot]:
+        """The sequential fence's snapshot with the feed offsets staged:
+        unsharded the lean snapshot; on a mesh each rank stages its own
+        lanes from its local shards, which then gather to rank 0 (None on
+        the other ranks)."""
+        ex = self.executor
+        if self.mesh is None:
+            return self._stage_feed_offsets(closed, ex.lean_snapshot())
+        local = self._stage_feed_offsets(closed, ex.local_lean_snapshot())
+        return ex.lean_snapshot(local)
 
     def _absorb_sink_outputs(self, outs, epoch: int) -> None:
+        """The block's sink emissions into their transactions. On a mesh
+        a rank absorbs the sink lanes it runs, keyed by global subtask;
+        a sink vertex that does not split runs on every rank and is
+        absorbed on rank 0 alone, so nothing is emitted twice."""
+        comp = self.executor.compiled
         for vid, tl in self.txn_logs.items():
             b = outs.sinks.get(vid)
-            if b is not None:
-                tl.absorb(epoch, _device.HostCopy(b))
+            if b is not None and self._owns_txn(vid):
+                tl.absorb(epoch, _device.HostCopy(b),
+                          lane0=comp.vblock[vid][0])
+
+    def _owns_txn(self, vid: int) -> bool:
+        """True when this rank holds sink vertex ``vid``'s transactions
+        (its own lanes; rank 0 for a vertex that does not split)."""
+        return self.rank == 0 or self.executor.compiled.sharded(vid)
+
+    def _txn_subtasks(self, vid: int) -> Optional[range]:
+        """The sink subtasks whose part files this rank writes, commits
+        and sweeps (None: all of them, off a mesh)."""
+        if self.mesh is None:
+            return None
+        if not self._owns_txn(vid):
+            return range(0)
+        return range(*self.executor.compiled.vblock[vid])
 
     def _seal_txns(self, closed: int) -> None:
         for tl in self.txn_logs.values():
@@ -653,12 +699,16 @@ class ClusterRunner:
         """Back a transactional sink with durable part files
         (``runtime/filesink.py``): pendings persist at every seal, and here
         for epochs already sealed; commits are atomic renames, and stale
-        pendings at or below ``token`` are swept here."""
+        pendings at or below ``token`` are swept here. On a mesh every
+        rank calls it with the same root."""
         from clonos_tpu_torch.runtime.filesink import FileSystemSink
         if vertex_id not in self.txn_logs:
             raise ValueError(
                 f"vertex {vertex_id} is not a transactional sink")
-        fs = FileSystemSink(root, token=token)
+        # On a mesh every rank attaches to the shared root and writes,
+        # commits and sweeps only the part files of its own subtasks.
+        fs = FileSystemSink(root, token=token,
+                            subtasks=self._txn_subtasks(vertex_id))
         tl = self.txn_logs[vertex_id]
         tl.pre_committer = fs.write_pending
         tl.committer = fs.commit
@@ -695,6 +745,53 @@ class ClusterRunner:
         self._shard_health = _device.HostCopy(
             self.executor._per_shard_health())
         self._shard_health_epoch = self.executor.epoch_id
+
+    def _spill_reading(self, key: str) -> int:
+        """One ``spill.*`` gauge: this rank's stores."""
+        ex = self.executor
+        if key in _SPILL_OCCUPANCY:
+            return ex.spill_occupancy()[key]
+        return ex.spill_stats().get(key, 0)
+
+    def _refresh_spill_by_rank(self) -> None:
+        """Every rank's tier readings (occupancy and every movement
+        counter), gathered in lockstep on the driving thread's host group
+        at a fence or a recovery: what ``spill.total.*`` and
+        :meth:`spill_by_rank` read."""
+        ex = self.executor
+        if ex.spill_logs is None or ex.compiled.n_shards == 1:
+            return
+        from clonos_tpu_torch.parallel import distributed as dist_
+        mine = dict(ex.spill_occupancy(), **ex.spill_stats())
+        self._spill_by_rank = dist_.all_gather_object(
+            mine, self.mesh, ex.compiled.task_axis, group=ex._host_group)
+
+    def spill_by_rank(self) -> Optional[List[Dict[str, int]]]:
+        """Every rank's tier readings as the last fence or recovery
+        gathered them (None without spill on a multi-rank mesh)."""
+        return self._spill_by_rank
+
+    def _spill_total(self, key: str) -> Optional[int]:
+        rows = self._spill_by_rank
+        return None if rows is None else sum(r.get(key, 0) for r in rows)
+
+    def _completion_gate(self, cid: int) -> None:
+        """The first completion listener on a multi-rank mesh: rank 0
+        completes a checkpoint only once it is durable there (its write
+        returned), and every rank completes the same ones in the same
+        order on the driving thread (``ack_all`` at the fence or the
+        join). Here each rank learns rank 0's completion of ``cid`` (one
+        broadcast on the host group), so no rank commits a transaction,
+        a feed offset or a truncation for a checkpoint that a restore
+        could still miss."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        ex = self.executor
+        got = dist_.broadcast_int(cid if self.rank == 0 else None, self.mesh,
+                                  ex.compiled.task_axis,
+                                  group=ex._host_group)
+        if got != cid:
+            raise RuntimeError(f"checkpoint {cid} completed on rank "
+                               f"{self.rank}, but rank 0 completed {got}")
 
     def _shard_gauge(self, i: int, col: int) -> Optional[int]:
         """One ``shard.<i>.*`` gauge: the cached ``[n, 3]``, never
@@ -812,6 +909,7 @@ class ClusterRunner:
             prof.rollup()
         if self.mesh is not None:
             self._refresh_shard_health()
+            self._refresh_spill_by_rank()
 
     def step(self) -> None:
         if self.failed:
@@ -939,8 +1037,8 @@ class ClusterRunner:
         self.epoch_tracker.start_new_epoch(ex.epoch_id)
         self._seal_and_trigger(
             closed, lambda: ex.epoch_window(closed),
-            lambda: self._stage_feed_offsets(closed, ex.lean_snapshot()),
-            phases, prof, async_write=False)
+            lambda: self._fence_snapshot(closed), phases, prof,
+            async_write=False)
         self._append_source_fence_determinant(closed, phases, prof)
         self._seal_txns(closed)
         # Before completion: ack_all truncates the logs and rings.
@@ -987,9 +1085,11 @@ class ClusterRunner:
             or self.lineage.enabled)
         storage = self.coordinator.storage
         if self.mesh is not None:
-            # This rank's shards on their way to the host; the worker
-            # gathers them to rank 0 over the fence group.
-            snap = _device.HostCopy(ex.local_lean_snapshot())
+            # This rank's shards on their way to the host (its lanes' feed
+            # offsets staged from them); the worker gathers them to rank 0
+            # over the fence group.
+            snap = _device.HostCopy(self._stage_feed_offsets(
+                closed, ex.local_lean_snapshot()))
         elif storage.wants_host:
             snap = _device.HostCopy(
                 self._stage_feed_offsets(closed, ex.lean_snapshot()))
@@ -1451,8 +1551,9 @@ class ClusterRunner:
                 input_steps = self._replay_inputs(patched, snap, in_edges[0],
                                                   sub, fence, n_steps)
             elif isinstance(v.operator, HostFeedSource) and n_steps > 0:
-                input_steps = self._reread_feed(vid, sub, snap, rows,
-                                                n_steps)
+                input_steps = self._reread_feed(
+                    vid, sub, int(snap.op_states[vid]["offset"][sub].cpu()),
+                    rows, n_steps)
             tp = _clock("inputs", tp)
 
             plan = rec.ReplayPlan(
@@ -1777,17 +1878,23 @@ class ClusterRunner:
           fence head;
         - the rank holding the first surviving replica of its log sends
           that replica row; the ranks holding the upstream ring's lanes
-          send their steps of the replay window;
-        - the owner replays, grafts the operator row and ring lane into
-          its own shards, and sends the rebuilt log row and record count
-          to the rank holding that row of the log block;
+          send their steps of the replay window, the steps their ring no
+          longer holds spliced in from their own spill tier
+          (:meth:`_mesh_window`);
+        - the owner replays (a host-fed source re-reads its own reader
+          from the checkpointed offset), rebuilds a transactional sink's
+          pending shards where it holds them, grafts the operator row and
+          ring lane into its own shards, and sends the rebuilt log row
+          and record count to the rank holding that row of the log block
+          (:meth:`_mesh_replay`);
         - the replica rows the revived subtasks held are copied from their
           owners' log rows, rank to rank.
 
-        No other rank's live shard is rewritten, and nothing gathers the
-        whole carry. Not taken here: the device-resident fast path and
-        the overlapped finalize (a mesh runs no spill, host-fed source or
-        transactional sink)."""
+        A step that fails on one rank (a re-read below the feed's
+        retention, a torn spill segment) fails on every rank at the same
+        point (``distributed.agree``). No other rank's live shard is
+        rewritten, and nothing gathers the whole carry. Not taken here:
+        the device-resident fast path and the overlapped finalize."""
         from clonos_tpu_torch.parallel import distributed as dist_
         ex = self.executor
         comp = ex.compiled
@@ -1822,10 +1929,9 @@ class ClusterRunner:
         managers: List[rec.RecoveryManager] = []
         restore_bytes = total_records = total_dets = 0
         tp = _clock("restore", t0)
+        self._spill_cache = {}
         for flat in failed:
             vid, sub = self._vertex_of(flat)
-            v = self.job.vertices[vid]
-            vlo = comp.vblock[vid][0]
             owners = self._vertex_ranks(vid, sub)
             lead = me == owners[0]
             mine = me in owners
@@ -1866,88 +1972,29 @@ class ClusterRunner:
             # ranks (upstreams failed earlier were rebuilt already).
             windows: Dict[int, RecordBatch] = {}
             for e in in_edges if n_steps > 0 else ():
-                src_vid = self.job.edges[e].src
-                if fence < ring_lo:
-                    raise rec.RecoveryError(
-                        f"in-flight ring of vertex {src_vid} no longer "
-                        f"holds step {fence} (spill is not supported on "
-                        f"a mesh)")
-                el = carry.out_rings[comp.ring_index[src_vid]]
-                local = ifl.slice_steps_at(el, fence - 1, span)
-                if not comp.sharded(src_vid):
-                    windows[e] = local
-                    continue
-                parts = [dist_.transfer(self._host(local) if me == r
-                                        else None, r, owners, mesh, axis)
-                         for r in range(n)]
-                if mine:
-                    windows[e] = RecordBatch(*(
-                        _device.upload(np.concatenate(f, axis=1),
-                                       self.device)
-                        for f in zip(*parts)))
+                windows.update(self._mesh_window(
+                    e, carry, owners, fence, n_steps, span, ring_lo))
             tp = _clock("fetch_determinants", tp)
             log_piece = None
-            if mine:
-                mgr = self._recovery_manager(vid, sub, flat)
-                synthesized = False
-                one_dev = None
-                if replica is not None:
-                    one_dev = self._on_device(replica)
-                    stack = tree_map(lambda x: x[None], one_dev)
-                    cnt, start = (int(x) for x in self._fetch_meta(
-                        stack, [0], from_epoch).cpu().numpy()[0])
-                    mgr.expect_determinant_responses(1)
-                    mgr.notify_determinant_response(
-                        self._fetch_rows(stack, 0, from_epoch, cnt), start)
-                    rows, start = mgr.merged_determinants()
-                elif n_steps > 0:
-                    synthesized = True
-                    mgr.expect_determinant_responses(0)
-                    rows = self._synthesize_det_rows(fence, n_steps)
-                    start = ck_head
-                else:
-                    mgr.expect_determinant_responses(0)
-                    rows = np.zeros((0, det.NUM_LANES), np.int32)
-                    start = ck_head
-                if lead:
-                    total_dets += len(rows)
-                input_steps = None
-                dev_piece = self._on_device({"edge": piece["edge"],
-                                             "rr": piece["rr"],
-                                             "op": piece["op"]})
-                inputs = [self._replay_inputs(
-                    None, None, e, sub, fence, n_steps, window=windows[e],
-                    edge_row=RecordBatch(*dev_piece["edge"][e]),
-                    rr=dev_piece["rr"][e]) for e in in_edges] \
-                    if n_steps > 0 else [[] for _ in in_edges]
-                if isinstance(v.operator, TwoInputOperator):
-                    input_steps = list(zip(*inputs))
-                elif in_edges:
-                    input_steps = inputs[0]
-                tp = _clock("inputs", tp)
-                plan = rec.ReplayPlan(
-                    vertex_id=vid, subtask=sub, flat_subtask=flat,
-                    from_epoch=from_epoch, input_steps=input_steps,
-                    det_rows=rows, det_start=start,
-                    checkpoint_op_state=dev_piece["op"], n_steps=n_steps,
-                    verify_outputs=not synthesized, state_row=0)
-                result = mgr.run_replay(plan, self.device)
-                if lead:
-                    restore_bytes += rec.plan_restore_nbytes(plan)
-                    total_records += result.records_replayed
-                rebuilt = self._check_rebuilt(flat, result, rows,
-                                              synthesized)
-                tp = _clock("replay", tp)
-                restored = self._restored_log(
-                    one_dev if not synthesized else None, rebuilt, flat,
-                    from_epoch, fence, ck_head)
-                carry = self._graft_lane(carry, vid, sub - vlo, result,
-                                         fence, n_steps)
-                if lead:
-                    log_piece = self._host({
-                        "log": restored,
-                        "rc": int(piece["rc"]) + result.records_replayed})
-                managers.append(mgr)
+            err: Optional[BaseException] = None
+            try:
+                if mine:
+                    carry, log_piece, mgr, rb, rec_n, n_dets, tp = \
+                        self._mesh_replay(
+                            vid, sub, flat, piece, replica, windows, carry,
+                            from_epoch, fence, n_steps, ck_head, _clock, tp)
+                    managers.append(mgr)
+                    if lead:
+                        restore_bytes += rb
+                        total_records += rec_n
+                        total_dets += n_dets
+            except Exception as e:          # settled below, on every rank
+                err = e
+            # A replay that failed on its owner (a re-read below the
+            # feed's retention) fails on every rank, here, before the
+            # next transfer.
+            dist_.agree(err, mesh, axis, group=ex._host_group)
+            tp = _clock("replay", tp)
             # The rebuilt log row and record count, to the log block's rank.
             dsts = self._row_ranks(flat, L)
             log_piece = dist_.transfer(log_piece, owners[0], dsts, mesh, axis)
@@ -1977,12 +2024,14 @@ class ClusterRunner:
         comp.constrain_carry(carry)
         ex.carry = carry
         self._bounds_cache = None
+        self._spill_cache = {}
         tp = _clock("replica_rebuild", tp)
         sums = dist_.all_gather_object(
             (restore_bytes, total_records, total_dets), mesh, axis)
         restore_bytes, total_records, total_dets = (
             sum(x[k] for x in sums) for k in range(3))
         self._refresh_shard_health()
+        self._refresh_spill_by_rank()
         self._revive(failed, drill)
         if self.auditor.enabled:
             # Every replayed closed epoch's window gathers to rank 0 (all
@@ -2001,6 +2050,136 @@ class ClusterRunner:
             records_replayed=total_records, ignored_checkpoints=ignored,
             managers=tuple(managers), phase_ms=phases, drill=drill,
             restore_bytes=restore_bytes, checkpoint_bytes=checkpoint_bytes)
+
+    def _mesh_window(self, eidx: int, carry: JobCarry, owners: List[int],
+                     fence: int, n_steps: int, span: int, ring_lo: int
+                     ) -> Dict[int, RecordBatch]:
+        """Edge ``eidx``'s producer ring steps ``[fence - 1, fence - 1 +
+        span)`` over every producer lane, as ``{eidx: window}`` on the
+        ranks in ``owners`` (empty elsewhere). Each rank holding producer
+        lanes slices them from its ring and splices in, from its own
+        spill tier, the steps the ring no longer holds (below
+        ``ring_lo``); the pieces travel by transfer to the owners. A ring
+        that does not split is every rank's, but spilled by rank 0 alone,
+        which then sends the spliced window. A splice that fails on one
+        rank (a torn segment) fails on every rank."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        ex = self.executor
+        comp = ex.compiled
+        mesh, axis = self.mesh, comp.task_axis
+        me, n = comp.shard, comp.n_shards
+        src_vid = self.job.edges[eidx].src
+        ri = comp.ring_index[src_vid]
+        spill = fence < ring_lo
+        sharded = comp.sharded(src_vid)
+        senders = (list(range(n)) if sharded
+                   else [0] if spill else list(owners))
+        local, err = None, None
+        if me in senders:
+            try:
+                local = ifl.slice_steps_at(carry.out_rings[ri], fence - 1,
+                                           span)
+                if spill:
+                    local = self._splice_spilled(
+                        local, ri, src_vid, fence, fence - 1,
+                        min(fence - 1 + span, ring_lo),
+                        min(ring_lo, fence - 1 + n_steps))
+            except Exception as e:          # settled below, on every rank
+                err = e
+        if spill:
+            dist_.agree(err, mesh, axis, group=ex._host_group)
+        elif err is not None:
+            raise err
+        if not sharded and not spill:
+            return {eidx: local} if me in owners else {}
+        parts = [dist_.transfer(self._host(local) if me == r else None, r,
+                                owners, mesh, axis) for r in senders]
+        if me not in owners:
+            return {}
+        return {eidx: RecordBatch(*(
+            _device.upload(np.concatenate(f, axis=1), self.device)
+            for f in zip(*parts)))}
+
+    def _mesh_replay(self, vid: int, sub: int, flat: int, piece: dict,
+                     replica, windows: Dict[int, RecordBatch],
+                     carry: JobCarry, from_epoch: int, fence: int,
+                     n_steps: int, ck_head: int, clock, tp: float):
+        """One failed subtask's replay on a rank that runs it
+        (:meth:`_recover_mesh`): its determinants from the transferred
+        replica row (or synthesized, for a sink nobody replicates), its
+        inputs from the transferred windows and checkpointed edge row, or
+        for a host-fed source from this rank's reader at the checkpointed
+        offset; a transactional sink's pending shards rebuilt where this
+        rank holds them; the operator row and ring lane grafted into this
+        rank's shards. Returns (carry, the rebuilt log row and record
+        count on the first owner, else None, the manager, restore bytes,
+        records and determinants replayed, the clock's time)."""
+        comp = self.executor.compiled
+        v = self.job.vertices[vid]
+        in_edges = self.job.in_edges(vid)
+        lead = comp.shard == self._vertex_ranks(vid, sub)[0]
+        mgr = self._recovery_manager(vid, sub, flat)
+        synthesized = False
+        one_dev = None
+        if replica is not None:
+            one_dev = self._on_device(replica)
+            stack = tree_map(lambda x: x[None], one_dev)
+            cnt, start = (int(x) for x in self._fetch_meta(
+                stack, [0], from_epoch).cpu().numpy()[0])
+            mgr.expect_determinant_responses(1)
+            mgr.notify_determinant_response(
+                self._fetch_rows(stack, 0, from_epoch, cnt), start)
+            rows, start = mgr.merged_determinants()
+        elif n_steps > 0:
+            synthesized = True
+            mgr.expect_determinant_responses(0)
+            rows = self._synthesize_det_rows(fence, n_steps)
+            start = ck_head
+        else:
+            mgr.expect_determinant_responses(0)
+            rows = np.zeros((0, det.NUM_LANES), np.int32)
+            start = ck_head
+        input_steps = None
+        dev_piece = self._on_device({"edge": piece["edge"],
+                                     "rr": piece["rr"], "op": piece["op"]})
+        inputs = [self._replay_inputs(
+            None, None, e, sub, fence, n_steps, window=windows[e],
+            edge_row=RecordBatch(*dev_piece["edge"][e]),
+            rr=dev_piece["rr"][e]) for e in in_edges] \
+            if n_steps > 0 else [[] for _ in in_edges]
+        if isinstance(v.operator, TwoInputOperator):
+            input_steps = list(zip(*inputs))
+        elif in_edges:
+            input_steps = inputs[0]
+        elif isinstance(v.operator, HostFeedSource) and n_steps > 0:
+            offset = int(np.asarray(piece["op"]["offset"]).reshape(-1)[0])
+            input_steps = self._reread_feed(vid, sub, offset, rows, n_steps)
+        tp = clock("inputs", tp)
+        plan = rec.ReplayPlan(
+            vertex_id=vid, subtask=sub, flat_subtask=flat,
+            from_epoch=from_epoch, input_steps=input_steps,
+            det_rows=rows, det_start=start,
+            checkpoint_op_state=dev_piece["op"], n_steps=n_steps,
+            verify_outputs=not synthesized, state_row=0)
+        result = mgr.run_replay(plan, self.device)
+        rebuilt = self._check_rebuilt(flat, result, rows, synthesized)
+        if vid in self.txn_logs and n_steps > 0 and self._owns_txn(vid):
+            # Exactly once: its pending shards, rebuilt on the rank that
+            # holds its transactions.
+            self.txn_logs[vid].drop_uncommitted_shards(sub)
+            self._rebuild_txn_shards(vid, sub, result, from_epoch, fence,
+                                     n_steps)
+        restored = self._restored_log(
+            one_dev if not synthesized else None, rebuilt, flat,
+            from_epoch, fence, ck_head)
+        carry = self._graft_lane(carry, vid, sub - comp.vblock[vid][0],
+                                 result, fence, n_steps)
+        log_piece = (self._host({
+            "log": restored,
+            "rc": int(piece["rc"]) + result.records_replayed})
+            if lead else None)
+        return (carry, log_piece, mgr, rec.plan_restore_nbytes(plan),
+                result.records_replayed, len(rows), tp)
 
     def _ring_bounds_dev(self) -> Optional[torch.Tensor]:
         """Device ``[R, 2]`` (tail, head) of every in-flight ring —
@@ -2849,13 +3028,13 @@ class ClusterRunner:
                   if e < cur else n_steps)
             tl.rebuild_shard(e, sub, steps_slice(lo, min(hi, n_steps)))
 
-    def _reread_feed(self, vid: int, sub: int, snap: LeanSnapshot,
+    def _reread_feed(self, vid: int, sub: int, offset: int,
                      rows: np.ndarray, n_steps: int) -> List[RecordBatch]:
-        """A host-fed source's lost input batches: the offset from the
-        checkpointed operator state, each step's count from its recorded
-        BUFFER_BUILT determinant, the records from the rewindable reader.
-        Returns recovery-block-sized chunks (zero-padded tail), uploaded
-        in one pinned copy."""
+        """A host-fed source's lost input batches: from ``offset`` (the
+        checkpointed operator state's), each step's count from its
+        recorded BUFFER_BUILT determinant, the records from the rewindable
+        reader (on a mesh, the owning rank's). Returns recovery-block-sized
+        chunks (zero-padded tail), uploaded in one pinned copy."""
         reader = self.executor.feed_readers.get(vid)
         if reader is None:
             raise rec.RecoveryError(
@@ -2864,7 +3043,6 @@ class ClusterRunner:
         b = self.job.vertices[vid].operator.batch_size
         anchors = det.sync_anchors(rows)[:n_steps]
         counts = rows[anchors + 3, det.LANE_P].astype(np.int64)
-        offset = int(snap.op_states[vid]["offset"][sub].cpu())
         ch = self._recovery_ch
         padded = -(-n_steps // ch) * ch
         host = np.zeros((3, padded, b), np.int32)
@@ -2964,7 +3142,8 @@ class ClusterRunner:
                 raw = (ifl.slice_steps_at(el, h_start, ch) if window is None
                        else RecordBatch(*(x[i * ch:(i + 1) * ch]
                                           for x in window)))
-                if h_need and lo_real < ring_lo:
+                # A mesh's window arrives with its spilled steps in place.
+                if h_need and lo_real < ring_lo and window is None:
                     raw = self._splice_spilled(
                         raw, ri, e.src, fence, h_start,
                         min(h_start + ch, ring_lo),

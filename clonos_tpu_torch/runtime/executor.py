@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import time as _time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -70,7 +71,8 @@ class StepInputs(NamedTuple):
 
 
 class BlockInputs(NamedTuple):
-    """Host-fed inputs for a block of K supersteps."""
+    """Host-fed inputs for a block of K supersteps (``feeds``: each feed
+    vertex's lanes this rank runs)."""
 
     times: torch.Tensor       # int32[K]
     rng_bits: torch.Tensor    # int32[K]
@@ -384,9 +386,12 @@ class CompiledJob:
                 ins = shifted(in_edges[0])
                 consumed = ins.count()
             elif vid in self.feed_vertices and binputs.feeds:
+                # The rank's own lanes [lo, hi): a rank pulls only those.
                 ins = binputs.feeds[self.feed_vertices.index(vid)]
-                if p < v.parallelism:
-                    ins = RecordBatch(*(x[:, lo:hi] for x in ins))
+                if ins.keys.shape[1] != p:
+                    raise ValueError(
+                        f"feed of vertex {vid}: {ins.keys.shape[1]} lanes, "
+                        f"this rank runs {p}")
                 consumed = ins.count()
             else:
                 ins = empty((K, p, self.vertex_out_capacity(vid)), dev)
@@ -802,8 +807,6 @@ class LocalExecutor:
                  seed: int = 0, logical_time: bool = False,
                  device="cuda", mesh=None, task_axis: str = "tasks"):
         self.device = _device.resolve(device)
-        if mesh is not None and spool_dir is not None:
-            raise ValueError("tiered spill is not supported on a mesh")
         self.compiled = CompiledJob(job, log_capacity=log_capacity,
                                     max_epochs=max_epochs,
                                     inflight_ring_steps=inflight_ring_steps,
@@ -811,11 +814,15 @@ class LocalExecutor:
                                     mesh=mesh, task_axis=task_axis)
         #: the task mesh (None: the job is one implicit shard)
         self.mesh = mesh
-        #: the pipelined fence worker's own gloo group over the mesh
-        self._fence_group = None
+        #: the pipelined fence worker's own gloo group over the mesh, and
+        #: the driving thread's for host-only agreements (a failed feed
+        #: pull, the checkpoint-completion gate, a recovery step that
+        #: failed on one rank)
+        self._fence_group = self._host_group = None
         if mesh is not None:
             from clonos_tpu_torch.parallel import distributed as dist_
             self._fence_group = dist_.fence_group(mesh, task_axis)
+            self._host_group = dist_.fence_group(mesh, task_axis)
         self.job = job
         self.steps_per_epoch = steps_per_epoch
         self.block_steps = min(block_steps or 512, steps_per_epoch,
@@ -846,9 +853,15 @@ class LocalExecutor:
         #: capture_fence at the same fence
         self._log_window_cache: Optional[Tuple[int, tuple]] = None
         # Tiered storage: one spill owner per ring vertex and one store
-        # for the stacked determinant logs (None = spill off).
+        # for the stacked determinant logs (None = spill off). On a mesh
+        # each rank spills its own lanes of every sharded ring and its own
+        # log block under ``spool_dir/rank<r>``; a ring or a log stack
+        # that does not split is spilled by rank 0 alone (the entry is
+        # None on the other ranks). Policies and host budgets are a
+        # rank's.
         self.spill_policy = spill_policy
-        self.spill_logs: Optional[List[ifl.SpillingInFlightLog]] = None
+        self.spill_logs: Optional[List[Optional[
+            ifl.SpillingInFlightLog]]] = None
         self.det_store = None
         #: per-ring epochs (epoch, first step, steps) the AVAILABILITY
         #: policy deferred, awaiting a later spill or truncation
@@ -856,15 +869,21 @@ class LocalExecutor:
             [] for _ in self.compiled.ring_vertices]
         if spool_dir is not None:
             from clonos_tpu_torch.storage import TieredEpochStore
+            comp = self.compiled
+            lead = comp.shard == 0
+            if mesh is not None:
+                spool_dir = os.path.join(spool_dir, f"rank{comp.shard}")
             self.spill_logs = [
                 ifl.SpillingInFlightLog(
                     spool_dir, edge_id=vid, policy=spill_policy,
                     host_budget_epochs=spill_host_budget_epochs)
-                for vid in self.compiled.ring_vertices]
-            self.det_store = TieredEpochStore(
-                spool_dir, "dets",
-                durable=spill_policy != ifl.SpillPolicy.DISABLED,
-                host_budget_epochs=spill_host_budget_epochs)
+                if lead or comp.sharded(vid) else None
+                for vid in comp.ring_vertices]
+            if lead or comp.lblock != (0, comp.L):
+                self.det_store = TieredEpochStore(
+                    spool_dir, "dets",
+                    durable=spill_policy != ifl.SpillPolicy.DISABLED,
+                    host_budget_epochs=spill_host_budget_epochs)
         # Epoch 0 starts at log offset 0 for every log.
         self.carry = self._roll(self.compiled.init_carry(self.device), 0)
         #: vid -> FeedReader of a HostFeedSource vertex
@@ -903,30 +922,58 @@ class LocalExecutor:
 
     def register_feed(self, vertex_id: int, reader) -> None:
         """Attach a rewindable reader (``api/feeds.py``) to a
-        HostFeedSource vertex."""
+        HostFeedSource vertex. On a mesh every rank registers its own
+        reader of the same feed (it pulls only its own lanes); a
+        ``SocketFeedReader`` is refused there, since each rank's would
+        open its own connection and deal the lines it reads over every
+        partition."""
+        from clonos_tpu_torch.api.feeds import SocketFeedReader
         if vertex_id not in self.compiled.feed_vertices:
             raise ValueError(f"vertex {vertex_id} is not a HostFeedSource")
+        if self.compiled.n_shards > 1 and isinstance(reader,
+                                                      SocketFeedReader):
+            raise ValueError("SocketFeedReader is not supported on a "
+                             "multi-rank mesh")
         self.feed_readers[vertex_id] = reader
 
     def _pull_feeds(self, k: int) -> Tuple[RecordBatch, ...]:
         """k steps' worth of records from every feed reader as stacked
-        ``[k, P, B]`` batches: one pinned, non-blocking upload per feed."""
+        ``[k, P, B]`` batches: one pinned, non-blocking upload per feed.
+
+        On a mesh a rank pulls only the lanes it runs (``[k, hi - lo,
+        B]``); a feed vertex whose parallelism does not split is pulled
+        whole on every rank, each from its own reader, which holds the
+        same state on every rank. A pull that raises on one rank is
+        settled across the ranks (:func:`~clonos_tpu_torch.parallel.
+        distributed.agree`) before the block's first collective, so every
+        rank raises there and none waits for it."""
         feeds = []
+        err: Optional[BaseException] = None
         for vid in self.compiled.feed_vertices:
             v = self.job.vertices[vid]
             b = v.operator.batch_size
+            lo, hi = self.compiled.vblock[vid]
             reader = self.feed_readers.get(vid)
-            if reader is None:
-                feeds.append(empty((k, v.parallelism, b), self.device))
+            if reader is None or err is not None:
+                feeds.append(empty((k, hi - lo, b), self.device))
                 continue
-            host = np.zeros((3, k, v.parallelism, b), np.int32)
-            for s in range(v.parallelism):
-                ks, vs, cnt = reader.pull_block(s, b, k)
-                host[0, :, s], host[1, :, s] = ks, vs
-                host[2, :, s] = np.arange(b)[None, :] < cnt[:, None]
+            host = np.zeros((3, k, hi - lo, b), np.int32)
+            try:
+                for s in range(lo, hi):
+                    ks, vs, cnt = reader.pull_block(s, b, k)
+                    host[0, :, s - lo], host[1, :, s - lo] = ks, vs
+                    host[2, :, s - lo] = np.arange(b)[None, :] < cnt[:, None]
+            except Exception as e:          # settled below, on every rank
+                err = e
             arr = _device.upload(host, self.device)
             feeds.append(RecordBatch(arr[0], arr[1], torch.zeros_like(arr[0]),
                                      arr[2] != 0))
+        if self.compiled.n_shards > 1 and self.compiled.feed_vertices:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            dist_.agree(err, self.mesh, self.compiled.task_axis,
+                        group=self._host_group)
+        elif err is not None:
+            raise err
         return tuple(feeds)
 
     def _next_block_inputs(self, k: int) -> BlockInputs:
@@ -1012,6 +1059,8 @@ class LocalExecutor:
         for i, el in enumerate(self.carry.out_rings):
             S = el.ring_steps
             sl = self.spill_logs[i]
+            if sl is None:
+                continue                 # another rank spills this ring
             if (self.spill_policy == ifl.SpillPolicy.AVAILABILITY
                     and (hi - self._ring_tail) / S
                     < sl.availability_trigger):
@@ -1044,7 +1093,8 @@ class LocalExecutor:
         gather the pipelined fence's capture uses."""
         counts, flat_d, rel_d, starts, rows = self._log_window(epoch, lo, hi)
         nmax = max(int(counts.max()) if counts.size else 0, 1)
-        padded = torch.zeros((self.compiled.L, nmax, det.NUM_LANES),
+        # On a mesh: this rank's log block.
+        padded = torch.zeros((len(counts), nmax, det.NUM_LANES),
                              dtype=torch.int32, device=self.device)
         padded[flat_d, rel_d] = rows
         self.det_store.put(epoch, None, _device.HostCopy({
@@ -1078,7 +1128,7 @@ class LocalExecutor:
     def _tier_stores(self) -> list:
         out = []
         if self.spill_logs is not None:
-            out.extend(sl.store for sl in self.spill_logs)
+            out.extend(sl.store for sl in self.spill_logs if sl is not None)
         if self.det_store is not None:
             out.append(self.det_store)
         return out
@@ -1091,7 +1141,7 @@ class LocalExecutor:
         if self.spill_logs is not None:
             for i, vid in enumerate(self.compiled.ring_vertices):
                 ch = dg.channels.get(f"ring/v{vid}")
-                if ch is not None:
+                if ch is not None and self.spill_logs[i] is not None:
                     self.spill_logs[i].attach_digest(epoch, ch[1].hex())
         if self.det_store is not None:
             h = hashlib.blake2b(digest_size=8)
@@ -1105,10 +1155,15 @@ class LocalExecutor:
         tier holds it — equal to ``epoch_window(epoch)["logs"][flat]``
         taken at the seal."""
         if self.det_store is None:
-            raise RuntimeError("determinant tier disabled (no spool_dir)")
+            raise RuntimeError("determinant tier disabled (no spool_dir, "
+                               "or another rank holds this log block)")
+        llo, lhi = self.compiled.lblock
+        if not llo <= flat < lhi:
+            raise ValueError(f"log {flat} is not in this rank's block "
+                             f"[{llo}, {lhi})")
         _, arrs = self.det_store.load_epoch(epoch)
-        c = int(np.asarray(arrs["counts"])[flat])
-        return np.ascontiguousarray(np.asarray(arrs["rows"])[flat, :c])
+        c = int(np.asarray(arrs["counts"])[flat - llo])
+        return np.ascontiguousarray(np.asarray(arrs["rows"])[flat - llo, :c])
 
     def spill_occupancy(self) -> Dict[str, int]:
         """Tier residency summed across every spill owner (rings + dets)."""
@@ -1347,9 +1402,12 @@ class LocalExecutor:
             if (self.spill_logs is not None
                     and lo < self._steps_executed - el.ring_steps):
                 # A wrap clobbered the epoch's leading steps: read them
-                # from the spill tiers.
-                spilled[vid] = self._spilled_ring_window(
-                    self.compiled.ring_index[vid], epoch, int(lo), int(hi))
+                # from the spill tiers (a ring that does not split is rank
+                # 0's; the merge takes that ring from rank 0's piece).
+                ri = self.compiled.ring_index[vid]
+                spilled[vid] = ([] if self.spill_logs[ri] is None else
+                                self._spilled_ring_window(ri, epoch, int(lo),
+                                                          int(hi)))
                 continue
             recs, counts = _slice_ring_window(el, lo, hi, n)
             pieces += [counts, recs.reshape(-1)]
@@ -1470,11 +1528,13 @@ class LocalExecutor:
             log_heads=c.logs.head.clone(),
             ring_heads=tuple(r.head.clone() for r in c.out_rings))
 
-    def lean_snapshot(self) -> Optional[LeanSnapshot]:
-        """The fence snapshot (:meth:`local_lean_snapshot`). On a mesh the
-        sharded leaves gather to rank 0, which gets the whole snapshot,
-        byte for byte an unsharded one's; the other ranks get None."""
-        snap = self.local_lean_snapshot()
+    def lean_snapshot(self, local: Optional[LeanSnapshot] = None
+                      ) -> Optional[LeanSnapshot]:
+        """The fence snapshot (``local``, default
+        :meth:`local_lean_snapshot`). On a mesh the sharded leaves gather
+        to rank 0, which gets the whole snapshot, byte for byte an
+        unsharded one's; the other ranks get None."""
+        snap = self.local_lean_snapshot() if local is None else local
         if self.mesh is None:
             return snap
         from clonos_tpu_torch.parallel import distributed as dist_

@@ -22,12 +22,17 @@ operation (pending write, commit, :meth:`FileSystemSink.sweep_pending`)
 raises ``PermissionError`` unless this incarnation holds the lease, so a
 deposed writer sharing the root cannot delete or certify the new
 leader's parts.
+
+``subtasks`` names the sink subtasks this writer owns (a rank's lanes
+when the job is sharded over a mesh and every rank writes under one
+root): its commits and sweeps touch only their parts, so two ranks never
+rename or delete each other's. None owns every subtask.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,11 +40,18 @@ import numpy as np
 class FileSystemSink:
     """One sink vertex's durable part-file store."""
 
-    def __init__(self, root: str, fencing=None, token: int = 0):
+    def __init__(self, root: str, fencing=None, token: int = 0,
+                 subtasks: Optional[Sequence[int]] = None):
         self.root = root
         self.fencing = fencing
         self.token = int(token)
+        self.subtasks = None if subtasks is None else set(subtasks)
         os.makedirs(root, exist_ok=True)
+
+    def _mine(self, fn: str) -> bool:
+        """True when part file ``fn`` is one of this writer's subtasks'."""
+        return self.subtasks is None or (
+            fn.startswith("part-") and self._parse(fn)[1] in self.subtasks)
 
     def _check_fencing(self, what: str) -> None:
         if self.fencing is not None and not self.fencing.is_leader():
@@ -81,7 +93,7 @@ class FileSystemSink:
         self._check_fencing("commit")
         for fn in sorted(os.listdir(self.root)):
             if not (fn.startswith(f"part-{epoch}-")
-                    and fn.endswith(".pending")):
+                    and fn.endswith(".pending")) or not self._mine(fn):
                 continue
             if self._parse(fn)[2] > self.token:
                 continue
@@ -98,6 +110,8 @@ class FileSystemSink:
         keep = set(keep_epochs)
         removed = []
         for fn in sorted(os.listdir(self.root)):
+            if not self._mine(fn):
+                continue
             if fn.endswith(".tmp"):
                 if self._parse(fn)[2] <= self.token:
                     os.remove(os.path.join(self.root, fn))

@@ -63,33 +63,36 @@ class TransactionLog:
             raise RuntimeError(f"epoch {epoch} transaction already sealed")
         return txn
 
-    def _shard(self, txn: _Txn, keys, values, timestamps, valid) -> None:
+    def _shard(self, txn: _Txn, keys, values, timestamps, valid,
+               lane0: int = 0) -> None:
         for sub in range(keys.shape[1]):
             m = valid[:, sub].reshape(-1)
-            txn.shards.setdefault(sub, []).append(np.stack(
+            txn.shards.setdefault(lane0 + sub, []).append(np.stack(
                 [keys[:, sub].reshape(-1)[m], values[:, sub].reshape(-1)[m],
                  timestamps[:, sub].reshape(-1)[m]], axis=1))
 
-    def absorb(self, epoch: int, copy) -> None:
+    def absorb(self, epoch: int, copy, lane0: int = 0) -> None:
         """Append one block's sink emissions, a ``device.HostCopy`` of its
         ``[K, P, cap]`` RecordBatch, to the epoch's pending transaction;
-        they are sharded per subtask when the epoch settles."""
+        they are sharded per subtask when the epoch settles. ``lane0`` is
+        the global subtask of the block's first lane (a rank's lanes on a
+        mesh)."""
         with self._lock:
             if epoch <= self.committed_through:
                 return
             self._open(epoch)
-            self._copies.setdefault(epoch, []).append(copy)
+            self._copies.setdefault(epoch, []).append((copy, lane0))
 
     def _settle(self, epoch: int) -> None:
         """Wait for an epoch's queued copies (outside the lock: the main
         thread may keep queueing later epochs) and shard them."""
         with self._lock:
             copies = self._copies.pop(epoch, [])
-        for c in copies:
+        for c, lane0 in copies:
             b = c.wait()
             with self._lock:
                 self._shard(self._pending[epoch], b.keys, b.values,
-                            b.timestamps, b.valid)
+                            b.timestamps, b.valid, lane0)
 
     def _settle_all(self) -> None:
         with self._lock:

@@ -235,31 +235,24 @@ def test_headline_carry_placements_equal_reference(parallelism, n,
 
 def test_mesh_refuses_what_it_does_not_run(tmp_path):
     """On a mesh (here one rank over an in-memory store), what the
-    sharded path does not run is refused at construction: spill,
-    incremental checkpoints, transactional sinks and host-fed sources,
-    and a re-cut or a standby bootstrap onto a mesh."""
+    sharded path does not run is refused: a live re-cut, a re-cut restore
+    and a standby bootstrap onto a mesh, each with its message (spill,
+    incremental checkpoints, transactional sinks and host-fed sources run
+    on a mesh: ``tests/test_torch_mesh_*.py``)."""
     from clonos_tpu_torch.api.environment import StreamEnvironment
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
-    from clonos_tpu_torch.runtime.executor import LocalExecutor
 
-    def job(transactional=False):
+    def job():
         env = StreamEnvironment(num_key_groups=8, default_edge_capacity=16)
         (env.synthetic_source(vocab=5, batch_size=4, parallelism=2)
             .key_by().window_count(num_keys=5, window_size=4)
-            .sink(transactional=transactional))
+            .sink())
         return env.build()
 
     kw = dict(steps_per_epoch=4, log_capacity=64, max_epochs=8,
               inflight_ring_steps=8, device="cpu")
     try:
         mesh = dist.task_mesh(device="cpu")
-        with pytest.raises(ValueError, match="spill"):
-            LocalExecutor(job(), spool_dir=str(tmp_path), mesh=mesh, **kw)
-        with pytest.raises(ValueError, match="incremental"):
-            ClusterRunner(job(), checkpoint_dir=str(tmp_path / "c"),
-                          incremental_checkpoints=True, mesh=mesh, **kw)
-        with pytest.raises(ValueError, match="transactional"):
-            ClusterRunner(job(transactional=True), mesh=mesh, **kw)
         r = ClusterRunner(job(), mesh=mesh, **kw)
         with pytest.raises(ValueError, match="rescale_live"):
             r.rescale_live(job())
