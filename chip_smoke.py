@@ -175,7 +175,25 @@ Phases:
      two gloo ranks; (e) (b)-(c) again with the pipelined fence, whose
      worker gathers each fence to rank 0 over its own gloo group; and
      what NCCL says when two ranks share one card, printed as it said
-     it.
+     it. Timers on the killed subtask fire again once after its
+     recovery, on the rank that runs it alone.
+ 18. the sharded deployment's host boundaries and storage
+     (``[mesh-storage]``) at config #4's widths: (a) a host-fed source,
+     (b) a transactional file sink under a lineage plane (rank 0's
+     observation file equal to the control's, every rank's sink termini
+     in it), (c) tiered spill (every rank's segment index records carry
+     the ledger's digests), (d) incremental checkpoints, each on one NCCL
+     rank and two gloo ranks against an unsharded control.
+ 19. rebuilding and re-cutting a job on a mesh (``[mesh-rebuild]``), each
+     on one NCCL rank and two gloo ranks against an unsharded control:
+     (a) ``bootstrap_standby`` from the checkpoint directory and the
+     mirror rows (its wall and phases), (b) ``restore_rescaled`` 8 -> 16
+     from a 2-rank mesh's checkpoint, (c) ``rescale_live`` 8 -> 16 -> 8 by
+     the autoscaler (each re-cut's fence stall), (d) phase 11's socket
+     wordcount with rank 0's one reader for every rank (records/s beside
+     phase 11's): sealed ledgers, state digests and committed offsets
+     equal to the control's, every keyed_hist launch of (a)'s epoch after
+     the rebuild and of (b) equal to its plain version.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -183,6 +201,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -315,6 +334,15 @@ MESH_C4_SHAPES = (
     ("c4-route-8", 512, 512, 4096, False),
     ("c4-window-8", 512 * 8, 512, 499, False),
 )
+#: the rescale job split over two ranks (phase 19): a rank routes its 4
+#: of 8 sink lanes (4 x 1,024 slots) of the gathered reduce block, the
+#: reduce's 8 x 1,152 static-route slots at 8 keyed lanes and its 16 x
+#: 1,280 at 16
+MESH_RESCALE_SHAPES = tuple(
+    (label, 512, b, 4 * EDGE_CAPACITY, counts)
+    for label, b in (("sink-route-8-r4", PAR * 1152),
+                     ("sink-route-16-r4", 16 * 1280))
+    for counts in (True, False))
 #: the wordcount job's shapes (phase 11: 4 x 64 records a step, edge
 #: capacity 256, 1,000 keys): a 16-step block's exchange routes 256
 #: records a step into 1,024 slots, its window counts 64 rows (16 steps x
@@ -324,6 +352,15 @@ WC_SHAPES = (
     ("wc-route", 16, 256, 1024, False),
     ("wc-window", 64, 256, 1000, False),
     ("wc-lane", 16, 256, 256, True),
+)
+#: the socket wordcount's shapes (phase 19 (d)'s first epoch, checked
+#: against the plain version: 1 x 64 records a step, edge capacity 256,
+#: 1,000 keys): a 16-step block's exchange routes 64 records a step into
+#: 256 slots, its window counts 16 rows of 256
+WC_SOCKET_SHAPES = (
+    ("socket-route", 16, 64, 256, True),
+    ("socket-route", 16, 64, 256, False),
+    ("socket-window", 16, 256, 1000, False),
 )
 #: one launch's least device time (R=1 B=16 nk=16, sums only): the
 #: yardstick for rows whose bound is below it; the headline window shape
@@ -375,8 +412,10 @@ SOAK_SHAPES = (
 )
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
-    {s[0] for s in C45_SHAPES + WC_SHAPES + FLOOR_SHAPES + SKEW_SHAPES
-     + RESCALE_SHAPES + SOAK_SHAPES + MESH_C4_SHAPES})
+    {s[0] for s in C45_SHAPES + WC_SHAPES + WC_SOCKET_SHAPES
+     + FLOOR_SHAPES + SKEW_SHAPES
+     + RESCALE_SHAPES + SOAK_SHAPES + MESH_C4_SHAPES
+     + MESH_RESCALE_SHAPES})
 #: the route shape as views one element into their buffers (the kernel's
 #: unaligned branch): checked bit for bit, not timed
 ALIGN_SHAPES = (("align", 512, PAR * BATCH, PAR * EDGE_CAPACITY, True),)
@@ -432,23 +471,27 @@ def _time_ms(fn, iters=20, reps=5) -> float:
 def _device_ms(fn, name_part="hist_", iters=50):
     """Device time per call of the kernels ``fn`` launches whose name holds
     ``name_part`` (every kernel for None), from torch.profiler's CUPTI
-    trace; None when the trace shows no device time."""
+    trace; None when the trace shows no device time twice running (a
+    session's trace now and then comes back empty)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        sync()
-    from torch.autograd import DeviceType
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and (
-                name_part is None or name_part in ev.key):
-            total_us += float(getattr(ev, "device_time_total", 0.0)
-                              or getattr(ev, "cuda_time_total", 0.0))
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and (
+                    name_part is None or name_part in ev.key):
+                total_us += float(getattr(ev, "device_time_total", 0.0)
+                                  or getattr(ev, "cuda_time_total", 0.0))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return None
 
 
 def _time_pair_ms(fn_a, fn_b, iters=20, reps=9):
@@ -504,7 +547,8 @@ def phase_kernels():
     for i, (label, r, b, nk, counts) in enumerate(
             MAIN_SHAPES + C45_SHAPES + WC_SHAPES + EDGE_SHAPES
             + FLOOR_SHAPES + SKEW_SHAPES + ALIGN_SHAPES + RESCALE_SHAPES
-            + SOAK_SHAPES + MESH_C4_SHAPES):
+            + SOAK_SHAPES + MESH_C4_SHAPES + MESH_RESCALE_SHAPES
+            + WC_SOCKET_SHAPES):
         keys, vals, valid = _inputs(r, b, nk, 100 + i, dev, label)
         aligned = all(a.data_ptr() % 16 == 0 for a in (keys, vals, valid))
         smem_optin, sms = hist._device_info(keys.get_device())
@@ -2453,6 +2497,9 @@ HB_INTERVAL_S = 0.2
 #: (a): seeded key:value lines sent over TCP (40 blocks of the socket
 #: source's batch of 64), a window kill this many steps past a fence
 SOCKET_LINES = 40 * 64
+#: phase 11 (a)'s source records/s (lines read over its drive's wall),
+#: which phase 19 (d) prints its own beside
+PHASE11_RECORDS_PER_S = None
 SOCKET_SEED = 11
 SOCKET_KILL_AT = 5
 #: in-process refresh timing: fences of the same job
@@ -2542,6 +2589,8 @@ def phase_socket_wordcount(dev_line):
     finally:
         reader.close()
     source = int(runner.executor.carry.record_counts[0])
+    global PHASE11_RECORDS_PER_S
+    PHASE11_RECORDS_PER_S = source / (wall_ms / 1e3)
     if after != before:
         raise AssertionError(f"(a) digest after recovery {after} != before "
                              f"the kill {before}")
@@ -5273,9 +5322,14 @@ def phase_soak(dev_line, root, rows=None):
 
 # --- phase 17 ---------------------------------------------------------------
 
+#: phases 17 and 19's epochs: one 512-step block each (phase 7: 1,024
+#: steps, two blocks)
+MESH_SPE = 512
+
 PHASE17_REDUCTIONS = (
-    "the headline job at phase 7's widths and settings (1,024-step epochs, "
-    "512-step blocks, audit on, checkpoints on disk, the sequential fence) "
+    f"the headline job at phase 7's widths and settings ({MESH_SPE}-step "
+    f"epochs of one {BLOCK_STEPS}-step block (phase 7: 1,024-step epochs), "
+    "audit on, checkpoints on disk, the sequential fence) "
     "on a torch.distributed task mesh: one rank over NCCL, and two ranks "
     "sharing the one card over gloo, every collective staged through "
     "pinned host memory (a reading of that protocol, not of a link "
@@ -5285,6 +5339,10 @@ PHASE17_REDUCTIONS = (
 #: the killed subtask: window lane 6, in rank 1's vertex block (4-7) of
 #: two; its log row and record count sit in rank 0's log block (0-15)
 MESH_KILL = (1, 6)
+#: timers on the killed window subtask, in logical ms (steps): three fire
+#: inside the replayed span (epoch 2, left pending), the last stays
+#: pending; the owning rank's callback log must read them twice
+MESH_TIMERS = tuple(int(f * MESH_SPE) for f in (2.1, 2.6, 2.95, 5))
 #: seconds each rank of phase 17 may run
 MESH_RANK_TIMEOUT_S = 300
 
@@ -5345,6 +5403,11 @@ def _mesh_schedule(r, kill_flat, checked=None):
     sharded = r.mesh is not None
     counts = (lambda: _mesh_counts(r)) if sharded else (
         lambda: r.executor.carry.record_counts.cpu().numpy())
+    fired = []
+    svc = r.timer_service(kill_flat)
+    svc.register_callback(fired.append, callback_id=7)
+    for t in MESH_TIMERS:
+        svc.register_timer(t, 7)
     if checked is not None:
         with checked:
             r.run_epoch(complete_checkpoint=True)
@@ -5365,7 +5428,7 @@ def _mesh_schedule(r, kill_flat, checked=None):
     stats = dict(dist_.STATS)
     rc1 = counts()
     lo, hi = r.executor.compiled.vblock[0]
-    blocks = 2 * (STEPS_PER_EPOCH // BLOCK_STEPS)
+    blocks = 2 * (MESH_SPE // BLOCK_STEPS)
     out = dict(
         source_records_per_s=float((rc1[:PAR] - rc0[:PAR]).sum()) / wall,
         own_source_records_per_s=float(
@@ -5407,14 +5470,25 @@ def _mesh_schedule(r, kill_flat, checked=None):
     r.run_epoch(complete_checkpoint=True)
     r.drain_fence()
     out["pipelined"] = "fence.overlap-saved" in r.last_fence_phases
+    out["timers"] = fired
+    out["timer_rank"] = (r._vertex_ranks(*r._vertex_of(kill_flat))[0]
+                         if sharded else 0)
     return out
+
+
+def _mesh_kw():
+    """Phases 17 and 19's runner settings: the headline's at
+    MESH_SPE-step epochs; ring and log hold two epochs."""
+    return dict(runner_kw(), steps_per_epoch=MESH_SPE,
+                log_capacity=1 << (2 * MESH_SPE * DETS_PER_STEP).bit_length(),
+                inflight_ring_steps=1 << (2 * MESH_SPE - 1).bit_length())
 
 
 def _mesh_runner(root, tag, mesh, device, overlap=False):
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
     return ClusterRunner(build_job(), device=device, audit=True,
                          checkpoint_dir=os.path.join(root, tag), mesh=mesh,
-                         overlap_epoch=overlap, **runner_kw())
+                         overlap_epoch=overlap, **_mesh_kw())
 
 
 def _mesh_rank(ctx, root, tag, overlap=False):
@@ -5510,6 +5584,9 @@ def phase_mesh(dev_line, root, rows):
     launches["mesh_control"] = {
         "keyed_hist": keyed_hist.launches_counts,
         "keyed_hist_sums": keyed_hist.launches - keyed_hist.launches_counts}
+    if ctl["timers"] != list(MESH_TIMERS[:3]) * 2:
+        raise AssertionError(f"phase 17: the control's timer log "
+                             f"{ctl['timers']}")
     ctl_ledger = control.coordinator.read_ledger()
     ctl_digest = control.state_digest()
     control.coordinator.storage._close_ledger()
@@ -5574,6 +5651,13 @@ def phase_mesh(dev_line, root, rows):
         modes = [r["pipelined"] for r in res]
         if modes != [name.endswith("pipelined")] * n:
             problems.append(f"{name}: pipelined fence per rank {modes}")
+        # The recovered timers re-fire once, on the rank that runs the
+        # killed subtask (nothing on the others).
+        for r in res:
+            want = ctl["timers"] if r["rank"] == r["timer_rank"] else []
+            if r["timers"] != want:
+                problems.append(f"{name} rank {r['rank']}: timer log "
+                                f"{r['timers']} != {want}")
         owners = [r["report"]["managers"] for r in res]
         if owners != ([1] if n == 1 else [0, 1]):
             problems.append(f"{name}: managers per rank {owners} (the "
@@ -5749,14 +5833,26 @@ def _p18_hashes(root):
             for fn, data in _files(root).items() if fn.endswith(".final")}
 
 
-def _p18_egress(mesh, device, root, kill=True):
+def _p18_egress(mesh, device, root, kill=True, lineage_root=None):
     """(b) config #4 with a transactional file sink under ``root``: one
     completed epoch, one pending, the kill (unless ``kill`` is False: the
-    never-failed run) recovered, one completed epoch. Returns readings."""
+    never-failed run) recovered, one completed epoch; with
+    ``lineage_root``, under a ``LineagePlane(k=3)`` there (rank 0's file
+    holds every rank's sink termini). Returns readings."""
+    import hashlib
+
+    from clonos_tpu_torch.obs.lineage import LineagePlane
     from clonos_tpu_torch.parallel import distributed as dist_
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
     kw = dict(_c4_kw(), inflight_ring_steps=2 * C4_SPE,
               log_capacity=1 << (2 * C4_SPE * 8 - 1).bit_length())
+    plane = None
+    if lineage_root is not None:
+        # Each rank's plane under its own directory.
+        lineage_root = os.path.join(lineage_root, "r0" if mesh is None
+                                    else f"r{dist_.mesh_rank(mesh)}")
+        plane = LineagePlane(lineage_root, service="run", k=3)
+        kw["lineage"] = plane
     r = ClusterRunner(build_c4_job(transactional=True), device=device,
                       mesh=mesh, audit=True, **kw)
     r.executor.register_feed(0, _feed_reader(C4_SEED, 4 * C4_SPE
@@ -5774,6 +5870,18 @@ def _p18_egress(mesh, device, root, kill=True):
     r.run_epoch(complete_checkpoint=True)
     if mesh is not None:
         dist_.barrier(mesh)
+    if plane is not None:
+        plane.close()
+        path = os.path.join(lineage_root, "lineage-run.jsonl")
+        if r.rank == 0:
+            with open(path, "rb") as f:
+                raw = f.read()
+            out["lineage"] = dict(
+                sha1=hashlib.sha1(raw).hexdigest(), bytes=len(raw),
+                sink_rows=raw.count(b'"kind": "sink"'))
+        else:
+            out["lineage"] = dict(bytes=(os.path.getsize(path)
+                                         if os.path.exists(path) else 0))
     out.update(committed=fs.committed_epochs(),
                pending=sorted(f for f in os.listdir(root)
                               if f.endswith(".pending")),
@@ -5810,9 +5918,29 @@ def _p18_spill(mesh, device, root):
                ledger=r.coordinator.read_ledger() if r.rank == 0 else None,
                digest=r.state_digest())
     r.executor.close_spill()
+    out["index_digests"] = _index_digests(
+        root if mesh is None else os.path.join(root, f"rank{r.rank}"))
     # This rank's spool (up to ~1 GB at these widths) goes now.
     shutil.rmtree(root if mesh is None else os.path.join(
         root, f"rank{r.rank}"), ignore_errors=True)
+    return out
+
+
+def _index_digests(spool):
+    """Every segment index under ``spool``: store name -> epoch (truncated
+    or live) -> the digest its last index record carries (None: never
+    stamped)."""
+    out = {}
+    for fn in sorted(os.listdir(spool)):
+        if not fn.endswith(".index.jsonl"):
+            continue
+        eps = {}
+        with open(os.path.join(spool, fn)) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("kind") in ("segment", "digest"):
+                    eps[rec["epoch"]] = rec.get("digest")
+        out[fn[:-len(".index.jsonl")]] = {str(e): d for e, d in eps.items()}
     return out
 
 
@@ -5862,7 +5990,9 @@ def _p18_all(mesh, device, root, checked=None):
     for name, fn in (
             ("a", lambda: _p18_feeds(mesh, device, checked)),
             ("b", lambda: _p18_egress(mesh, device,
-                                      os.path.join(root, "sink"))),
+                                      os.path.join(root, "sink"),
+                                      lineage_root=os.path.join(
+                                          root, "lineage"))),
             ("c", lambda: _p18_spill(mesh, device,
                                      os.path.join(root, "spill"))),
             ("d", lambda: _p18_incremental(mesh, device,
@@ -5932,6 +6062,28 @@ def _p18_check(name, res, ctl, golden_b, row_of):
     if any(r["b"]["pending"] for r in res):
         problems.append(f"{name} (b): pendings left "
                         f"{[r['b']['pending'] for r in res]}")
+    # (b) rank 0's lineage file holds every rank's sink termini: the
+    # control's, byte for byte; the other ranks write none.
+    if lead["b"]["lineage"] != ctl["b"]["lineage"] \
+            or not ctl["b"]["lineage"]["sink_rows"] \
+            or any(r["b"]["lineage"]["bytes"] for r in res[1:]):
+        problems.append(f"{name} (b): lineage files "
+                        f"{[r['b']['lineage'] for r in res]} != the "
+                        f"control's {ctl['b']['lineage']}")
+    # (c) every rank's segment indexes carry the ledger's digests: none
+    # left null, truncated epochs included, each the control's for that
+    # store and epoch (where a truncate overtook the control's write of
+    # an epoch, its index has no record of it).
+    for r in res:
+        if not any(r["c"]["index_digests"].values()):
+            problems.append(f"{name} rank {r['rank']} (c): no spilled "
+                            f"epoch in its indexes")
+        for store, eps in r["c"]["index_digests"].items():
+            want = ctl["c"]["index_digests"].get(store, {})
+            for e, d in eps.items():
+                if d is None or d != want.get(e, d):
+                    problems.append(f"{name} rank {r['rank']} (c): "
+                                    f"{store} epoch {e} digest {d}")
     # (c) the refill came from the lane holders' disk tiers.
     for r in res:
         if r["c"]["movement"].get("disk_hits", 0) <= 0:
@@ -5957,9 +6109,10 @@ def _p18_check(name, res, ctl, golden_b, row_of):
 
 
 def _p18_line(reading):
-    """A sub-phase's readings as printed: no ledger, digest or files."""
+    """A sub-phase's readings as printed: no ledger, digest, files or
+    index digests."""
     return {k: v for k, v in reading.items()
-            if k not in ("ledger", "digest", "files")}
+            if k not in ("ledger", "digest", "files", "index_digests")}
 
 
 def phase_mesh_storage(dev_line, root, rows):
@@ -5985,6 +6138,12 @@ def phase_mesh_storage(dev_line, root, rows):
     if ctl["b"]["files"] != golden_b["files"]:
         raise AssertionError("phase 18 (b): the unsharded control's part "
                              "files differ from the never-failed run's")
+    unstamped = [(store, e) for store, eps in
+                 ctl["c"]["index_digests"].items()
+                 for e, d in eps.items() if d is None]
+    if unstamped:
+        raise AssertionError(f"phase 18 (c): the control's index leaves "
+                             f"{unstamped} unstamped")
     for sub in "abcd":
         launches[f"mesh_storage_control_{sub}"] = ctl[sub]["launches"]
         log(f"[mesh-storage] control ({sub}): " + json.dumps(dict(
@@ -6032,6 +6191,442 @@ def phase_mesh_storage(dev_line, root, rows):
         f"({dev_line})")
     if problems:
         raise AssertionError("phase 18: " + "; ".join(problems))
+    return launches
+
+
+# --- phase 19 ---------------------------------------------------------------
+
+#: (c): the autoscaler's load at each drained fence: 8 -> 16, a hold in
+#: its cooldown, 16 -> 8
+P19_LOADS = (2.0, 2.0, 0.3)
+#: seconds each rank of phase 19 may run
+P19_RANK_TIMEOUT_S = 420
+#: the rank function the two gloo ranks run (a rehearsal names its own)
+P19_RANK_TARGET = "chip_smoke:_p19_rank"
+
+PHASE19_REDUCTIONS = (
+    "rebuilding and re-cutting a job on a mesh, each sub-phase on one NCCL "
+    "rank, on two gloo ranks sharing the card and unsharded as its "
+    f"control: the headline's and phase 15's widths ({PAR} sources x "
+    f"{BATCH} records a step, {VOCAB} keys, {NUM_KEY_GROUPS} key groups, "
+    f"edge capacity {EDGE_CAPACITY}, audit on) at phase 17's {MESH_SPE}-"
+    f"step epochs of one {BLOCK_STEPS}-step block; (a) the "
+    f"headline: one completed epoch and one pending, then the whole job "
+    f"rebuilt by bootstrap_standby from the checkpoint directory and the "
+    f"mirror rows, one epoch more; (b) restore_rescaled {PAR} -> "
+    f"{RESCALE_UP} from the checkpoint the 2-rank mesh wrote after one "
+    f"epoch, onto each run's ranks, two epochs; (c) rescale_live "
+    f"{PAR} -> {RESCALE_UP} -> {PAR} by the autoscaler (loads "
+    f"{list(P19_LOADS)}, sustain 1, cooldown 1), one epoch a fence, one "
+    f"more; (d) phase 11's socket wordcount ({SOCKET_LINES} lines, one "
+    f"connection, rank 0's reader for every rank), audit on, "
+    f"logical_time=True (phase 11: the wall clock), so that each run's "
+    f"ledger can equal its control's")
+
+
+def _p19_rank_of(mesh):
+    from clonos_tpu_torch.parallel import distributed as dist_
+    return 0 if mesh is None else dist_.mesh_rank(mesh)
+
+
+def _p19_mirror(logs):
+    """Every log's live rows ``[tail, head)`` and its tail: a standby
+    host's mirror at the dead runner's last fence (one host copy)."""
+    from clonos_tpu_torch import device as _device
+    rows, heads, tails = _device.HostCopy(
+        (logs.rows, logs.head, logs.tail)).wait()
+    cap = rows.shape[1]
+    return {f: (rows[f][np.arange(int(tails[f]), int(heads[f])) & (cap - 1)],
+                int(tails[f])) for f in range(rows.shape[0])}
+
+
+def _p19_boot(mesh, device, root, checked):
+    """(a) the headline, one completed epoch and one pending, its
+    checkpoint directory and mirror rows; the whole job rebuilt by
+    ``bootstrap_standby`` on the same ranks (timed), one more epoch
+    (under ``checked``). Returns readings."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    ck = os.path.join(root, "ck")
+    kw = dict(device=device, mesh=mesh, audit=True, **_mesh_kw())
+    dead = ClusterRunner(build_job(), checkpoint_dir=ck, **kw)
+    dead.run_epoch(complete_checkpoint=True)
+    dead.run_epoch(complete_checkpoint=False)
+    mirror = _p19_mirror(dead.executor.full_carry().logs)
+    dead_digest = dead.state_digest()
+    getattr(dead.coordinator.storage, "_close_ledger", lambda: None)()
+    del dead
+    sync()
+    t0 = time.monotonic()
+    boot, rep = ClusterRunner.bootstrap_standby(build_job(), ck, mirror,
+                                                **kw)
+    sync()
+    wall = (time.monotonic() - t0) * 1e3
+    rebuilt = boot.state_digest()
+    with checked():
+        boot.run_epoch(complete_checkpoint=True)
+    out = dict(bootstrap_wall_ms=wall, recovery_ms=rep.recovery_ms,
+               steps_replayed=rep.steps_replayed,
+               managers=len(rep.managers),
+               phase_ms={k: round(v, 3) for k, v in rep.phase_ms.items()},
+               dead_digest=dead_digest, rebuilt_digest=rebuilt,
+               ledger=(boot.coordinator.read_ledger() if boot.rank == 0
+                       else None),
+               digest=boot.state_digest())
+    getattr(boot.coordinator.storage, "_close_ledger", lambda: None)()
+    return out
+
+
+def _p19_restore(mesh, device, ck, write, checked):
+    """(b) with ``write``, the 2-rank mesh's one completed epoch at PAR
+    keyed lanes into ``ck`` (rank 0 writes); then ``restore_rescaled``
+    PAR -> RESCALE_UP from it onto ``mesh`` (rank 0 reads), timed, and
+    two epochs, all under ``checked``. Returns readings."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    from clonos_tpu_torch.runtime.checkpoint import FileCheckpointStorage
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = dict(device=device, audit=True, **_mesh_kw())
+    me = _p19_rank_of(mesh)
+    if write:
+        w = ClusterRunner(build_rescale_job(PAR), mesh=mesh,
+                          checkpoint_dir=ck, **kw)
+        with checked():
+            w.run_epoch(complete_checkpoint=True)
+        getattr(w.coordinator.storage, "_close_ledger", lambda: None)()
+        del w
+        dist_.barrier(mesh)
+    ckpt = None
+    if me == 0:
+        st = FileCheckpointStorage(ck)
+        ckpt = st.read(max(st.completed_ids()))
+    with checked():
+        sync()
+        t0 = time.monotonic()
+        res = ClusterRunner.restore_rescaled(
+            build_rescale_job(RESCALE_UP), build_rescale_job(PAR), ckpt,
+            mesh=mesh, **kw)
+        sync()
+        restore_ms = (time.monotonic() - t0) * 1e3
+        # A planned restart starts a fresh epoch 0; logical time resumes
+        # at the fence (phase 15 (a)).
+        res.executor.step_input_history = [(0, 0)] * MESH_SPE
+        for _ in range(2):
+            res.run_epoch(complete_checkpoint=True)
+    return dict(restore_ms=restore_ms, ranks=1 if mesh is None
+                else dist_.mesh_size(mesh),
+                ledger=res.auditor.ledger() if me == 0 else None,
+                digest=res.state_digest())
+
+
+def _p19_live(mesh, device, root, checked):
+    """(c) the rescale job at PAR keyed lanes, one completed epoch a
+    drained fence, the autoscaler deciding on rank 0 at each on
+    P19_LOADS (every rank executing its re-cut at the same fence: the
+    fence stall timed), one more epoch; the first epoch after each
+    re-cut under ``checked``. Returns readings."""
+    from clonos_tpu_torch.autoscale import (AutoscaleController,
+                                            PolicyConfig, ScalePolicy,
+                                            ScaleSignals)
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    kw = dict(device=device, audit=True,
+              checkpoint_dir=os.path.join(root, "ck"), **_mesh_kw())
+    state = {"r": ClusterRunner(build_rescale_job(PAR), mesh=mesh, **kw)}
+    recuts = []
+
+    def execute(target):
+        sync()
+        t0 = time.monotonic()
+        new, stats = state["r"].rescale_live(build_rescale_job(target),
+                                             **kw)
+        sync()
+        recuts.append(dict(target=target,
+                           stall_ms=(time.monotonic() - t0) * 1e3,
+                           migrate_ms=stats["migrate_ms"],
+                           drained_records=stats["drained_records"],
+                           groups=stats["groups"]))
+        state["r"] = new
+    ctl = AutoscaleController(
+        ScalePolicy(PolicyConfig(sustain_fences=1, cooldown_fences=1,
+                                 max_step=PAR, min_workers=PAR,
+                                 max_workers=RESCALE_UP)),
+        execute_workers=execute, healthy=lambda: not state["r"].failed,
+        mesh=mesh)
+    seen = 0
+    for load in P19_LOADS + (None,):
+        # The first epoch after a re-cut: every launch against the plain
+        # version.
+        with (checked() if len(recuts) > seen else
+              contextlib.nullcontext()):
+            state["r"].run_epoch(complete_checkpoint=True)
+        seen = len(recuts)
+        live = state["r"]
+        live.drain_fence()
+        if load is not None:
+            e = live.executor.epoch_id - 1
+            ctl.on_fence(e, ScaleSignals(
+                epoch=e, load=load,
+                workers=live.job.vertices[1].parallelism))
+    ctl.close()
+    out = dict(recuts=recuts, decisions=len(ctl.log),
+               ledger=(live.coordinator.read_ledger() if live.rank == 0
+                       else None),
+               digest=live.state_digest())
+    getattr(live.coordinator.storage, "_close_ledger", lambda: None)()
+    return out
+
+
+def _p19_socket(mesh, device, port, checked):
+    """(d) phase 11's socket wordcount on ``mesh``: rank 0 alone opens
+    the connection (drained first) and its reader serves every rank; the
+    first epoch under ``checked``, the window subtask killed mid-epoch
+    and recovered (its re-read from rank 0's retention), then epochs
+    until every line is read. Returns readings, with the source
+    records/s over the drive's wall."""
+    from clonos_tpu_torch.api.feeds import SocketFeedReader
+    from clonos_tpu_torch.examples import wordcount as wc
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    me = _p19_rank_of(mesh)
+    reader = None
+    if me == 0:
+        reader = SocketFeedReader("127.0.0.1", port)
+        reader._thread.join(timeout=120)
+        if reader._thread.is_alive():
+            raise AssertionError("(d) the socket feed did not drain")
+    r = ClusterRunner(wc.build_socket_job(), steps_per_epoch=WC_SPE,
+                      seed=WC_SEED, device=device, mesh=mesh, audit=True,
+                      logical_time=True)
+    r.executor.register_feed(0, reader)
+    window = r.job.subtask_base(1)
+    source = ((lambda: int(_mesh_counts(r)[0])) if mesh is not None
+              else (lambda: int(r.executor.carry.record_counts[0])))
+    sync()
+    t0 = time.monotonic()
+    with checked():
+        r.run_epoch(complete_checkpoint=True)
+    for _ in range(SOCKET_KILL_AT):
+        r.step()
+    before = r.state_digest()
+    r.inject_failure([window])
+    rep = r.recover()
+    after = r.state_digest()
+    epochs = 1
+    while source() < SOCKET_LINES and epochs < 2 * SOCKET_LINES // (
+            64 * WC_SPE):
+        r.run_epoch(complete_checkpoint=True)
+        epochs += 1
+    sync()
+    wall = time.monotonic() - t0
+    n = source()
+    out = dict(source_records=n, records_per_s=n / wall, epochs=epochs,
+               steps_replayed=rep.steps_replayed,
+               recovery_ms=rep.recovery_ms, before=before, after=after,
+               bases=(list(reader._r._base) if reader is not None
+                      else None),
+               ledger=r.auditor.ledger() if me == 0 else None,
+               digest=r.state_digest())
+    if reader is not None:
+        reader.close()
+    return out
+
+
+def _p19_all(mesh, device, root, ck_b, write_b, port, checked):
+    """(a)-(d) on ``mesh`` (None: the unsharded control), each with the
+    kernel's launch counts at 0 just before it and read just after.
+    Returns {sub-phase: readings}."""
+    out = {}
+    for name, fn in (
+            ("a", lambda: _p19_boot(mesh, device, os.path.join(root, "a"),
+                                    checked)),
+            ("b", lambda: _p19_restore(mesh, device, ck_b, write_b,
+                                       checked)),
+            ("c", lambda: _p19_live(mesh, device, os.path.join(root, "c"),
+                                    checked)),
+            ("d", lambda: _p19_socket(mesh, device, port, checked))):
+        _p18_zero()
+        t = time.monotonic()
+        out[name] = fn()
+        sync()
+        out[name]["launches"] = _p18_launches()
+        out[name]["seconds"] = time.monotonic() - t
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _p19_rank(ctx, root, tag, ck_b, port):
+    """One rank of a phase 19 mesh: (a)-(d), every keyed_hist launch of
+    (a)'s epoch after the rebuild, of (b), of (c)'s first epoch after
+    each re-cut and of (d)'s first epoch held against the plain version;
+    a 2-rank mesh writes (b)'s checkpoint."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    mesh = dist_.task_mesh(device=ctx.device)
+    shapes = []
+    out = _p19_all(mesh, ctx.device, os.path.join(root, tag), ck_b,
+                   ctx.num_processes > 1, port,
+                   lambda: _checked_everywhere(shapes))
+    out["shapes"] = sorted({s[:4] for s in shapes})
+    out["max_abs_err"] = max((s[4] for s in shapes), default=None)
+    out["checked_launches"] = len(shapes)
+    out["rank"] = ctx.process_id
+    out["backend"] = ctx.backend
+    return out
+
+
+def _p19_check(name, res, ctl, row_of):
+    """Every equality of phase 19 for one mesh run; returns the problems
+    found."""
+    from clonos_tpu_torch.obs.digest import diff_ledgers
+    problems = []
+    lead = res[0]
+    for sub in "abcd":
+        d = diff_ledgers(ctl[sub]["ledger"], lead[sub]["ledger"])
+        if d or len(lead[sub]["ledger"]) != len(ctl[sub]["ledger"]):
+            problems.append(f"{name} ({sub}): ledger differs from the "
+                            f"control's: {d[:3]}")
+        for r in res:
+            if r[sub]["digest"] != ctl[sub]["digest"]:
+                problems.append(f"{name} rank {r['rank']} ({sub}): state "
+                                f"digest differs from the control's")
+            if min(r[sub]["launches"].values()) == 0:
+                problems.append(f"{name} rank {r['rank']} ({sub}): a kernel "
+                                f"was not launched: {r[sub]['launches']}")
+    for r in res:
+        a, c, d = r["a"], r["c"], r["d"]
+        if a["rebuilt_digest"] != a["dead_digest"] \
+                or a["rebuilt_digest"] != ctl["a"]["rebuilt_digest"] \
+                or a["steps_replayed"] != MESH_SPE:
+            problems.append(f"{name} rank {r['rank']} (a): the rebuild "
+                            f"(replayed {a['steps_replayed']}) != the dead "
+                            f"runner's state")
+        if [x["target"] for x in c["recuts"]] != [RESCALE_UP, PAR]:
+            problems.append(f"{name} rank {r['rank']} (c): re-cuts "
+                            f"{c['recuts']}")
+        if d["source_records"] != SOCKET_LINES or d["before"] != d["after"]:
+            problems.append(f"{name} rank {r['rank']} (d): {d['source_records']}"
+                            f" records, digest kept {d['before'] == d['after']}")
+        if r["max_abs_err"] != 0 or not r["checked_launches"]:
+            problems.append(f"{name} rank {r['rank']}: kernel vs plain max "
+                            f"abs err {r['max_abs_err']} over "
+                            f"{r['checked_launches']} launches")
+        for s in r["shapes"]:
+            if s not in row_of:
+                problems.append(f"{name}: launched shape {s} has no phase "
+                                f"2 row")
+    if lead["c"]["decisions"] != ctl["c"]["decisions"] \
+            or any(r["c"]["decisions"] for r in res[1:]):
+        problems.append(f"{name} (c): decisions logged "
+                        f"{[r['c']['decisions'] for r in res]}")
+    if lead["d"]["bases"] != ctl["d"]["bases"] or any(
+            r["d"]["bases"] is not None for r in res[1:]):
+        problems.append(f"{name} (d): committed offsets "
+                        f"{[r['d']['bases'] for r in res]} != the control's "
+                        f"{ctl['d']['bases']}")
+    return problems
+
+
+def _p19_line(reading):
+    """A sub-phase's readings as printed: no ledger or digests."""
+    return {k: v for k, v in reading.items()
+            if k not in ("ledger", "digest", "dead_digest",
+                         "rebuilt_digest", "before", "after")}
+
+
+def _p19_lines():
+    rng = np.random.RandomState(SOCKET_SEED)
+    from clonos_tpu_torch.examples import wordcount as wc
+    keys = rng.randint(0, wc.VOCAB, SOCKET_LINES)
+    vals = rng.randint(1, 10, SOCKET_LINES)
+    return "".join(f"{k}:{v}\n" for k, v in zip(keys, vals)).encode()
+
+
+def phase_mesh_rebuild(dev_line, root, rows):
+    """(a) a standby bootstrap, (b) a re-cut restore 8 -> 16 from a 2-rank
+    mesh's checkpoint, (c) a live 8 -> 16 -> 8 round trip by the
+    autoscaler, (d) the socket wordcount with one reader, each on one
+    NCCL rank and on two gloo ranks sharing the card, against an
+    unsharded control: sealed ledgers, state digests, committed offsets
+    equal. Every keyed_hist launch of (a)'s epoch after the rebuild, of
+    (b), of (c)'s first epoch after each re-cut and of (d)'s first epoch
+    on each rank equals its plain version, and each launched shape has a
+    phase 2 row. Returns {path: launches}."""
+    from clonos_tpu_torch.parallel import distributed as dist_
+    t_phase = time.monotonic()
+    row_of = {}
+    for r in rows:               # the first timed row of each shape
+        if "ms" in r:
+            row_of.setdefault((r["R"], r["B"], r["nk"], r["counts"]), r)
+    launches = {}
+    ck_b = os.path.join(root, "b-ck")
+    payload = _p19_lines()
+    cuda = torch.device(DEVICE).type == "cuda"
+    # The two gloo ranks first: their (b) writes the checkpoint the
+    # control and the NCCL rank restore too.
+    two = dist_.spawn(
+        P19_RANK_TARGET, 2, {"root": root, "tag": "gloo2", "ck_b": ck_b,
+                             "port": _serve_lines(payload)[0]},
+        device=DEVICE, backend="gloo", share_device=cuda,
+        timeout_s=P19_RANK_TIMEOUT_S,
+        workdir=os.path.join(root, "ranks-gloo2"))
+    ctl = _p19_all(None, DEVICE, os.path.join(root, "control"), ck_b, False,
+                   _serve_lines(payload)[0], contextlib.nullcontext)
+    for sub in "abcd":
+        launches[f"mesh_rebuild_control_{sub}"] = ctl[sub]["launches"]
+        log(f"[mesh-rebuild] control ({sub}): " + json.dumps(dict(
+            _p19_line(ctl[sub]), device=dev_line), default=float))
+    if ctl["a"]["rebuilt_digest"] != ctl["a"]["dead_digest"]:
+        raise AssertionError("phase 19 (a): the control's rebuild != its "
+                             "dead runner's state")
+    if cuda:
+        torch.cuda.empty_cache()
+    ctx = dist_.initialize("file://" + os.path.join(root, "nccl1_rdv"), 1,
+                           0, device=DEVICE,
+                           backend="nccl" if cuda else "gloo")
+    try:
+        one = _p19_rank(ctx, root, "nccl1", ck_b, _serve_lines(payload)[0])
+    finally:
+        dist_.shutdown()
+    if cuda:
+        torch.cuda.empty_cache()
+    problems = []
+    for name, res in (("nccl-1rank", [one]), ("gloo-2rank", two)):
+        problems += _p19_check(name, res, ctl, row_of)
+        for r in res:
+            for sub in "abcd":
+                launches[f"mesh_rebuild_{name}_rank{r['rank']}_{sub}"] = \
+                    r[sub]["launches"]
+                log(f"[mesh-rebuild] {name} rank {r['rank']} ({sub}): "
+                    + json.dumps(dict(_p19_line(r[sub]), device=dev_line),
+                                 default=float))
+            log(f"[mesh-rebuild] {name} rank {r['rank']} checked launches: "
+                + json.dumps(dict(
+                    max_abs_err=r["max_abs_err"],
+                    checked_launches=r["checked_launches"],
+                    shapes=[dict(R=s[0], B=s[1], nk=s[2], counts=s[3],
+                                 phase2_label=row_of.get(s, {}).get("label"),
+                                 device_ms=row_of.get(s, {}).get("device_ms"),
+                                 bound_ms=row_of.get(s, {}).get("bound_ms"),
+                                 library_ms=row_of.get(s, {})
+                                 .get("library_ms"))
+                            for s in r["shapes"]], device=dev_line),
+                    default=float))
+    log("[mesh-rebuild] readings: " + json.dumps(dict(
+        bootstrap={n: dict(wall_ms=x[0]["a"]["bootstrap_wall_ms"],
+                           phase_ms=x[0]["a"]["phase_ms"])
+                   for n, x in (("control", [ctl]), ("nccl-1rank", [one]),
+                                ("gloo-2rank", two))},
+        recut_stall_ms={n: [[c["stall_ms"] for c in r["c"]["recuts"]]
+                            for r in x]
+                        for n, x in (("control", [ctl]), ("nccl-1rank", [one]),
+                                     ("gloo-2rank", two))},
+        socket_records_per_s={n: x[0]["d"]["records_per_s"]
+                              for n, x in (("control", [ctl]),
+                                           ("nccl-1rank", [one]),
+                                           ("gloo-2rank", two))},
+        phase11_socket_records_per_s=PHASE11_RECORDS_PER_S,
+        device=dev_line), default=float))
+    log(f"[mesh-rebuild] phase 19: {time.monotonic() - t_phase:.1f} s "
+        f"({dev_line})")
+    if problems:
+        raise AssertionError("phase 19: " + "; ".join(problems))
     return launches
 
 
@@ -6154,6 +6749,13 @@ def main() -> int:
         mesh_storage_launches = phase_mesh_storage(dev_line, root, rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 19: {PHASE19_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_rebuild_", dir=SCRATCH)
+    try:
+        mesh_rebuild_launches = phase_mesh_rebuild(dev_line, root, rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -6170,7 +6772,8 @@ def main() -> int:
         "planes_failover": failover_launches,
         "rescale_restore": recut_launches,
         "rescale_live": live_launches, "soak": soak_launches,
-        **mesh_launches, **mesh_storage_launches})))
+        **mesh_launches, **mesh_storage_launches,
+        **mesh_rebuild_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

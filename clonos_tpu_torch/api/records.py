@@ -67,3 +67,10 @@ def zero_invalid(batch: RecordBatch) -> RecordBatch:
     return RecordBatch(torch.where(m, batch.keys, 0),
                        torch.where(m, batch.values, 0),
                        torch.where(m, batch.timestamps, 0), m)
+
+
+def to_numpy(batch: RecordBatch):
+    """Host view: list of (key, value, ts) tuples for the valid rows of a
+    batch, flattened (tests / sinks)."""
+    k, v, t, m = (x.detach().cpu().numpy().reshape(-1) for x in batch)
+    return [(int(k[i]), int(v[i]), int(t[i])) for i in range(m.size) if m[i]]

@@ -158,8 +158,18 @@ class AutoscaleController:
                  execute_workers: Optional[Callable[[int], Any]] = None,
                  add_replica: Optional[Callable[[], Any]] = None,
                  drop_replica: Optional[Callable[[], Any]] = None,
-                 healthy: Optional[Callable[[], bool]] = None):
+                 healthy: Optional[Callable[[], bool]] = None,
+                 mesh=None):
         self.policy = policy if policy is not None else ScalePolicy()
+        #: a task mesh whose ranks each drive a controller in lockstep
+        #: (``parallel/distributed.py``): rank 0 decides and logs, and
+        #: every rank executes the worker re-cut it decided, at the same
+        #: fence (over a gloo group of its own, made here in lockstep)
+        self.mesh = mesh
+        self._group = None
+        if mesh is not None:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            self._group = dist_.fence_group(mesh)
         # identity check, not truthiness: an empty DecisionLog is falsy
         self.log = log if log is not None else DecisionLog()
         self._execute_workers = execute_workers
@@ -286,10 +296,15 @@ class AutoscaleController:
         time — a failure can land between the two, and executing a
         re-cut over an in-progress recovery is the seeded
         ``rescale-mid-recovery`` bug the model proves fatal."""
+        return self._execute(self._healthy())
+
+    def _execute(self, healthy: bool) -> Optional[ScaleDecision]:
+        """:meth:`execute` on a health reading already taken (a mesh's
+        rank 0 sends the re-cut it reads as safe before it runs it)."""
         if self.pending is None:
             return None
         decision, self.pending = self.pending, None
-        if not self._healthy():
+        if not healthy:
             self.refusals += 1
             self._observe_hooks("refuse", epoch=decision.epoch,
                                 action=decision.action)
@@ -318,12 +333,45 @@ class AutoscaleController:
                  ) -> Tuple[ScaleDecision, Optional[ScaleDecision]]:
         """A driver's one call per completed fence: observe,
         note the fence, decide, execute. Returns (decision, executed)
-        where executed is None for holds / replays / refusals."""
+        where executed is None for holds / replays / refusals.
+
+        On a multi-rank mesh rank 0 observes, decides and logs, and sends
+        its decision and the worker re-cut it is about to run (None for
+        none) to every rank (one object broadcast); each other rank runs
+        that re-cut through its own ``execute_workers`` and returns the
+        pair it received (a replica action runs on rank 0 alone)."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        if self.mesh is None or dist_.mesh_size(self.mesh) == 1:
+            self.observe(signals)
+            self.note_fence(epoch)
+            decision = self.decide()
+            return decision, self.execute()
+        if dist_.mesh_rank(self.mesh) != 0:
+            decision, recut = dist_.broadcast_object(None, self.mesh,
+                                                     group=self._group)
+            if recut is not None:
+                if self._execute_workers is not None:
+                    self._execute_workers(recut.target_workers)
+                self.rescales_executed += 1
+            return decision, recut
         self.observe(signals)
         self.note_fence(epoch)
         decision = self.decide()
-        executed = self.execute()
-        return decision, executed
+        p = self.pending
+        healthy = self._healthy() if p is not None else True
+        recut = (p if p is not None and healthy
+                 and p.action == SCALE_WORKERS else None)
+        dist_.broadcast_object((decision, recut), self.mesh,
+                               group=self._group)
+        return decision, self._execute(healthy)
+
+    def close(self) -> None:
+        """Let go of the gloo group a mesh controller made (every rank
+        calls it, once it makes no further decision)."""
+        if self._group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group(self._group)
+            self._group = None
 
     # --- observability -------------------------------------------------------
 

@@ -258,6 +258,17 @@ def merge_delta(state: ThreadLogState, rows: torch.Tensor, count, abs_start
     return tree_map(lambda x: x[0], out), gap[0]
 
 
+def stack_logs(states) -> ThreadLogState:
+    """Stack per-log states into one stacked state (a leading ``[L]``)."""
+    return tree_map(lambda *xs: torch.stack(xs), *states)
+
+
+def unstack_logs(stacked: ThreadLogState):
+    """The stacked state's logs, one state each."""
+    n = stacked.head.shape[0]
+    return [tree_map(lambda x: x[i], stacked) for i in range(n)]
+
+
 # --- host-side wrapper (control plane, remote mirrors, tests) ---------------
 
 

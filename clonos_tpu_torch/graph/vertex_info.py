@@ -2,9 +2,10 @@
 
 The port's own copy of what it needs of ``clonos_tpu/graph/vertex_info.py``
 (a JAX-free, numpy-only module; the port imports nothing of the reference
-package): the DAG distances and the determinant sharing mask
-(flink-runtime .../causal/VertexGraphInformation.java:63,
-CausalGraphUtils.computeDistances, CausalGraphUtils.java:41-108).
+package): the DAG distances, the determinant sharing mask and the
+causal-log identity (flink-runtime .../causal/VertexGraphInformation.java:63,
+CausalGraphUtils.computeDistances, CausalGraphUtils.java:41-108,
+causal/log/job/CausalLogID.java:38-44).
 
 Vertex IDs are dense small ints assigned in topological order (the reference
 ships the topologically-sorted JobVertex list to every task manager,
@@ -17,11 +18,31 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Sequence, Tuple
+from typing import FrozenSet, List, Sequence, Tuple
 
 import numpy as np
 
 UNREACHABLE = np.iinfo(np.int32).max
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class CausalLogID:
+    """Identity of one thread causal log.
+
+    ``subpartition == -1`` is the task's main-thread log; ``>= 0`` identifies
+    an output-subpartition log (which records BUFFER_BUILT determinants for
+    that outgoing edge partition).
+    """
+
+    vertex: int
+    subtask: int
+    subpartition: int = -1
+
+    def is_main_thread(self) -> bool:
+        return self.subpartition < 0
+
+    def for_subpartition(self, idx: int) -> "CausalLogID":
+        return CausalLogID(self.vertex, self.subtask, idx)
 
 
 def compute_distances(
@@ -62,9 +83,20 @@ class VertexGraphInformation:
     edges: Tuple[Tuple[int, int], ...]          # all DAG edges (vertex ids)
     parallelism: Tuple[int, ...]                # per-vertex subtask counts
 
+    @property
+    def upstream(self) -> Tuple[int, ...]:
+        return tuple(sorted({s for s, d in self.edges if d == self.vertex}))
+
+    @property
+    def downstream(self) -> Tuple[int, ...]:
+        return tuple(sorted({d for s, d in self.edges if s == self.vertex}))
+
     @functools.cached_property
     def _dist(self) -> np.ndarray:
         return compute_distances(self.num_vertices, self.edges)
+
+    def distances(self) -> np.ndarray:
+        return self._dist
 
     def sharing_mask(self, sharing_depth: int) -> np.ndarray:
         """bool[num_vertices, num_vertices]: mask[owner, holder] == True iff
@@ -81,3 +113,11 @@ class VertexGraphInformation:
         mask = mask.copy()
         np.fill_diagonal(mask, True)  # every task holds its own log
         return mask
+
+    def logs_to_replicate(self, sharing_depth: int) -> FrozenSet[int]:
+        """Vertices whose causal logs this vertex must hold replicas of:
+        the owners column of :meth:`sharing_mask` for this vertex."""
+        mask = self.sharing_mask(sharing_depth)
+        return frozenset(
+            o for o in range(self.num_vertices)
+            if o != self.vertex and mask[o, self.vertex])

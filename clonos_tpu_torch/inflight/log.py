@@ -76,6 +76,13 @@ def overflowed(state: EdgeLogState) -> torch.Tensor:
     return size(state) > state.ring_steps
 
 
+def append_step(state: EdgeLogState, batch: RecordBatch) -> EdgeLogState:
+    """Log one superstep's routed batch (``[P, cap]``; reference
+    InFlightLog.log): :func:`append_block` of a block of one step, in
+    place as it is."""
+    return append_block(state, RecordBatch(*(x[None] for x in batch)))
+
+
 def append_block(state: EdgeLogState, block: RecordBatch) -> EdgeLogState:
     """Log a block of K steps' batches (``[K, P, cap]``). K must be <=
     ring_steps, so ring positions are unique.

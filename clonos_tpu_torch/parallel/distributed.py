@@ -604,6 +604,50 @@ def broadcast_int(value: Optional[int], mesh, axis: str = "tasks",
     return int(box.item())
 
 
+def broadcast_array(arr, mesh, axis: str = "tasks", src: int = 0,
+                    group=None):
+    """Rank ``src``'s numpy array on every rank (each passes one of the
+    same shape and dtype), over ``group`` (a gloo group: host memory
+    only, no sync)."""
+    import numpy as np
+    if mesh_size(mesh, axis) == 1:
+        return arr
+    t0 = time.monotonic()
+    box = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    dist.broadcast(box, src=src, group=group or _group(mesh, axis))
+    _count(t0, box.numel() * box.element_size())
+    return box.numpy()
+
+
+def broadcast_object(obj: Any, mesh, axis: str = "tasks", src: int = 0,
+                     group=None) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank (the others pass
+    None), over ``group`` (default: the mesh's)."""
+    if mesh_size(mesh, axis) == 1:
+        return obj
+    t0 = time.monotonic()
+    box = [obj if mesh_rank(mesh, axis) == src else None]
+    dist.broadcast_object_list(box, src=src,
+                               group=group or _group(mesh, axis))
+    _count(t0, 0)
+    return box[0]
+
+
+def scatter_object(objs: Optional[Sequence[Any]], mesh, axis: str = "tasks",
+                   src: int = 0, group=None) -> Any:
+    """Rank ``src``'s ``objs[r]`` on each rank ``r`` (the others pass
+    None), over ``group`` (default: the mesh's)."""
+    if mesh_size(mesh, axis) == 1:
+        return objs[0]
+    t0 = time.monotonic()
+    box = [None]
+    dist.scatter_object_list(
+        box, list(objs) if mesh_rank(mesh, axis) == src else None,
+        src=src, group=group or _group(mesh, axis))
+    _count(t0, 0)
+    return box[0]
+
+
 def gather_object(obj: Any, mesh, axis: str = "tasks", dst: int = 0,
                   group=None) -> Optional[List[Any]]:
     """Every rank's picklable ``obj`` as a list on rank ``dst`` (None on

@@ -99,7 +99,8 @@ from clonos_tpu_torch.runtime import checkpoint as cp
 from clonos_tpu_torch.runtime.timers import ProcessingTimeService
 from clonos_tpu_torch.runtime.txn import TransactionLog
 from clonos_tpu_torch.runtime.executor import (DETS_PER_STEP, JobCarry,
-                                               LeanSnapshot, LocalExecutor)
+                                               LeanSnapshot, LocalExecutor,
+                                               _gather_block)
 from clonos_tpu_torch.storage import SegmentCorruptError, StorageError
 from clonos_tpu_torch.utils import metrics as met
 from clonos_tpu_torch.utils.tree import tree_map
@@ -578,13 +579,26 @@ class ClusterRunner:
                 del self._feed_offset_copies[k]
         if copy is None:
             return
-        comp = self.executor.compiled
+        ex = self.executor
+        comp = ex.compiled
         for vid, off in copy.wait().items():
             # Lanes another rank owns stay at 0 (never pulled here).
             full = [0] * self.job.vertices[vid].parallelism
             lo = comp.vblock[vid][0]
             full[lo:lo + len(off)] = [int(x) for x in off]
-            self.executor.feed_readers[vid].notify_checkpoint_complete(full)
+            if vid in ex._single_feeds:
+                # One reader for every rank: rank 0 commits every lane's
+                # offset, each rank's lanes gathered to it (on the
+                # driving thread, where every rank completes in order).
+                from clonos_tpu_torch.parallel import distributed as dist_
+                got = dist_.gather_object((lo, full[lo:lo + len(off)]),
+                                          self.mesh, comp.task_axis,
+                                          group=ex._host_group)
+                if got is None:
+                    continue
+                for lo_r, off_r in got:
+                    full[lo_r:lo_r + len(off_r)] = off_r
+            ex.feed_readers[vid].notify_checkpoint_complete(full)
 
     def _fence_snapshot(self, closed: int) -> Optional[LeanSnapshot]:
         """The sequential fence's snapshot with the feed offsets staged:
@@ -630,12 +644,19 @@ class ClusterRunner:
     def timer_service(self, flat_subtask: int) -> ProcessingTimeService:
         """The task's processing-time timer service (created on first
         use): its callbacks fire at block boundaries on causal time and
-        their TIMER_TRIGGER determinants replay after a failure."""
+        their TIMER_TRIGGER determinants replay after a failure. On a mesh
+        every rank keeps the service and appends its determinants (each
+        to the log and replica rows it holds), and the first rank that
+        runs the task (rank 0 for a vertex that does not split) alone
+        runs its callbacks, live and when a recovery re-fires them."""
         svc = self.timer_services.get(flat_subtask)
         if svc is None:
+            vid, sub = self._vertex_of(flat_subtask)
             svc = ProcessingTimeService(
                 append=lambda d, f=flat_subtask:
-                    self.executor.append_async_determinant(f, d))
+                    self.executor.append_async_determinant(f, d),
+                fires=(self.mesh is None
+                       or self._vertex_ranks(vid, sub)[0] == self.rank))
             self.timer_services[flat_subtask] = svc
         return svc
 
@@ -934,15 +955,51 @@ class ClusterRunner:
         self._last_records_total = total_records
         return delta
 
+    def _sealed_channels(self, dg, group):
+        """The sealed epoch's ``ring/`` and ``log/`` channel chains (what
+        :meth:`LocalExecutor.attach_spill_digests` reads), from rank 0 to
+        every rank on a mesh (one object broadcast over ``group``)."""
+        chans = (None if dg is None else
+                 {k: v for k, v in dg.channels.items()
+                  if k.startswith(("ring/", "log/"))})
+        if self.executor.compiled.n_shards > 1:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            chans = dist_.broadcast_object(
+                chans, self.mesh, self.executor.compiled.task_axis,
+                group=group)
+        return types.SimpleNamespace(channels=chans)
+
+    def _sealed_parts(self, closed: int, group) -> Dict[int, Dict]:
+        """Every transactional sink's sealed shards of epoch ``closed``,
+        by vertex and global subtask; on a mesh each rank's gathered to
+        rank 0 (one object gather over ``group``; the other ranks get
+        {})."""
+        mine = {vid: txl.pending_shards(closed)
+                for vid, txl in self.txn_logs.items()}
+        # Every rank runs the same job, so every rank skips alike.
+        if self.executor.compiled.n_shards == 1 or not mine:
+            return mine
+        from clonos_tpu_torch.parallel import distributed as dist_
+        got = dist_.gather_object(mine, self.mesh,
+                                  self.executor.compiled.task_axis,
+                                  group=group)
+        if got is None:
+            return {}
+        return {vid: dict(sorted(
+            (sub, recs) for part in got for sub, recs in part[vid].items()))
+            for vid in mine}
+
     def _seal_and_trigger(self, closed: int, window_fn, snap_fn,
-                          phases: Dict[str, float], prof, async_write: bool
-                          ) -> None:
+                          phases: Dict[str, float], prof, async_write: bool,
+                          group=None) -> None:
         """The fence tail's persistence half, shared by both modes: audit
         seal over the closed epoch's causal surface, ledger append,
         checkpoint trigger. ``window_fn``/``snap_fn`` say where the state
         comes from (the live carry, or the pipelined capture), so the
         digests are byte-identical either way. One window extraction
-        feeds the audit digest, the serve feeds and the lineage scan."""
+        feeds the audit digest, the serve feeds and the lineage scan.
+        ``group`` is the gloo group the calling thread's host exchanges
+        use on a mesh (the driving thread's, or the fence worker's)."""
         win = (window_fn() if self.auditor.enabled or self.serve_feeds
                or self.lineage.enabled else None)
         # On a mesh the window gathered to rank 0, which seals, writes the
@@ -960,11 +1017,14 @@ class ClusterRunner:
             with prof.section("ledger-write"):
                 self.coordinator.record_ledger(dg.to_entry())
             phases["fence.ledger-write"] = (_time.monotonic() - t) * 1e3
-            if self.executor.spill_logs is not None:
-                # Segment index entries carry the ledger's fingerprints.
-                self.executor.attach_spill_digests(closed, dg)
             self.epoch_tracker.notify_epoch_sealed(closed, dg)
             self._m_audit_sealed.inc()
+        if self.auditor.enabled and self.executor.spill_logs is not None:
+            # Segment index entries carry the ledger's fingerprints: on a
+            # mesh rank 0 hands the sealed channels to every rank, which
+            # stamps its own tiers.
+            self.executor.attach_spill_digests(
+                closed, self._sealed_channels(dg if lead else None, group))
         self.last_sealed_epoch = max(self.last_sealed_epoch, closed)
         tl = get_timeline()
         if tl.enabled:
@@ -977,14 +1037,15 @@ class ClusterRunner:
             phases["fence.serve-feed"] = (_time.monotonic() - t) * 1e3
         # Lineage at the seal: scan the same window for dyed keys, and the
         # epoch's sealed transaction shards for the sink termini (sealed
-        # on the driving thread before the pipelined tail starts).
-        if self.lineage.enabled and win is not None and lead:
+        # before this seal, on the thread that runs it).
+        if self.lineage.enabled:
+            # (On a mesh the window reached rank 0 alone.)
             t = _time.monotonic()
-            self.lineage.observe_epoch(
-                closed, win, num_key_groups=self.job.num_key_groups,
-                topology=self._lineage_topology,
-                parts={vid: txl.pending_shards(closed)
-                       for vid, txl in self.txn_logs.items()})
+            parts = self._sealed_parts(closed, group)
+            if lead and win is not None:
+                self.lineage.observe_epoch(
+                    closed, win, num_key_groups=self.job.num_key_groups,
+                    topology=self._lineage_topology, parts=parts)
             phases["fence.lineage-observe"] = (
                 _time.monotonic() - t) * 1e3
         t = _time.monotonic()
@@ -1038,7 +1099,7 @@ class ClusterRunner:
         self._seal_and_trigger(
             closed, lambda: ex.epoch_window(closed),
             lambda: self._fence_snapshot(closed), phases, prof,
-            async_write=False)
+            async_write=False, group=ex._host_group)
         self._append_source_fence_determinant(closed, phases, prof)
         self._seal_txns(closed)
         # Before completion: ack_all truncates the logs and rings.
@@ -1142,7 +1203,8 @@ class ClusterRunner:
                 else (lambda: tail["snap"]))
             self._seal_and_trigger(closed, tail["handles"].window, snap_fn,
                                    phases, _prof.NullProfiler(),
-                                   async_write=True)
+                                   async_write=True,
+                                   group=self.executor._fence_group)
         except BaseException as e:      # raised at the join
             tail["err"] = e
 
@@ -1345,10 +1407,7 @@ class ClusterRunner:
         if not self.failed:
             raise rec.RecoveryError("no failed subtasks")
         if self.mesh is not None:
-            if host_rows is not None or pre_patch_join is not None:
-                raise ValueError("host_rows / pre_patch_join are not "
-                                 "supported on a mesh")
-            return self._recover_mesh(drill)
+            return self._recover_mesh(drill, host_rows, pre_patch_join)
         t0, failed, ignored = self._recovery_prologue(drill)
         ex = self.executor
         ckpt = self.standbys.latest
@@ -1868,7 +1927,11 @@ class ClusterRunner:
     def _host(self, tree):
         return _device.HostCopy(tree).wait()
 
-    def _recover_mesh(self, drill: bool = False) -> RecoveryReport:
+    def _recover_mesh(self, drill: bool = False,
+                      host_rows: Optional[Dict[int, Tuple[np.ndarray, int]]]
+                      = None,
+                      pre_patch_join: Optional[Callable[[], None]] = None
+                      ) -> RecoveryReport:
         """The recovery protocol on a mesh, run by every rank in lockstep.
         Each failed subtask replays on the rank that owns it (every rank,
         for a vertex that does not split):
@@ -1894,7 +1957,12 @@ class ClusterRunner:
         retention, a torn spill segment) fails on every rank at the same
         point (``distributed.agree``). No other rank's live shard is
         rewritten, and nothing gathers the whole carry. Not taken here:
-        the device-resident fast path and the overlapped finalize."""
+        the device-resident fast path and the overlapped finalize.
+
+        ``host_rows`` (a standby bootstrap's mirror rows, on every rank)
+        stand in for the replica transfer: each owner takes its
+        subtask's rows from them. ``pre_patch_join`` runs on every rank
+        just before the first replay's patch."""
         from clonos_tpu_torch.parallel import distributed as dist_
         ex = self.executor
         comp = ex.compiled
@@ -1952,11 +2020,16 @@ class ClusterRunner:
             piece = dist_.transfer(piece, 0, owners, mesh, axis)
             ck_head = (int(ck_heads[flat]) if ck_heads is not None
                        else int(piece["head"]) if mine else None)
-            # The first surviving replica of its log, from its holder.
+            # The first surviving replica of its log, from its holder
+            # (mirror rows, where given, take its place).
+            host = (host_rows.get(flat) if host_rows is not None
+                    else None)
             holders = [r for r, (o, h) in enumerate(self.plan.pairs)
                        if o == flat and h not in self.failed]
             replica = None
-            if holders:
+            if host is not None:
+                pass
+            elif holders:
                 r0 = holders[0]
                 src = self._row_ranks(r0, R)[0]
                 one = (self._host(tree_map(lambda x: x[r0 - rlo],
@@ -1975,14 +2048,29 @@ class ClusterRunner:
                 windows.update(self._mesh_window(
                     e, carry, owners, fence, n_steps, span, ring_lo))
             tp = _clock("fetch_determinants", tp)
+            # A feed whose one reader rank 0 holds: the owner sends it
+            # the replayed steps' counts, and it sends back the re-read.
+            feed_host = None
+            if vid in ex._single_feeds and n_steps > 0:
+                feed_host = self._mesh_reread(vid, sub, flat, owners, piece,
+                                              replica, host, from_epoch,
+                                              n_steps)
             log_piece = None
             err: Optional[BaseException] = None
+            if pre_patch_join is not None:
+                t_j = _time.monotonic()
+                pre_patch_join()
+                b_j = _time.monotonic() - t_j
+                phases["finalize.listener-reattach"] = b_j * 1e3
+                tp += b_j           # the wait is not the replay's
+                pre_patch_join = None
             try:
                 if mine:
                     carry, log_piece, mgr, rb, rec_n, n_dets, tp = \
                         self._mesh_replay(
                             vid, sub, flat, piece, replica, windows, carry,
-                            from_epoch, fence, n_steps, ck_head, _clock, tp)
+                            from_epoch, fence, n_steps, ck_head, _clock, tp,
+                            drill, host, feed_host)
                     managers.append(mgr)
                     if lead:
                         restore_bytes += rb
@@ -2014,6 +2102,14 @@ class ClusterRunner:
                 o = self.plan.pairs[r][0]
                 src = self._row_ranks(o, L)[0]
                 dsts = self._row_ranks(r, R)
+                if dsts == [src]:
+                    # Owner row and replica row on one rank: on the device.
+                    if me == src:
+                        carry = carry._replace(replicas=tree_map(
+                            functools.partial(_put_row, i=r - rlo),
+                            carry.replicas,
+                            tree_map(lambda x: x[o - llo], carry.logs)))
+                    continue
                 row = (self._host(tree_map(lambda x: x[o - llo], carry.logs))
                        if me == src else None)
                 row = dist_.transfer(row, src, dsts, mesh, axis)
@@ -2103,14 +2199,17 @@ class ClusterRunner:
     def _mesh_replay(self, vid: int, sub: int, flat: int, piece: dict,
                      replica, windows: Dict[int, RecordBatch],
                      carry: JobCarry, from_epoch: int, fence: int,
-                     n_steps: int, ck_head: int, clock, tp: float):
+                     n_steps: int, ck_head: int, clock, tp: float,
+                     drill: bool, host=None, feed_host=None):
         """One failed subtask's replay on a rank that runs it
-        (:meth:`_recover_mesh`): its determinants from the transferred
-        replica row (or synthesized, for a sink nobody replicates), its
+        (:meth:`_recover_mesh`): its determinants from ``host`` (mirror
+        rows), else the transferred replica row (or synthesized, for a
+        sink nobody replicates), its
         inputs from the transferred windows and checkpointed edge row, or
         for a host-fed source from this rank's reader at the checkpointed
-        offset; a transactional sink's pending shards rebuilt where this
-        rank holds them; the operator row and ring lane grafted into this
+        offset; recovered timers re-fired (not in a drill); a
+        transactional sink's pending shards rebuilt where this rank holds
+        them; the operator row and ring lane grafted into this
         rank's shards. Returns (carry, the rebuilt log row and record
         count on the first owner, else None, the manager, restore bytes,
         records and determinants replayed, the clock's time)."""
@@ -2121,7 +2220,13 @@ class ClusterRunner:
         mgr = self._recovery_manager(vid, sub, flat)
         synthesized = False
         one_dev = None
-        if replica is not None:
+        if host is not None:
+            # Mirror-sourced determinants (a standby bootstrap).
+            mgr.expect_determinant_responses(1)
+            mgr.notify_determinant_response(np.asarray(host[0], np.int32),
+                                            int(host[1]))
+            rows, start = mgr.merged_determinants()
+        elif replica is not None:
             one_dev = self._on_device(replica)
             stack = tree_map(lambda x: x[None], one_dev)
             cnt, start = (int(x) for x in self._fetch_meta(
@@ -2151,6 +2256,8 @@ class ClusterRunner:
             input_steps = list(zip(*inputs))
         elif in_edges:
             input_steps = inputs[0]
+        elif feed_host is not None:
+            input_steps = self._upload_feed(feed_host)
         elif isinstance(v.operator, HostFeedSource) and n_steps > 0:
             offset = int(np.asarray(piece["op"]["offset"]).reshape(-1)[0])
             input_steps = self._reread_feed(vid, sub, offset, rows, n_steps)
@@ -2163,6 +2270,13 @@ class ClusterRunner:
             verify_outputs=not synthesized, state_row=0)
         result = mgr.run_replay(plan, self.device)
         rebuilt = self._check_rebuilt(flat, result, rows, synthesized)
+        # Recovered timers re-run their callbacks (on the rank that fires
+        # them; the rows are back in the rebuilt log already).
+        svc = self.timer_services.get(flat)
+        if svc is not None and not drill:
+            for _step_i, ad in result.async_events:
+                if isinstance(ad, det.TimerTriggerDeterminant):
+                    svc.refire(ad)
         if vid in self.txn_logs and n_steps > 0 and self._owns_txn(vid):
             # Exactly once: its pending shards, rebuilt on the rank that
             # holds its transactions.
@@ -2180,6 +2294,42 @@ class ClusterRunner:
             if lead else None)
         return (carry, log_piece, mgr, rec.plan_restore_nbytes(plan),
                 result.records_replayed, len(rows), tp)
+
+    def _mesh_reread(self, vid: int, sub: int, flat: int,
+                     owners: List[int], piece, replica, host,
+                     from_epoch: int, n_steps: int) -> Optional[np.ndarray]:
+        """A recovering feed source's re-read when rank 0 holds the
+        feed's one reader: the first owner derives each replayed step's
+        record count from the determinants it replays (mirror rows or
+        the transferred replica), rank 0 reads them from its retention at
+        the checkpointed offset, and the records travel to the owners. A
+        read below retention fails on every rank. Returns the host
+        records on the owners, None elsewhere."""
+        from clonos_tpu_torch.parallel import distributed as dist_
+        comp = self.executor.compiled
+        mesh, axis, me = self.mesh, comp.task_axis, comp.shard
+        counts = None
+        if me == owners[0]:
+            if host is not None:
+                rows = np.asarray(host[0], np.int32)
+            else:
+                stack = tree_map(lambda x: x[None],
+                                 self._on_device(replica))
+                cnt = int(self._fetch_meta(stack, [0], from_epoch)
+                          .cpu().numpy()[0, 0])
+                rows = self._fetch_rows(stack, 0, from_epoch, cnt)
+            counts = self._feed_counts(rows, n_steps)
+        counts = dist_.transfer(counts, owners[0], [0], mesh, axis)
+        got, err = None, None
+        if me == 0:
+            try:
+                offset = int(np.asarray(piece["op"]["offset"])
+                             .reshape(-1)[0])
+                got = self._read_feed(vid, sub, offset, counts, n_steps)
+            except Exception as e:          # settled below, on every rank
+                err = e
+        dist_.agree(err, mesh, axis, group=self.executor._host_group)
+        return dist_.transfer(got, 0, owners, mesh, axis)
 
     def _ring_bounds_dev(self) -> Optional[torch.Tensor]:
         """Device ``[R, 2]`` (tail, head) of every in-flight ring —
@@ -2330,9 +2480,16 @@ class ClusterRunner:
         readers (the ``api/feeds.py`` contract), registered BEFORE the
         replay so the feed re-read path serves the recorded offset
         windows: a scheduler slice whose cut in-edges arrive over the
-        wire needs them."""
-        if runner_kw.get("mesh") is not None:
-            raise ValueError("bootstrap_standby is not supported on a mesh")
+        wire needs them.
+
+        On a mesh (``mesh=`` in ``runner_kw``) a fresh set of rank
+        processes each calls it with the same arguments (every rank is
+        given every subtask's mirror rows): rank 0 alone reads the
+        checkpoint directory and finds the restore point, which it hands
+        to every rank; the mesh recovery then sends each subtask's slice
+        to its owners, which replay it from their mirror rows in place of
+        a replica, and each rank derives the ledgers of its own subtasks
+        and log rows on its worker."""
         for e in job.edges:
             if e.partition == PartitionType.REBALANCE:
                 raise rec.RecoveryError(
@@ -2357,58 +2514,45 @@ class ClusterRunner:
             runner.executor.register_feed(vid, reader)
         ex = runner.executor
         dev = runner.device
-        storage = runner.coordinator.storage
+        comp = ex.compiled
         ignored = set(ignored_checkpoints)
-        # Only fully acked checkpoints are restore points.
-        ids = [i for i in storage.completed_ids() if i not in ignored]
-        if not ids:
-            raise rec.RecoveryError(
-                "bootstrap_standby: no durable completed non-ignored "
-                f"checkpoint in {checkpoint_dir}")
         L = job.total_subtasks()
         missing = [f for f in range(L) if f not in mirror_rows]
         if missing:
             raise rec.RecoveryError(
                 f"bootstrap_standby: mirror rows missing for subtasks "
                 f"{missing}")
-        # The mirrored rows replay on top of the checkpoint whose log
-        # heads they start at. A mirror synced before the owner's refresh
-        # still starts at an older checkpoint's heads than the newest
-        # completed one (the coordinator retains two), and replaying it
-        # onto the newer one would land on a wrong state.
-        starts = [int(mirror_rows[f][1]) for f in range(L)]
-        ckpt, candidates = None, []
-        for cid in sorted(ids, reverse=True):
-            cand = storage.read(cid)
-            heads = [int(h) for h in np.asarray(cand.carry.log_heads)]
-            if heads == starts:
-                ckpt = cand
-                break
-            candidates.append(f"{cid}: {heads}")
-        if ckpt is None:
-            err = rec.RecoveryError(
-                f"bootstrap_standby: no completed checkpoint's log heads "
-                f"equal the mirror starts {starts} (candidates "
-                f"{'; '.join(candidates)})")
-            obs_incident.get_incidents().signal(
-                "recovery.failure", error=str(err)[:200],
-                source="bootstrap_standby")
+        spe = ex.steps_per_epoch
+        found, err = None, None
+        if runner.rank == 0:
+            try:
+                found = runner._bootstrap_point(
+                    checkpoint_dir, ignored,
+                    [int(mirror_rows[f][1]) for f in range(L)])
+            except Exception as e:      # settled below, on every rank
+                err = e
+        if comp.n_shards > 1:
+            # Rank 0 alone read the directory: its restore point (or its
+            # refusal) reaches every rank.
+            from clonos_tpu_torch.parallel import distributed as dist_
+            dist_.agree(err, runner.mesh, comp.task_axis,
+                        group=ex._host_group)
+            head = dist_.broadcast_object(
+                None if found is None else found[1:], runner.mesh,
+                comp.task_axis, group=ex._host_group)
+            if found is None:
+                found = (cp.CompletedCheckpoint(head[0], None, 0.0),) + head
+        elif err is not None:
             raise err
+        ckpt, cid, top, fence, ck_log_heads = found
         runner.standbys.on_completed_checkpoint(ckpt)
         runner.coordinator.mark_ignored(ignored)
         # Completing checkpoint max(ids) committed every epoch up to it:
         # restored from an older one, the replay and the live rerun of
         # those epochs must not commit their sink records a second time.
         for tl in runner.txn_logs.values():
-            tl.mark_committed_through(max(ids))
-        spe = ex.steps_per_epoch
-        from_epoch = ckpt.checkpoint_id + 1
-        # The fence's absolute superstep: ring heads count supersteps; a
-        # job without rings pins it by the checkpoint cadence.
-        if ckpt.carry.ring_heads:
-            fence = int(np.asarray(ckpt.carry.ring_heads[0]))
-        else:
-            fence = (ckpt.checkpoint_id + 1) * spe
+            tl.mark_committed_through(top)
+        from_epoch = cid + 1
         anchors_by_flat = {flat: det.sync_anchors(np.asarray(rows,
                                                              np.int32))
                            for flat, (rows, _start) in mirror_rows.items()}
@@ -2449,9 +2593,13 @@ class ClusterRunner:
         runner._ring_tail_mirror = fence
         ex._ring_tail = fence
         with runner._ck_heads_lock:
-            runner._ck_log_heads[ckpt.checkpoint_id] = np.asarray(
-                ckpt.carry.log_heads).astype(np.int64)
+            runner._ck_log_heads[cid] = ck_log_heads
         _stage("finalize.state-rehydrate")
+        # The ledgers a rank reads: its subtasks' (the patch) and its log
+        # rows' (the fence's window counts); every one off a mesh.
+        own = [f for f in range(L)
+               if runner.rank in runner._vertex_ranks(*runner._vertex_of(f))
+               or comp.lblock[0] <= f < comp.lblock[1]]
 
         ov: Dict[str, Any] = {"derive_ms": 0.0, "warm_ms": 0.0,
                               "rg": {}, "ac": {}, "err": None}
@@ -2465,8 +2613,8 @@ class ClusterRunner:
             try:
                 rg: Dict[Tuple[int, int], int] = {}
                 ac: Dict[Tuple[int, int], int] = {}
-                for flat, (rows, _start) in mirror_rows.items():
-                    nrows = np.asarray(rows).shape[0]
+                for flat in own:
+                    nrows = np.asarray(mirror_rows[flat][0]).shape[0]
                     a = anchors_by_flat[flat]
                     for j in range(k + 1):
                         if j == 0:
@@ -2553,15 +2701,27 @@ class ClusterRunner:
             # fence+n-1, consumed by the next live step) are outside the
             # replay's input range: route that step from the rebuilt
             # rings. With nothing replayed the fence snapshot holds them.
+            # On a mesh a sharded producer's step is gathered whole and
+            # each rank routes its own consumer lanes.
             c = ex.carry
             if n_steps > 0:
                 bufs = []
                 for eidx, e in enumerate(job.edges):
-                    el = c.out_rings[ex.compiled.ring_index[e.src]]
+                    el = c.out_rings[comp.ring_index[e.src]]
                     raw = ifl.slice_steps_at(el, fence + n_steps - 1, 1)
+                    if comp.sharded(e.src):
+                        raw = _gather_block(raw, runner.mesh, comp.task_axis)
                     routed = runner._route_all(eidx, raw,
                                                _device.scalar(0, dev))
                     bufs.append(RecordBatch(*(x[0] for x in routed)))
+            elif comp.n_shards > 1:
+                whole = dist_.broadcast_object(
+                    runner._host(ckpt.carry.edge_bufs) if runner.rank == 0
+                    else None, runner.mesh, comp.task_axis,
+                    group=ex._host_group)
+                bufs = list(runner._on_device(dist_.shard_tree(
+                    whole, comp.placements().edge_bufs, comp.n_shards,
+                    comp.shard)))
             else:
                 bufs = list(runner._on_device(ckpt.carry.edge_bufs))
             ex.carry = c._replace(edge_bufs=tuple(bufs))
@@ -2597,6 +2757,49 @@ class ClusterRunner:
             runner._mgroup.histogram(f"recovery.{name}-ms").update(pm[name])
         return runner, report
 
+    def _bootstrap_point(self, checkpoint_dir: str, ignored: Set[int],
+                         starts: List[int]):
+        """:meth:`bootstrap_standby`'s restore point, read from this
+        runner's checkpoint storage: the newest completed, non-ignored
+        checkpoint whose log heads equal the mirror starts. A mirror
+        synced before the owner's refresh still starts at an older
+        checkpoint's heads than the newest completed one (the coordinator
+        retains two), and replaying it onto the newer one would land on a
+        wrong state. Returns ``(checkpoint, its id, the newest completed
+        id, its fence superstep, its log heads)``."""
+        storage = self.coordinator.storage
+        # Only fully acked checkpoints are restore points.
+        ids = [i for i in storage.completed_ids() if i not in ignored]
+        if not ids:
+            raise rec.RecoveryError(
+                "bootstrap_standby: no durable completed non-ignored "
+                f"checkpoint in {checkpoint_dir}")
+        ckpt, candidates = None, []
+        for cid in sorted(ids, reverse=True):
+            cand = storage.read(cid)
+            heads = [int(h) for h in np.asarray(cand.carry.log_heads)]
+            if heads == starts:
+                ckpt = cand
+                break
+            candidates.append(f"{cid}: {heads}")
+        if ckpt is None:
+            err = rec.RecoveryError(
+                f"bootstrap_standby: no completed checkpoint's log heads "
+                f"equal the mirror starts {starts} (candidates "
+                f"{'; '.join(candidates)})")
+            obs_incident.get_incidents().signal(
+                "recovery.failure", error=str(err)[:200],
+                source="bootstrap_standby")
+            raise err
+        # The fence's absolute superstep: ring heads count supersteps; a
+        # job without rings pins it by the checkpoint cadence.
+        if ckpt.carry.ring_heads:
+            fence = int(np.asarray(ckpt.carry.ring_heads[0]))
+        else:
+            fence = (ckpt.checkpoint_id + 1) * self.executor.steps_per_epoch
+        return (ckpt, ckpt.checkpoint_id, max(ids), fence,
+                np.asarray(ckpt.carry.log_heads).astype(np.int64))
+
     # --- planned and live rescaling ------------------------------------------
 
     @classmethod
@@ -2629,18 +2832,61 @@ class ClusterRunner:
         Constraints: the topology (vertex and edge counts, operator
         types, edge partition kinds) must match; a rescaled vertex's
         input edges must be HASH; vertices without a keyed rescaling
-        story keep their parallelism."""
-        if runner_kw.get("mesh") is not None:
-            raise ValueError("restore_rescaled is not supported on a mesh")
+        story keep their parallelism.
+
+        On a mesh (``mesh=`` in ``runner_kw``, of any number of ranks,
+        whatever mesh wrote the checkpoint) every rank calls it in
+        lockstep: rank 0, which alone reads ``ckpt`` (the others may pass
+        None), builds the whole restored state as above and sends every
+        rank its shards (a parallelism that does not split over the ranks
+        is whole on every rank)."""
         if len(job_new.vertices) != len(job_old.vertices) or \
                 len(job_new.edges) != len(job_old.edges):
             raise rec.RecoveryError(
                 "restore_rescaled: topology mismatch between jobs")
         runner = cls(job_new, **runner_kw)
-        cpy = lambda t: tree_map(lambda x: x.clone(), runner._on_device(t))
+        ex = runner.executor
+        comp = ex.compiled
+        if comp.n_shards == 1:
+            ops, bufs = runner._rescaled_state(job_old, ckpt)
+        else:
+            # A mesh: rank 0 (the only rank that holds the checkpoint)
+            # builds the whole restored state with the unsharded code and
+            # sends every rank its shards; a refusal on rank 0 is raised
+            # on every rank.
+            from clonos_tpu_torch.parallel import distributed as dist_
+            mesh, axis = runner.mesh, comp.task_axis
+            whole, err = None, None
+            if runner.rank == 0:
+                try:
+                    whole = runner._rescaled_state(job_old, ckpt)
+                except Exception as e:  # settled below, on every rank
+                    err = e
+            dist_.agree(err, mesh, axis, group=ex._host_group)
+            pl = comp.placements()
+            mine = None
+            for r in range(comp.n_shards):
+                piece = (runner._host(dist_.shard_tree(
+                    whole, (pl.op_states, pl.edge_bufs), comp.n_shards, r))
+                    if runner.rank == 0 else None)
+                got = dist_.transfer(piece, 0, [r], mesh, axis)
+                if r == runner.rank:
+                    mine = got
+            ops, bufs = runner._on_device(mine)
+        ex.carry = comp.constrain_carry(ex.carry._replace(
+            op_states=tuple(ops), edge_bufs=tuple(bufs)))
+        return runner
+
+    def _rescaled_state(self, job_old: JobGraph,
+                        ckpt: cp.CompletedCheckpoint):
+        """:meth:`restore_rescaled`'s whole restored operator states and
+        edge buffers of this runner's (new) job, on its device: every
+        vertex's state split and merged by key group, every edge buffer
+        re-cut, with the refusals."""
+        job_new = self.job
+        cpy = lambda t: tree_map(lambda x: x.clone(), self._on_device(t))
         snap = ckpt.carry
-        carry = runner.executor.carry
-        ops = list(carry.op_states)
+        ops = []
         for v_new, v_old in zip(job_new.vertices, job_old.vertices):
             if type(v_new.operator) is not type(v_old.operator):
                 raise rec.RecoveryError(
@@ -2649,18 +2895,18 @@ class ClusterRunner:
             vid = v_new.vertex_id
             st = cpy(snap.op_states[vid])
             if v_new.parallelism == v_old.parallelism:
-                ops[vid] = st
-            else:
-                for eidx in job_new.in_edges(vid):
-                    if job_new.edges[eidx].partition != PartitionType.HASH:
-                        raise rec.RecoveryError(
-                            f"restore_rescaled: vertex {vid} rescaled but "
-                            f"input edge {eidx} is not HASH-partitioned")
-                ops[vid] = v_new.operator.rescale_keyed_state(
-                    st, v_new.parallelism, job_new.num_key_groups)
-        bufs = list(carry.edge_bufs)
+                ops.append(st)
+                continue
+            for eidx in job_new.in_edges(vid):
+                if job_new.edges[eidx].partition != PartitionType.HASH:
+                    raise rec.RecoveryError(
+                        f"restore_rescaled: vertex {vid} rescaled but "
+                        f"input edge {eidx} is not HASH-partitioned")
+            ops.append(v_new.operator.rescale_keyed_state(
+                st, v_new.parallelism, job_new.num_key_groups))
+        bufs = []
         drops = []
-        static = runner.executor.compiled.static_route
+        static = self.executor.compiled.static_route
         for eidx, (e_new, e_old) in enumerate(zip(job_new.edges,
                                                   job_old.edges)):
             if e_new.partition != e_old.partition:
@@ -2674,22 +2920,22 @@ class ClusterRunner:
                     job_new.num_key_groups)
                 drops.append((eidx, dst_p, e_new.capacity, unplaced,
                               "static"))
-                bufs[eidx] = placed
+                bufs.append(placed)
             elif e_new.partition == PartitionType.HASH:
                 raw = RecordBatch(*(x[None] for x in old_buf))
                 routed, dropped = routing.route_hash_block(
                     raw, dst_p, job_new.num_key_groups, e_new.capacity)
                 drops.append((eidx, dst_p, e_new.capacity,
                               dropped.sum(dtype=torch.int64), "hash"))
-                bufs[eidx] = RecordBatch(*(x[0] for x in routed))
+                bufs.append(RecordBatch(*(x[0] for x in routed)))
             else:
-                want = tuple(bufs[eidx].keys.shape)
+                want = (dst_p, e_new.capacity)
                 if tuple(old_buf.keys.shape) != want:
                     raise rec.RecoveryError(
                         f"restore_rescaled: edge {eidx} buffer shape "
                         f"{tuple(old_buf.keys.shape)} != {want} and the "
                         f"edge is not HASH-rescalable")
-                bufs[eidx] = old_buf
+                bufs.append(old_buf)
         if drops:
             # Rescaling DOWN concentrates old lanes' records; an overflow
             # would silently lose in-flight records. One read for every
@@ -2706,9 +2952,7 @@ class ClusterRunner:
                         f"restore_rescaled: edge {eidx} buffer overflows "
                         f"capacity {capacity} at parallelism {dst_p} — "
                         f"widen the edge capacity of the rescaled job")
-        runner.executor.carry = carry._replace(
-            op_states=tuple(ops), edge_bufs=tuple(bufs))
-        return runner
+        return tuple(ops), tuple(bufs)
 
     def rescale_live(self, job_new: JobGraph,
                      observers: Sequence = (),
@@ -2740,11 +2984,27 @@ class ClusterRunner:
 
         ``runner_kw`` builds the new runner (its device defaults to this
         runner's). Returns ``(new_runner, stats)``; the caller rebinds
-        its handle and re-homes any read tier (``ServeTier.rehome``)."""
+        its handle and re-homes any read tier (``ServeTier.rehome``).
+
+        On a mesh every rank calls it in lockstep at the same fence, and
+        the new runner keeps this runner's mesh (a live group cannot take
+        in new ranks: another ``mesh=`` is refused). Rank 0 alone holds
+        the checkpoint's carry and the ledger, walks the coordinator and
+        counts the drained records; every rank runs the drain, the
+        epoch-continuity surgery on its own shards and the re-fence, and
+        gets rank 0's ``stats``. The fenced-off runner releases its gloo
+        groups, so a round trip leaks none."""
         from clonos_tpu_torch.runtime.executor import LogicalTimeSource
         from clonos_tpu_torch.runtime.scheduler import RescaleCoordinator
+        if runner_kw.get("mesh", self.mesh) is not self.mesh:
+            raise ValueError(
+                "rescale_live: the new runner keeps this runner's mesh — a "
+                "live group cannot take in new ranks (re-cut onto another "
+                "mesh through a checkpoint and restore_rescaled)")
         if self.mesh is not None:
-            raise ValueError("rescale_live is not supported on a mesh")
+            runner_kw["mesh"] = self.mesh
+        lead = self.rank == 0
+        multi = self.executor.compiled.n_shards > 1
         if self.failed:
             raise rec.RecoveryError(
                 f"rescale_live: failed subtasks {sorted(self.failed)} — "
@@ -2780,24 +3040,27 @@ class ClusterRunner:
         for v_new, v_old in rescaled:
             lanes += [(v_old.vertex_id, s)
                       for s in range(v_old.parallelism)]
+        # The protocol walks once, on rank 0 (on a mesh the others hold
+        # no checkpoint carry and observe nothing).
         coord = RescaleCoordinator(len(lanes))
         events: List[tuple] = []
         coord.transition_observers.append(
             lambda kind, **f: events.append((kind, tuple(sorted(f.items())))))
         coord.transition_observers.extend(observers)
-
-        # Per-old-lane in-flight counts: the depth-1 edge buffers the
-        # fence checkpoint captured, brought to the host in one copy.
-        valid = _device.HostCopy(
-            {eidx: ckpt.carry.edge_bufs[eidx].valid
-             for vid, _ in lanes for eidx in job_old.in_edges(vid)}).wait()
         inflight = [0] * len(lanes)
-        for g, (vid, lane) in enumerate(lanes):
-            for eidx in job_old.in_edges(vid):
-                inflight[g] += int(np.asarray(valid[eidx])[lane].sum())
-            if inflight[g]:
-                coord.note_inflight(g, inflight[g])
-        coord.fence(ckpt.checkpoint_id)
+        if lead:
+            # Per-old-lane in-flight counts: the depth-1 edge buffers the
+            # fence checkpoint captured, brought to the host in one copy.
+            valid = _device.HostCopy(
+                {eidx: ckpt.carry.edge_bufs[eidx].valid
+                 for vid, _ in lanes
+                 for eidx in job_old.in_edges(vid)}).wait()
+            for g, (vid, lane) in enumerate(lanes):
+                for eidx in job_old.in_edges(vid):
+                    inflight[g] += int(np.asarray(valid[eidx])[lane].sum())
+                if inflight[g]:
+                    coord.note_inflight(g, inflight[g])
+            coord.fence(ckpt.checkpoint_id)
 
         # Migration from the SAME fence checkpoint.
         t_mig = _time.monotonic()
@@ -2810,7 +3073,7 @@ class ClusterRunner:
                 v_old.parallelism, v_new.parallelism,
                 job_new.num_key_groups)
             for v_new, v_old in rescaled}
-        for g, (vid, lane) in enumerate(lanes):
+        for g, (vid, lane) in enumerate(lanes if lead else ()):
             if inflight[g]:
                 coord.drain(g, inflight[g])
             coord.migrate(g)
@@ -2823,10 +3086,18 @@ class ClusterRunner:
         ex = runner.executor
         dev = runner.device
         from_epoch = ckpt.checkpoint_id + 1
-        if ckpt.carry.ring_heads:
+        fence = None
+        if not lead:
+            pass
+        elif ckpt.carry.ring_heads:
             fence = int(_device.HostCopy(ckpt.carry.ring_heads[0]).wait())
         else:
             fence = from_epoch * ex.steps_per_epoch
+        if multi:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            fence = dist_.broadcast_int(fence, self.mesh,
+                                        ex.compiled.task_axis,
+                                        group=ex._host_group)
         runner.global_step = fence
         ex._steps_executed = fence
         ex.step_input_history = [(0, 0)] * fence
@@ -2839,7 +3110,9 @@ class ClusterRunner:
         runner._ring_tail_mirror = fence
         ex._ring_tail = fence
         c = ex.carry
-        host = _device.HostCopy({"heads": c.logs.head, "starts": [
+        heads = (c.logs.head if ex.mesh is None else ex._placed(
+            c.logs.head, ex.compiled.placements().logs.head))
+        host = _device.HostCopy({"heads": heads, "starts": [
             el.epoch_starts for el in c.out_rings]}).wait()
         with runner._ck_heads_lock:
             runner._ck_log_heads[ckpt.checkpoint_id] = np.asarray(
@@ -2887,11 +3160,14 @@ class ClusterRunner:
                     timestamp=hist[-1][0] if hist else 0))
         runner.coordinator.ack_all(ckpt.checkpoint_id)
 
-        # Redirect; the old incarnation is fenced off.
-        coord.redirect()
+        # Redirect; the old incarnation is fenced off and lets go of its
+        # gloo groups.
+        if lead:
+            coord.redirect()
         self.failed = set(range(job_old.total_subtasks()))
         for f in self.failed:
             self.heartbeats.mark_dead(f)
+        self.executor.release_groups()
 
         stats = {
             "fence_checkpoint": ckpt.checkpoint_id,
@@ -2904,6 +3180,11 @@ class ClusterRunner:
             "migrate_ms": migrate_ms,
             "transitions": events,
         }
+        if multi:
+            # Every rank returns rank 0's reading (its wall clock).
+            stats = dist_.broadcast_object(stats, self.mesh,
+                                           ex.compiled.task_axis,
+                                           group=ex._host_group)
         tr.event("rescale.redirect", **{k: v for k, v in stats.items()
                                         if k != "transitions"})
         return runner, stats
@@ -3033,29 +3314,49 @@ class ClusterRunner:
         """A host-fed source's lost input batches: from ``offset`` (the
         checkpointed operator state's), each step's count from its
         recorded BUFFER_BUILT determinant, the records from the rewindable
-        reader (on a mesh, the owning rank's). Returns recovery-block-sized
-        chunks (zero-padded tail), uploaded in one pinned copy."""
+        reader (on a mesh, the owning rank's; rank 0 serves a feed whose
+        one reader it holds, :meth:`_recover_mesh`). Returns
+        recovery-block-sized chunks (zero-padded tail), uploaded in one
+        pinned copy."""
+        return self._upload_feed(self._read_feed(
+            vid, sub, offset, self._feed_counts(rows, n_steps), n_steps))
+
+    @staticmethod
+    def _feed_counts(rows: np.ndarray, n_steps: int) -> np.ndarray:
+        """Each replayed step's feed record count, from its recorded
+        BUFFER_BUILT determinant."""
+        anchors = det.sync_anchors(rows)[:n_steps]
+        return rows[anchors + 3, det.LANE_P].astype(np.int64)
+
+    def _read_feed(self, vid: int, sub: int, offset: int,
+                   counts: np.ndarray, n_steps: int) -> np.ndarray:
+        """The re-read records, ``[3, n_steps padded to the recovery
+        block, B]`` int32 (keys, values, valid) on the host, from this
+        rank's reader at ``offset``."""
         reader = self.executor.feed_readers.get(vid)
         if reader is None:
             raise rec.RecoveryError(
                 f"vertex {vid}: HostFeedSource has no registered feed "
                 f"reader to re-read from")
         b = self.job.vertices[vid].operator.batch_size
-        anchors = det.sync_anchors(rows)[:n_steps]
-        counts = rows[anchors + 3, det.LANE_P].astype(np.int64)
         ch = self._recovery_ch
-        padded = -(-n_steps // ch) * ch
-        host = np.zeros((3, padded, b), np.int32)
+        host = np.zeros((3, -(-n_steps // ch) * ch, b), np.int32)
         for i, c in enumerate(counts):
             ks, vs = reader.read_at(sub, offset, int(c))
             host[0, i, :c], host[1, i, :c] = ks, vs
             host[2, i, :c] = 1
             offset += int(c)
+        return host
+
+    def _upload_feed(self, host: np.ndarray) -> List[RecordBatch]:
+        """:meth:`_read_feed`'s records as recovery-block-sized chunks on
+        the device, in one pinned copy."""
+        ch = self._recovery_ch
         arr = _device.upload(host, self.device)
         return [RecordBatch(arr[0, lo:lo + ch], arr[1, lo:lo + ch],
                             torch.zeros_like(arr[0, lo:lo + ch]),
                             arr[2, lo:lo + ch] != 0)
-                for lo in range(0, padded, ch)]
+                for lo in range(0, host.shape[1], ch)]
 
     def _synthesize_det_rows(self, fence_global: int,
                              n_steps: int) -> np.ndarray:

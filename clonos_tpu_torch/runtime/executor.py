@@ -886,8 +886,11 @@ class LocalExecutor:
                     host_budget_epochs=spill_host_budget_epochs)
         # Epoch 0 starts at log offset 0 for every log.
         self.carry = self._roll(self.compiled.init_carry(self.device), 0)
-        #: vid -> FeedReader of a HostFeedSource vertex
+        #: vid -> FeedReader of a HostFeedSource vertex (None on a rank
+        #: that rank 0's one reader serves)
         self.feed_readers: Dict[int, Any] = {}
+        #: feed vertices whose one reader (rank 0's) serves every rank
+        self._single_feeds: set = set()
         #: called after every block with (last causal time, record stamp):
         #: the superstep-boundary hook timer services advance on
         self.block_listeners: List[Any] = []
@@ -898,6 +901,18 @@ class LocalExecutor:
     @property
     def plan(self) -> rep.ReplicationPlan:
         return self.compiled.plan
+
+    def release_groups(self) -> None:
+        """Let go of this executor's two gloo groups (a runner fenced off
+        by a live re-cut): the fenced-off executor makes no collective
+        afterwards."""
+        if self.mesh is None:
+            return
+        import torch.distributed as dist
+        for g in (self._fence_group, self._host_group):
+            if g is not None:
+                dist.destroy_process_group(g)
+        self._fence_group = self._host_group = None
 
     def _roll(self, carry: JobCarry, e: int) -> JobCarry:
         """Epoch fence: stamp the new epoch's start offset on every log,
@@ -922,18 +937,36 @@ class LocalExecutor:
 
     def register_feed(self, vertex_id: int, reader) -> None:
         """Attach a rewindable reader (``api/feeds.py``) to a
-        HostFeedSource vertex. On a mesh every rank registers its own
-        reader of the same feed (it pulls only its own lanes); a
-        ``SocketFeedReader`` is refused there, since each rank's would
-        open its own connection and deal the lines it reads over every
-        partition."""
+        HostFeedSource vertex. On a mesh every rank registers in lockstep
+        (the ranks check that they agree): each its own reader of the
+        same feed (it pulls only its own lanes), or, for a
+        ``SocketFeedReader``, one reader for every rank: rank 0 registers
+        it (only rank 0 opens the connection) and every other rank
+        registers None. Rank 0 then pulls every lane at each block and
+        sends each rank its lanes (the whole batch for a vertex that does
+        not split), serves a recovery's re-reads from its retention and
+        commits every lane's offset."""
         from clonos_tpu_torch.api.feeds import SocketFeedReader
-        if vertex_id not in self.compiled.feed_vertices:
+        comp = self.compiled
+        if vertex_id not in comp.feed_vertices:
             raise ValueError(f"vertex {vertex_id} is not a HostFeedSource")
-        if self.compiled.n_shards > 1 and isinstance(reader,
-                                                      SocketFeedReader):
-            raise ValueError("SocketFeedReader is not supported on a "
-                             "multi-rank mesh")
+        if comp.n_shards == 1:
+            if reader is None:
+                raise ValueError(f"vertex {vertex_id}: no feed reader")
+            self.feed_readers[vertex_id] = reader
+            return
+        from clonos_tpu_torch.parallel import distributed as dist_
+        single = reader is None or isinstance(reader, SocketFeedReader)
+        got = dist_.all_gather_object((single, reader is None), self.mesh,
+                                      comp.task_axis, group=self._host_group)
+        if len({m for m, _ in got}) != 1 or (got[0][0] and [
+                none for _, none in got] != [False] + [True] * (len(got) - 1)):
+            raise ValueError(
+                f"vertex {vertex_id}: the ranks disagree on its reader — "
+                f"a SocketFeedReader (one for every rank) is registered on "
+                f"rank 0 and None on every other rank")
+        if single:
+            self._single_feeds.add(vertex_id)
         self.feed_readers[vertex_id] = reader
 
     def _pull_feeds(self, k: int) -> Tuple[RecordBatch, ...]:
@@ -947,15 +980,17 @@ class LocalExecutor:
         settled across the ranks (:func:`~clonos_tpu_torch.parallel.
         distributed.agree`) before the block's first collective, so every
         rank raises there and none waits for it."""
-        feeds = []
+        comp = self.compiled
+        hosts: List[Optional[np.ndarray]] = []
         err: Optional[BaseException] = None
-        for vid in self.compiled.feed_vertices:
-            v = self.job.vertices[vid]
-            b = v.operator.batch_size
-            lo, hi = self.compiled.vblock[vid]
+        for vid in comp.feed_vertices:
+            b = self.job.vertices[vid].operator.batch_size
+            # One reader for every rank: rank 0 pulls every lane.
+            lo, hi = ((0, self.job.vertices[vid].parallelism)
+                      if vid in self._single_feeds else comp.vblock[vid])
             reader = self.feed_readers.get(vid)
             if reader is None or err is not None:
-                feeds.append(empty((k, hi - lo, b), self.device))
+                hosts.append(None)
                 continue
             host = np.zeros((3, k, hi - lo, b), np.int32)
             try:
@@ -965,15 +1000,30 @@ class LocalExecutor:
                     host[2, :, s - lo] = np.arange(b)[None, :] < cnt[:, None]
             except Exception as e:          # settled below, on every rank
                 err = e
-            arr = _device.upload(host, self.device)
-            feeds.append(RecordBatch(arr[0], arr[1], torch.zeros_like(arr[0]),
-                                     arr[2] != 0))
-        if self.compiled.n_shards > 1 and self.compiled.feed_vertices:
+            hosts.append(host)
+        if comp.n_shards > 1 and comp.feed_vertices:
             from clonos_tpu_torch.parallel import distributed as dist_
-            dist_.agree(err, self.mesh, self.compiled.task_axis,
+            dist_.agree(err, self.mesh, comp.task_axis,
                         group=self._host_group)
         elif err is not None:
             raise err
+        feeds = []
+        for vid, host in zip(comp.feed_vertices, hosts):
+            lo, hi = comp.vblock[vid]
+            if vid in self._single_feeds:
+                p = self.job.vertices[vid].parallelism
+                host = dist_.scatter_object(
+                    [host[:, :, slice(*_block(p, comp.n_shards, r))]
+                     for r in range(comp.n_shards)] if host is not None
+                    else None, self.mesh, comp.task_axis,
+                    group=self._host_group)
+            if host is None:
+                feeds.append(empty((k, hi - lo, self.job.vertices[vid]
+                                    .operator.batch_size), self.device))
+                continue
+            arr = _device.upload(host, self.device)
+            feeds.append(RecordBatch(arr[0], arr[1], torch.zeros_like(arr[0]),
+                                     arr[2] != 0))
         return tuple(feeds)
 
     def _next_block_inputs(self, k: int) -> BlockInputs:
@@ -983,6 +1033,18 @@ class LocalExecutor:
             r = int(self._rng.randint(0, 2 ** 31, dtype=np.int64))
             host[0, i], host[1, i] = t, r
             self.step_input_history.append((t, r))
+        if self.compiled.n_shards > 1 and not isinstance(
+                self.time_source, LogicalTimeSource):
+            # One causal time for the whole mesh: every rank takes rank
+            # 0's readings (a wall clock reads differently on each rank,
+            # and a replica's rows must equal its owner's on another).
+            # Logical time and the seeded RNG read the same on every rank.
+            from clonos_tpu_torch.parallel import distributed as dist_
+            host = dist_.broadcast_array(host, self.mesh,
+                                         self.compiled.task_axis,
+                                         group=self._host_group)
+            self.step_input_history[-k:] = [
+                (int(t), int(r)) for t, r in zip(host[0], host[1])]
         both = _device.upload(host, self.device)
         return BlockInputs(
             times=both[0], rng_bits=both[1],
@@ -1325,6 +1387,21 @@ class LocalExecutor:
     def check_overflow(self) -> List[str]:
         """Overflow guards to heed at every epoch roll; empty = healthy."""
         return self.overflow_messages(self.health_vector())
+
+    def plan_replicas_overflowed(self) -> bool:
+        """True when some replica log holds more rows than the log
+        capacity (one device read; on a mesh every rank's replica block
+        counts, a collective every rank makes)."""
+        if self.compiled.plan.num_replicas == 0:
+            return False
+        reps = self.carry.replicas
+        over = (reps.head - reps.tail
+                > self.compiled.log_capacity).any().to(torch.int32)
+        if self.compiled.n_shards > 1:
+            from clonos_tpu_torch.parallel import distributed as dist_
+            over = dist_.all_reduce_sum(over.reshape(1), self.mesh,
+                                        self.compiled.task_axis)
+        return bool(over.sum().item())
 
     def global_record_stamp(self) -> int:
         """Monotone nonzero stamp for async rows (1 + supersteps run)."""

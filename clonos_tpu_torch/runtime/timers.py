@@ -19,10 +19,17 @@ from clonos_tpu_torch.causal.services import ReplayFeed
 class ProcessingTimeService:
     """Per-task timer service. ``advance(now, stamp)`` fires every timer
     due by ``now``, appending its determinant and calling its callback;
-    ``force_fire`` re-fires a recorded one during replay."""
+    ``force_fire`` re-fires a recorded one during replay.
 
-    def __init__(self, append: Callable[[det.Determinant], None]):
+    ``fires=False`` keeps the timer book and appends the determinants but
+    never runs a callback: a rank of a mesh that appends to the task's
+    log and replica rows in lockstep while another rank runs the task's
+    callbacks, so each fires once in the deployment."""
+
+    def __init__(self, append: Callable[[det.Determinant], None],
+                 fires: bool = True):
         self._append = append
+        self.fires = fires
         self._heap: List[Tuple[int, int]] = []   # (fire_time, callback_id)
         self._callbacks: Dict[int, Callable[[int], None]] = {}
         self._next_id = 1
@@ -49,7 +56,8 @@ class ProcessingTimeService:
             d = det.TimerTriggerDeterminant(
                 record_count=max(stamp, 1), callback_id=cid, timestamp=ft)
             self._append(d)
-            self._callbacks[cid](ft)
+            if self.fires:
+                self._callbacks[cid](ft)
             fired += 1
         return fired
 
@@ -66,6 +74,8 @@ class ProcessingTimeService:
         self._heap = [(ft, cid) for ft, cid in self._heap
                       if not (ft == d.timestamp and cid == d.callback_id)]
         heapq.heapify(self._heap)
+        if not self.fires:
+            return
         cb = self._callbacks.get(d.callback_id)
         if cb is None:
             raise ValueError(

@@ -104,6 +104,9 @@ class TieredEpochStore:
         self.disk_hits = 0
         #: writer commands that raised (the epoch keeps its host copy)
         self.write_errors: List[str] = []
+        #: epochs whose segment record is on the index and not yet
+        #: covered by a truncate record (the writer thread's own)
+        self._indexed: set = set()
         self._writer_queue: "queue.Queue" = queue.Queue()
         self._writer = threading.Thread(target=self._writer_loop,
                                         name=f"spill-{name}", daemon=True)
@@ -148,7 +151,9 @@ class TieredEpochStore:
                 return
             ep.digest = digest
         if self.durable:
-            self._writer_queue.put(("digest", epoch))
+            # The digest rides the command: a truncate() between here and
+            # the writer drops the epoch from the tiers, not its stamp.
+            self._writer_queue.put(("digest", (epoch, digest)))
 
     def truncate(self, through_epoch: int) -> None:
         """Checkpoint complete: drop epochs <= ``through_epoch`` from every
@@ -228,7 +233,7 @@ class TieredEpochStore:
                 if kind == "write":
                     self._write_one(arg)
                 elif kind == "digest":
-                    self._index_digest(arg)
+                    self._index_digest(*arg)
                 elif kind == "truncate":
                     self._truncate_disk(arg)
             except Exception as e:
@@ -263,6 +268,7 @@ class TieredEpochStore:
                 "blake2b": checksum, "bytes": nbytes,
                 "digest": digest,
             })
+            self._indexed.add(epoch)
         except OSError:
             # Flush failure: keep the host copy so replay still works —
             # materialized, so the pinned staging buffers go either way.
@@ -297,14 +303,13 @@ class TieredEpochStore:
         for e in resident[:max(excess, 0)]:
             self._epochs[e].arrays = None
 
-    def _index_digest(self, epoch: int) -> None:
-        with self._lock:
-            ep = self._epochs.get(epoch)
-            if ep is None or ep.path is None:
-                return                 # write pending: the digest rides it
-            digest = ep.digest
-        self._index_append({"kind": "digest", "epoch": epoch,
-                            "digest": digest})
+    def _index_digest(self, epoch: int, digest: str) -> None:
+        # Writer thread: the epoch's write command ran before this one, so
+        # either its segment record is on the index (stamp it, truncated
+        # since or not) or it never will be (nothing to stamp).
+        if epoch in self._indexed:
+            self._index_append({"kind": "digest", "epoch": epoch,
+                                "digest": digest})
 
     def _truncate_disk(self, through_epoch: int) -> None:
         prefix = f"{self.name}_epoch"
@@ -320,6 +325,7 @@ class TieredEpochStore:
                     os.remove(os.path.join(self.spool_dir, fn))
                 except OSError:
                     pass
+        self._indexed -= {e for e in self._indexed if e <= through_epoch}
         # Recorded unconditionally: truncate() already unlinked some
         # segments, and open_index must not resurrect their entries.
         self._index_append({"kind": "truncate", "through": through_epoch})

@@ -235,11 +235,14 @@ def test_headline_carry_placements_equal_reference(parallelism, n,
 
 def test_mesh_refuses_what_it_does_not_run(tmp_path):
     """On a mesh (here one rank over an in-memory store), what the
-    sharded path does not run is refused: a live re-cut, a re-cut restore
-    and a standby bootstrap onto a mesh, each with its message (spill,
-    incremental checkpoints, transactional sinks and host-fed sources run
-    on a mesh: ``tests/test_torch_mesh_*.py``)."""
+    sharded path does not run is refused, each with its message: a live
+    re-cut onto another mesh (a live group cannot take in new ranks) and
+    a standby bootstrap of a job with a rebalance edge (its round-robin
+    cursors are not in the fence snapshot, as unsharded). A re-cut
+    restore, a live re-cut on the runner's own mesh and a bootstrap run
+    on a mesh: ``tests/test_torch_mesh_rebuild.py``."""
     from clonos_tpu_torch.api.environment import StreamEnvironment
+    from clonos_tpu_torch.causal import recovery as rec
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
 
     def job():
@@ -249,18 +252,25 @@ def test_mesh_refuses_what_it_does_not_run(tmp_path):
             .sink())
         return env.build()
 
+    def rebalanced():
+        env = StreamEnvironment(num_key_groups=8, default_edge_capacity=16)
+        env.synthetic_source(vocab=5, batch_size=4, parallelism=2) \
+            .rebalance().sink(parallelism=2)
+        return env.build()
+
     kw = dict(steps_per_epoch=4, log_capacity=64, max_epochs=8,
               inflight_ring_steps=8, device="cpu")
     try:
         mesh = dist.task_mesh(device="cpu")
         r = ClusterRunner(job(), mesh=mesh, **kw)
-        with pytest.raises(ValueError, match="rescale_live"):
-            r.rescale_live(job())
-        with pytest.raises(ValueError, match="restore_rescaled"):
-            ClusterRunner.restore_rescaled(job(), job(), None, mesh=mesh,
-                                           **kw)
-        with pytest.raises(ValueError, match="bootstrap_standby"):
-            ClusterRunner.bootstrap_standby(job(), str(tmp_path), {},
+        r.run_epoch(complete_checkpoint=True)
+        with pytest.raises(ValueError, match="rescale_live: the new runner "
+                           "keeps this runner's mesh"):
+            r.rescale_live(job(), mesh=object(), **kw)
+        assert not r.failed
+        with pytest.raises(rec.RecoveryError, match="rebalance edges not "
+                           "supported"):
+            ClusterRunner.bootstrap_standby(rebalanced(), str(tmp_path), {},
                                             mesh=mesh, **kw)
     finally:
         dist.shutdown()

@@ -132,7 +132,8 @@ def rank_feeds(ctx, root, parallelism=P, kill=(1, 2), file_sink=False,
         r.attach_file_sink(2, os.path.join(root, "sink"))
     out = {}
     from clonos_tpu_torch.api.feeds import SocketFeedReader
-    try:       # an unconnected instance: the refusal is by type
+    try:       # an unconnected instance on every rank: the one reader
+        # for every rank is registered on rank 0 alone
         r.executor.register_feed(0, SocketFeedReader.__new__(
             SocketFeedReader))
         out["socket"] = None
@@ -394,14 +395,17 @@ def test_mesh_commits_each_ranks_feed_offsets(runs, tmp_path):
     """``test_feeds.py:80`` on 2 ranks: at the first completion each rank
     commits the offset of the lane it pulls (its reader's floor rises to
     SPE*B there and stays 0 on the lane it never pulls, and a
-    ``SocketFeedReader`` is refused by name); after the feed
+    ``SocketFeedReader`` registered on every rank is refused: its one
+    reader goes on rank 0 and None on the others); after the feed
     source on rank 1 and the reduce on rank 0 recover, the committed
     offsets, the sealed ledger and the whole carry equal the reference's
     (unsharded)."""
     from clonos_tpu_torch.obs.digest import diff_ledgers
     res = runs["two"]["feeds"]
     assert [x["socket"] for x in res] == [
-        "SocketFeedReader is not supported on a multi-rank mesh"] * 2
+        "vertex 0: the ranks disagree on its reader — a SocketFeedReader "
+        "(one for every rank) is registered on rank 0 and None on every "
+        "other rank"] * 2
     assert [x["bases_after_commit"] for x in res] == \
         [[SPE * B, 0], [0, SPE * B]]
     assert [x["managers"] for x in res] == [1, 1], \

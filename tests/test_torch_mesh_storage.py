@@ -88,7 +88,9 @@ def rank_spill(ctx, root):
         seed=11, logical_time=True, audit=True)
     _backlog(r)
     r.executor.drain_spill()
-    out = {"spool": sorted(os.listdir(os.path.join(root, "a", "spill"))),
+    out = {"digests": _index_digests(os.path.join(root, "a", "spill",
+                                                  f"rank{me}")),
+           "spool": sorted(os.listdir(os.path.join(root, "a", "spill"))),
            "own_segments": sorted(os.listdir(os.path.join(
                root, "a", "spill", f"rank{me}")))}
     r.inject_failure([3])                          # window subtask 1
@@ -142,6 +144,25 @@ def rank_spill(ctx, root):
         ledger=r.coordinator.read_ledger() if me == 0 else None,
         full=[x.numpy() for x in _leaves(r.executor.full_carry())])
     r.executor.close_spill()
+    return out
+
+
+def _index_digests(spool):
+    """Every segment index under ``spool``: store name -> epoch -> the
+    digests its index records carry for that epoch, in file order
+    (truncated epochs included: their stamps outlive the truncation)."""
+    import json
+    out = {}
+    for path in sorted(glob.glob(os.path.join(spool, "*.index.jsonl"))):
+        name = os.path.basename(path)[:-len(".index.jsonl")]
+        eps = {}
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("kind") in ("segment", "digest"):
+                    eps.setdefault(rec["epoch"], []).append(
+                        rec.get("digest"))
+        out[name] = eps
     return out
 
 
@@ -380,3 +401,34 @@ def test_mesh_incremental_chain_recovers_and_restarts(runs, tmp_path):
     assert orphan and not any(exist)
     assert ids == [c for c in res[0]["ids"] if c != full and c not in orphan]
     assert ids, "the first chain survives"
+
+
+def test_mesh_spill_index_records_carry_the_ledger_digest(runs, tmp_path):
+    """The deep-backlog run on 2 ranks: rank 0 hands each sealed epoch's
+    channels to rank 1, so the last index record of every epoch under
+    ``rank1/``, truncated or live (each ring segment carries its vertex's
+    ``ring/v<vid>`` chain), carries the digest that rank 0 and the
+    unsharded run record for that store and epoch, and none stays null.
+    (An epoch whose write a truncate overtook has no record on one run
+    and may have one on another.)"""
+    from clonos_tpu_torch.api.environment import StreamEnvironment
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    port = ClusterRunner(_spill_job(StreamEnvironment), device="cpu",
+                         inflight_ring_steps=8,
+                         spool_dir=str(tmp_path / "spool"),
+                         spill_host_budget_epochs=0, **_SPILL_KW)
+    _backlog(port)
+    port.executor.drain_spill()
+    want = _index_digests(str(tmp_path / "spool"))
+    port.executor.close_spill()
+    r0, r1 = (x["digests"] for x in runs["spill"])
+    assert any(r1.values()), "rank 1 spilled its own lanes"
+    for me, got in enumerate((r0, r1)):
+        for name, epochs in got.items():
+            for epoch, digests in epochs.items():
+                last = digests[-1]
+                assert last is not None, (me, name, epoch, digests)
+                if epoch in want.get(name, {}):
+                    assert last == want[name][epoch][-1], (me, name, epoch)
+                if me == 1 and epoch in r0.get(name, {}):
+                    assert last == r0[name][epoch][-1], (name, epoch)

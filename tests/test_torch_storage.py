@@ -142,6 +142,42 @@ def test_open_index_fresh_process_refill_and_torn_tail(tmp_path):
     fresh.close()
 
 
+def test_digest_stamped_on_an_epoch_truncated_before_the_writer_stamps_it(
+        tmp_path):
+    """Epoch 0's segment record lands before its seal (digest null); the
+    seal's digest and the checkpoint's truncate then both reach the store
+    while the writer is still busy with epoch 1. The digest rides its
+    command, so the index stamps epoch 0 after its null record all the
+    same, and an epoch whose write the truncate overtook gets no record
+    at all."""
+    import json
+    import threading
+    store = TieredEpochStore(str(tmp_path), "edge0", host_budget_epochs=0)
+    store.put(0, 0, _arrays(20))
+    store.drain()
+    gate, write_one = threading.Event(), store._write_one
+
+    def held(epoch):                     # the writer waits on epoch 1
+        if epoch == 1:
+            assert gate.wait(60)
+        return write_one(epoch)
+    store._write_one = held
+    store.put(1, 4, _arrays(21))
+    store.put(2, 8, _arrays(22))
+    store.attach_digest(0, "d0")
+    store.attach_digest(2, "d2")
+    store.truncate(2)
+    gate.set()
+    store.drain()
+    store.close()
+    with open(store.index_path()) as f:
+        recs = [json.loads(line) for line in f]
+    assert [(r["kind"], r.get("epoch"), r.get("digest")) for r in recs] == [
+        ("segment", 0, None), ("digest", 0, "d0"), ("truncate", None, None)]
+    assert TieredEpochStore.open_index(str(tmp_path),
+                                       "edge0").retained_epochs() == []
+
+
 # --- cluster integration -----------------------------------------------------
 
 
