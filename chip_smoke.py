@@ -410,6 +410,37 @@ SOAK_SHAPES = (
     ("soak-sink-route", 1, PAR * 1152, PAR * EDGE_CAPACITY, True),
     ("soak-sink-route", 1, PAR * 1152, PAR * EDGE_CAPACITY, False),
 )
+#: phase 20's widths: the soak's keyed lanes before and after its
+#: autoscaler's re-cut
+VERIFY_LANES = (PAR, 16)
+
+
+def _verify_shapes():
+    """Phase 20's shapes at each of ``VERIFY_LANES``: its paced chunks step
+    one step at a time (R=1 routes, one step's window rows, as
+    SOAK_SHAPES), each run opens with a whole-epoch block, the control twin
+    runs whole epochs, and each run closes with what is left of its last
+    epoch, a multiple of the chunk: every block of 8 .. ``SOAK_SPE`` steps
+    in chunks. The reduce -> sink exchange routes the window -> reduce
+    edge's slots (its capacity as the compiled job widens it at that
+    parallelism). Checked bit for bit in phase 2, not timed."""
+    from clonos_tpu_torch.runtime.executor import CompiledJob
+    out = []
+    for lanes in VERIFY_LANES:
+        static = CompiledJob(build_rescale_job(lanes), log_capacity=16,
+                             max_epochs=2).job.edges[1].capacity
+        for steps in (1,) + tuple(range(SOAK_CHUNK, SOAK_SPE + 1,
+                                        SOAK_CHUNK)):
+            for counts in (True, False):
+                out.append((f"verify-route-{lanes}", steps, PAR * BATCH,
+                            lanes * EDGE_CAPACITY, counts))
+                out.append((f"verify-sink-route-{lanes}", steps,
+                            lanes * static, PAR * EDGE_CAPACITY, counts))
+            out.append((f"verify-window-{lanes}", steps * lanes,
+                        EDGE_CAPACITY, VOCAB, False))
+    return tuple(out)
+
+
 #: shapes timed against their bound and the library call
 TIMED_LABELS = ("route", "window", "lane") + tuple(
     {s[0] for s in C45_SHAPES + WC_SHAPES + WC_SOCKET_SHAPES
@@ -606,6 +637,7 @@ def phase_kernels():
             lambda: hist.keyed_hist_plain(keys, vals, valid, nk, counts))
         row["bound_ms"], row["bound_by"] = _bound(r, b, nk, counts, kept)
         profiled.append((row, kernel, library, other))
+    rows += _check_verify_shapes(hist, dev)
     _host_split(hist)
     for row, kernel, library, other in profiled:
         row["device_ms"] = _device_ms(kernel)
@@ -615,8 +647,48 @@ def phase_kernels():
         row["library_device_ms"] = _device_ms(library, None)
     del profiled
     for row in rows:
-        log(f"[kernel] {json.dumps(row)}")
+        if not row["label"].startswith("verify-"):
+            log(f"[kernel] {json.dumps(row)}")
     _judge(rows)
+    return rows
+
+
+def _check_verify_shapes(hist, dev):
+    """``_verify_shapes()`` against the plain version, bit for bit, on
+    seeded inputs drawn on the card (there are hundreds); one summary
+    line. Returns their rows."""
+    rows = []
+    gen = torch.Generator(device=dev)
+    for i, (label, r, b, nk, counts) in enumerate(_verify_shapes()):
+        gen.manual_seed(7000 + i)
+        keys = torch.randint(-3, nk + 4, (r, b), generator=gen, device=dev,
+                             dtype=torch.int32)
+        vals = torch.randint(-1000, 1000, (r, b), generator=gen,
+                             device=dev, dtype=torch.int32)
+        valid = torch.rand((r, b), generator=gen, device=dev) < 0.7
+        smem_optin, sms = hist._device_info(keys.get_device())
+        plan = hist._plan(r, b, nk, counts, True, smem_optin, sms)
+        s_k, c_k = hist.keyed_hist_cuda(keys, vals, valid, nk, counts)
+        s_p, c_p = hist.keyed_hist_plain(keys, vals, valid, nk, counts)
+        err = int((s_k.to(torch.int64) - s_p.to(torch.int64)).abs().max())
+        if counts:
+            err = max(err, int((c_k.to(torch.int64)
+                                - c_p.to(torch.int64)).abs().max()))
+        if err:
+            raise AssertionError(
+                f"keyed_hist kernel != plain at {label} R={r} B={b} nk={nk} "
+                f"counts={counts}: max abs err {err}")
+        rows.append(dict(label=label, R=r, B=b, nk=nk, counts=counts,
+                         bit_identical=True, max_abs_err=err,
+                         branch=("bulk", "direct", "global")[plan.branch]))
+        del keys, vals, valid, s_k, c_k, s_p, c_p
+    branches = {}
+    for row in rows:
+        branches[row["branch"]] = branches.get(row["branch"], 0) + 1
+    log(f"[kernel] phase 20's shapes: {len(rows)} checked bit for bit "
+        f"(lanes {list(VERIFY_LANES)}, 1 and 8 .. {SOAK_SPE} steps), max "
+        f"abs err {max(r['max_abs_err'] for r in rows)}, branches "
+        f"{json.dumps(branches)}")
     return rows
 
 
@@ -5141,7 +5213,7 @@ def phase_soak(dev_line, root, rows=None):
     fault under a read tier, (c) the audit bait, (d) the closed loop with
     the autoscaler. Every keyed_hist shape of a steady chunk must be one
     that phase 2 held against the plain version (``rows``; None skips the
-    check). Returns the phase's kernel launches."""
+    check). Returns the phase's kernel launches and (b)'s offered rate."""
     from clonos_tpu_torch.autoscale import (AutoscaleController,
                                             DecisionLog, PolicyConfig,
                                             ScalePolicy)
@@ -5175,7 +5247,7 @@ def phase_soak(dev_line, root, rows=None):
             problems.append(f"(a) synchronising calls in a steady chunk: "
                             f"{cap['syncs_per_chunk']} "
                             f"({SYNC_SITES[-3:]})")
-        rate = SOAK_RATE_SHARE * cap["records_per_s"]
+        rate = readings["rate"] = SOAK_RATE_SHARE * cap["records_per_s"]
         targets = default_kill_targets(runner.job)
         text = "\n".join(
             f"at {share * SOAK_DURATION_S:.3f}s " + ev.format(
@@ -5317,7 +5389,7 @@ def phase_soak(dev_line, root, rows=None):
         raise AssertionError("phase 16: " + "; ".join(problems))
     log(f"[soak] phase 16: {time.monotonic() - t_phase:.1f} s, kernel "
         f"launches {json.dumps(launches)} ({dev_line})")
-    return launches
+    return launches, readings["rate"]
 
 
 # --- phase 17 ---------------------------------------------------------------
@@ -6630,6 +6702,335 @@ def phase_mesh_rebuild(dev_line, root, rows):
     return launches
 
 
+# --- phase 20 ---------------------------------------------------------------
+
+#: (a)'s bound: the reference's slow full-depth sweep
+VERIFY_BIG_BOUND = dict(workers=3, epochs=3, faults=2, depth=64,
+                        max_states=500_000)
+#: (b)'s soak clock and the bait's fire time (``write_counterexample``'s
+#: ``start_s``, the reference's live test's), inside the first soak epoch
+VERIFY_BAIT_S = 6.0
+VERIFY_BAIT_START_S = 1.5
+#: (c)'s soak clock (two completed fences after the first), and how long
+#: before the first soak epoch would close at the offered rate the 2 s
+#: spike starts: the loop then runs at about its capacity, twice that
+#: rate, and the epoch closes (the autoscaler's first completed fence)
+#: about 1 s into the spike (no earlier than 0.5 s, the bridge's default)
+VERIFY_LOOP_S = 18.0
+VERIFY_SPIKE_LEAD_S = 2.0
+#: (c)'s policy: the scale-policy model's sustain (1) and cooldown (2)
+#: fences, workers between 4 and 16, one step 8 -> 16
+VERIFY_POLICY = dict(sustain_fences=1, cooldown_fences=2, min_workers=4,
+                     max_workers=16, max_step=8)
+VERIFY_TRACES = 20
+
+PHASE20_REDUCTIONS = (
+    f"(a) the six protocol models at workers={VERIFY_BIG_BOUND['workers']} "
+    f"epochs={VERIFY_BIG_BOUND['epochs']} faults="
+    f"{VERIFY_BIG_BOUND['faults']} depth={VERIFY_BIG_BOUND['depth']} "
+    f"max_states={VERIFY_BIG_BOUND['max_states']}, clean and with each "
+    f"seeded bug; (b) checkpoint:unlogged-write's counterexample "
+    f"(write_counterexample start_s={VERIFY_BAIT_START_S:g}) through "
+    f"phase 16's runner trio and widths for {VERIFY_BAIT_S:g} s at phase "
+    f"16's rate, and the same with an empty schedule; (c) "
+    f"scalepolicy:no-cooldown's load-spike schedule (start_s "
+    f"{VERIFY_SPIKE_LEAD_S:g} s before the first soak epoch would close "
+    f"at that rate) for {VERIFY_LOOP_S:g} s with the "
+    f"autoscaler at the model's sustain and cooldown ({VERIFY_POLICY}); "
+    f"(d) conformance, {VERIFY_TRACES} model traces a component")
+
+
+def _capture_first_chunk(runner, calls):
+    """Record, as (kernel?, keys, vals, valid, nk, counts, sums, counts
+    out), every keyed_hist call ``runner``'s first paced chunk makes: the
+    soak driver's warmup steps one epoch (``SOAK_SPE`` calls of
+    ``step()``) before its clock starts, so calls ``SOAK_SPE`` ..
+    ``SOAK_SPE + SOAK_CHUNK - 1`` are the first chunk."""
+    from clonos_tpu_torch.ops import histogram as hist
+    inner = runner.step
+    n = [0]
+
+    def recording(orig, kernel):
+        def call(keys, vals, valid, nk, want_counts=True):
+            out = orig(keys, vals, valid, nk, want_counts)
+            calls.append((kernel, keys.clone(), vals.clone(), valid.clone(),
+                          nk, want_counts, out[0].clone(),
+                          None if out[1] is None else out[1].clone()))
+            return out
+        return call
+
+    def step(*a, **k):
+        i = n[0]
+        n[0] += 1
+        if not SOAK_SPE <= i < SOAK_SPE + SOAK_CHUNK:
+            return inner(*a, **k)
+        saved = hist.keyed_hist_cuda, hist.keyed_hist_plain
+        hist.keyed_hist_cuda = recording(saved[0], True)
+        hist.keyed_hist_plain = recording(saved[1], False)
+        try:
+            return inner(*a, **k)
+        finally:
+            hist.keyed_hist_cuda, hist.keyed_hist_plain = saved
+    runner.step = step
+
+
+def _first_chunk_reading(calls):
+    """The recorded calls against ``keyed_hist_plain`` on their inputs."""
+    from clonos_tpu_torch.ops.histogram import keyed_hist_plain
+    err = 0
+    for _kernel, keys, vals, valid, nk, counts, s_k, c_k in calls:
+        s_p, c_p = keyed_hist_plain(keys, vals, valid, nk, counts)
+        err = max(err, int((s_k.to(torch.int64)
+                            - s_p.to(torch.int64)).abs().max()))
+        if counts:
+            err = max(err, int((c_k.to(torch.int64)
+                                - c_p.to(torch.int64)).abs().max()))
+    return dict(calls=len(calls),
+                kernel_calls=sum(1 for c in calls if c[0]),
+                shapes=sorted({(c[1].shape[0], c[1].shape[1], c[4], c[5])
+                               for c in calls}),
+                max_abs_err=err)
+
+
+def _thrash(executed, cooldown):
+    """The model's no-thrash on executed worker re-cuts (in order):
+    opposite directions at least ``cooldown`` decisions apart; returns the
+    offending pairs."""
+    out = []
+    for a, b in zip(executed, executed[1:]):
+        if (a["delta"] > 0) != (b["delta"] > 0) \
+                and b["seq"] - a["seq"] < cooldown:
+            out.append((a, b))
+    return out
+
+
+def phase_verify(dev_line, root, rows, rate):
+    """(a) the model checker's big bound, clean and with every seeded bug;
+    (b) a model counterexample (an unlogged write) replayed by the soak at
+    phase 16's widths must fail the audit, and the same run with an empty
+    schedule must pass exactly once; (c) the scale-policy counterexample's
+    load spike replayed with the real autoscaler: it re-cuts, with no
+    thrash, every executed decision in the SCALE log, exactly-once output;
+    (d) the six components against the models. Every keyed_hist shape of
+    (b) and (c) must have a phase 2 row (``rows``; None skips the check),
+    and the first chunk of (b)'s empty-schedule run must equal the plain
+    version.
+    ``rate`` is phase 16's offered rate. Returns the phase's kernel
+    launches."""
+    from clonos_tpu_torch import verify as v
+    from clonos_tpu_torch.autoscale import (AutoscaleController,
+                                            DecisionLog, PolicyConfig,
+                                            ScalePolicy)
+    from clonos_tpu_torch.obs import audit as audit_mod
+    from clonos_tpu_torch.soak import (ChaosSchedule, SLOSpec, SoakConfig,
+                                       SoakDriver)
+    from clonos_tpu_torch.soak.chaos import (parse_schedule,
+                                             read_trace_schedule)
+    from clonos_tpu_torch.verify.conformance import run_conformance
+    t_phase = time.monotonic()
+    problems = []
+    readings = {}
+
+    # (a) the big bound: every model clean, every seeded bug caught
+    t = time.monotonic()
+    models = {}
+    for name in sorted(v.MODELS):
+        t0 = time.monotonic()
+        (rep,) = v.run_verify(models=[name], **VERIFY_BIG_BOUND).reports
+        models[name] = dict(states=rep.states, transitions=rep.transitions,
+                            depth=rep.depth, truncated=rep.truncated,
+                            violations=len(rep.violations),
+                            s=round(time.monotonic() - t0, 3))
+        if not rep.ok or rep.truncated:
+            problems.append(f"(a) {name}: {models[name]} "
+                            f"{[x.to_dict() for x in rep.violations][:1]}")
+    if models["checkpoint"]["states"] <= 5000:
+        problems.append(f"(a) checkpoint explored only "
+                        f"{models['checkpoint']['states']} states")
+    bugs = {}
+    for model in sorted(v.BUGS):
+        for bug in sorted(v.BUGS[model]):
+            t0 = time.monotonic()
+            rb = v.run_verify(models=[model], bugs={model: bug},
+                              **VERIFY_BIG_BOUND)
+            first = rb.violations[0] if rb.violations else None
+            bugs[f"{model}:{bug}"] = dict(
+                caught=not rb.ok,
+                invariant=first.invariant if first else None,
+                trace_steps=len(first.trace) if first else None,
+                s=round(time.monotonic() - t0, 3))
+            if rb.ok:
+                problems.append(f"(a) {model}:{bug} escaped the big bound")
+    readings["a"] = dict(bound=VERIFY_BIG_BOUND, models=models, bugs=bugs,
+                         s=round(time.monotonic() - t, 3))
+
+    # the two counterexamples, through the bridge's files
+    ce_dir = os.path.join(root, "counterexamples")
+    bait = v.run_verify(models=["checkpoint"], quick=True,
+                        bugs={"checkpoint": "unlogged-write"}).violations[0]
+    spike = v.run_verify(models=["scalepolicy"], quick=True,
+                         bugs={"scalepolicy": "no-cooldown"}).violations[0]
+    epoch_s = SOAK_SPE * PAR * BATCH / rate
+    schedules = {}
+    for key, viol, start_s, kinds in (
+            ("b", bait, VERIFY_BAIT_START_S, ["nondet"]),
+            ("c", spike, max(0.5, round(epoch_s - VERIFY_SPIKE_LEAD_S, 3)),
+             ["load-spike"])):
+        out = v.write_counterexample(ce_dir, viol, start_s=start_s)
+        sched = read_trace_schedule(out["trace"])
+        with open(out["chaos"]) as f:
+            from_chaos = parse_schedule(f.read())
+        if sched.kinds() != kinds or from_chaos != sched:
+            problems.append(f"({key}) {viol.model}:{viol.invariant} "
+                            f"compiled to {sched.to_text()!r}, its .chaos "
+                            f"file to {from_chaos.to_text()!r}")
+        schedules[key] = sched
+    if bait.invariant != "exactly-once-logged" \
+            or spike.invariant != "no-thrash":
+        problems.append(f"counterexamples {bait.invariant}, "
+                        f"{spike.invariant}")
+
+    first_chunk = []
+
+    def soak(sub, schedule, duration, autoscaler=None, capture=False):
+        runner, control, election = _soak_trio(root, sub, [])
+        if capture:
+            _capture_first_chunk(runner, first_chunk)
+        driver = SoakDriver(
+            runner, SoakConfig(rate=rate, duration_s=duration,
+                               window_s=SOAK_WINDOW_S,
+                               chunk_steps=SOAK_CHUNK,
+                               complete_every=SOAK_COMPLETE_EVERY),
+            schedule=schedule, spec=SLOSpec(exactly_once=True),
+            control=control, election=election,
+            records_per_step=PAR * BATCH, autoscaler=autoscaler)
+        verdict = driver.run()
+        cross = audit_mod.diff_ledgers_cross(
+            driver.harness.control.auditor.ledger(),
+            driver.runner.auditor.ledger())
+        del driver, runner, control
+        torch.cuda.empty_cache()
+        return verdict, cross
+
+    executed = []
+    ctl = AutoscaleController(
+        ScalePolicy(PolicyConfig(**VERIFY_POLICY)),
+        log=DecisionLog(os.path.join(root, "c-scale.det")))
+    on_fence = ctl.on_fence
+
+    def logged_on_fence(epoch, signals):
+        decision, done = on_fence(epoch, signals)
+        if done is not None:
+            executed.append(done.to_dict())
+        return decision, done
+    ctl.on_fence = logged_on_fence
+
+    def run():
+        bait_v, bait_cross = soak("b-bait", schedules["b"], VERIFY_BAIT_S)
+        ctl_v, ctl_cross = soak("b-control", ChaosSchedule([]),
+                                VERIFY_BAIT_S, capture=True)
+        loop_v, loop_cross = soak("c", schedules["c"], VERIFY_LOOP_S,
+                                  autoscaler=ctl)
+        return bait_v, bait_cross, ctl_v, ctl_cross, loop_v, loop_cross
+
+    t = time.monotonic()
+    (out, shapes), launches, _ = _counted(lambda: _launch_shapes(run))
+    bait_v, bait_cross, ctl_v, ctl_cross, loop_v, loop_cross = out
+    soak_s = time.monotonic() - t
+
+    # (b) the bait fails the audit; the empty schedule passes exactly once
+    if not (bait_v["pass"] is False
+            and bait_v["audit"]["exactly_once"] is False
+            and bait_v["audit"]["divergences"]):
+        problems.append(f"(b) the counterexample passed the audit: "
+                        f"{_soak_verdict_line(bait_v)}")
+    if not (ctl_v["pass"] and ctl_v["audit"]["exactly_once"] is True
+            and not ctl_v["audit"]["divergences"]
+            and ctl_v["audit"]["epochs_checked"] > 0 and not ctl_cross):
+        problems.append(f"(b) the empty schedule failed: "
+                        f"{_soak_verdict_line(ctl_v)}, cross diff "
+                        f"{ctl_cross[:3]}")
+    chunk = _first_chunk_reading(first_chunk)
+    cuda = torch.device(DEVICE).type == "cuda"
+    if chunk["max_abs_err"] != 0 or not chunk["calls"] \
+            or (cuda and chunk["kernel_calls"] != chunk["calls"]):
+        problems.append(f"(e) the control's first chunk against "
+                        f"keyed_hist_plain: {chunk}")
+    del first_chunk[:]
+    readings["b"] = dict(
+        schedule=schedules["b"].to_text(),
+        bait=dict(_soak_verdict_line(bait_v),
+                  divergences=bait_v["audit"]["divergences"][:2],
+                  cross_diff=len(bait_cross)),
+        control=dict(_soak_verdict_line(ctl_v), cross_diff=ctl_cross),
+        rate=round(rate, 1), first_chunk=chunk)
+
+    # (c) the real controller holds the cooldown the model's bug drops
+    a = loop_v["autoscale"]
+    records = ctl.log.records
+    logged = [r["decision"] for r in records]
+    unlogged = [d for d in executed if d not in logged]
+    workers = [d for d in executed if d["action"] == "scale-workers"]
+    thrash = _thrash(workers, VERIFY_POLICY["cooldown_fences"])
+    if thrash or unlogged or a["max_actions_per_cooldown"] > 1 \
+            or not workers:
+        problems.append(f"(c) thrash {thrash}, executed but not logged "
+                        f"{unlogged}, no re-cut {not workers}, autoscale "
+                        f"{a}")
+    if not (loop_v["audit"]["exactly_once"] is True
+            and not loop_v["audit"]["divergences"] and not loop_cross):
+        problems.append(f"(c) {_soak_verdict_line(loop_v)}, cross diff "
+                        f"{loop_cross[:3]}")
+    readings["c"] = dict(
+        _soak_verdict_line(loop_v), schedule=schedules["c"].to_text(),
+        epoch_s=round(epoch_s, 3), decisions=a["decisions"],
+        by_action=a["by_action"],
+        reasons=[r["decision"]["reason"] for r in records],
+        executed=[dict(seq=d["seq"], epoch=d["epoch"], delta=d["delta"],
+                       target_workers=d["target_workers"])
+                  for d in executed],
+        loads=[r["signals"]["load"] for r in records],
+        autoscale_rescales=a["autoscale_rescales"],
+        max_actions_per_cooldown=a["max_actions_per_cooldown"],
+        rescale_stats=a["rescale_stats"], log_digest=a["log_digest"],
+        cross_diff=loop_cross)
+    readings["soak_s"] = round(soak_s, 3)
+
+    # (d) the port's six components against the models
+    t = time.monotonic()
+    lease_dir = os.path.join(root, "lease")
+    os.makedirs(lease_dir, exist_ok=True)
+    conf = run_conformance(n_traces=VERIFY_TRACES, workdir=lease_dir)
+    readings["d"] = dict(
+        {c: dict(traces=r.traces, steps=r.steps, ok=r.ok)
+         for c, r in sorted(conf.items())},
+        s=round(time.monotonic() - t, 3))
+    for c, r in sorted(conf.items()):
+        if not r.ok or r.traces == 0:
+            problems.append(f"(d) {c}: "
+                            f"{[d.to_dict() for d in r.divergences][:1]}")
+
+    # (e) every launched shape was held against the plain version
+    held = {(r["R"], r["B"], r["nk"], r["counts"]) for r in rows or ()}
+    missing = [s for s in shapes if s not in held]
+    if rows is not None and missing:
+        problems.append(f"(e) launch shapes without a phase 2 row: "
+                        f"{missing}")
+    if min(launches.values()) == 0:
+        problems.append(f"no kernel launch: {launches}")
+    readings["e"] = dict(launch_shapes=[list(x) for x in shapes],
+                         launches=launches)
+    for part in ("a", "b", "c", "d", "e"):
+        log(f"[verify] ({part}) " + json.dumps(dict(
+            readings[part], device=dev_line), default=float))
+    log(f"[verify] phase 20: {time.monotonic() - t_phase:.1f} s (soak "
+        f"{readings['soak_s']} s), kernel launches {json.dumps(launches)} "
+        f"({dev_line})")
+    if problems:
+        raise AssertionError("phase 20: " + "; ".join(problems))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6732,7 +7133,7 @@ def main() -> int:
     log(f"[config] phase 16: {PHASE16_REDUCTIONS}")
     root = tempfile.mkdtemp(prefix="chip_smoke_soak_", dir=SCRATCH)
     try:
-        soak_launches = phase_soak(dev_line, root, rows)
+        soak_launches, soak_rate = phase_soak(dev_line, root, rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -6756,6 +7157,13 @@ def main() -> int:
         mesh_rebuild_launches = phase_mesh_rebuild(dev_line, root, rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 20: {PHASE20_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_verify_", dir=SCRATCH)
+    try:
+        verify_launches = phase_verify(dev_line, root, rows, soak_rate)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -6773,7 +7181,7 @@ def main() -> int:
         "rescale_restore": recut_launches,
         "rescale_live": live_launches, "soak": soak_launches,
         **mesh_launches, **mesh_storage_launches,
-        **mesh_rebuild_launches})))
+        **mesh_rebuild_launches, "verify": verify_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

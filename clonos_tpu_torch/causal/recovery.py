@@ -449,10 +449,15 @@ class RecoveryManager:
         self.plan: Optional[ReplayPlan] = None
         self.result: Optional[ReplayResult] = None
         self.transitions: List[RecoveryState] = [self.state]
+        #: ``fn(kind, **fields)`` on every FSM state change, kind the
+        #: entered state's name (verify/conformance.py observes these)
+        self.transition_observers: List = []
 
     def _goto(self, s: RecoveryState) -> None:
         self.state = s
         self.transitions.append(s)
+        for fn in self.transition_observers:
+            fn(s.name, flat=self.flat_subtask)
         get_tracer().event("recovery.fsm", state=s.name,
                            flat=self.flat_subtask, vertex=self.vertex_id,
                            subtask=self.subtask)

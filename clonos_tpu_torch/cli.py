@@ -1,5 +1,5 @@
 """Command-line front end of the port (``clonos_tpu/cli.py``): the job,
-process, dispatcher, observability and soak verbs.
+process, dispatcher, observability, soak and verify verbs.
 
 The CLI builds a job from ``module:function`` and drives an in-process
 ``ClusterRunner`` on the card (``--device cuda``, the default; it raises
@@ -25,6 +25,8 @@ Usage:
     python -m clonos_tpu_torch lineage lineage-*.jsonl [--key K]
     python -m clonos_tpu_torch soak [--rate R] [--duration S] \\
         [--schedule DSL|FILE] [--autoscale] [--report json] [--out FILE] ...
+    python -m clonos_tpu_torch verify [--quick] [--model NAME] \\
+        [--seed-bug MODEL:BUG] [--chaos-out DIR] [--conformance] ...
 
 ``worker`` is the TaskExecutor process: it registers with a remote
 JobMaster (naming its device, its process id and which path frames its
@@ -1391,6 +1393,53 @@ def cmd_soak(args) -> int:
     return rc
 
 
+def cmd_verify(args) -> int:
+    """Protocol model checker (``clonos_tpu_torch verify``): exhaustively
+    explore the checkpoint / recovery / lease-fencing / admission /
+    repartition / scale-policy transition models at a small bound,
+    checking every safety invariant on every reachable state and bounded
+    liveness on every terminal state. ``--seed-bug model:bug`` injects a
+    named protocol defect (verify/models.py BUGS): the checker must then
+    find a minimal counterexample (exit 1), which ``--chaos-out``
+    compiles into a chaos-DSL schedule that ``soak --schedule FILE``
+    replays. Pure Python except ``--conformance``, which replays model
+    traces against the port's components (on the host; no device)."""
+    from clonos_tpu_torch import verify as _v
+
+    if args.list_bugs:
+        for model in sorted(_v.BUGS):
+            for bug, what in sorted(_v.BUGS[model].items()):
+                print(f"{model}:{bug:20} {what}")
+        return 0
+    bugs = {}
+    for spec in args.seed_bug:
+        model, sep, bug = spec.partition(":")
+        if not sep:
+            print(f"--seed-bug wants model:bug, got {spec!r} "
+                  f"(see --list-bugs)", file=sys.stderr)
+            return 2
+        bugs[model] = bug
+    try:
+        result = _v.run_verify(
+            models=args.model or None, workers=args.workers,
+            epochs=args.epochs, faults=args.faults, depth=args.depth,
+            max_states=args.max_states, quick=args.quick, bugs=bugs,
+            conformance=args.conformance)
+    except ValueError as exc:
+        print(str(exc), file=sys.stderr)
+        return 2
+    if args.chaos_out:
+        os.makedirs(args.chaos_out, exist_ok=True)
+        for v in result.violations:
+            out = _v.write_counterexample(args.chaos_out, v)
+            print(f"counterexample: {out['chaos']}", file=sys.stderr)
+    if args.report == "json":
+        print(_v.format_json(result))
+    else:
+        print(_v.format_text(result))
+    return result.exit_code()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="clonos_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1833,6 +1882,51 @@ def main(argv=None) -> int:
     _add_profile_args(pk)
     _add_device_arg(pk)
     pk.set_defaults(fn=cmd_soak)
+
+    pv = sub.add_parser("verify",
+                        help="protocol model checker: exhaustive "
+                             "exploration of the checkpoint/recovery/"
+                             "lease/admission/repartition/scale-policy "
+                             "protocols with chaos-replayable "
+                             "counterexamples")
+    pv.add_argument("--model", action="append", default=[],
+                    metavar="NAME",
+                    help="model to check: checkpoint, recovery, lease, "
+                         "admission, repartition, scalepolicy "
+                         "(repeatable; default: all six)")
+    pv.add_argument("--workers", type=int, default=2,
+                    help="worker/contender count in the bound "
+                         "(default 2)")
+    pv.add_argument("--epochs", type=int, default=2,
+                    help="checkpoint epochs in the bound (default 2)")
+    pv.add_argument("--faults", type=int, default=1,
+                    help="injected faults in the bound (default 1)")
+    pv.add_argument("--depth", type=int, default=48,
+                    help="BFS depth budget (default 48)")
+    pv.add_argument("--max-states", type=int, default=200_000,
+                    help="state budget per model (default 200000)")
+    pv.add_argument("--quick", action="store_true",
+                    help="the quick bound: workers=2 epochs=2 faults=1 "
+                         "at reduced depth/state budget (sub-second)")
+    pv.add_argument("--seed-bug", action="append", default=[],
+                    metavar="MODEL:BUG",
+                    help="inject a named protocol defect (repeatable); "
+                         "the checker must find a counterexample "
+                         "(exit 1). See --list-bugs")
+    pv.add_argument("--list-bugs", action="store_true",
+                    help="print the seeded-bug registry and exit")
+    pv.add_argument("--conformance", action="store_true",
+                    help="also replay model traces against the port's "
+                         "components and fail on observable-transition "
+                         "divergence")
+    pv.add_argument("--chaos-out", default=None, metavar="DIR",
+                    help="compile each counterexample into a chaos-DSL "
+                         "schedule (.chaos) + trace (.jsonl) under DIR")
+    pv.add_argument("--report", choices=["text", "json"],
+                    default="text",
+                    help="json = one machine-readable line {ok, bound, "
+                         "models, ...}; exit 0 clean / 1 on violations")
+    pv.set_defaults(fn=cmd_verify)
 
 
     pp = sub.add_parser("top", help="live per-worker cluster view from "

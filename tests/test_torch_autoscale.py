@@ -1,12 +1,13 @@
 """PyTorch port, the autoscaler (``clonos_tpu_torch/autoscale``): mirrors
-of the reference's ``tests/test_autoscale.py`` cases that need neither
-its model checker nor its soak harness — policy discipline under
-adversarial traces, byte-identical SCALE determinant logs,
+of the reference's ``tests/test_autoscale.py`` cases — policy discipline
+under adversarial traces, byte-identical SCALE determinant logs,
 replay-not-re-decide recovery, the read tier's replica knob, the signal
-plane and the ``top`` row — each held to the reference on the same
-inputs, plus seeded signal traces through both policies, the decision
-logs' bytes across the packages, SCALE rows, and the controller's
-timeline and incident signals."""
+plane and the ``top`` row, the scale-policy model's three minimal
+counterexamples, the real controller's conformance and the ``load-spike``
+bridge (through the port's ``verify/``) — each held to the reference on
+the same inputs, plus seeded signal traces through both policies, the
+decision logs' bytes across the packages, SCALE rows, and the
+controller's timeline and incident signals."""
 
 import dataclasses
 import json
@@ -463,6 +464,74 @@ def test_signal_aggregator_samples_registry_rollup():
     assert out[0] == out[1]
     with pytest.raises(ValueError):
         SignalAggregator(window=0)
+
+
+# --- seeded bugs: exact minimal counterexamples (the port's verify/) ------
+
+def _ce(bug):
+    from clonos_tpu.verify.runner import run_verify as jrun
+    from clonos_tpu_torch.verify.runner import run_verify
+    r = run_verify(models=["scalepolicy"], quick=True,
+                   bugs={"scalepolicy": bug})
+    assert not r.ok and r.exit_code() == 1
+    jr = jrun(models=["scalepolicy"], quick=True,
+              bugs={"scalepolicy": bug})
+    assert [a.label() for a in r.violations[0].trace] == \
+        [a.label() for a in jr.violations[0].trace]
+    return r.violations[0]
+
+
+def test_no_cooldown_bug_minimal_thrash():
+    """Without the cooldown clock, one spike-then-idle flip thrashes:
+    up at one fence, straight back down at the next."""
+    v = _ce("no-cooldown")
+    assert v.invariant == "no-thrash"
+    assert [a.label() for a in v.trace] == [
+        "signal(2)", "fence", "decide", "execute",
+        "signal(0)", "fence", "decide", "execute"]
+
+
+def test_unlogged_decision_bug_minimal_ce():
+    """An executed scale action whose decision never hit the SCALE
+    log: recovery would re-decide instead of replaying."""
+    v = _ce("unlogged-decision")
+    assert v.invariant == "decision-logged"
+    assert [a.label() for a in v.trace] == [
+        "signal(2)", "fence", "decide", "execute"]
+
+
+def test_rescale_mid_recovery_bug_minimal_ce():
+    """A kill lands between decide and execute; skipping the execute-
+    time health re-check re-cuts over an in-progress recovery."""
+    v = _ce("rescale-mid-recovery")
+    assert v.invariant == "no-rescale-mid-recovery"
+    assert [a.label() for a in v.trace] == [
+        "signal(2)", "fence", "decide", "kill", "execute"]
+
+
+def test_conformance_real_controller_matches_model():
+    from clonos_tpu_torch.verify.conformance import conform_scalepolicy
+    rep = conform_scalepolicy()
+    assert rep.ok, rep.divergences
+    assert rep.steps > 0 and rep.traces > 0
+
+
+def test_model_ce_compiles_to_load_spike_chaos_event():
+    """The verify -> chaos bridge: a scalepolicy counterexample's
+    signal(2) step carries a load-spike hint that compiles to a
+    parseable DSL event, the reference's text."""
+    from clonos_tpu.verify.bridge import compile_trace as jcompile
+    from clonos_tpu.verify.runner import run_verify as jrun
+    from clonos_tpu_torch.soak.chaos import parse_schedule
+    from clonos_tpu_torch.verify.bridge import compile_trace
+    v = _ce("no-cooldown")
+    sched = compile_trace(v)
+    spikes = [ev for ev in sched if ev.kind == "load-spike"]
+    assert spikes and spikes[0].factor == 4.0
+    assert parse_schedule(sched.to_text()).to_text() == sched.to_text()
+    jv = jrun(models=["scalepolicy"], quick=True,
+              bugs={"scalepolicy": "no-cooldown"}).violations[0]
+    assert sched.to_text() == jcompile(jv).to_text()
 
 
 def test_signals_for_level_matches_conformance_loads():

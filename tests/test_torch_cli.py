@@ -4,7 +4,10 @@ prints the reference CLI's JSON for the two wordcount builders; ``run
 names (and its deterministic metric values); the default device is the
 card, so without one ``run`` raises; a ``worker`` refuses an incomplete
 multi-host bootstrap, and two workers given a complete one join one
-process group as processes 0 and 1. Tolerance: exact."""
+process group as processes 0 and 1; ``verify --quick --report json``
+exits 0 with the reference CLI's line, a seeded bug exits 1 and writes a
+``.chaos`` schedule the port's ``soak`` takes and its ``.jsonl`` trace,
+and bad arguments exit 2. Tolerance: exact."""
 
 import contextlib
 import io
@@ -119,3 +122,49 @@ def test_worker_joins_a_process_group(tmp_path):
                 p.kill()
                 p.wait()
         jm.close()
+
+
+# --- verify (the protocol model checker) ----------------------------------
+
+def _run_verify(args, timeout=120):
+    return subprocess.run(
+        [sys.executable, "-m", "clonos_tpu_torch", "verify"] + args,
+        cwd=_REPO, env=dict(os.environ, PYTHONPATH=_REPO),
+        capture_output=True, text=True, timeout=timeout)
+
+
+def test_cli_verify_quick_report_json_exit_zero():
+    from clonos_tpu_torch.verify import MODELS
+    p = _run_verify(["--quick", "--report", "json"])
+    assert p.returncode == 0, p.stderr[-2000:]
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    assert line["ok"] is True and line["quick"] is True
+    assert {m["model"] for m in line["models"]} == set(MODELS)
+    assert all(m["violations"] == [] for m in line["models"])
+    want = json.loads(_stdout(jcli.main, [
+        "verify", "--quick", "--report", "json"]).strip())
+    assert line == want
+
+
+def test_cli_verify_seeded_bug_exits_one_with_counterexample(tmp_path):
+    p = _run_verify(["--quick", "--model", "lease", "--seed-bug",
+                     "lease:no-fencing-check", "--report", "json",
+                     "--chaos-out", str(tmp_path)])
+    assert p.returncode == 1, p.stderr[-2000:]
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    (m,) = line["models"]
+    assert m["violations"][0]["trace"] == ["acquire(0)", "expire",
+                                           "acquire(1)"]
+    names = os.listdir(tmp_path)
+    assert any(n.endswith(".chaos") for n in names)
+    assert any(n.endswith(".jsonl") for n in names)
+    # the .chaos file is a schedule the port's soak takes as --schedule
+    from clonos_tpu_torch.soak.chaos import parse_schedule
+    (chaos,) = [n for n in names if n.endswith(".chaos")]
+    with open(tmp_path / chaos) as f:
+        assert parse_schedule(f.read()).kinds() == ["leader-loss"]
+
+
+def test_cli_verify_bad_arguments_exit_two():
+    assert _run_verify(["--model", "nope"]).returncode == 2
+    assert _run_verify(["--seed-bug", "no-colon"]).returncode == 2

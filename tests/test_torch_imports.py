@@ -1,7 +1,8 @@
 """PyTorch port, package rules: every module of ``clonos_tpu_torch``, and
 ``chip_smoke``, imports without pulling in ``jax`` or any ``clonos_tpu``
 module (checked in a fresh interpreter, since this test process has both
-loaded), no source file names one in an import statement at any depth
+loaded; the model checker ``verify`` and its conformance layer
+among them), no source file names one in an import statement at any depth
 (function bodies included), and the entry
 points default to the card: without one they raise instead of running on
 the CPU."""
@@ -30,11 +31,15 @@ names = ["clonos_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+verify = [name for name in ("clonos_tpu_torch.verify",
+                            "clonos_tpu_torch.verify.conformance")
+          if importlib.import_module(name) is sys.modules[name]]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "clonos_tpu" or m.startswith("clonos_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(verify))
 """
 
 
@@ -44,9 +49,12 @@ def test_port_imports_neither_jax_nor_reference_package():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    count, bad = (proc.stdout.splitlines() + [""])[:2]
+    count, bad, verify = (proc.stdout.splitlines() + ["", ""])[:3]
     assert int(count) >= 64          # every module of the port was walked
     assert bad == "", f"port pulled in {bad}"
+    # the model checker and its conformance layer were imported too
+    assert verify == ("clonos_tpu_torch.verify,"
+                      "clonos_tpu_torch.verify.conformance")
 
 
 _ALONE = r"""
