@@ -194,6 +194,20 @@ Phases:
      phase 11's): sealed ledgers, state digests and committed offsets
      equal to the control's, every keyed_hist launch of (a)'s epoch after
      the rebuild and of (b) equal to its plain version.
+ 20. the protocol model checker (``[verify]``): the six models at a big
+     bound, clean and with each seeded bug; a model counterexample (an
+     unlogged write) replayed by the soak fails the audit while its
+     empty-schedule control passes; the scale-policy counterexample's
+     load spike with the real autoscaler; conformance traces against the
+     port's components.
+ 21. the static analysis on the card's machine (``[analysis]``): (a) the
+     ``lint`` and ``analyze`` verbs exit 0 with fingerprints equal to the
+     port's pins; (b) the no-FT ablation twin against the executor on the
+     headline job at full width (512-step epochs, one warm-up and three
+     timed epochs each): outputs bit-identical, the twin's logs empty,
+     nine stripped sites, the measured and static ft-fractions (readings,
+     not a claim); (c) phase 20's soak verdicts carry the port's census
+     fingerprint.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -6816,7 +6830,8 @@ def phase_verify(dev_line, root, rows, rate):
     and the first chunk of (b)'s empty-schedule run must equal the plain
     version.
     ``rate`` is phase 16's offered rate. Returns the phase's kernel
-    launches."""
+    launches and each soak verdict's ``census_fingerprint`` (phase 21
+    (c) holds them to the port's pin)."""
     from clonos_tpu_torch import verify as v
     from clonos_tpu_torch.autoscale import (AutoscaleController,
                                             DecisionLog, PolicyConfig,
@@ -7028,6 +7043,240 @@ def phase_verify(dev_line, root, rows, rate):
         f"({dev_line})")
     if problems:
         raise AssertionError("phase 20: " + "; ".join(problems))
+    return launches, {"b-bait": bait_v["census_fingerprint"],
+                      "b-control": ctl_v["census_fingerprint"],
+                      "c": loop_v["census_fingerprint"]}
+
+
+# --- phase 21 ---------------------------------------------------------------
+
+#: (b) bench.py's ablation probe on the headline job: 512-step epochs,
+#: 256-step blocks, seed 7, logical time, one warm-up epoch then 3 timed
+ABLATE_SPE = 512
+ABLATE_BLOCK = 256
+ABLATE_SEED = 7
+ABLATE_EPOCHS = 3
+#: the FT call sites the transform must strip from the port's executor
+ABLATE_SITES = 9
+
+PHASE21_REDUCTIONS = (
+    f"(a) `lint --report json` and `analyze --report json --no-census "
+    f"--expect-census/--expect-threads` on the port's sources; (b) the "
+    f"headline job at full width, {ABLATE_SPE}-step epochs, "
+    f"{ABLATE_BLOCK}-step blocks, seed {ABLATE_SEED}, logical time, one "
+    f"warm-up epoch and {ABLATE_EPOCHS} timed epochs for the executor "
+    f"and for its no-FT twin in turn; (c) phase 20's three soak "
+    f"verdicts")
+
+
+def _verb_json(args):
+    """``python -m clonos_tpu_torch <args>`` from the repo root: (exit
+    code, seconds, its last stdout line parsed, stderr tail)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "clonos_tpu_torch", *args],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.monotonic() - t
+    lines = proc.stdout.strip().splitlines()
+    try:
+        doc = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        doc = None
+    return proc.returncode, seconds, doc, proc.stderr[-2000:]
+
+
+def _ablation_drive(ex_mod, check_plain):
+    """The headline job on ``ex_mod.LocalExecutor``: one warm-up epoch
+    (with ``check_plain``, every keyed_hist launch in it held against
+    ``keyed_hist_plain`` on its inputs), then ``ABLATE_EPOCHS`` timed
+    epochs, each ended by a device sync. Returns (timed seconds, the
+    leaves of states, edge buffers, record counts and the last epoch's
+    sinks, log head, ring heads, subtasks, rings, plain check)."""
+    from clonos_tpu_torch.ops import histogram as hist
+    from clonos_tpu_torch.utils.tree import tree_leaves
+    job = build_job()
+    need = (ABLATE_EPOCHS + 1) * ABLATE_SPE * DETS_PER_STEP
+    ex = ex_mod.LocalExecutor(
+        job, steps_per_epoch=ABLATE_SPE,
+        log_capacity=1 << need.bit_length(), max_epochs=16,
+        inflight_ring_steps=1 << (ABLATE_SPE - 1).bit_length(),
+        block_steps=ABLATE_BLOCK, seed=ABLATE_SEED, logical_time=True,
+        device=DEVICE)
+    check = dict(calls=0, kernel_calls=0, max_abs_err=0, shapes=set())
+    saved = hist.keyed_hist_cuda, hist.keyed_hist_plain
+
+    def held(orig, kernel):
+        def call(keys, vals, valid, nk, want_counts=True):
+            out = orig(keys, vals, valid, nk, want_counts)
+            s_p, c_p = saved[1](keys, vals, valid, nk, want_counts)
+            err = int((out[0].to(torch.int64)
+                       - s_p.to(torch.int64)).abs().max())
+            if want_counts:
+                err = max(err, int((out[1].to(torch.int64)
+                                    - c_p.to(torch.int64)).abs().max()))
+            check["calls"] += 1
+            check["kernel_calls"] += kernel
+            check["max_abs_err"] = max(check["max_abs_err"], err)
+            check["shapes"].add((keys.shape[0], keys.shape[1], nk,
+                                 bool(want_counts)))
+            return out
+        return call
+
+    if check_plain:
+        hist.keyed_hist_cuda = held(saved[0], True)
+        hist.keyed_hist_plain = held(saved[1], False)
+    try:
+        ex.run_epoch()
+    finally:
+        hist.keyed_hist_cuda, hist.keyed_hist_plain = saved
+    sync()
+    t0 = time.monotonic()
+    outs = None
+    for _ in range(ABLATE_EPOCHS):
+        outs = ex.run_epoch()
+        sync()
+    seconds = time.monotonic() - t0
+    leaves = [x.detach().clone() for x in tree_leaves(
+        (ex.carry.op_states, ex.carry.edge_bufs, ex.carry.record_counts,
+         outs.sinks))]
+    log_head = int(ex.carry.logs.head.max())
+    ring_heads = [int(r.head.max()) for r in ex.carry.out_rings]
+    subtasks, rings = job.total_subtasks(), len(ex.carry.out_rings)
+    check["shapes"] = sorted(check["shapes"])
+    del ex, job
+    return seconds, leaves, log_head, ring_heads, subtasks, rings, check
+
+
+def phase_analysis(dev_line, verdict_census):
+    """(a) the ``lint`` and ``analyze`` verbs on this machine: both exit
+    0 and both fingerprints equal the port's pins; (b) the no-FT twin
+    (``analysis/ablate.py``) against the executor at the headline's full
+    width, ``bench.py``'s ablation probe: outputs bit-identical, the
+    twin's log head 0 while the real one advances, 9 stripped sites, the
+    twin's warm-up launches equal to the plain version, and the measured
+    and static ft-fractions printed (readings, not a claim); (c) phase
+    20's soak verdicts carry the port's census fingerprint. Returns the
+    kernel launches of (b)'s two runs together."""
+    from clonos_tpu_torch.analysis import (ablated_executor, build_census,
+                                           static_cost_model)
+    from clonos_tpu_torch.analysis.census import (CENSUS_PIN, THREADS_PIN,
+                                                  _repo_contexts,
+                                                  fingerprint, read_pin)
+    from clonos_tpu_torch.runtime import executor as real_ex
+    t_phase = time.monotonic()
+    problems = []
+    pins = {"census": read_pin(CENSUS_PIN), "threads": read_pin(THREADS_PIN)}
+
+    # (a) the verbs
+    verbs = {}
+    for name, args in (
+            ("lint", ["lint", "--report", "json"]),
+            ("analyze", ["analyze", "--report", "json", "--no-census",
+                         "--expect-census", "clonos_tpu_torch/.clonos-census",
+                         "--expect-threads",
+                         "clonos_tpu_torch/.clonos-threads"])):
+        rc, seconds, doc, err = _verb_json(args)
+        verbs[name] = dict(rc=rc, s=round(seconds, 3),
+                           errors=doc and doc.get("errors"),
+                           waived=doc and doc.get("waived"),
+                           files=doc and doc.get("files"))
+        if rc != 0 or not doc or doc.get("ok") is not True:
+            problems.append(f"(a) {name}: exit {rc}, {verbs[name]}, "
+                            f"stderr {err!r}")
+        if name == "analyze" and doc:
+            verbs[name].update(census=doc.get("census_fingerprint"),
+                               threads=doc.get("threads_fingerprint"))
+            if (doc.get("census_fingerprint"),
+                    doc.get("threads_fingerprint")) != (pins["census"],
+                                                        pins["threads"]):
+                problems.append(f"(a) fingerprints {verbs[name]} != pins "
+                                f"{pins}")
+    log("[analysis] (a) " + json.dumps(dict(verbs, pins=pins,
+                                            device=dev_line)))
+
+    # (b) the no-FT twin at the headline's full width
+    twin_mod, report = ablated_executor()
+    if len(report.stripped) != ABLATE_SITES:
+        problems.append(f"(b) the transform stripped "
+                        f"{len(report.stripped)} sites, not "
+                        f"{ABLATE_SITES}: {report.to_dict()}")
+    torch.cuda.empty_cache()
+    real, launches_real, _ = _counted(
+        lambda: _ablation_drive(real_ex, check_plain=False))
+    t_real, leaves_real, head_real, rings_real, subtasks, rings, _ = real
+    torch.cuda.empty_cache()
+    twin, launches_twin, _ = _counted(
+        lambda: _ablation_drive(twin_mod, check_plain=True))
+    t_twin, leaves_twin, head_twin, rings_twin, _s, _r, plain = twin
+    identical = len(leaves_real) == len(leaves_twin) > 0 and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        for a, b in zip(leaves_real, leaves_twin))
+    if not identical:
+        problems.append("(b) the twin's states, edge buffers, record "
+                        "counts or sinks differ from the executor's")
+    if not (head_real > 0 and head_twin == 0 and max(rings_real) > 0
+            and max(rings_twin) == 0):
+        problems.append(f"(b) log heads real {head_real} twin {head_twin}, "
+                        f"ring heads real {rings_real} twin {rings_twin}")
+    cuda = torch.device(DEVICE).type == "cuda"
+    if plain["max_abs_err"] != 0 or not plain["calls"] \
+            or (cuda and plain["kernel_calls"] != plain["calls"]):
+        problems.append(f"(b) the twin's warm-up epoch against "
+                        f"keyed_hist_plain: {plain}")
+    for tag, launches in (("real", launches_real), ("twin", launches_twin)):
+        if min(launches.values()) == 0:
+            problems.append(f"(b) {tag}: no kernel launch: {launches}")
+    measured = max(0.0, (t_real - t_twin) / t_real) if t_real else 0.0
+    census = build_census(_repo_contexts(("clonos_tpu_torch",)))
+    model = static_cost_model(
+        census, steps_per_epoch=ABLATE_SPE, subtasks=subtasks,
+        records_per_step=BATCH * PAR, ring_vertices=rings,
+        record_touches=4)
+    static = model["ft_fraction_static"]
+    rel_err = abs(static - measured) / max(abs(measured), 1e-9)
+    if fingerprint(census) != pins["census"]:
+        problems.append(f"(b) census {fingerprint(census)} != pin "
+                        f"{pins['census']}")
+    reading = dict(
+        t_real_s=t_real, t_twin_s=t_twin, epochs=ABLATE_EPOCHS,
+        steps_per_epoch=ABLATE_SPE, block_steps=ABLATE_BLOCK,
+        subtasks=subtasks, records_per_step=BATCH * PAR,
+        ft_fraction_measured=measured, ft_fraction_static=static,
+        model_rel_error=rel_err, stripped_sites=len(report.stripped),
+        outputs_bit_identical=identical, log_rows_real=head_real,
+        log_rows_twin=head_twin, launches_real=launches_real,
+        launches_twin=launches_twin,
+        twin_warmup_vs_plain=dict(plain, shapes=[list(x) for x in
+                                                 plain["shapes"]]),
+        static_model=model)
+    del leaves_real, leaves_twin
+    torch.cuda.empty_cache()
+    log("[analysis] (b) " + json.dumps(dict(reading, device=dev_line),
+                                       default=float))
+    log(f"[analysis] (b) real {t_real:.4f} s, twin {t_twin:.4f} s for "
+        f"{ABLATE_EPOCHS} x {ABLATE_SPE} steps; ft-fraction measured "
+        f"{measured:.6f}, static {static:.6f}, relative error "
+        f"{rel_err:.6f}; keyed_hist launches real "
+        f"{json.dumps(launches_real)} twin {json.dumps(launches_twin)} "
+        f"({dev_line})")
+
+    # (c) the soak verdicts name the port's census
+    if not verdict_census or any(fp != pins["census"]
+                                 for fp in verdict_census.values()):
+        problems.append(f"(c) soak verdicts' census_fingerprint "
+                        f"{verdict_census} != pin {pins['census']}")
+    log("[analysis] (c) " + json.dumps(dict(verdicts=verdict_census,
+                                            pin=pins["census"],
+                                            device=dev_line)))
+    launches = {k: launches_real[k] + launches_twin[k]
+                for k in launches_real}
+    log(f"[analysis] phase 21: {time.monotonic() - t_phase:.1f} s, kernel "
+        f"launches {json.dumps(launches)} ({dev_line})")
+    if problems:
+        raise AssertionError("phase 21: " + "; ".join(problems))
     return launches
 
 
@@ -7161,9 +7410,13 @@ def main() -> int:
     log(f"[config] phase 20: {PHASE20_REDUCTIONS}")
     root = tempfile.mkdtemp(prefix="chip_smoke_verify_", dir=SCRATCH)
     try:
-        verify_launches = phase_verify(dev_line, root, rows, soak_rate)
+        verify_launches, verdict_census = phase_verify(
+            dev_line, root, rows, soak_rate)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 21: {PHASE21_REDUCTIONS}")
+    analysis_launches = phase_analysis(dev_line, verdict_census)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -7181,7 +7434,8 @@ def main() -> int:
         "rescale_restore": recut_launches,
         "rescale_live": live_launches, "soak": soak_launches,
         **mesh_launches, **mesh_storage_launches,
-        **mesh_rebuild_launches, "verify": verify_launches})))
+        **mesh_rebuild_launches, "verify": verify_launches,
+        "ablation": analysis_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

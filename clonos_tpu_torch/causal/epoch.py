@@ -95,6 +95,10 @@ class EpochTracker:
     def start_new_epoch(self, epoch_id: int) -> None:
         self.epoch_id = epoch_id
         self.record_count = 0
+        # clonos: allow(join-discipline): listeners are registered during
+        # wiring, before any worker thread exists (pre-start publication
+        # across functions, which the race pass only models within the
+        # spawning function); the list is never mutated after start.
         for fn in self._epoch_listeners:
             fn(epoch_id)
         # A replay target at record count 0 fires as the epoch starts.
@@ -111,6 +115,9 @@ class EpochTracker:
         self._seal_listeners.append(fn)
 
     def notify_epoch_sealed(self, epoch_id: int, digest: object) -> None:
+        # clonos: allow(join-discipline): seal listeners are registered
+        # during wiring, before the fence worker starts (pre-start
+        # publication across functions); never mutated after start.
         for fn in self._seal_listeners:
             fn(epoch_id, digest)
 
@@ -129,6 +136,11 @@ class EpochTracker:
                 f"target epoch={e} count={target} already passed "
                 f"(epoch={self.epoch_id}, record_count={self.record_count})")
         # seq is unique, so tuple comparison never reaches the determinant.
+        # clonos: allow(join-discipline): record-count targets register
+        # and fire on the step thread only — inc_record_count is never
+        # called from the fence tail (the reach chain the race pass
+        # reports goes through cluster helpers the tail shares but does
+        # not execute); replay installation runs with the tail joined.
         bisect.insort(self._targets, (e, target, self._seq, det, callback))
         self._seq += 1
         self.fire_due_events()

@@ -1,5 +1,6 @@
 """Command-line front end of the port (``clonos_tpu/cli.py``): the job,
-process, dispatcher, observability, soak and verify verbs.
+process, dispatcher, observability, soak, verify, lint and analyze
+verbs.
 
 The CLI builds a job from ``module:function`` and drives an in-process
 ``ClusterRunner`` on the card (``--device cuda``, the default; it raises
@@ -27,6 +28,12 @@ Usage:
         [--schedule DSL|FILE] [--autoscale] [--report json] [--out FILE] ...
     python -m clonos_tpu_torch verify [--quick] [--model NAME] \\
         [--seed-bug MODEL:BUG] [--chaos-out DIR] [--conformance] ...
+    python -m clonos_tpu_torch lint [paths...] [--report json] \\
+        [--rule NAME] [--no-waivers] [--list-rules]
+    python -m clonos_tpu_torch analyze [paths...] [--report json] \\
+        [--census] [--no-census] [--races] [--threads] \\
+        [--expect-census FP|FILE] [--expect-threads FP|FILE] \\
+        [--seed-bug NAME]
 
 ``worker`` is the TaskExecutor process: it registers with a remote
 JobMaster (naming its device, its process id and which path frames its
@@ -1440,6 +1447,113 @@ def cmd_verify(args) -> int:
     return result.exit_code()
 
 
+def cmd_lint(args) -> int:
+    """Static determinism lint (``clonos_tpu_torch lint``): check the
+    port's pipeline and runtime code against the causal-services
+    contract — the audit proves a replay diverged; this names the line
+    that made it diverge, before the job ever runs. Standard library
+    only: it runs on any machine, with or without torch."""
+    from clonos_tpu_torch import lint as _lint
+
+    if args.list_rules:
+        for rule in _lint.all_rules():
+            print(f"{rule.name:16} {rule.description}")
+        return 0
+    try:
+        result = _lint.run_lint(args.paths, waiver_file=args.waivers,
+                                use_waivers=not args.no_waivers,
+                                rules=args.rule or None)
+    except ValueError as exc:
+        print(str(exc), file=sys.stderr)
+        return 2
+    if args.report == "json":
+        # CI convention: one machine-readable line, exit 0/1.
+        print(_lint.format_json(result))
+    else:
+        print(_lint.format_text(result, verbose=args.verbose))
+    return result.exit_code()
+
+
+def _pin_gate(actual: str, expect: str, what: str, hint: str) -> int:
+    """0 when ``actual`` equals ``expect`` (a hex fingerprint, or a pin
+    file whose first token is one), else 1 with a drift message."""
+    if os.path.isfile(expect):
+        from clonos_tpu_torch.analysis.census import read_pin
+        expect = read_pin(expect)
+    if actual == expect:
+        return 0
+    print(f"{what} drift: fingerprint {actual} != pinned {expect} — "
+          f"{hint}", file=sys.stderr)
+    return 1
+
+
+def cmd_analyze(args) -> int:
+    """Whole-program static analysis (``clonos_tpu_torch analyze``): the
+    interprocedural passes the per-file lint cannot run — nondet-escape
+    propagation to step functions, the lock-order cycle check, the
+    thread-root race detector, and the FT census + static cost model
+    (analysis/). Same waiver file, same ``--report json`` one-liner,
+    same 0/1 exit convention as the lint; it reads sources and imports
+    none of them."""
+    from clonos_tpu_torch import analysis as _an
+
+    if args.seed_bug is not None:
+        # Self-test: the seeded-bug registry must make its rule bite.
+        if args.seed_bug not in _an.SEEDED_BUGS:
+            known = ", ".join(sorted(_an.SEEDED_BUGS))
+            print(f"unknown seeded bug {args.seed_bug!r} "
+                  f"(known: {known})", file=sys.stderr)
+            return 2
+        findings = _an.seeded_findings(args.seed_bug)
+        for f in findings:
+            print(f"{f.location()}: [{f.rule}] {f.message}")
+        if not findings:
+            print(f"seeded bug {args.seed_bug!r} produced NO finding "
+                  f"— the race detector lost its teeth",
+                  file=sys.stderr)
+            return 2
+        return 1        # the bug was detected, as it must be
+
+    result = _an.run_analysis(args.paths, waiver_file=args.waivers,
+                              use_waivers=not args.no_waivers)
+    if args.races:
+        # Restrict the report and the exit code to the race pass.
+        race_rules = {_an.THREAD_RACE, _an.JOIN_DISCIPLINE}
+        kept = [f for f in result.findings
+                if f.rule in race_rules
+                or any(r in f.message for r in race_rules)]
+        result = _an.AnalysisResult(
+            findings=kept, files=result.files, census=result.census,
+            census_fingerprint=result.census_fingerprint,
+            threads=result.threads,
+            threads_fingerprint=result.threads_fingerprint)
+    if args.report == "json":
+        # CI convention: one machine-readable line, exit 0/1.
+        print(_an.format_json(result, with_census=not args.no_census))
+    elif args.census:
+        print(json.dumps(result.census, indent=2, sort_keys=True))
+    elif args.threads:
+        print(json.dumps(result.threads, indent=2, sort_keys=True))
+    else:
+        print(_an.format_text(result, verbose=args.verbose))
+    rc = result.exit_code()
+    if args.expect_census is not None:
+        rc = max(rc, _pin_gate(
+            result.census_fingerprint, args.expect_census, "census",
+            "the FT call-site population changed; review `python -m "
+            "clonos_tpu_torch analyze --census` and re-pin the "
+            "fingerprint in clonos_tpu_torch/.clonos-census"))
+    if args.expect_threads is not None:
+        rc = max(rc, _pin_gate(
+            result.threads_fingerprint, args.expect_threads,
+            "thread-census",
+            "the thread-root population changed (a thread was added, "
+            "removed, or re-homed); review `python -m clonos_tpu_torch "
+            "analyze --threads` and re-pin the fingerprint in "
+            "clonos_tpu_torch/.clonos-threads"))
+    return rc
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="clonos_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1927,6 +2041,84 @@ def main(argv=None) -> int:
                     help="json = one machine-readable line {ok, bound, "
                          "models, ...}; exit 0 clean / 1 on violations")
     pv.set_defaults(fn=cmd_verify)
+
+    pl = sub.add_parser("lint", help="static determinism lint of "
+                                     "pipeline and runtime code")
+    pl.add_argument("paths", nargs="*", default=["clonos_tpu_torch"],
+                    help="files and/or directories to lint (default: "
+                         "clonos_tpu_torch); naming a file directly "
+                         "overrides waiver-file `exclude` entries")
+    pl.add_argument("--report", choices=["json"], default=None,
+                    help="machine-readable summary for CI: one JSON "
+                         "line {ok, files, errors, warnings, waived, "
+                         "findings}; exit 0 clean / 1 on findings")
+    pl.add_argument("--waivers", default=None, metavar="FILE",
+                    help="waiver file (default: the package's own "
+                         "clonos_tpu_torch/.clonos-waivers)")
+    pl.add_argument("--no-waivers", action="store_true",
+                    help="ignore all waivers (inline and file) — show "
+                         "every raw finding")
+    pl.add_argument("--rule", action="append", default=[],
+                    metavar="NAME",
+                    help="restrict to one rule (repeatable); unknown "
+                         "names exit 2")
+    pl.add_argument("--list-rules", action="store_true",
+                    help="print the rule registry and exit")
+    pl.add_argument("-v", "--verbose", action="store_true",
+                    help="also print waived findings")
+    pl.set_defaults(fn=cmd_lint)
+
+    pa = sub.add_parser("analyze",
+                        help="whole-program static analysis: nondet "
+                             "reachability, lock-order cycles, races, "
+                             "FT census + cost model")
+    pa.add_argument("paths", nargs="*", default=["clonos_tpu_torch"],
+                    help="files or directories (default: "
+                         "clonos_tpu_torch)")
+    pa.add_argument("--report", choices=["text", "json"],
+                    default="text",
+                    help="json = one machine-readable line {ok, files, "
+                         "errors, warnings, waived, census_fingerprint, "
+                         "threads_fingerprint, findings, census, "
+                         "threads}; exit 0 clean / 1 on findings")
+    pa.add_argument("--waivers", default=None, metavar="FILE",
+                    help="waiver file (default: the package's own "
+                         "clonos_tpu_torch/.clonos-waivers)")
+    pa.add_argument("--no-waivers", action="store_true",
+                    help="ignore all waivers (inline and file) — show "
+                         "every raw finding")
+    pa.add_argument("--census", action="store_true",
+                    help="print the full FT census as indented JSON "
+                         "instead of the findings")
+    pa.add_argument("--no-census", action="store_true",
+                    help="omit the census and thread bodies from "
+                         "--report json (fingerprints stay)")
+    pa.add_argument("-v", "--verbose", action="store_true",
+                    help="also print waived findings")
+    pa.add_argument("--expect-census", default=None, metavar="FP",
+                    help="census-drift gate: fail (exit 1) unless the "
+                         "census fingerprint equals FP — a hex "
+                         "fingerprint or a pin file like "
+                         "clonos_tpu_torch/.clonos-census whose first "
+                         "token is one")
+    pa.add_argument("--races", action="store_true",
+                    help="restrict the report and exit code to the "
+                         "race pass (thread-race / join-discipline)")
+    pa.add_argument("--threads", action="store_true",
+                    help="print the thread-root inventory as indented "
+                         "JSON instead of the findings")
+    pa.add_argument("--expect-threads", default=None, metavar="FP",
+                    help="thread-census drift gate: fail (exit 1) "
+                         "unless the thread-root fingerprint equals FP "
+                         "— a hex fingerprint or a pin file like "
+                         "clonos_tpu_torch/.clonos-threads whose first "
+                         "token is one")
+    pa.add_argument("--seed-bug", default=None, metavar="NAME",
+                    help="self-test: run the race pass on a seeded "
+                         "concurrency bug (drop-a-join, unguarded-"
+                         "cross-thread-write, queue-bypass) — must "
+                         "exit 1 with the minimal counterexample")
+    pa.set_defaults(fn=cmd_analyze)
 
 
     pp = sub.add_parser("top", help="live per-worker cluster view from "

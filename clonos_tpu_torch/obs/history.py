@@ -43,6 +43,7 @@ class MetricsHistory:
     def __init__(self, sample_fn: Optional[Callable[[], Dict[str, Any]]]
                  = None, path: Optional[str] = None,
                  interval_s: float = 2.0, window: int = 512,
+                 # clonos: allow(wallclock): sample timestamps, obs-only
                  clock=time.time):
         self.sample_fn = sample_fn
         self._path = path

@@ -425,17 +425,11 @@ class IncidentManager:
 
 
 def _pinned_census() -> str:
-    """The pinned FT call-site census fingerprint (``.clonos-census``),
-    empty when unpinned — config drift context for the bundle."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    path = os.path.join(root, ".clonos-census")
-    try:
-        with open(path) as f:
-            toks = f.read().split()
-        return toks[0] if toks else ""
-    except OSError:
-        return ""
+    """The port's pinned FT call-site census fingerprint
+    (``clonos_tpu_torch/.clonos-census``), empty when unpinned — config
+    drift context for the bundle."""
+    from clonos_tpu_torch.analysis.census import CENSUS_PIN, read_pin
+    return read_pin(CENSUS_PIN)
 
 
 def load_bundle(path: str) -> dict:

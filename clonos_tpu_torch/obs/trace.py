@@ -39,8 +39,8 @@ from typing import Any, Deque, Dict, List, Optional
 
 
 def _new_id() -> str:
-    # Trace and span ids are correlation metadata: they never feed
-    # operator state and are not expected to replay.
+    # clonos: allow(entropy) — trace/span ids are correlation metadata;
+    # they never feed operator state and are not expected to replay.
     return uuid.uuid4().hex[:16]
 
 
@@ -135,6 +135,7 @@ class Tracer:
     enabled = True
 
     def __init__(self, service: str, path: Optional[str] = None,
+                 # clonos: allow(wallclock): span timestamps, obs-only
                  trace_id: Optional[str] = None, clock=time.time,
                  buffer: int = 8192):
         self.service = service
@@ -150,6 +151,7 @@ class Tracer:
         #: in-memory timeline is truncated (the file, if any, still has
         #: everything). Served as ``trace.dropped-records``.
         self.dropped = 0
+        # clonos: allow(entropy): trace metadata, never replayed data
         self._pid = os.getpid()
 
     # --- span stack (thread-local parents) -----------------------------------

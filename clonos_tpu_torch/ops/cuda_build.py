@@ -55,6 +55,9 @@ def build(name: str) -> Path:
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # clonos: allow(entropy): the pid only names this process's private
+    # temp file for nvcc's output, renamed into place once built — a
+    # build artifact, never record data
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     t0 = time.monotonic()
     try:

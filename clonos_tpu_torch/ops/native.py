@@ -42,6 +42,8 @@ def _build():
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # clonos: allow(entropy): pid only names a private
+    # temp file — never replayed data
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     try:
         subprocess.run(["c++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],

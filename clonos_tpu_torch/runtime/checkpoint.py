@@ -418,6 +418,7 @@ class CheckpointCoordinator:
             ignored = checkpoint_id in self._ignored
             if not ignored:
                 self._pending[checkpoint_id] = set(range(self.num_subtasks))
+                # clonos: allow(wallclock): trigger->complete latency metric
                 self._trigger_wall[checkpoint_id] = time.time()
         if ignored:
             if isinstance(carry, StagedWrite):
@@ -518,6 +519,7 @@ class CheckpointCoordinator:
                 pass
         tr = get_tracer()
         if trig is not None:
+            # clonos: allow(wallclock): completion latency metric
             lat = time.time() - trig
             with self._state_lock:
                 self.completion_latency_s[checkpoint_id] = lat
@@ -526,9 +528,17 @@ class CheckpointCoordinator:
                         min(self.completion_latency_s)]
             tr.complete("checkpoint", lat, cid=checkpoint_id,
                         size_bytes=ckpt.size_bytes)
+        # clonos: allow(join-discipline): completion listeners are
+        # registered during wiring, before the fence/writer threads
+        # start (pre-start publication across functions, which the race
+        # pass only models within the spawning function); the list is
+        # append-only and never mutated after start.
         for fn in self._complete_listeners:
             fn(checkpoint_id)
         tr.event("checkpoint.truncate", cid=checkpoint_id)
+        # clonos: allow(join-discipline): truncation listeners are
+        # registered during wiring, before any worker thread exists;
+        # append-only, never mutated after start.
         for fn in self._listeners:
             fn(ckpt)
         self._retain()

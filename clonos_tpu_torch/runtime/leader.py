@@ -55,6 +55,8 @@ class FileLeaderElection:
         #: deadlines are wall-clock time: claim files are read by
         #: contenders on other hosts and across restarts. The injected
         #: clock is for tests.
+        # clonos: allow(wallclock): lease deadlines are cross-host wall
+        # time by design (see note above); leases are never replayed.
         self._clock = time.time if clock is None else clock
         #: fencing token of our current leadership (None = not leader)
         self.epoch: Optional[int] = None
@@ -120,6 +122,7 @@ class FileLeaderElection:
         if rec.get("pending"):
             # A foreign writer mid-create: its grace runs on wall time
             # (the file's mtime), whatever clock was injected.
+            # clonos: allow(wallclock): expiry of a foreign lease file
             return time.time() > rec["deadline_wall"]
         return self._clock() > rec["deadline_wall"]
 

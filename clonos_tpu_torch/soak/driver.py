@@ -26,9 +26,11 @@ recovery itself was exactly-once, not merely that the run finished.
 
 Where the port differs from the reference: the paced loop makes no
 ``prewarm_recovery()`` call (XLA compile work, which has no torch
-counterpart; the kernels build at first use), ``census_fingerprint`` is
-None (the FT call-site census is tooling of the reference), and the
-``nondet`` fault salts the rings with ``torch.where`` on their device.
+counterpart; the kernels build at first use), and the ``nondet`` fault
+salts the rings with ``torch.where`` on their device. The verdict's
+``census_fingerprint`` is the port's own (analysis/census.py over
+``clonos_tpu_torch``), the value ``clonos_tpu_torch/.clonos-census``
+pins.
 Threads: the ``stall`` fault's storage wrapper runs on the pipelined
 fence worker and only sleeps; the perturbation, the recoveries and the
 re-cuts run on the driving thread. A steady paced chunk reads host
@@ -1146,9 +1148,11 @@ class SoakDriver:
                 "log_digest": a.log.digest(),
                 "log_path": a.log.path,
             }
-        # The reference fingerprints its FT call-site population here
-        # (analysis/census.py, tooling the port does not carry).
-        out["census_fingerprint"] = None
+        # The FT call-site population this run exercised
+        # (analysis/census.py): a verdict stays traceable to the exact
+        # source shape that produced it.
+        from clonos_tpu_torch.analysis import census_fingerprint
+        out["census_fingerprint"] = census_fingerprint()
         return out
 
 

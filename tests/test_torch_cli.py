@@ -7,7 +7,10 @@ multi-host bootstrap, and two workers given a complete one join one
 process group as processes 0 and 1; ``verify --quick --report json``
 exits 0 with the reference CLI's line, a seeded bug exits 1 and writes a
 ``.chaos`` schedule the port's ``soak`` takes and its ``.jsonl`` trace,
-and bad arguments exit 2. Tolerance: exact."""
+and bad arguments exit 2; ``lint`` and ``analyze`` exit 0 clean, 1 on a
+finding or a pin that does not match, 2 on a bad argument (their runs
+over the whole port are in ``test_torch_lint.py`` and
+``test_torch_analysis.py``). Tolerance: exact."""
 
 import contextlib
 import io
@@ -168,3 +171,72 @@ def test_cli_verify_seeded_bug_exits_one_with_counterexample(tmp_path):
 def test_cli_verify_bad_arguments_exit_two():
     assert _run_verify(["--model", "nope"]).returncode == 2
     assert _run_verify(["--seed-bug", "no-colon"]).returncode == 2
+
+
+# --- lint and analyze ------------------------------------------------------
+
+def _quiet(main, argv):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, buf.getvalue(), err.getvalue()
+
+
+def test_cli_lint_exit_codes(tmp_path, monkeypatch):
+    """``lint``: 0 on a clean file, 1 on an unwaived finding (0 again
+    when the finding is waived), 2 on an unknown ``--rule``; ``--list-
+    rules`` prints the registry; ``--report json`` is one line."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "clean.py").write_text("X = 1\n")
+    (tmp_path / "bait.py").write_text("import time\nT = time.time()\n")
+    (tmp_path / "w").write_text("wallclock bait.py\n")
+    assert _quiet(cli.main, ["lint", "clean.py"])[0] == 0
+    rc, out, _ = _quiet(cli.main, ["lint", "bait.py", "--report", "json"])
+    assert rc == 1 and json.loads(out)["errors"] == 1
+    assert _quiet(cli.main, ["lint", "bait.py", "--waivers", "w"])[0] == 0
+    assert _quiet(cli.main, ["lint", "bait.py", "--waivers", "w",
+                             "--no-waivers"])[0] == 1
+    assert _quiet(cli.main, ["lint", "bait.py", "--rule",
+                             "entropy"])[0] == 0
+    assert _quiet(cli.main, ["lint", "--rule", "nope", "bait.py"])[0] == 2
+    rc, out, _ = _quiet(cli.main, ["lint", "--list-rules"])
+    assert rc == 0 and "overlap-window" in out and "host-callback" in out
+
+
+def test_cli_analyze_exit_codes(tmp_path, monkeypatch):
+    """``analyze``: 0 clean, 1 on a nondet reach, 1 on a census or
+    thread-census pin that does not match (0 when it does), 1 on each
+    seeded bug, 2 on an unknown one; the ``--census`` and ``--threads``
+    dumps parse."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "op.py").write_text(
+        "class Op:\n    def process_block(self, state, ins, ctx):\n"
+        "        return state + ctx.times\n")
+    (tmp_path / "bad.py").write_text(
+        "import time\nclass Op:\n"
+        "    def process_block(self, state, ins):\n"
+        "        return time.time()\n")
+    rc, out, _ = _quiet(cli.main, ["analyze", "op.py", "--report", "json"])
+    doc = json.loads(out)
+    assert rc == 0 and doc["ok"] is True
+    fp, tfp = doc["census_fingerprint"], doc["threads_fingerprint"]
+    assert _quiet(cli.main, ["analyze", "bad.py"])[0] == 1
+    assert _quiet(cli.main, ["analyze", "op.py", "--expect-census", fp,
+                             "--expect-threads", tfp])[0] == 0
+    (tmp_path / "pin").write_text(fp + "\n")
+    assert _quiet(cli.main, ["analyze", "op.py", "--expect-census",
+                             "pin"])[0] == 0
+    rc, _, err = _quiet(cli.main, ["analyze", "op.py", "--expect-census",
+                                   "0" * 16])
+    assert rc == 1 and "census drift" in err
+    rc, _, err = _quiet(cli.main, ["analyze", "op.py", "--expect-threads",
+                                   "0" * 16])
+    assert rc == 1 and "thread-census drift" in err
+    rc, out, _ = _quiet(cli.main, ["analyze", "op.py", "--census"])
+    assert rc == 0 and json.loads(out)["step_functions"]
+    rc, out, _ = _quiet(cli.main, ["analyze", "op.py", "--threads"])
+    assert rc == 0 and json.loads(out)["roots"] == []
+    from clonos_tpu_torch.analysis import SEEDED_BUGS
+    for name in sorted(SEEDED_BUGS):
+        assert _quiet(cli.main, ["analyze", "--seed-bug", name])[0] == 1
+    assert _quiet(cli.main, ["analyze", "--seed-bug", "nope"])[0] == 2

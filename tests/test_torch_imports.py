@@ -356,3 +356,79 @@ def test_sharded_deployment_modules_import_alone_without_jax(module):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+_LINT_MODULES = [
+    "clonos_tpu_torch.lint", "clonos_tpu_torch.lint.core",
+    "clonos_tpu_torch.lint.waivers", "clonos_tpu_torch.lint.runner",
+    "clonos_tpu_torch.lint.nondet", "clonos_tpu_torch.lint.concurrency",
+    "clonos_tpu_torch.lint.markers", "clonos_tpu_torch.lint.tracesafe",
+    "clonos_tpu_torch.lint.overlapwindow"]
+_ANALYSIS_MODULES = [
+    "clonos_tpu_torch.analysis", "clonos_tpu_torch.analysis.callgraph",
+    "clonos_tpu_torch.analysis.threads",
+    "clonos_tpu_torch.analysis.lockorder",
+    "clonos_tpu_torch.analysis.races", "clonos_tpu_torch.analysis.census",
+    "clonos_tpu_torch.analysis.runner", "clonos_tpu_torch.analysis.ablate"]
+
+_ALONE_STDLIB = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "clonos_tpu",
+                                             "torch", "numpy"))))
+"""
+
+
+@pytest.mark.parametrize("module", _LINT_MODULES + _ANALYSIS_MODULES)
+def test_lint_and_analysis_modules_import_alone_on_the_stdlib(module):
+    """The determinism lint and the whole-program analysis each import
+    alone in a fresh interpreter with nothing but the standard library:
+    no ``jax``, no ``clonos_tpu``, no ``torch`` and no ``numpy`` (the
+    census reads the port's wire widths, and the ablation twin execs the
+    port's executor, only when they run)."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _ALONE_STDLIB, module],
+                          cwd=_REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"{module} pulled in {proc.stdout}"
+
+
+_LINT_RUN = r"""
+import sys
+from clonos_tpu_torch.lint import run_lint
+res = run_lint(["clonos_tpu_torch/lint", "clonos_tpu_torch/analysis"])
+print(res.ok, ",".join(sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("torch", "numpy",
+                                                     "jax", "clonos_tpu"))))
+"""
+
+
+def test_lint_runs_without_torch_or_numpy():
+    """A lint run (which also loads the analysis rules' registry entries
+    for waiver validation) imports no ``torch`` and no ``numpy``, and no
+    source of either package names one in an import statement at any
+    depth."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", _LINT_RUN], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["True"], proc.stdout
+    for sub in ("lint", "analysis"):
+        root = os.path.join(_REPO, "clonos_tpu_torch", sub)
+        for name in sorted(os.listdir(root)):
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(root, name)) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else
+                        [node.module or ""]
+                        if isinstance(node, ast.ImportFrom) else [])
+                for m in mods:
+                    assert m.split(".")[0] not in (
+                        "torch", "numpy", "jax", "clonos_tpu"), \
+                        f"{sub}/{name} imports {m}"

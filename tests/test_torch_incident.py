@@ -8,7 +8,8 @@ files and reads, the streaming timeline merge, the manager's capture
 discipline (atomic landing, dedup, rate limit, cap, restart) and the
 bundles it lands, the analyzer's reports, and the CLI's outputs and exit
 codes. A bundle's canonical JSON must equal the reference's except its
-wall-clock ``ts`` fields and ``service`` name; ``analyze_bundle`` and
+wall-clock ``ts`` fields, ``service`` name and ``census`` (each package
+names its own pinned FT call-site census); ``analyze_bundle`` and
 ``render_report`` must give the same report and bytes on the same
 bundle; the bundle schema fingerprint must equal the pinned
 ``.clonos-incident-schema``. Beside them, the planes' hooks in the
@@ -36,6 +37,8 @@ from clonos_tpu.obs import timeline as jtl
 from clonos_tpu.utils import jsonl as jjsonl
 from clonos_tpu.utils import metrics as jmet
 from clonos_tpu_torch import cli as tcli
+from clonos_tpu_torch.analysis import census_fingerprint
+from clonos_tpu_torch.analysis.census import CENSUS_PIN, read_pin
 from clonos_tpu_torch.obs import hlc as thlc
 from clonos_tpu_torch.obs import incident as tinc
 from clonos_tpu_torch.obs import rootcause as trc
@@ -65,10 +68,12 @@ def _reset_globals():
 
 def _volatile_free(bundle):
     """A bundle's canonical JSON without its wall-clock and service
-    fields (the parts two packages' bundles may differ in)."""
+    fields and its census (the parts two packages' bundles may differ
+    in: each names its own package's pinned census)."""
     b = json.loads(json.dumps(bundle))
     b["bundle"].pop("ts", None)
     b["bundle"].pop("service", None)
+    b.pop("census", None)
     for rec in b.get("timeline") or []:
         for k in ("ts", "service", "pid"):
             rec.pop(k, None)
@@ -220,6 +225,7 @@ def test_cli_timeline_inversion_fires_armed_recorder(tmp_path, capsys):
         (bundle_path,) = mgr.bundles()
         bundles.append(pkg.inc.load_bundle(bundle_path))
     assert _volatile_free(bundles[1]) == _volatile_free(bundles[0])
+    assert bundles[1]["census"] == read_pin(CENSUS_PIN)
     assert bundles[1]["trigger"]["kind"] == "timeline.inversion"
     assert bundles[1]["trigger"]["count"] == 2
 
@@ -280,9 +286,11 @@ def test_capture_lands_atomic_bundle_with_sections(tmp_path):
     rname, rraw, rmgr, rsnap = _capture(REF, tmp_path)
     name, raw, mgr, snap = _capture(PORT, tmp_path)
     assert name == rname == "incident-0001-audit.divergence.json"
-    # Same clock and service: the files are byte-identical.
-    assert raw == rraw
-    b = json.loads(raw)
+    # Same clock and service: the files are byte-identical but for the
+    # census, which names each package's own pinned FT call-site census.
+    b, rb = json.loads(raw), json.loads(rraw)
+    assert b["census"] == read_pin(CENSUS_PIN) != rb["census"]
+    assert raw.replace(b["census"], rb["census"]) == rraw
     assert b["bundle"]["schema"] == "clonos-incident-bundle/v1"
     assert b["bundle"]["schema_fingerprint"] == \
         tinc.bundle_schema_fingerprint()
@@ -292,6 +300,18 @@ def test_capture_lands_atomic_bundle_with_sections(tmp_path):
     assert b["chaos"] == "at 1s nondet" and b["config"] == {"rate": 100.0}
     assert mgr.captured == 1 and mgr.signals == 1
     assert snap == rsnap and snap["incident.captured"] == 1
+
+
+def test_bundle_census_is_the_ports_pin_not_the_references(tmp_path):
+    """A port bundle's ``census`` is the port's pin
+    (``clonos_tpu_torch/.clonos-census``), the fingerprint of the port's
+    own FT call-site census, and not the repository root's pin, which is
+    the reference's."""
+    _name, raw, _mgr, _snap = _capture(PORT, tmp_path)
+    census = json.loads(raw)["census"]
+    assert census == read_pin(CENSUS_PIN) == census_fingerprint()
+    with open(os.path.join(_REPO, ".clonos-census")) as f:
+        assert census != f.read().split()[0]
 
 
 def _dedup(pkg, tmp_path):

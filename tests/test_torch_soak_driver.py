@@ -15,7 +15,10 @@ and the CLI's ``soak``), held to the reference without a wall clock:
   gives equal ledgers, faults by kind, ``epochs_checked``, ``pass`` and
   ``exactly_once``, and the same ``soak.*`` gauge keys;
 - the CLI's ``soak --report json``: its line's keys equal the
-  reference's, and it exits 0 on a clean schedule and 1 on ``nondet``.
+  reference's, and it exits 0 on a clean schedule and 1 on ``nondet``;
+- the verdict's ``census_fingerprint``: the port's own census, equal to
+  the pin ``clonos_tpu_torch/.clonos-census`` from any working
+  directory, and not the reference's.
 
 Mirrors, run through the port on the injected clock: ``tests/test_soak.py``'s
 ``test_soak_smoke_kill_and_gray_hold_slo_and_audit``,
@@ -37,6 +40,8 @@ import pytest
 from clonos_tpu.soak import driver as jax_driver
 from clonos_tpu.soak import SoakHarness as JaxHarness
 from clonos_tpu.soak import parse_schedule as jax_parse
+from clonos_tpu_torch.analysis import census_fingerprint
+from clonos_tpu_torch.analysis.census import CENSUS_PIN, read_pin
 from clonos_tpu_torch.obs import audit as audit_mod
 from clonos_tpu_torch.soak import (SLOSpec, SoakConfig, SoakDriver,
                                    SoakHarness, ServeLoad,
@@ -217,7 +222,9 @@ def test_driver_on_an_injected_clock_equals_reference(tmp_path, fake_time,
                                  if k.startswith("soak."))
     assert soak_keys(pd.runner) == soak_keys(jd.runner)
     assert set(pv) == set(jv)
-    assert pv["census_fingerprint"] is None
+    # each verdict names its own package's FT call-site census
+    assert pv["census_fingerprint"] == read_pin(CENSUS_PIN)
+    assert pv["census_fingerprint"] != jv["census_fingerprint"]
 
 
 # --- mirrors of the reference's driver runs ----------------------------------
@@ -260,6 +267,23 @@ def test_soak_smoke_kill_and_gray_hold_slo_and_audit(tmp_path, fake_time):
     assert snap["soak.faults-injected"] == 2
     assert snap["soak.audit-ok"] == 1
     assert snap["soak.target-rate"] == 1200.0
+
+
+def test_verdict_carries_the_ports_census_fingerprint(tmp_path, fake_time):
+    """The verdict's ``census_fingerprint`` is the port's census, the
+    value ``clonos_tpu_torch/.clonos-census`` pins — not None, and not
+    the reference's pin at the repository root."""
+    fake_time()
+    runner, control, election = _port_fixture(tmp_path, 1.0)
+    v = SoakDriver(
+        runner, SoakConfig(rate=1200.0, duration_s=1.0, window_s=1.0),
+        schedule=parse_schedule(""), spec=SLOSpec(exactly_once=True),
+        control=control, election=election, records_per_step=16).run()
+    assert v["pass"] is True
+    assert v["census_fingerprint"] == read_pin(CENSUS_PIN)
+    assert v["census_fingerprint"] == census_fingerprint()
+    with open(os.path.join(REPO, ".clonos-census")) as f:
+        assert v["census_fingerprint"] != f.read().split()[0]
 
 
 def test_soak_injected_nondet_fails_the_run(tmp_path, fake_time):
@@ -415,6 +439,9 @@ def test_soak_cli_report_json_exit_codes(tmp_path):
     assert line["pass"] is True and line["exactly_once"] is True
     art = json.load(open(tmp_path / "ok.json"))
     assert art["metric"] == "soak_slo_verdict" and art["windows"]
+    # run from another directory, the artifact still names the port's
+    # census
+    assert art["census_fingerprint"] == read_pin(CENSUS_PIN)
 
     bad = subprocess.run(
         base + ["--schedule", "at 0.75s nondet",
