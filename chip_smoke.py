@@ -208,6 +208,19 @@ Phases:
      nine stripped sites, the measured and static ft-fractions (readings,
      not a claim); (c) phase 20's soak verdicts carry the port's census
      fingerprint.
+ 22. the kernel build cache and the warm standby (``[compile-cache]``) at
+     the headline's widths: (a) two fresh interpreters rebuild the job
+     with ``bootstrap_standby(..., compile_cache_dir=D)`` on one new
+     directory: the first builds the kernel with ``nvcc`` into D, the
+     second builds nothing and adds no file, both carries equal the dead
+     runner's at the fence (``finalize.first-step-recompile`` and its
+     blocked part, the ``recovery.aot-lower`` span, the ``nvcc``
+     seconds); (b) ``prewarm_recovery()`` on the headline runner leaves
+     its carry bit-identical, ``aot_lower_first_step`` succeeds, the
+     warm's launches equal ``keyed_hist_plain``, and two kills of one
+     window subtask recover bit-identical to a control with no build or
+     load inside either recovery. Phases 16 and 20 prewarm inside the
+     soak driver and print its seconds.
 
 The last three lines are the kernels JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -437,7 +450,9 @@ def _verify_shapes():
     epoch, a multiple of the chunk: every block of 8 .. ``SOAK_SPE`` steps
     in chunks. The reduce -> sink exchange routes the window -> reduce
     edge's slots (its capacity as the compiled job widens it at that
-    parallelism). Checked bit for bit in phase 2, not timed."""
+    parallelism). The soak driver's ``prewarm_recovery()`` routes one
+    lane of a whole-epoch replay window on each exchange. Checked bit for
+    bit in phase 2, not timed."""
     from clonos_tpu_torch.runtime.executor import CompiledJob
     out = []
     for lanes in VERIFY_LANES:
@@ -452,6 +467,11 @@ def _verify_shapes():
                             lanes * static, PAR * EDGE_CAPACITY, counts))
             out.append((f"verify-window-{lanes}", steps * lanes,
                         EDGE_CAPACITY, VOCAB, False))
+        for counts in (True, False):
+            out.append((f"verify-warm-route-{lanes}", SOAK_SPE, PAR * BATCH,
+                        EDGE_CAPACITY, counts))
+            out.append((f"verify-warm-sink-route-{lanes}", SOAK_SPE,
+                        lanes * static, EDGE_CAPACITY, counts))
     return tuple(out)
 
 
@@ -5282,6 +5302,7 @@ def phase_soak(dev_line, root, rows=None):
                                 records_per_step=rps, read_load=load)
             _watch_fences(runner, driver.harness, fences)
             v = driver.run()
+            readings.setdefault("prewarm_s", []).append(driver.prewarm_s)
         finally:
             tier.close()
         h = driver.harness
@@ -5339,6 +5360,7 @@ def phase_soak(dev_line, root, rows=None):
             spec=SLOSpec(exactly_once=True), control=control,
             election=election, records_per_step=rps)
         v = driver.run()
+        readings.setdefault("prewarm_s", []).append(driver.prewarm_s)
         div = v["audit"]["divergences"]
         if v["pass"] or not any("ring" in d for d in div):
             problems.append(f"(c) the bait passed: {_soak_verdict_line(v)}")
@@ -5364,6 +5386,7 @@ def phase_soak(dev_line, root, rows=None):
             spec=SLOSpec(exactly_once=True), control=control,
             election=election, records_per_step=rps, autoscaler=ctl)
         v = driver.run()
+        readings.setdefault("prewarm_s", []).append(driver.prewarm_s)
         a = v["autoscale"]
         c2 = AutoscaleController(policy(), log=DecisionLog(log_path))
         if not (v["pass"] and v["audit"]["exactly_once"] is True
@@ -5399,6 +5422,8 @@ def phase_soak(dev_line, root, rows=None):
         if part in readings:
             log(f"[soak] ({part}) " + json.dumps(dict(
                 readings[part], device=dev_line)))
+    log(f"[soak] prewarm_recovery() in the soak driver, (b) (c) (d): "
+        f"{readings.get('prewarm_s')} s ({dev_line})")
     if problems:
         raise AssertionError("phase 16: " + "; ".join(problems))
     log(f"[soak] phase 16: {time.monotonic() - t_phase:.1f} s, kernel "
@@ -6760,9 +6785,22 @@ def _capture_first_chunk(runner, calls):
     soak driver's warmup steps one epoch (``SOAK_SPE`` calls of
     ``step()``) before its clock starts, so calls ``SOAK_SPE`` ..
     ``SOAK_SPE + SOAK_CHUNK - 1`` are the first chunk."""
-    from clonos_tpu_torch.ops import histogram as hist
     inner = runner.step
     n = [0]
+
+    def step(*a, **k):
+        i = n[0]
+        n[0] += 1
+        if not SOAK_SPE <= i < SOAK_SPE + SOAK_CHUNK:
+            return inner(*a, **k)
+        return _recorded(lambda: inner(*a, **k), calls)
+    runner.step = step
+
+
+def _recorded(fn, calls):
+    """Run ``fn`` recording, as (kernel?, keys, vals, valid, nk, counts,
+    sums, counts out), every keyed_hist call it makes."""
+    from clonos_tpu_torch.ops import histogram as hist
 
     def recording(orig, kernel):
         def call(keys, vals, valid, nk, want_counts=True):
@@ -6773,19 +6811,13 @@ def _capture_first_chunk(runner, calls):
             return out
         return call
 
-    def step(*a, **k):
-        i = n[0]
-        n[0] += 1
-        if not SOAK_SPE <= i < SOAK_SPE + SOAK_CHUNK:
-            return inner(*a, **k)
-        saved = hist.keyed_hist_cuda, hist.keyed_hist_plain
-        hist.keyed_hist_cuda = recording(saved[0], True)
-        hist.keyed_hist_plain = recording(saved[1], False)
-        try:
-            return inner(*a, **k)
-        finally:
-            hist.keyed_hist_cuda, hist.keyed_hist_plain = saved
-    runner.step = step
+    saved = hist.keyed_hist_cuda, hist.keyed_hist_plain
+    hist.keyed_hist_cuda = recording(saved[0], True)
+    hist.keyed_hist_plain = recording(saved[1], False)
+    try:
+        return fn()
+    finally:
+        hist.keyed_hist_cuda, hist.keyed_hist_plain = saved
 
 
 def _first_chunk_reading(calls):
@@ -6906,6 +6938,7 @@ def phase_verify(dev_line, root, rows, rate):
                         f"{spike.invariant}")
 
     first_chunk = []
+    prewarms = []
 
     def soak(sub, schedule, duration, autoscaler=None, capture=False):
         runner, control, election = _soak_trio(root, sub, [])
@@ -6920,6 +6953,7 @@ def phase_verify(dev_line, root, rows, rate):
             control=control, election=election,
             records_per_step=PAR * BATCH, autoscaler=autoscaler)
         verdict = driver.run()
+        prewarms.append(driver.prewarm_s)
         cross = audit_mod.diff_ledgers_cross(
             driver.harness.control.auditor.ledger(),
             driver.runner.auditor.ledger())
@@ -7038,6 +7072,8 @@ def phase_verify(dev_line, root, rows, rate):
     for part in ("a", "b", "c", "d", "e"):
         log(f"[verify] ({part}) " + json.dumps(dict(
             readings[part], device=dev_line), default=float))
+    log(f"[verify] prewarm_recovery() in the soak driver, each soak run: "
+        f"{prewarms} s ({dev_line})")
     log(f"[verify] phase 20: {time.monotonic() - t_phase:.1f} s (soak "
         f"{readings['soak_s']} s), kernel launches {json.dumps(launches)} "
         f"({dev_line})")
@@ -7280,6 +7316,264 @@ def phase_analysis(dev_line, verdict_census):
     return launches
 
 
+# --- phase 22 ---------------------------------------------------------------
+
+#: (b)'s kill, twice: window subtask 3 (flat PAR + 3)
+P22_KILL = [(1, 3)]
+#: "module:function" each fresh standby interpreter of (a) calls (a CPU
+#: rehearsal names a module that shrinks this one's constants)
+P22_STANDBY_TARGET = "chip_smoke:_p22_standby"
+
+PHASE22_REDUCTIONS = (
+    "phase 4's headline cuts; (a) two fresh interpreters each rebuild the "
+    "job with bootstrap_standby from a checkpoint and mirror rows at the "
+    f"fence after 2 completed and 1 pending {STEPS_PER_EPOCH}-step epochs, "
+    "on one new build-cache directory; (b) a runner prewarmed after 2 "
+    f"epochs and {EXTRA_STEPS} steps, then window subtask 3 killed twice "
+    "against a never-failed control")
+
+
+def _carry_sha1(runner) -> str:
+    """sha1 over the canonical carry's leaves (dtype, shape, bytes), on
+    the host: equal digests are equal carries, across processes."""
+    import hashlib
+    from clonos_tpu_torch.runtime.executor import canonical_carry
+    from clonos_tpu_torch.utils.tree import tree_leaves
+    h = hashlib.sha1()
+    for x in tree_leaves(canonical_carry(runner.executor.carry)):
+        h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _p22_standby(ck_dir, mirror_path, cache, out_path):
+    """(a)'s standby, in a fresh interpreter: rebuild the job from
+    ``ck_dir`` and the mirror rows on the build cache ``cache``, and write
+    what it saw to ``out_path``."""
+    from clonos_tpu_torch.obs import trace as obs
+    from clonos_tpu_torch.ops import cuda_build
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    tr = obs.configure("standby")
+    data = np.load(mirror_path)
+    mirror = {f: (data[f"rows{f}"], int(data["starts"][f]))
+              for f in range(len(data["starts"]))}
+    before = sorted(os.listdir(cache))
+    t0 = time.monotonic()
+    runner, rep = ClusterRunner.bootstrap_standby(
+        build_job(), ck_dir, mirror, compile_cache_dir=cache,
+        device=DEVICE, **runner_kw())
+    sync()
+    wall = time.monotonic() - t0
+    spans = [dict(name=x["name"], ms=x.get("dur", 0.0) * 1e3,
+                  error=x.get("args", {}).get("error"))
+             for x in tr.records() if x["name"].startswith("recovery.aot")]
+    out = dict(
+        digest=_carry_sha1(runner), wall_s=wall,
+        steps_replayed=rep.steps_replayed, phase_ms=rep.phase_ms,
+        blocked_ms=rep.blocked_ms, aot=spans, before=before,
+        after=sorted(os.listdir(cache)),
+        cache=runner._compile_cache_dir,
+        build={k: {f: v[f] for f in ("seconds", "path")} | {
+            "cached": v["log"] == "(cached)"}
+            for k, v in cuda_build.BUILD_INFO.items()},
+        launches=keyed_hist.launches,
+        warm_launches=keyed_hist.warm_launches,
+        failed_counter=runner._mgroup.counter(
+            "recovery.aot-lower-failed").value)
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=float)
+
+
+def _p22_restart(root, dev_line):
+    """(a): the restart cycle. Returns the two standbys' readings."""
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    problems = []
+    ck = os.path.join(root, "ck")
+    control = ClusterRunner(build_job(), checkpoint_dir=ck, device=DEVICE,
+                            **runner_kw())
+    for complete in (True, True, False):
+        control.run_epoch(complete_checkpoint=complete)
+    logs = control.executor.carry.logs
+    rows, heads, tails = (x.cpu().numpy() for x in (logs.rows, logs.head,
+                                                      logs.tail))
+    cap = rows.shape[1]
+    mirror_path = os.path.join(root, "mirror.npz")
+    np.savez(mirror_path, starts=tails.astype(np.int64), **{
+        f"rows{f}": rows[f][np.arange(int(tails[f]), int(heads[f]))
+                            & (cap - 1)] for f in range(rows.shape[0])})
+    want = _carry_sha1(control)
+    control.coordinator.storage._close_ledger()
+    del control
+    torch.cuda.empty_cache()
+    cache = os.path.join(root, "build-cache")
+    os.makedirs(cache)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    got = []
+    for i in (1, 2):
+        ck_i = os.path.join(root, f"ck{i}")
+        shutil.copytree(ck, ck_i)
+        out = os.path.join(root, f"standby{i}.json")
+        t0 = time.monotonic()
+        mod, fn = P22_STANDBY_TARGET.split(":")
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys, {mod}; {mod}.{fn}(*sys.argv[1:])",
+             ck_i, mirror_path, cache, out],
+            cwd=here, env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 22 (a): standby {i} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            r = json.load(f)
+        r["process_s"] = time.monotonic() - t0
+        got.append(r)
+    first, second = got
+    lib = first["build"].get("keyed_hist.cu", {})
+    if first["before"] or lib.get("cached", True) \
+            or os.path.dirname(lib.get("path", "")) != cache:
+        problems.append(f"(a) the first standby did not build into the "
+                        f"empty cache: before {first['before']}, {lib}")
+    if not second["build"].get("keyed_hist.cu", {}).get("cached"):
+        problems.append(f"(a) the second standby built: {second['build']}")
+    if not (second["before"] == second["after"] == first["after"]):
+        problems.append(f"(a) the cache changed: {first['after']} -> "
+                        f"{second['before']} -> {second['after']}")
+    if any(".tmp" in e for e in second["after"]):
+        problems.append(f"(a) temp files left: {second['after']}")
+    for i, r in enumerate(got, 1):
+        if r["digest"] != want:
+            problems.append(f"(a) standby {i}'s carry {r['digest']} != the "
+                            f"control's {want} at the fence")
+        if r["steps_replayed"] != STEPS_PER_EPOCH:
+            problems.append(f"(a) standby {i} replayed "
+                            f"{r['steps_replayed']}")
+        if [x["name"] for x in r["aot"]] != ["recovery.aot-lower"] \
+                or r["failed_counter"] != 0:
+            problems.append(f"(a) standby {i}'s first-step warm: "
+                            f"{r['aot']}, failed {r['failed_counter']}")
+        if r["cache"] != cache:
+            problems.append(f"(a) standby {i} used {r['cache']}")
+        log("[compile-cache] (a) " + json.dumps(dict(
+            standby=i, first_step_recompile_ms=r["phase_ms"].get(
+                "finalize.first-step-recompile"),
+            first_step_recompile_blocked_ms=r["blocked_ms"].get(
+                "finalize.first-step-recompile"),
+            aot_lower_ms=[x["ms"] for x in r["aot"]],
+            nvcc_s=r["build"].get("keyed_hist.cu", {}).get("seconds"),
+            built=not r["build"].get("keyed_hist.cu", {}).get("cached"),
+            cache_entries=r["after"], bootstrap_wall_s=r["wall_s"],
+            process_s=r["process_s"], steps_replayed=r["steps_replayed"],
+            finalize_ms=r["phase_ms"].get("finalize"),
+            recovery_launches=r["launches"],
+            warm_launches=r["warm_launches"], carry_sha1=r["digest"],
+            control_sha1=want, device=dev_line), default=float))
+    return problems
+
+
+def phase_compile_cache(dev_line, root):
+    """(a) the restart cycle of the build cache: two fresh standbys on one
+    cache directory, the second building nothing; (b) the in-process
+    prewarm on the headline runner: the live carry untouched, the first
+    step warmed, two recoveries bit-identical to a control with no build
+    or load inside them, and the warm's launches held to the plain
+    version. Returns the paths' kernel launches."""
+    from clonos_tpu_torch.ops import cuda_build, native
+    from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.runtime.cluster import ClusterRunner
+    from clonos_tpu_torch.utils.compile_cache import aot_lower_first_step
+    from clonos_tpu_torch.utils.tree import tree_leaves
+    t_phase = time.monotonic()
+    problems = _p22_restart(root, dev_line)
+
+    # (b) the in-process prewarm
+    control = ClusterRunner(build_job(), device=DEVICE, **runner_kw())
+    warm = ClusterRunner(build_job(), device=DEVICE, **runner_kw())
+    for r in (control, warm):
+        r.run_epoch()
+        r.run_epoch()
+        for _ in range(EXTRA_STEPS):
+            r.step()
+    sync()
+    before = [x.clone() for x in tree_leaves(warm.executor.carry)]
+    keyed_hist.warm_launches = keyed_hist.warm_launches_counts = 0
+    prewarm_s = warm.prewarm_recovery()
+    warm_launches = {
+        "keyed_hist": keyed_hist.warm_launches_counts,
+        "keyed_hist_sums": (keyed_hist.warm_launches
+                            - keyed_hist.warm_launches_counts)}
+    calls = []
+    prewarm2_s = _recorded(warm.prewarm_recovery, calls)
+    plain = _first_chunk_reading(calls)
+    del calls
+    t0 = time.monotonic()
+    handle = aot_lower_first_step(warm.executor, warm._mgroup)
+    aot_s = time.monotonic() - t0
+    failed = warm._mgroup.counter("recovery.aot-lower-failed").value
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(before, tree_leaves(warm.executor.carry)))
+    del before
+    if handle is None or failed != 0:
+        problems.append(f"(b) aot_lower_first_step {handle}, failed "
+                        f"counter {failed}")
+    if not same:
+        problems.append("(b) the live carry moved across the prewarm")
+    cuda = torch.device(DEVICE).type == "cuda"
+    if plain["max_abs_err"] != 0 or not plain["calls"] or (cuda and (
+            plain["kernel_calls"] != plain["calls"]
+            or min(warm_launches.values()) == 0)):
+        problems.append(f"(b) the warm's launches against keyed_hist_plain "
+                        f"{plain}, counted {warm_launches}")
+    # No build and no load inside a recovery.
+    loads = []
+    saved = cuda_build.build, cuda_build.load, native._build
+    cuda_build.build = lambda *a, **k: loads.append("build") or saved[0](
+        *a, **k)
+    cuda_build.load = lambda *a, **k: loads.append("load") or saved[1](
+        *a, **k)
+    native._build = lambda *a, **k: loads.append("codec") or saved[2](
+        *a, **k)
+    recoveries = []
+    by_path = {"prewarm": warm_launches}
+    try:
+        for i in (1, 2):
+            reserved = torch.cuda.memory_reserved() if cuda else 0
+            rep, _reading, launches = _recover(
+                control, warm, f"(b) recovery {i} after the prewarm",
+                P22_KILL, dev_line)
+            by_path[f"prewarmed_recovery_{i}"] = launches
+            recoveries.append(dict(
+                recovery_ms=rep.recovery_ms,
+                reserved_growth_bytes=((torch.cuda.memory_reserved()
+                                        if cuda else 0) - reserved)))
+    finally:
+        cuda_build.build, cuda_build.load, native._build = saved
+    if loads:
+        problems.append(f"(b) a recovery built or loaded: {loads}")
+    for r in (control, warm):
+        r.run_epoch()
+    _assert_same(control, warm, "(b) one epoch after the recoveries")
+    log("[compile-cache] (b) " + json.dumps(dict(
+        prewarm_s=prewarm_s, prewarm_recorded_s=prewarm2_s,
+        aot_lower_s=aot_s, aot_handle=None if handle is None
+        else handle._asdict(), aot_failed_counter=failed,
+        carry_unchanged=same, warm_launches=warm_launches,
+        warm_vs_plain=dict(plain, shapes=[list(x) for x in
+                                          plain["shapes"]]),
+        recoveries=recoveries, builds_or_loads_in_recovery=loads,
+        device=dev_line), default=float))
+    del control, warm
+    torch.cuda.empty_cache()
+    log(f"[compile-cache] phase 22: {time.monotonic() - t_phase:.1f} s, "
+        f"kernel launches {json.dumps(by_path)} ({dev_line})")
+    if problems:
+        raise AssertionError("phase 22: " + "; ".join(problems))
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -7417,6 +7711,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[config] phase 21: {PHASE21_REDUCTIONS}")
     analysis_launches = phase_analysis(dev_line, verdict_census)
+    torch.cuda.empty_cache()
+    log(f"[config] phase 22: {PHASE22_REDUCTIONS}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_cache_", dir=SCRATCH)
+    try:
+        cache_launches = phase_compile_cache(dev_line, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[done] {time.monotonic() - t_all:.1f} s")
     print(json.dumps(kernels_line(rows, {
         "main": launches, "recovery": recovery_launches,
@@ -7435,7 +7736,7 @@ def main() -> int:
         "rescale_live": live_launches, "soak": soak_launches,
         **mesh_launches, **mesh_storage_launches,
         **mesh_rebuild_launches, "verify": verify_launches,
-        "ablation": analysis_launches})))
+        "ablation": analysis_launches, **cache_launches})))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,10 +2,13 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
-library is keyed by a hash of the source and the flags, under
-``build/clonos_tpu_torch/`` at the repository root (listed in
-``.gitignore``), so an edited source rebuilds and an unchanged one loads
-the cached build. Nothing here runs at import time.
+library is keyed by a hash of the source and the flags, under the build
+directory, so an edited source rebuilds and an unchanged one loads the
+cached build. The directory is ``build/clonos_tpu_torch/`` at the
+repository root (listed in ``.gitignore``) unless :func:`set_build_dir`
+re-points it (``utils/compile_cache.py``'s ``enable_compile_cache``); it
+is read at every call, and a library already loaded in this process
+stays loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,15 +24,29 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clonos_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: per source: {"seconds": build wall (0.0 when cached), "log": nvcc
-#: stderr (ptxas register/shared-memory report)} — chip_smoke prints it.
+_build_dir = Path(__file__).resolve().parents[2] / "build" / "clonos_tpu_torch"
+#: per source: {"seconds": build wall (0.0 when cached), "log": the
+#: compiler's stderr (ptxas's register/shared-memory report) or
+#: "(cached)", "path": the library} — chip_smoke prints it.
 BUILD_INFO: Dict[str, dict] = {}
+
+
+def build_dir() -> Path:
+    """The directory builds are published to and loaded from."""
+    return _build_dir
+
+
+def set_build_dir(path) -> Path:
+    """Publish later builds to ``path`` and load them from there.
+    Libraries this process has already loaded stay loaded."""
+    global _build_dir
+    _build_dir = Path(path)
+    return _build_dir
 
 
 def nvcc() -> str:
@@ -44,7 +61,7 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / name
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -52,9 +69,10 @@ def build(name: str) -> Path:
     Raises with nvcc's output when the compile fails."""
     out = library_path(name)
     if out.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
+        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "(cached)",
+                                     "path": str(out)})
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # clonos: allow(entropy): the pid only names this process's private
     # temp file for nvcc's output, renamed into place once built — a
     # build artifact, never record data
@@ -75,7 +93,7 @@ def build(name: str) -> Path:
         if tmp.exists():
             tmp.unlink()
     BUILD_INFO[name] = {"seconds": time.monotonic() - t0,
-                        "log": proc.stderr.strip()}
+                        "log": proc.stderr.strip(), "path": str(out)}
     return out
 
 

@@ -22,8 +22,10 @@ lock and makes no device query.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -265,10 +267,32 @@ def keyed_hist_cuda(keys: torch.Tensor, vals: torch.Tensor,
             f"keyed_hist kernel launch failed: "
             f"{_lib().keyed_hist_error_string(err).decode()} (cuda error "
             f"{err}) at R={r} B={b} nk={nk} counts={want_counts}, {plan}")
-    keyed_hist.launches += 1
-    if want_counts:
-        keyed_hist.launches_counts += 1
+    if getattr(_warming, "on", False):
+        keyed_hist.warm_launches += 1
+        if want_counts:
+            keyed_hist.warm_launches_counts += 1
+    else:
+        keyed_hist.launches += 1
+        if want_counts:
+            keyed_hist.launches_counts += 1
     return sums, cnts
+
+
+#: set on a thread while it warms the failure path on disposable inputs
+#: (``utils/compile_cache.py``): its launches count in
+#: ``keyed_hist.warm_launches``, so a path's own counts hold its own work
+_warming = threading.local()
+
+
+@contextlib.contextmanager
+def counting_as_warm():
+    """Count this thread's kernel launches as warm launches while open."""
+    prev = getattr(_warming, "on", False)
+    _warming.on = True
+    try:
+        yield
+    finally:
+        _warming.on = prev
 
 
 def keyed_hist(keys: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor,
@@ -281,7 +305,8 @@ def keyed_hist(keys: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor,
     ``[0, nk)``; other keys drop. ``want_counts=False`` returns counts as
     None. CPU tensors take the plain version; CUDA tensors launch the
     kernel (counted in ``keyed_hist.launches``; the sums+counts form also
-    in ``keyed_hist.launches_counts``)."""
+    in ``keyed_hist.launches_counts``; under :func:`counting_as_warm` in
+    ``keyed_hist.warm_launches`` and ``warm_launches_counts`` instead)."""
     flatten = keys.dim() != 2
     if flatten:
         lead = tuple(keys.shape[:-1])
@@ -308,3 +333,7 @@ def keyed_hist(keys: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor,
 keyed_hist.launches = 0
 #: of those, launches of the sums+counts form
 keyed_hist.launches_counts = 0
+#: launches made under :func:`counting_as_warm` (both forms), and of
+#: those the sums+counts form's
+keyed_hist.warm_launches = 0
+keyed_hist.warm_launches_counts = 0

@@ -4,11 +4,12 @@ Port of ``clonos_tpu/ops/native.py``. The delta wire codec's CRC and FLAT
 framing run in C++ when a host compiler is present, with a bit-identical
 pure-Python (``zlib``) fallback otherwise — the reference's own
 behaviour, on the host, and no device fallback. The library is built at
-first use with ``c++ -O3 -shared -fPIC`` into ``build/clonos_tpu_torch/``
-at the repository root, keyed by a hash of the source and the flags, and
-published atomically (a private temp file, then ``os.replace``), so two
-processes that build it at the same moment never load a half-written
-file. Nothing here runs at import time.
+first use with ``c++ -O3 -shared -fPIC`` into the kernels' build
+directory (``ops/cuda_build.py``: ``build/clonos_tpu_torch/`` at the
+repository root unless re-pointed, read at every call), keyed by a hash
+of the source and the flags, and published atomically (a private temp
+file, then ``os.replace``), so two processes that build it at the same
+moment never load a half-written file. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 import zlib
 import numpy as np
 
 from clonos_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "delta_codec.cpp"
-BUILD_DIR = cuda_build.BUILD_DIR
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
@@ -34,17 +35,20 @@ _tried = False
 
 def library_path():
     h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCE.stem}_{h.hexdigest()[:16]}.so"
+    return cuda_build.build_dir() / f"{SOURCE.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _build():
     out = library_path()
     if out.exists():
+        cuda_build.BUILD_INFO.setdefault(
+            SOURCE.name, {"seconds": 0.0, "log": "(cached)", "path": str(out)})
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # clonos: allow(entropy): pid only names a private
     # temp file — never replayed data
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    t0 = time.monotonic()
     try:
         subprocess.run(["c++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
                        check=True, capture_output=True, timeout=120)
@@ -52,6 +56,8 @@ def _build():
     finally:
         if tmp.exists():
             tmp.unlink()
+    cuda_build.BUILD_INFO[SOURCE.name] = {
+        "seconds": time.monotonic() - t0, "log": "", "path": str(out)}
     return out
 
 

@@ -80,7 +80,7 @@ from clonos_tpu_torch import device as _device
 from clonos_tpu_torch.api.operators import (HostFeedSource,
                                             TransactionalSinkOperator,
                                             TwoInputOperator)
-from clonos_tpu_torch.api.records import RecordBatch
+from clonos_tpu_torch.api.records import RecordBatch, empty
 from clonos_tpu_torch.causal import determinant as det
 from clonos_tpu_torch.causal import log as clog
 from clonos_tpu_torch.causal import recovery as rec
@@ -263,6 +263,10 @@ class RecoveryReport:
     restore_bytes: int = 0
     #: ... against the whole checkpoint a global rollback would reload
     checkpoint_bytes: int = 0
+    #: ``bootstrap_standby`` only: the part of each overlapped
+    #: ``finalize.*`` sub-span the rebuild waited for (the rest is in
+    #: ``finalize.overlap-saved``)
+    blocked_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def results(self) -> Tuple[rec.ReplayResult, ...]:
@@ -292,7 +296,12 @@ class ClusterRunner:
     ``overlap_epoch`` (default False, the strict order) selects the
     pipelined fence for :meth:`run_epoch`; ``overlap_recovery`` (default
     True) the overlapped finalize for :meth:`recover`. The other setting
-    of each is the sequential control, reached only through the switch."""
+    of each is the sequential control, reached only through the switch.
+
+    ``compile_cache_dir`` points every kernel build at that directory
+    (``utils/compile_cache.py``), so a restarted process loads what an
+    earlier one built; ``prewarm=True`` calls :meth:`prewarm_recovery`
+    at the end of construction."""
 
     def __init__(self, job: JobGraph, steps_per_epoch: int = 8,
                  num_standby: int = 1, heartbeat_timeout_s: float = 5.0,
@@ -306,8 +315,21 @@ class ClusterRunner:
                  overlap_epoch: bool = False,
                  incremental_checkpoints: bool = False,
                  incremental_base_every: int = 8,
+                 prewarm: bool = False,
+                 compile_cache_dir: Optional[str] = None,
                  device="cuda", **executor_kw):
         self.job = job
+        #: the kernel build cache in use (None: the default build
+        #: directory). Set before the executor is built, in the mesh's
+        #: namespace, then refined by the carry's placement tree once the
+        #: executor exists — the reference's sequence, which a restarted
+        #: process replays exactly.
+        self._compile_cache_dir: Optional[str] = None
+        if compile_cache_dir:
+            from clonos_tpu_torch.utils.compile_cache import (
+                enable_compile_cache)
+            self._compile_cache_dir = enable_compile_cache(
+                compile_cache_dir, mesh=executor_kw.get("mesh"))
         self.executor = LocalExecutor(job, steps_per_epoch=steps_per_epoch,
                                       device=device, **executor_kw)
         self.device = self.executor.device
@@ -318,6 +340,10 @@ class ClusterRunner:
         #: and the checkpoint files (None: one process, no mesh)
         self.mesh = compiled.mesh
         self.rank = compiled.shard
+        if compile_cache_dir and self.mesh is not None:
+            self._compile_cache_dir = enable_compile_cache(
+                compile_cache_dir, mesh=self.mesh,
+                specs=compiled.placements())
         if self.mesh is not None and self.rank != 0:
             # Only rank 0 writes checkpoint files (a delta chain too) and
             # the ledger; the others run the same coordinator protocol in
@@ -544,6 +570,8 @@ class ClusterRunner:
             recovery_block_steps or self.executor.block_steps,
             compiled.inflight_ring_steps,
             compiled.log_capacity // DETS_PER_STEP)
+        if prewarm:
+            self.prewarm_recovery()
 
     # --- host boundaries: feeds, timers, transactional sinks ----------------
 
@@ -1296,54 +1324,58 @@ class ClusterRunner:
         land), so the kill sees a completed fence or a pending one."""
         self._join_fence_tail()
         ex = self.executor
-        compiled = ex.compiled
         c = ex.carry
-        # On a mesh each rank zeroes the pieces of the subtask it holds
-        # (its vertex block, log block and replica block, at local rows).
-        llo, lhi = compiled.lblock
-        rlo, rhi = compiled.rblock
         for flat in flat_subtasks:
             self.failed.add(flat)
             self.heartbeats.mark_dead(flat)
-            vid, sub = self._vertex_of(flat)
-            vlo, vhi = compiled.vblock[vid]
-            fresh = clog.create(compiled.log_capacity, compiled.max_epochs,
-                                self.device)
-
-            def put(stack, rows, one):
-                stack = stack.clone()
-                stack[rows] = one
-                return stack
-
-            ops = list(c.op_states)
-            logs, rc = c.logs, c.record_counts
-            rings = list(c.out_rings)
-            if vlo <= sub < vhi:
-                ops[vid] = tree_map(lambda x: put(x, sub - vlo, 0), ops[vid])
-                if vid in compiled.ring_index:
-                    ri = compiled.ring_index[vid]
-                    el = rings[ri]
-                    lane = (slice(None), sub - vlo)
-                    rings[ri] = el._replace(
-                        keys=put(el.keys, lane, 0),
-                        values=put(el.values, lane, 0),
-                        timestamps=put(el.timestamps, lane, 0),
-                        valid=put(el.valid, lane, False))
-            if llo <= flat < lhi:
-                logs = tree_map(lambda s_, fr: put(s_, flat - llo, fr),
-                                c.logs, fresh)
-                rc = put(c.record_counts, flat - llo, 0)
-            held = [r - rlo for r in self.plan.replicas_held_by(flat)
-                    if rlo <= r < rhi]
-            replicas = c.replicas
-            if held:
-                idx = _device.upload(np.asarray(held, np.int64), self.device)
-                replicas = tree_map(lambda s_, fr: put(s_, idx, fr),
-                                    c.replicas, fresh)
-            c = c._replace(op_states=tuple(ops), logs=logs,
-                           replicas=replicas, out_rings=tuple(rings),
-                           record_counts=rc)
+            c = self._killed(c, flat)
         ex.carry = c
+
+    def _killed(self, c: JobCarry, flat: int) -> JobCarry:
+        """``c`` with subtask ``flat``'s device state zeroed. On a mesh
+        each rank zeroes the pieces of the subtask it holds (its vertex
+        block, log block and replica block, at local rows)."""
+        compiled = self.executor.compiled
+        llo, lhi = compiled.lblock
+        rlo, rhi = compiled.rblock
+        vid, sub = self._vertex_of(flat)
+        vlo, vhi = compiled.vblock[vid]
+        fresh = clog.create(compiled.log_capacity, compiled.max_epochs,
+                            self.device)
+
+        def put(stack, rows, one):
+            stack = stack.clone()
+            stack[rows] = one
+            return stack
+
+        ops = list(c.op_states)
+        logs, rc = c.logs, c.record_counts
+        rings = list(c.out_rings)
+        if vlo <= sub < vhi:
+            ops[vid] = tree_map(lambda x: put(x, sub - vlo, 0), ops[vid])
+            if vid in compiled.ring_index:
+                ri = compiled.ring_index[vid]
+                el = rings[ri]
+                lane = (slice(None), sub - vlo)
+                rings[ri] = el._replace(
+                    keys=put(el.keys, lane, 0),
+                    values=put(el.values, lane, 0),
+                    timestamps=put(el.timestamps, lane, 0),
+                    valid=put(el.valid, lane, False))
+        if llo <= flat < lhi:
+            logs = tree_map(lambda s_, fr: put(s_, flat - llo, fr),
+                            c.logs, fresh)
+            rc = put(c.record_counts, flat - llo, 0)
+        held = [r - rlo for r in self.plan.replicas_held_by(flat)
+                if rlo <= r < rhi]
+        replicas = c.replicas
+        if held:
+            idx = _device.upload(np.asarray(held, np.int64), self.device)
+            replicas = tree_map(lambda s_, fr: put(s_, idx, fr),
+                                c.replicas, fresh)
+        return c._replace(op_states=tuple(ops), logs=logs,
+                          replicas=replicas, out_rings=tuple(rings),
+                          record_counts=rc)
 
     def detect_failures(self) -> List[int]:
         return self.heartbeats.expired()
@@ -2454,6 +2486,170 @@ class ClusterRunner:
         self.recover(drill=True)
         return _time.monotonic() - t0
 
+    def prewarm_recovery(self, vertex_ids: Optional[Sequence[int]] = None,
+                         spill_paths: bool = False) -> float:
+        """Dispatch once, at job start, every device function
+        :meth:`recover` runs and the live block does not, on disposable
+        zero inputs of recovery's own shapes — the reference's deployed
+        standby, whose analog compiles every recovery program. On the
+        card this builds and loads the kernel libraries, loads each
+        kernel module a recovery launches and grows the caching allocator
+        to recovery's shapes, so the failure path does none of it. It
+        ends with :func:`utils.compile_cache.aot_lower_first_step`.
+
+        The steps follow the reference's order: the replica fetch and
+        parse, the replica log restore and copy, the ring bounds, the
+        shared log restore, then for each vertex (``vertex_ids``, default
+        all) its routed windows in both routing variants with the first
+        chunk's edge-buffer splice, its replay chain at the recovery
+        chunk (every subtask of a statically routed consumer), its kill,
+        graft and ring write. ``spill_paths`` adds each window's spilled
+        splice. The reference compiles independent programs on a thread
+        pool; the port dispatches on one stream, so the steps run in
+        turn.
+
+        Nothing live moves: the steps run on a zero carry of their own,
+        freed before returning, and the live carry, the step counters,
+        the host RNG, the ledger, the coordinator and the sinks'
+        transactions are untouched. The kernel launches count as warm
+        launches (``ops/histogram.py``). On a mesh each rank warms the
+        subtasks it runs, with no collective but the first-step block's,
+        so every rank calls this in lockstep.
+
+        Requires ``num_standby >= 1``. Returns the wall seconds."""
+        if self.standbys.num_standby_per_vertex < 1:
+            raise rec.RecoveryError(
+                "prewarm_recovery needs num_standby >= 1 (no standby "
+                "programs requested)")
+        t0 = _time.monotonic()
+        from clonos_tpu_torch.ops.histogram import counting_as_warm
+        from clonos_tpu_torch.utils.compile_cache import (
+            aot_lower_first_step, load_kernels)
+        load_kernels(self.device)
+        with counting_as_warm():
+            self._prewarm_steps(vertex_ids, spill_paths)
+        aot_lower_first_step(self.executor, self._mgroup)
+        return _time.monotonic() - t0
+
+    def _prewarm_steps(self, vertex_ids: Optional[Sequence[int]],
+                       spill_paths: bool) -> None:
+        """:meth:`prewarm_recovery`'s recovery steps on a zero carry."""
+        ex = self.executor
+        comp = ex.compiled
+        dev = self.device
+        job = self.job
+        ch = self._recovery_ch
+        n_rows = ch * DETS_PER_STEP
+        no_rows = np.zeros((0, det.NUM_LANES), np.int32)
+        dummy = tree_map(torch.zeros_like, ex.carry)
+        # Past the newest epoch: the epoch index rebuilt is empty.
+        from_epoch = ex.epoch_id + 1
+        # Replica fetch and parse, the replica log restore and copy.
+        replica_src = None
+        if self.plan.num_replicas > 0 and dummy.replicas.head.shape[0]:
+            self._device_parse(dummy.replicas, 0, from_epoch)
+            holders: Dict[int, int] = {}
+            for o, _h in self.plan.pairs:
+                holders[o] = holders.get(o, 0) + 1
+            for h in sorted(set(holders.values())):
+                self._fetch_meta(dummy.replicas, [0] * h, from_epoch)
+            self._fetch_rows(dummy.replicas, 0, from_epoch, 0)
+            replica_src = 0
+            self._restored_log(tree_map(lambda x: x[0], dummy.replicas),
+                               no_rows, 0, from_epoch, 0, 0, det_n=n_rows,
+                               clean_sync=True)
+            if dummy.logs.head.shape[0]:
+                idx = _device.upload(np.zeros((1,), np.int64), dev)
+
+                def copy_rows(s_, lg):
+                    s_ = s_.clone()
+                    s_[idx] = lg[idx]
+                    return s_
+
+                tree_map(copy_rows, dummy.replicas, dummy.logs)
+        if dummy.out_rings:
+            torch.stack([torch.stack([el.tail, el.head])
+                         for el in dummy.out_rings])
+        # The shared log restore from uploaded rows.
+        self._restored_log(None,
+                           np.zeros((n_rows, det.NUM_LANES), np.int32), 0,
+                           from_epoch, 0, 0)
+        snap0 = LeanSnapshot(dummy.op_states, dummy.edge_bufs,
+                             dummy.rr_offsets, dummy.record_counts,
+                             dummy.logs.head,
+                             tuple(el.head for el in dummy.out_rings))
+        pad = self._pad_steps()
+        det_device = tuple(torch.zeros((pad,), dtype=torch.int32,
+                                       device=dev) for _ in range(3))
+        rr = torch.zeros((), dtype=torch.int32, device=dev)
+        vids = (list(vertex_ids) if vertex_ids is not None
+                else [v.vertex_id for v in job.vertices])
+        for vid in vids:
+            v = job.vertices[vid]
+            lo, hi = comp.vblock[vid]
+            if hi <= lo:
+                continue
+            static = comp.consumer_slot_keys(vid) is not None
+            subs = range(lo, hi) if static else [lo]
+            # Each input edge's routed window: the fused lane and the
+            # all-lane route with its select, and the first chunk's
+            # edge-buffer splice.
+            lanes = []
+            for eidx in job.in_edges(vid):
+                e = job.edges[eidx]
+                el = dummy.out_rings[comp.ring_index[e.src]]
+                src_p = job.vertices[e.src].parallelism
+                raw = (ifl.slice_steps_at(el, 0, ch)
+                       if el.keys.shape[1] == src_p else
+                       empty((ch, src_p, comp.vertex_out_capacity(e.src)),
+                             dev))
+                if spill_paths:
+                    spilled = RecordBatch(*(_device.upload(
+                        np.zeros(tuple(x.shape),
+                                 np.bool_ if x.dtype == torch.bool
+                                 else np.int32), dev) for x in raw))
+                    raw = RecordBatch(*(torch.cat([sp[:1], x[1:]])
+                                        for sp, x in zip(spilled, raw)))
+                lane = self._route_lane(eidx, raw, subs[0], rr)
+                routed = self._route_all(eidx, raw, rr)
+                RecordBatch(*(x[:, 0] for x in routed))
+                edge_row = RecordBatch(*(b[0]
+                                         for b in dummy.edge_bufs[eidx]))
+                lanes.append(RecordBatch(*(
+                    torch.cat([b[None], x[1:]])
+                    for x, b in zip(lane, edge_row))))
+            if isinstance(v.operator, TwoInputOperator):
+                input_steps = [tuple(lanes)]
+            elif lanes:
+                input_steps = [lanes[0]]
+            elif isinstance(v.operator, HostFeedSource):
+                input_steps = self._upload_feed(np.zeros(
+                    (3, ch, v.operator.batch_size), np.int32))
+            else:
+                input_steps = None
+            # The replay chain, then the kill, graft and ring write.
+            for sub in subs:
+                plan = rec.ReplayPlan(
+                    vertex_id=vid, subtask=sub,
+                    flat_subtask=job.subtask_base(vid) + sub,
+                    from_epoch=from_epoch, input_steps=input_steps,
+                    det_rows=no_rows, det_start=0,
+                    checkpoint_op_state=dummy.op_states[vid], n_steps=ch,
+                    det_device=det_device, state_row=sub - lo)
+                result = self._make_replayer(vid, sub).replay(
+                    plan, dev, defer_sync=True)
+            flat = job.subtask_base(vid) + sub
+            dummy = self._killed(dummy, flat)
+            if self.mesh is None:
+                dummy = self._patch(
+                    dummy, snap0, vid, sub, flat, result, no_rows,
+                    from_epoch, 0, ch, replica_src=replica_src,
+                    det_n=n_rows, clean_sync=True, ck_head=0)
+            else:
+                dummy = self._graft_lane(dummy, vid, sub - lo, result, 0,
+                                         ch)
+        del dummy
+
     @classmethod
     def bootstrap_standby(cls, job: JobGraph, checkpoint_dir: str,
                           mirror_rows: Dict[int, Tuple[np.ndarray, int]],
@@ -2471,10 +2667,13 @@ class ClusterRunner:
 
         A worker thread derives the roll-gap / async-row ledgers from the
         mirrored streams (joined just before recovery's first patch),
-        fast-forwards the host RNG past the replayed prefix and loads the
-        built kernel, so the first live step loads nothing (joined before
-        returning). Rebalance edges are refused: their round-robin cursors
-        are not in the fence snapshot.
+        fast-forwards the host RNG past the replayed prefix and warms the
+        first step (:func:`utils.compile_cache.aot_lower_first_step`:
+        the kernels built or loaded from ``compile_cache_dir``, the
+        first-step block dispatched on zero inputs), so the first live
+        step builds and loads nothing (joined before returning; its wall
+        is ``finalize.first-step-recompile``). Rebalance edges are
+        refused: their round-robin cursors are not in the fence snapshot.
 
         ``feed_readers`` maps HostFeedSource vertex ids to rewindable
         readers (the ``api/feeds.py`` contract), registered BEFORE the
@@ -2489,7 +2688,9 @@ class ClusterRunner:
         to every rank; the mesh recovery then sends each subtask's slice
         to its owners, which replay it from their mirror rows in place of
         a replica, and each rank derives the ledgers of its own subtasks
-        and log rows on its worker."""
+        and log rows on its worker, which loads the kernel libraries only:
+        the first-step block, a collective there, runs on the main thread
+        after the join."""
         for e in job.edges:
             if e.partition == PartitionType.REBALANCE:
                 raise rec.RecoveryError(
@@ -2642,13 +2843,20 @@ class ClusterRunner:
             if ov["err"] is not None:
                 return
             # Replay reads recorded draws and never touches the host RNG,
-            # so this thread owns it until the join.
+            # so this thread owns it until the join. Then the first-step
+            # warm: with a build cache (compile_cache_dir) the libraries
+            # load from it instead of being built. On a mesh the block
+            # warm gathers across the ranks, and this thread issues no
+            # collective beside the main thread's: it only loads the
+            # libraries, and the block warm runs after the join.
             t_w = _time.monotonic()
             try:
                 ex.fast_forward_host_rng(fence + n_steps)
-                if dev.type == "cuda":
-                    from clonos_tpu_torch.ops import histogram as _hist
-                    _hist._lib()
+                from clonos_tpu_torch.utils import compile_cache as _cc
+                if runner.mesh is None:
+                    _cc.aot_lower_first_step(ex, runner._mgroup)
+                else:
+                    _cc.load_kernels(dev)
             except Exception as err:
                 ov["err"] = err
             ov["warm_ms"] = (_time.monotonic() - t_w) * 1e3
@@ -2731,6 +2939,13 @@ class ClusterRunner:
             worker.join()
         if ov["err"] is not None:
             raise ov["err"]
+        if runner.mesh is not None:
+            # Every rank in lockstep, after the recovery's collectives.
+            from clonos_tpu_torch.utils.compile_cache import (
+                aot_lower_first_step)
+            t_b = _time.monotonic()
+            aot_lower_first_step(ex, runner._mgroup)
+            ov["warm_ms"] += (_time.monotonic() - t_b) * 1e3
         warm_blocked_ms = (_time.monotonic() - t_j2) * 1e3
 
         # The rebuild stages extend the finalize phase; each sub-span
@@ -2755,6 +2970,9 @@ class ClusterRunner:
                      "finalize.first-step-recompile",
                      "finalize.overlap-saved"):
             runner._mgroup.histogram(f"recovery.{name}-ms").update(pm[name])
+        report.blocked_ms = {
+            "finalize.listener-reattach": reattach_blocked_ms,
+            "finalize.first-step-recompile": warm_blocked_ms}
         return runner, report
 
     def _bootstrap_point(self, checkpoint_dir: str, ignored: Set[int],

@@ -1722,6 +1722,32 @@ class LocalExecutor:
         self.roll_gap_async.update(roll_gap)
         self.async_counts.update(async_counts)
 
+    def first_step_inputs(self) -> BlockInputs:
+        """Zeroed host-fed inputs of the FIRST-STEP block program's
+        shapes — what :func:`utils.compile_cache.aot_lower_first_step`
+        dispatches on: ``times`` and ``rng_bits`` ``int32[K]`` with ``K =
+        block_steps``, a zero ``epoch`` and ``step0``, and for each feed
+        vertex a zero ``[K, P, B]`` batch of the lanes this rank runs,
+        the shapes :meth:`_pull_feeds` returns. Nothing is drawn from the
+        host RNG or a reader.
+
+        Unlike the reference, which passes ``feeds=()``: here a feed
+        vertex given no batch takes ``run_block``'s generator branch (an
+        empty batch of its output capacity), not the feed branch the live
+        block takes, so the warm would not dispatch the live shapes."""
+        k = self.block_steps
+        comp = self.compiled
+        dev = self.device
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        return BlockInputs(
+            times=torch.zeros((k,), dtype=torch.int32, device=dev),
+            rng_bits=torch.zeros((k,), dtype=torch.int32, device=dev),
+            epoch=z, step0=z.clone(),
+            feeds=tuple(
+                empty((k, comp.vblock[vid][1] - comp.vblock[vid][0],
+                       self.job.vertices[vid].operator.batch_size), dev)
+                for vid in comp.feed_vertices))
+
     def fast_forward_host_rng(self, steps: int) -> None:
         """Reset the host RNG to its seeded stream and consume one draw per
         superstep for ``steps`` supersteps: a rebuilt job's next draw is

@@ -24,10 +24,8 @@ no IGNORE_CHECKPOINT determinants and the post-recovery digest chain
 stays byte-comparable with the control twin — the audit asserts the
 recovery itself was exactly-once, not merely that the run finished.
 
-Where the port differs from the reference: the paced loop makes no
-``prewarm_recovery()`` call (XLA compile work, which has no torch
-counterpart; the kernels build at first use), and the ``nondet`` fault
-salts the rings with ``torch.where`` on their device. The verdict's
+Where the port differs from the reference: the ``nondet`` fault salts
+the rings with ``torch.where`` on their device. The verdict's
 ``census_fingerprint`` is the port's own (analysis/census.py over
 ``clonos_tpu_torch``), the value ``clonos_tpu_torch/.clonos-census``
 pins.
@@ -537,6 +535,9 @@ class SoakDriver:
         self.slo = SLOTracker(self.spec, window_s=config.window_s,
                               tracer=self.tracer)
         self.records_per_step = records_per_step
+        #: wall seconds of the runner's ``prewarm_recovery()`` before the
+        #: paced clock started (None before :meth:`run`)
+        self.prewarm_s: Optional[float] = None
         self._rate_now = 0.0
         self._backlog_chunks = 0
         self._truncated = False
@@ -764,8 +765,10 @@ class SoakDriver:
         for _ in range(spe):
             r.step()
         r.run_epoch(complete_checkpoint=True)   # fence-only: 0 steps left
-        # (the reference prewarms its recovery programs here; the port has
-        # no compile step to take off the paced clock)
+        # deployed-standby analog: the recovery path's kernels load and
+        # its shapes dispatch off the paced clock, so the first kill
+        # measures the protocol
+        self.prewarm_s = r.prewarm_recovery()
         # pipelined fence: _last_records_total is absorbed on the fence
         # worker — join any in-flight warmup tail before reading it
         r.drain_fence()

@@ -309,3 +309,39 @@ def test_spanning_job_on_two_slice_workers_equals_cpu_control(cuda_device,
             w.close()
         jm.close()
         srv.close()
+
+
+def test_warm_launches_count_apart_and_first_step_warm(cuda_device):
+    """Launches under ``counting_as_warm`` (the first-step warm's) go to
+    the warm counters only, on the thread that opened it; the warm of a
+    small job on the card leaves its carry bit-identical."""
+    from clonos_tpu_torch.utils.compile_cache import aot_lower_first_step
+    keys, vals, valid = _inputs(5, (4,), 64, 16)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (keys, vals, valid)]
+    counts = lambda: (th.keyed_hist.launches, th.keyed_hist.launches_counts,
+                      th.keyed_hist.warm_launches,
+                      th.keyed_hist.warm_launches_counts)
+    a = counts()
+    with th.counting_as_warm():
+        th.keyed_hist(*args, 16)
+        th.keyed_hist(*args, 16, want_counts=False)
+    b = counts()
+    assert (b[0] - a[0], b[1] - a[1], b[2] - a[2], b[3] - a[3]) == \
+        (0, 0, 2, 1)
+    th.keyed_hist(*args, 16)
+    c = counts()
+    assert (c[0] - b[0], c[2] - b[2]) == (1, 0)
+    env = StreamEnvironment(name="warm", num_key_groups=8)
+    (env.synthetic_source(vocab=11, batch_size=8, parallelism=2)
+        .key_by().window_count(num_keys=11, window_size=4).sink())
+    ex = LocalExecutor(env.build(), steps_per_epoch=8, log_capacity=256,
+                       max_epochs=8, inflight_ring_steps=16, seed=3,
+                       device="cuda")
+    ex.run_epoch()
+    before = [x.clone() for x in tree_leaves(ex.carry)]
+    launches = th.keyed_hist.launches
+    warm = aot_lower_first_step(ex)
+    assert warm is not None and warm.device.startswith("cuda")
+    assert th.keyed_hist.launches == launches
+    assert all(torch.equal(x, y) for x, y in zip(before,
+                                                 tree_leaves(ex.carry)))

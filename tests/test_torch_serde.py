@@ -131,8 +131,8 @@ def test_native_codec_matches_zlib_fallback_and_reference(pure_python):
 _BUILD = r"""
 import sys
 from pathlib import Path
-from clonos_tpu_torch.ops import native
-native.BUILD_DIR = Path(sys.argv[1])
+from clonos_tpu_torch.ops import cuda_build, native
+cuda_build.set_build_dir(Path(sys.argv[1]))
 assert native.available()
 print(native.library_path())
 """
