@@ -203,7 +203,7 @@ class ReplayResult:
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
+        return _device.to_numpy(x)
     return np.asarray(x)
 
 
@@ -392,7 +392,7 @@ class LogReplayer:
         tail = [consumed.reshape(1)]
         if dev:
             tail.append(expected_d[:n])
-        packed = torch.cat(emit_chunks + tail).cpu().numpy()
+        packed = _device.to_numpy(torch.cat(emit_chunks + tail))
         emit_np = packed[:n]
         consumed_total = int(packed[n])
         if dev:

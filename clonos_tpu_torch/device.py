@@ -8,6 +8,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from clonos_tpu_torch.obs.trace import get_tracer
 from clonos_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -43,6 +44,35 @@ def scalar(x, device, dtype=torch.int32) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.full((), int(x), dtype=dtype, device=device)
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """``x`` on the host as a numpy array. From a card the copy first
+    waits for the work queued before it: that wait is a ``device.wait``
+    span, as :meth:`HostCopy.wait`'s is."""
+    if x.device.type != "cuda":
+        return x.cpu().numpy()
+    with get_tracer().span("device.wait"):
+        return x.cpu().numpy()
+
+
+#: ``torch.cuda.memory_stats()`` counters of the device allocator's trips
+#: to CUDA: segments allocated and freed (``cudaMalloc``, ``cudaFree``,
+#: which synchronises the device) and retries after a failed allocation
+_DEVICE_TRIPS = ("segment.all.allocated", "segment.all.freed",
+                 "num_alloc_retries")
+
+
+def cuda_allocs(device) -> Optional[int]:
+    """The caching allocators' trips to CUDA so far, device and pinned
+    host (``num_host_alloc``: a ``cudaHostAlloc`` for a new pinned
+    block); the change over a span is what it cost. None off a card."""
+    if torch.device(device).type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(device)
+    host = torch.cuda.host_memory_stats()
+    return (sum(int(stats.get(k, 0)) for k in _DEVICE_TRIPS)
+            + int(host.get("num_host_alloc", 0)))
 
 
 class HostCopy:
@@ -86,7 +116,8 @@ class HostCopy:
 
     def wait(self) -> Any:
         if self._event is not None:
-            self._event.synchronize()
+            with get_tracer().span("device.wait"):
+                self._event.synchronize()
         self._sources = None
         return tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor)
                         else x, self._host)

@@ -13,7 +13,11 @@ runtime answers with spans:
   mode, flushed per record so a killed process's trace survives it).
 - The parent-span stack is per thread, so spans opened on the fence
   worker or the recovery's finalize thread never nest under the main
-  thread's.
+  thread's (:meth:`Tracer.span_in` names a parent from another thread).
+- While a ``torch.profiler`` records, each span also opens a
+  ``record_function`` range of its name: the span then lies in the
+  profiler's trace, on its clock, beside the device's work. The records
+  themselves stay on the tracer's clock (``time.time``).
 - :meth:`Tracer.wire_context` / :meth:`Tracer.adopt` carry a trace id
   from one tracer to another (``{"trace_id", "span"}``): a receiver that
   adopts the sender's context records under the same trace id.
@@ -36,6 +40,9 @@ import threading
 import time
 import uuid
 from typing import Any, Deque, Dict, List, Optional
+
+import torch
+from torch.autograd.profiler import record_function
 
 
 def _new_id() -> str:
@@ -73,6 +80,10 @@ class NullTracer:
     def span(self, name: str, **args) -> _NullSpan:
         return _NULL_SPAN
 
+    def span_in(self, parent: Optional[str], name: str,
+                **args) -> _NullSpan:
+        return _NULL_SPAN
+
     def event(self, name: str, **args) -> None:
         pass
 
@@ -95,9 +106,11 @@ class NullTracer:
 class _Span:
     """A live span: a context manager that emits one complete record on
     exit. Exceptions propagate; the span still closes (its ``error`` arg
-    records the fact)."""
+    records the fact). ``args`` may be added to until exit; ``dur`` is
+    the recorded duration once it has closed."""
 
-    __slots__ = ("_tracer", "name", "span_id", "parent", "args", "_t0")
+    __slots__ = ("_tracer", "name", "span_id", "parent", "args", "_t0",
+                 "_range", "dur")
 
     def __init__(self, tracer: "Tracer", name: str,
                  parent: Optional[str], args: Dict[str, Any]):
@@ -107,19 +120,27 @@ class _Span:
         self.parent = parent
         self.args = args
         self._t0 = 0.0
+        self._range = None
+        self.dur = 0.0
 
     def __enter__(self) -> "_Span":
+        if torch.autograd._profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
         self._t0 = self._tracer._clock()
         self._tracer._push(self.span_id)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        self.dur = self._tracer._clock() - self._t0
         self._tracer._pop()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         if exc_type is not None:
             self.args = dict(self.args, error=repr(exc))
         self._tracer._emit(
-            self.name, "X", self._t0,
-            dur=self._tracer._clock() - self._t0,
+            self.name, "X", self._t0, dur=self.dur,
             span=self.span_id, parent=self.parent, args=self.args)
         return False
 
@@ -206,6 +227,11 @@ class Tracer:
         """Context manager: records a complete span over the ``with``
         body, parented to the enclosing span of this thread."""
         return _Span(self, name, self.current_span(), args)
+
+    def span_in(self, parent: Optional[str], name: str, **args) -> _Span:
+        """:meth:`span` parented to ``parent``, a span id opened on another
+        thread (a worker's part of the caller's span)."""
+        return _Span(self, name, parent, args)
 
     def event(self, name: str, **args) -> None:
         """Instant event at now."""

@@ -51,9 +51,10 @@ and rebuild a failed subtask's shards from its replay. A two-input
 vertex replays from both of its input edges.
 
 Observability, off by default: the process tracer (``obs/trace.py``)
-records the ``epoch`` / ``epoch.steps`` / ``epoch.fence`` spans, one
-``recovery.<phase>`` span per recovery phase (``phase_ms``'s keys) and
-the ``recovery`` span; the process profiler (``obs/profile.py``), bound
+records the ``epoch`` / ``epoch.steps`` / ``epoch.fence`` spans and the
+``recovery`` span with a ``recovery.<phase>`` child per recovery phase
+(``phase_ms``'s keys), each opened when its phase starts; the process
+profiler (``obs/profile.py``), bound
 to the job's metric group, times the fence's sections (``health-read``,
 ``digest-seal``, ``ledger-write``, ``snapshot``, ``source-append``,
 ``timer-advance``) against ``compute`` and rolls them into the
@@ -63,6 +64,7 @@ runner from the typed options (``config/defaults.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -271,6 +273,129 @@ class RecoveryReport:
     @property
     def results(self) -> Tuple[rec.ReplayResult, ...]:
         return tuple(m.result for m in self.managers)
+
+
+class _Lap:
+    """One ``recovery.<phase>`` span and its length: ``ms`` once it has
+    closed."""
+
+    __slots__ = ("span", "t0", "ms")
+
+    def __init__(self, span, t0: float):
+        self.span, self.t0, self.ms = span, t0, 0.0
+
+
+class _RecoverySpans:
+    """A recovery's spans on the process tracer: ``recovery`` from the
+    recovery's start to its report and, inside it, one phase at a time,
+    each a ``recovery.<phase>`` span opened when the phase's work starts.
+    ``phases`` (the report's ``phase_ms``) sums each phase's span
+    durations; with the tracer off the same intervals are read on the
+    monotonic clock. With the tracer on, ``recovery`` carries
+    ``cuda_allocs``: the caching allocators' trips to CUDA over it. Used
+    around the whole recovery: one that raises closes what it opened."""
+
+    def __init__(self, drill: bool, device):
+        self._tracer = get_tracer()
+        self._drill = drill
+        self._device = device
+        self._lock = threading.Lock()
+        self.phases: Dict[str, float] = {}
+        self._recovery = None
+        self._allocs: Optional[int] = None
+        self._open: Optional[Tuple[str, _Lap]] = None
+
+    @property
+    def span_id(self) -> Optional[str]:
+        """The ``recovery`` span's id (the parent of a worker's phase)."""
+        return self._recovery.span_id
+
+    def begin(self) -> float:
+        """Open ``recovery`` and its first phase, ``restore``; returns
+        the start on the monotonic clock."""
+        t0 = _time.monotonic()
+        self._recovery = self._tracer.span("recovery", drill=self._drill)
+        self._recovery.__enter__()
+        if self._tracer.enabled:
+            self._allocs = _device.cuda_allocs(self._device)
+        self.enter("restore")
+        return t0
+
+    def _start(self, name: str, parent: Optional[str] = None) -> _Lap:
+        span = (self._tracer.span_in(parent, f"recovery.{name}",
+                                     drill=self._drill)
+                if parent is not None else
+                self._tracer.span(f"recovery.{name}", drill=self._drill))
+        span.__enter__()
+        return _Lap(span, _time.monotonic())
+
+    def _finish(self, name: str, lap: _Lap,
+                exc=(None, None, None)) -> None:
+        lap.span.__exit__(*exc)
+        lap.ms = (lap.span.dur * 1e3 if self._tracer.enabled
+                  else (_time.monotonic() - lap.t0) * 1e3)
+        with self._lock:            # a worker's phase adds in too
+            self.phases[name] = self.phases.get(name, 0.0) + lap.ms
+
+    def enter(self, name: str) -> None:
+        """Close the open phase and open ``name``."""
+        self.stop()
+        self._open = (name, self._start(name))
+
+    def stop(self, exc=(None, None, None)) -> float:
+        """Close the open phase; returns now on the monotonic clock."""
+        if self._open is not None:
+            name, lap = self._open
+            self._open = None
+            self._finish(name, lap, exc)
+        return _time.monotonic()
+
+    @contextlib.contextmanager
+    def phase(self, name: str, parent: Optional[str] = None):
+        """``name`` over the ``with`` body, outside the sequence of
+        :meth:`enter` (a part of the finalize, the audit); ``parent``
+        names the recovery span from a worker thread. Yields its
+        :class:`_Lap`."""
+        lap = self._start(name, parent)
+        try:
+            yield lap
+        except BaseException as e:
+            self._finish(name, lap, (type(e), e, e.__traceback__))
+            raise
+        self._finish(name, lap)
+
+    @contextlib.contextmanager
+    def aside(self, name: str):
+        """``name`` as a phase of its own while the open phase pauses:
+        the open one closes and opens again after the body."""
+        held = self._open[0] if self._open is not None else None
+        self.stop()
+        with self.phase(name):
+            yield
+        if held is not None:
+            self.enter(held)
+
+    def close(self, **args) -> None:
+        """Close ``recovery`` with ``args`` (the report's figures)."""
+        self.stop()
+        span, self._recovery = self._recovery, None
+        if self._tracer.enabled:
+            span.args.update(args)
+            if self._allocs is not None:
+                span.args["cuda_allocs"] = (
+                    _device.cuda_allocs(self._device) - self._allocs)
+        span.__exit__(None, None, None)
+
+    def __enter__(self) -> "_RecoverySpans":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        # A recovery that raised: close its open phase, then itself.
+        self.stop(exc)
+        if self._recovery is not None:
+            span, self._recovery = self._recovery, None
+            span.__exit__(*exc)
+        return False
 
 
 class OverflowError_(RuntimeError):
@@ -1394,10 +1519,11 @@ class ClusterRunner:
         windows, the timeline) is about to become unreachable. A plain
         pass-through while the incident plane is off."""
         try:
-            return self._recover_impl(
-                drill=drill, host_rows=host_rows,
-                overlap_finalize=overlap_finalize,
-                pre_patch_join=pre_patch_join)
+            with _RecoverySpans(drill, self.device) as ph:
+                return self._recover_impl(
+                    ph, drill=drill, host_rows=host_rows,
+                    overlap_finalize=overlap_finalize,
+                    pre_patch_join=pre_patch_join)
         except Exception as e:
             obs_incident.get_incidents().signal(
                 "recovery.failure",
@@ -1407,7 +1533,7 @@ class ClusterRunner:
                 failed=sorted(self.failed))
             raise
 
-    def _recover_impl(self, drill: bool = False,
+    def _recover_impl(self, ph: "_RecoverySpans", drill: bool = False,
                       host_rows: Optional[Dict[int, Tuple[np.ndarray, int]]]
                       = None,
                       overlap_finalize: Optional[bool] = None,
@@ -1435,12 +1561,13 @@ class ClusterRunner:
 
         ``pre_patch_join`` is called once just before the first patch (the
         earliest read of the roll-gap ledger); its blocked wall is billed
-        to ``finalize.listener-reattach``."""
+        to ``finalize.listener-reattach``. ``ph`` opens the recovery's
+        spans and sums its ``phase_ms``."""
         if not self.failed:
             raise rec.RecoveryError("no failed subtasks")
         if self.mesh is not None:
-            return self._recover_mesh(drill, host_rows, pre_patch_join)
-        t0, failed, ignored = self._recovery_prologue(drill)
+            return self._recover_mesh(ph, drill, host_rows, pre_patch_join)
+        t0, failed, ignored = self._recovery_prologue(drill, ph)
         ex = self.executor
         ckpt = self.standbys.latest
         from_epoch = ckpt.checkpoint_id + 1
@@ -1450,8 +1577,7 @@ class ClusterRunner:
         restore_bytes = 0
         checkpoint_bytes = (int(ckpt.size_bytes or 0)
                             or cp.carry_nbytes(ckpt.carry))
-        phases: Dict[str, float] = {}
-        _clock = self._phase_clock(phases, drill)
+        phases = ph.phases
 
         patched = ex.carry
         nrings = len(patched.out_rings)
@@ -1462,7 +1588,7 @@ class ClusterRunner:
                 ri: (self._ring_tail_mirror, ex._steps_executed)
                 for ri in range(nrings)}
         else:
-            barr = (bounds_dev.cpu().numpy() if nrings
+            barr = (_device.to_numpy(bounds_dev) if nrings
                     else np.zeros((0, 2), np.int32))
             self._bounds_cache = {ri: (int(barr[ri, 0]), int(barr[ri, 1]))
                                   for ri in range(nrings)}
@@ -1474,7 +1600,7 @@ class ClusterRunner:
             v_of = self._vertex_of(flat)[0]
             vid_failed_counts[v_of] = vid_failed_counts.get(v_of, 0) + 1
         prev_vid = None
-        tp = _clock("restore", t0)
+        ph.enter("fetch_determinants")
 
         # ---- phase A: determinant metadata for every failed subtask ----
         # Dispatch every device parse/meta up front, then pay at most ONE
@@ -1516,19 +1642,19 @@ class ClusterRunner:
             prep[flat] = p
         slow_vals: Dict[Tuple[int, str], np.ndarray] = {}
         if slow_reads:
-            packed = torch.cat([d.reshape(-1).to(torch.int32)
-                                for _f, _k, d in slow_reads]).cpu().numpy()
+            packed = _device.to_numpy(torch.cat(
+                [d.reshape(-1).to(torch.int32) for _f, _k, d in slow_reads]))
             off = 0
             for flat, kind, d in slow_reads:
                 slow_vals[(flat, kind)] = packed[off:off + d.numel()] \
                     .reshape(tuple(d.shape))
                 off += d.numel()
-        tp = _clock("fetch_determinants", tp)
 
         managers: List[rec.RecoveryManager] = []
         total_dets = 0
         total_records = 0
         for flat in failed:
+            ph.enter("fetch_determinants")
             vid, sub = self._vertex_of(flat)
             if vid != prev_vid:
                 # Routed windows are final only once the upstream rings
@@ -1625,7 +1751,7 @@ class ClusterRunner:
             else:
                 rows, start = mgr.merged_determinants()
             total_dets += clean_n if clean_n is not None else len(rows)
-            tp = _clock("fetch_determinants", tp)
+            ph.enter("inputs")
 
             # Lost inputs: the checkpointed edge buffer + the upstream
             # ring re-routed into this lane. An upstream lane zeroed by a
@@ -1643,9 +1769,10 @@ class ClusterRunner:
                                                   sub, fence, n_steps)
             elif isinstance(v.operator, HostFeedSource) and n_steps > 0:
                 input_steps = self._reread_feed(
-                    vid, sub, int(snap.op_states[vid]["offset"][sub].cpu()),
+                    vid, sub, int(_device.to_numpy(
+                        snap.op_states[vid]["offset"][sub])),
                     rows, n_steps)
-            tp = _clock("inputs", tp)
+            ph.enter("replay")
 
             plan = rec.ReplayPlan(
                 vertex_id=vid, subtask=sub, flat_subtask=flat,
@@ -1673,17 +1800,13 @@ class ClusterRunner:
                 self.txn_logs[vid].drop_uncommitted_shards(sub)
                 self._rebuild_txn_shards(vid, sub, result, from_epoch,
                                          fence, n_steps)
-            tp = _clock("replay", tp)
+            ph.enter("patch")
 
             rebuilt = self._check_rebuilt(flat, result, rows, synthesized)
             if pre_patch_join is not None:
-                t_j = _time.monotonic()
-                pre_patch_join()
-                b_j = _time.monotonic() - t_j
-                phases["finalize.listener-reattach"] = (
-                    phases.get("finalize.listener-reattach", 0.0)
-                    + b_j * 1e3)
-                tp += b_j           # the wait is not the patch's
+                # The wait is not the patch's.
+                with ph.aside("finalize.listener-reattach"):
+                    pre_patch_join()
                 pre_patch_join = None
             patched = self._patch(
                 patched, snap, vid, sub, flat, result, rebuilt, from_epoch,
@@ -1691,8 +1814,8 @@ class ClusterRunner:
                 clean_sync=det_device is not None,
                 ck_head=(int(ck_heads[flat]) if ck_heads is not None
                          else None))
-            tp = _clock("patch", tp)
 
+        ph.enter("replica_rebuild")
         # Replica rows the revived subtasks held: replicas equal their
         # owner's log by construction, so copy the owner's (possibly just
         # restored) row — one batched scatter for the whole set.
@@ -1716,7 +1839,7 @@ class ClusterRunner:
         self._bounds_cache = None
         self._route_cache = {}
         self._spill_cache = {}
-        tp = _clock("replica_rebuild", tp)
+        t_fin0 = ph.stop()
 
         # ---- final packed read: completion barrier + deferred asserts ----
         # One device->host copy closes the protocol: the restored log
@@ -1729,7 +1852,6 @@ class ClusterRunner:
         # the credit (sum(finalize.*) - overlap-saved == finalize).
         overlap = (self.overlap_recovery if overlap_finalize is None
                    else bool(overlap_finalize))
-        t_fin0 = tp
         fast_mgrs = [m for m in managers if prep[m.flat_subtask]["fast"]]
         pieces = [torch.stack([patched.logs.head[f] for f in failed])
                   .to(torch.int32)]
@@ -1747,21 +1869,21 @@ class ClusterRunner:
         barrier: Dict[str, Any] = {"arr": None, "err": None, "ms": 0.0}
 
         def _drain_barrier() -> None:
-            try:
-                barrier["arr"] = final.wait()
-            except Exception as err:        # raised after the join
-                barrier["err"] = err
-            barrier["ms"] = (_time.monotonic() - t_fin0) * 1e3
+            # On the worker too, a part of the recovery span.
+            with ph.phase("finalize.barrier-read",
+                          parent=ph.span_id) as lap:
+                try:
+                    barrier["arr"] = final.wait()
+                except Exception as err:    # raised after the join
+                    barrier["err"] = err
+            barrier["ms"] = lap.ms
 
         def _audit() -> float:
             if not self.auditor.enabled:
                 return 0.0
-            t_a = _time.monotonic()
-            self._validate_replayed(ex, range(from_epoch, ex.epoch_id))
-            a_ms = (_time.monotonic() - t_a) * 1e3
-            phases["audit"] = phases.get("audit", 0.0) + a_ms
-            get_tracer().complete("recovery.audit", a_ms / 1e3, drill=drill)
-            return a_ms
+            with ph.phase("audit") as lap:
+                self._validate_replayed(ex, range(from_epoch, ex.epoch_id))
+            return lap.ms
 
         audit_ms = 0.0
         audit_err: Optional[Exception] = None
@@ -1784,21 +1906,14 @@ class ClusterRunner:
             _drain_barrier()
         if barrier["err"] is not None:
             raise barrier["err"]
-        phases["finalize.barrier-read"] = (
-            phases.get("finalize.barrier-read", 0.0) + barrier["ms"])
-        get_tracer().complete("recovery.finalize.barrier-read",
-                              barrier["ms"] / 1e3, drill=drill)
-        t_v = _time.monotonic()
-        total_records += self._verify_final(
-            barrier["arr"], failed, nrings, fast_mgrs, prep, ck_heads,
-            n_steps)
-        now_v = _time.monotonic()
-        verify_ms = (now_v - t_v) * 1e3
-        phases["finalize.state-verify"] = (
-            phases.get("finalize.state-verify", 0.0) + verify_ms)
-        get_tracer().complete("recovery.finalize.state-verify",
-                              verify_ms / 1e3, drill=drill)
-        fin_ms = (now_v - t_fin0) * 1e3 - audit_ms
+        with ph.phase("finalize.state-verify") as lap:
+            total_records += self._verify_final(
+                barrier["arr"], failed, nrings, fast_mgrs, prep, ck_heads,
+                n_steps)
+        verify_ms = lap.ms
+        # Not one interval: the tail's wall less the audit that ran
+        # inside it, so a record of its measured length.
+        fin_ms = (_time.monotonic() - t_fin0) * 1e3 - audit_ms
         phases["finalize"] = phases.get("finalize", 0.0) + fin_ms
         get_tracer().complete("recovery.finalize", fin_ms / 1e3,
                               drill=drill)
@@ -1812,7 +1927,7 @@ class ClusterRunner:
         else:
             _audit()
         return self._close_recovery(
-            t0, failed_subtasks=failed, from_epoch=from_epoch,
+            ph, t0, failed_subtasks=failed, from_epoch=from_epoch,
             steps_replayed=n_steps, determinants_replayed=total_dets,
             records_replayed=total_records, ignored_checkpoints=ignored,
             managers=tuple(managers), phase_ms=phases, drill=drill,
@@ -1820,15 +1935,15 @@ class ClusterRunner:
 
     # --- the steps both recovery paths share ----------------------------------
 
-    def _recovery_prologue(self, drill: bool
+    def _recovery_prologue(self, drill: bool, ph: "_RecoverySpans"
                            ) -> Tuple[float, Tuple[int, ...], Tuple[int, ...]]:
         """Join the pipelined fence (recovery never runs against a
-        half-sealed tail), check there is a checkpoint to restore, order
-        the failed subtasks topologically, and (not in a drill) ignore
-        the checkpoints the dead never acked, back off the interval and
-        have the healthy tasks log the ignore decision. Returns the
-        recovery's start time, the ordered failed subtasks and the ignored
-        checkpoints."""
+        half-sealed tail), check there is a checkpoint to restore, open
+        the recovery's spans (``ph``), order the failed subtasks
+        topologically, and (not in a drill) ignore the checkpoints the
+        dead never acked, back off the interval and have the healthy
+        tasks log the ignore decision. Returns the recovery's start time,
+        the ordered failed subtasks and the ignored checkpoints."""
         self._join_fence_tail()
         if not self.standbys.has_state():
             raise rec.RecoveryError(
@@ -1837,7 +1952,7 @@ class ClusterRunner:
             raise rec.RecoveryError("ring bound mirror invalid; a mesh "
                                     "recovery routes by the host mirror")
         ex = self.executor
-        t0 = _time.monotonic()
+        t0 = ph.begin()
         topo_pos = {vid: i for i, vid in enumerate(ex.compiled.topo)}
         failed = tuple(sorted(
             self.failed, key=lambda f: (topo_pos[self._vertex_of(f)[0]], f)))
@@ -1852,20 +1967,6 @@ class ClusterRunner:
                     record_count=ex.global_record_stamp(),
                     checkpoint_id=cid))
         return t0, failed, ignored
-
-    @staticmethod
-    def _phase_clock(phases: Dict[str, float], drill: bool
-                     ) -> Callable[[str, float], float]:
-        """A recovery's phase clock: ``clock(name, since)`` adds the wall
-        ms since ``since`` to ``phases[name]``, traces the span and
-        returns now."""
-        def clock(name: str, since: float) -> float:
-            now = _time.monotonic()
-            phases[name] = phases.get(name, 0.0) + (now - since) * 1e3
-            get_tracer().complete(f"recovery.{name}", now - since,
-                                  drill=drill)
-            return now
-        return clock
 
     def _recovery_manager(self, vid: int, sub: int, flat: int
                           ) -> rec.RecoveryManager:
@@ -1917,10 +2018,12 @@ class ClusterRunner:
             self._m_audit_matches.inc(validator.stats["match"])
             self._m_audit_div.inc(validator.stats["divergence"])
 
-    def _close_recovery(self, t0: float, **fields) -> RecoveryReport:
+    def _close_recovery(self, ph: "_RecoverySpans", t0: float,
+                        **fields) -> RecoveryReport:
         """The recovery's report (``fields`` are its fields but the wall
         time), recorded with its metrics unless it was a drill, and its
-        span."""
+        span closed."""
+        ph.stop()
         report = RecoveryReport(
             recovery_ms=(_time.monotonic() - t0) * 1e3, **fields)
         if not report.drill:
@@ -1929,12 +2032,10 @@ class ClusterRunner:
             self._m_recovered_records.inc(report.records_replayed)
             for pname, ms in report.phase_ms.items():
                 self._mgroup.histogram(f"recovery.{pname}-ms").update(ms)
-        get_tracer().complete(
-            "recovery", report.recovery_ms / 1e3, drill=report.drill,
-            failed=list(report.failed_subtasks),
-            from_epoch=report.from_epoch,
-            steps_replayed=report.steps_replayed,
-            records_replayed=report.records_replayed)
+        ph.close(failed=list(report.failed_subtasks),
+                 from_epoch=report.from_epoch,
+                 steps_replayed=report.steps_replayed,
+                 records_replayed=report.records_replayed)
         return report
 
     # --- recovery on a mesh ---------------------------------------------------
@@ -1959,7 +2060,7 @@ class ClusterRunner:
     def _host(self, tree):
         return _device.HostCopy(tree).wait()
 
-    def _recover_mesh(self, drill: bool = False,
+    def _recover_mesh(self, ph: "_RecoverySpans", drill: bool = False,
                       host_rows: Optional[Dict[int, Tuple[np.ndarray, int]]]
                       = None,
                       pre_patch_join: Optional[Callable[[], None]] = None
@@ -1994,13 +2095,14 @@ class ClusterRunner:
         ``host_rows`` (a standby bootstrap's mirror rows, on every rank)
         stand in for the replica transfer: each owner takes its
         subtask's rows from them. ``pre_patch_join`` runs on every rank
-        just before the first replay's patch."""
+        just before the first replay's patch. ``ph`` holds the spans and
+        phase times."""
         from clonos_tpu_torch.parallel import distributed as dist_
         ex = self.executor
         comp = ex.compiled
         mesh, axis = self.mesh, comp.task_axis
         me, n = comp.shard, comp.n_shards
-        t0, failed, ignored = self._recovery_prologue(drill)
+        t0, failed, ignored = self._recovery_prologue(drill, ph)
         ckpt = self.standbys.latest
         from_epoch = ckpt.checkpoint_id + 1
         fence = self._fence_step[from_epoch]
@@ -2011,8 +2113,6 @@ class ClusterRunner:
             if me == 0 else None, 0, range(n), mesh, axis)
         with self._ck_heads_lock:
             ck_heads = self._ck_log_heads.get(ckpt.checkpoint_id)
-        phases: Dict[str, float] = {}
-        _clock = self._phase_clock(phases, drill)
         ch = self._recovery_ch
         span = -(-n_steps // ch) * ch
         ring_lo = max(self._ring_tail_mirror,
@@ -2028,9 +2128,9 @@ class ClusterRunner:
         carry = ex.carry
         managers: List[rec.RecoveryManager] = []
         restore_bytes = total_records = total_dets = 0
-        tp = _clock("restore", t0)
         self._spill_cache = {}
         for flat in failed:
+            ph.enter("fetch_determinants")
             vid, sub = self._vertex_of(flat)
             owners = self._vertex_ranks(vid, sub)
             lead = me == owners[0]
@@ -2079,7 +2179,9 @@ class ClusterRunner:
             for e in in_edges if n_steps > 0 else ():
                 windows.update(self._mesh_window(
                     e, carry, owners, fence, n_steps, span, ring_lo))
-            tp = _clock("fetch_determinants", tp)
+            # An owner's inputs end inside _mesh_replay, where its replay
+            # starts; the other ranks wait out the replay.
+            ph.enter("inputs" if mine else "replay")
             # A feed whose one reader rank 0 holds: the owner sends it
             # the replayed steps' counts, and it sends back the re-read.
             feed_host = None
@@ -2090,18 +2192,16 @@ class ClusterRunner:
             log_piece = None
             err: Optional[BaseException] = None
             if pre_patch_join is not None:
-                t_j = _time.monotonic()
-                pre_patch_join()
-                b_j = _time.monotonic() - t_j
-                phases["finalize.listener-reattach"] = b_j * 1e3
-                tp += b_j           # the wait is not the replay's
+                # The wait is not the replay's.
+                with ph.aside("finalize.listener-reattach"):
+                    pre_patch_join()
                 pre_patch_join = None
             try:
                 if mine:
-                    carry, log_piece, mgr, rb, rec_n, n_dets, tp = \
+                    carry, log_piece, mgr, rb, rec_n, n_dets = \
                         self._mesh_replay(
                             vid, sub, flat, piece, replica, windows, carry,
-                            from_epoch, fence, n_steps, ck_head, _clock, tp,
+                            from_epoch, fence, n_steps, ck_head, ph,
                             drill, host, feed_host)
                     managers.append(mgr)
                     if lead:
@@ -2114,7 +2214,7 @@ class ClusterRunner:
             # feed's retention) fails on every rank, here, before the
             # next transfer.
             dist_.agree(err, mesh, axis, group=ex._host_group)
-            tp = _clock("replay", tp)
+            ph.enter("patch")
             # The rebuilt log row and record count, to the log block's rank.
             dsts = self._row_ranks(flat, L)
             log_piece = dist_.transfer(log_piece, owners[0], dsts, mesh, axis)
@@ -2125,7 +2225,7 @@ class ClusterRunner:
                     logs=tree_map(put, carry.logs, new["log"]),
                     record_counts=put(carry.record_counts,
                                       new["rc"].to(torch.int32)))
-            tp = _clock("patch", tp)
+        ph.enter("replica_rebuild")
         # Replica rows the revived subtasks held: replicas equal their
         # owner's log by construction, so copy the owner's (possibly just
         # restored) row, from the rank holding it.
@@ -2153,7 +2253,7 @@ class ClusterRunner:
         ex.carry = carry
         self._bounds_cache = None
         self._spill_cache = {}
-        tp = _clock("replica_rebuild", tp)
+        ph.stop()
         sums = dist_.all_gather_object(
             (restore_bytes, total_records, total_dets), mesh, axis)
         restore_bytes, total_records, total_dets = (
@@ -2164,19 +2264,18 @@ class ClusterRunner:
         if self.auditor.enabled:
             # Every replayed closed epoch's window gathers to rank 0 (all
             # ranks take part), which validates them against its ledger.
-            t_a = _time.monotonic()
-            wins = {e: ex.epoch_window(e)
-                    for e in range(from_epoch, ex.epoch_id)}
-            if me == 0:
-                self._validate_replayed(
-                    types.SimpleNamespace(epoch_window=wins.__getitem__),
-                    sorted(wins))
-            phases["audit"] = (_time.monotonic() - t_a) * 1e3
+            with ph.phase("audit"):
+                wins = {e: ex.epoch_window(e)
+                        for e in range(from_epoch, ex.epoch_id)}
+                if me == 0:
+                    self._validate_replayed(
+                        types.SimpleNamespace(epoch_window=wins.__getitem__),
+                        sorted(wins))
         return self._close_recovery(
-            t0, failed_subtasks=failed, from_epoch=from_epoch,
+            ph, t0, failed_subtasks=failed, from_epoch=from_epoch,
             steps_replayed=n_steps, determinants_replayed=total_dets,
             records_replayed=total_records, ignored_checkpoints=ignored,
-            managers=tuple(managers), phase_ms=phases, drill=drill,
+            managers=tuple(managers), phase_ms=ph.phases, drill=drill,
             restore_bytes=restore_bytes, checkpoint_bytes=checkpoint_bytes)
 
     def _mesh_window(self, eidx: int, carry: JobCarry, owners: List[int],
@@ -2231,7 +2330,7 @@ class ClusterRunner:
     def _mesh_replay(self, vid: int, sub: int, flat: int, piece: dict,
                      replica, windows: Dict[int, RecordBatch],
                      carry: JobCarry, from_epoch: int, fence: int,
-                     n_steps: int, ck_head: int, clock, tp: float,
+                     n_steps: int, ck_head: int, ph: "_RecoverySpans",
                      drill: bool, host=None, feed_host=None):
         """One failed subtask's replay on a rank that runs it
         (:meth:`_recover_mesh`): its determinants from ``host`` (mirror
@@ -2244,7 +2343,8 @@ class ClusterRunner:
         them; the operator row and ring lane grafted into this
         rank's shards. Returns (carry, the rebuilt log row and record
         count on the first owner, else None, the manager, restore bytes,
-        records and determinants replayed, the clock's time)."""
+        records and determinants replayed). Its inputs end and its replay
+        starts at ``ph.enter("replay")``."""
         comp = self.executor.compiled
         v = self.job.vertices[vid]
         in_edges = self.job.in_edges(vid)
@@ -2261,8 +2361,8 @@ class ClusterRunner:
         elif replica is not None:
             one_dev = self._on_device(replica)
             stack = tree_map(lambda x: x[None], one_dev)
-            cnt, start = (int(x) for x in self._fetch_meta(
-                stack, [0], from_epoch).cpu().numpy()[0])
+            cnt, start = (int(x) for x in _device.to_numpy(
+                self._fetch_meta(stack, [0], from_epoch))[0])
             mgr.expect_determinant_responses(1)
             mgr.notify_determinant_response(
                 self._fetch_rows(stack, 0, from_epoch, cnt), start)
@@ -2293,7 +2393,7 @@ class ClusterRunner:
         elif isinstance(v.operator, HostFeedSource) and n_steps > 0:
             offset = int(np.asarray(piece["op"]["offset"]).reshape(-1)[0])
             input_steps = self._reread_feed(vid, sub, offset, rows, n_steps)
-        tp = clock("inputs", tp)
+        ph.enter("replay")
         plan = rec.ReplayPlan(
             vertex_id=vid, subtask=sub, flat_subtask=flat,
             from_epoch=from_epoch, input_steps=input_steps,
@@ -2325,7 +2425,7 @@ class ClusterRunner:
             "rc": int(piece["rc"]) + result.records_replayed})
             if lead else None)
         return (carry, log_piece, mgr, rec.plan_restore_nbytes(plan),
-                result.records_replayed, len(rows), tp)
+                result.records_replayed, len(rows))
 
     def _mesh_reread(self, vid: int, sub: int, flat: int,
                      owners: List[int], piece, replica, host,
@@ -2347,8 +2447,8 @@ class ClusterRunner:
             else:
                 stack = tree_map(lambda x: x[None],
                                  self._on_device(replica))
-                cnt = int(self._fetch_meta(stack, [0], from_epoch)
-                          .cpu().numpy()[0, 0])
+                cnt = int(_device.to_numpy(
+                    self._fetch_meta(stack, [0], from_epoch))[0, 0])
                 rows = self._fetch_rows(stack, 0, from_epoch, cnt)
             counts = self._feed_counts(rows, n_steps)
         counts = dist_.transfer(counts, owners[0], [0], mesh, axis)
@@ -3451,7 +3551,7 @@ class ClusterRunner:
         one = tree_map(lambda x: x[r], replicas)
         buf, _, _ = clog.get_determinants(
             one, from_epoch, self.executor.compiled.log_capacity)
-        return buf[:count].cpu().numpy()
+        return _device.to_numpy(buf[:count])
 
     def _device_parse(self, replicas: clog.ThreadLogState, r: int,
                       from_epoch: int):
@@ -3797,12 +3897,14 @@ class ClusterRunner:
 
         ``clean_sync``: the stream is pure sync blocks, so the anchors
         are exactly ``i * DETS_PER_STEP`` and ``det_n`` is its row count."""
+        tr = get_tracer()
         if ck_head is None:
-            ck_head = int(snap.log_heads[flat])
+            ck_head = int(_device.to_numpy(snap.log_heads[flat]))
         one = (tree_map(lambda x: x[replica_src], carry.replicas)
                if replica_src is not None else None)
-        restored = self._restored_log(one, det_rows, flat, from_epoch,
-                                      fence, ck_head, det_n, clean_sync)
+        with tr.span("recovery.patch.log"):
+            restored = self._restored_log(one, det_rows, flat, from_epoch,
+                                          fence, ck_head, det_n, clean_sync)
 
         def put(stack, i, one_):
             stack = stack.clone()
@@ -3817,7 +3919,8 @@ class ClusterRunner:
             logs=tree_map(lambda s_, r: put(s_, flat, r), carry.logs,
                           restored),
             record_counts=put(carry.record_counts, flat, rc))
-        return self._graft_lane(carry, vid, sub, result, fence, n_steps)
+        with tr.span("recovery.patch.lane"):
+            return self._graft_lane(carry, vid, sub, result, fence, n_steps)
 
     def _restored_log(self, replica: Optional[clog.ThreadLogState],
                       det_rows: np.ndarray, flat: int, from_epoch: int,

@@ -981,6 +981,7 @@ class LocalExecutor:
         distributed.agree`) before the block's first collective, so every
         rank raises there and none waits for it."""
         comp = self.compiled
+        tr = get_tracer()
         hosts: List[Optional[np.ndarray]] = []
         err: Optional[BaseException] = None
         for vid in comp.feed_vertices:
@@ -992,12 +993,18 @@ class LocalExecutor:
             if reader is None or err is not None:
                 hosts.append(None)
                 continue
-            host = np.zeros((3, k, hi - lo, b), np.int32)
+            host = None
             try:
-                for s in range(lo, hi):
-                    ks, vs, cnt = reader.pull_block(s, b, k)
-                    host[0, :, s - lo], host[1, :, s - lo] = ks, vs
-                    host[2, :, s - lo] = np.arange(b)[None, :] < cnt[:, None]
+                # The reader's calls (with any wait for arrivals), then
+                # the staging array: two spans.
+                with tr.span("feed.pull", vertex=vid):
+                    pulled = [reader.pull_block(s, b, k)
+                              for s in range(lo, hi)]
+                with tr.span("feed.pack", vertex=vid):
+                    host = np.zeros((3, k, hi - lo, b), np.int32)
+                    for i, (ks, vs, cnt) in enumerate(pulled):
+                        host[0, :, i], host[1, :, i] = ks, vs
+                        host[2, :, i] = np.arange(b)[None, :] < cnt[:, None]
             except Exception as e:          # settled below, on every rank
                 err = e
             hosts.append(host)
@@ -1021,7 +1028,14 @@ class LocalExecutor:
                 feeds.append(empty((k, hi - lo, self.job.vertices[vid]
                                     .operator.batch_size), self.device))
                 continue
-            arr = _device.upload(host, self.device)
+            with tr.span("feed.upload", vertex=vid,
+                         bytes=int(host.nbytes)) as sp:
+                allocs = (_device.cuda_allocs(self.device) if tr.enabled
+                          else None)
+                arr = _device.upload(host, self.device)
+                if allocs is not None:
+                    sp.args["cuda_allocs"] = (
+                        _device.cuda_allocs(self.device) - allocs)
             feeds.append(RecordBatch(arr[0], arr[1], torch.zeros_like(arr[0]),
                                      arr[2] != 0))
         return tuple(feeds)
@@ -1054,13 +1068,17 @@ class LocalExecutor:
             feeds=self._pull_feeds(k))
 
     def _run_block(self, k: int) -> BlockOutputs:
-        self.carry, outs = self.compiled.run_block(
-            self.carry, self._next_block_inputs(k))
+        tr = get_tracer()
+        with tr.span("block.inputs"):
+            binputs = self._next_block_inputs(k)
+        with tr.span("block.run", steps=k):
+            self.carry, outs = self.compiled.run_block(self.carry, binputs)
         self.step_in_epoch += k
         self._steps_executed += k
-        if self.on_block_outputs is not None:
-            self.on_block_outputs(outs, self.epoch_id)
-        self._notify_block()
+        with tr.span("block.listeners"):
+            if self.on_block_outputs is not None:
+                self.on_block_outputs(outs, self.epoch_id)
+            self._notify_block()
         return outs
 
     def _notify_block(self) -> None:
