@@ -5,10 +5,11 @@ Port of ``clonos_tpu/runtime/executor.py``. With a ``mesh`` (a
 holds only its shards of the carry, by the rule table, and runs its
 contiguous block of each vertex's subtasks; the exchange and the
 determinant replication become explicit collectives (see
-:meth:`CompiledJob.run_block`). Host-fed sources take one pinned,
-non-blocking upload per block per feed; block listeners (timers) and the
-block-outputs tap (transactional sinks) run after every block on
-host-known values; causal services append through ``append_async_many``.
+:meth:`CompiledJob.run_block`). Host-fed sources take one non-blocking
+upload per block per feed, packed straight into reused pinned memory on
+a card; block listeners (timers) and the block-outputs tap
+(transactional sinks) run after every block on host-known values;
+causal services append through ``append_async_many``.
 ``capture_fence`` hands a closed epoch's fence surface to the pipelined
 fence's worker thread without a host sync (``FenceHandles``). With a
 ``spool_dir`` every closed epoch's ring steps and determinant rows move
@@ -126,6 +127,53 @@ def _block(size: int, n: int, r: int) -> Tuple[int, int]:
         g = size // n
         return r * g, (r + 1) * g
     return 0, size
+
+
+def _feed_planes(flat, k: int, p: int, b: int):
+    """A staged fed block of ``p`` lanes, one flat int32 buffer (numpy or
+    torch), as views: keys and values lane by lane, ``[2, p, k, b]`` (each
+    lane's pull one contiguous run), then counts ``[k, p]``."""
+    n = 2 * k * p * b
+    return flat[:n].reshape(2, p, k, b), flat[n:].reshape(k, p)
+
+
+def _pack_feed(pulled, k: int, b: int, pinned: bool) -> torch.Tensor:
+    """The lanes' ``pull_block`` results staged in one flat int32 host
+    tensor (:func:`_feed_planes`' layout), each element written once: a
+    reader's arrays are whole ``[k, b]`` with the padding zeroed, so the
+    buffer needs no zero fill. ``pinned`` takes it from the caching host
+    allocator, which hands a block out again only after the copy recorded
+    on it has run, so no write lands in a buffer still in flight;
+    otherwise it is a fresh pageable buffer of this block's own."""
+    p = len(pulled)
+    size = k * p * (2 * b + 1)
+    flat = (torch.empty(size, dtype=torch.int32, pin_memory=True) if pinned
+            else torch.from_numpy(np.empty(size, np.int32)))
+    kv, counts = _feed_planes(flat.numpy(), k, p, b)
+    for i, (ks, vs, cnt) in enumerate(pulled):
+        kv[0, i], kv[1, i] = ks, vs
+        counts[:, i] = cnt
+    return flat
+
+
+def _feed_lanes(flat: torch.Tensor, k: int, p: int, b: int, lo: int,
+                hi: int) -> np.ndarray:
+    """Lanes ``[lo, hi)`` of a staged block of ``p`` lanes, in the same
+    flat layout: a rank's piece of a block rank 0 scatters."""
+    kv, counts = _feed_planes(flat.numpy(), k, p, b)
+    return np.concatenate((kv[:, lo:hi].ravel(), counts[:, lo:hi].ravel()))
+
+
+def _feed_batch(arr: torch.Tensor, k: int, p: int, b: int) -> RecordBatch:
+    """A staged block on its device as a ``[k, p, b]`` batch: keys and
+    values turned step-major there (one copy), timestamps zero (the
+    operator stamps them), and ``valid`` built there from the counts,
+    ``arange(b) < count``."""
+    kv, counts = _feed_planes(arr, k, p, b)
+    kv = kv.transpose(1, 2).contiguous()
+    valid = (torch.arange(b, dtype=torch.int32, device=arr.device)
+             < counts[..., None])
+    return RecordBatch(kv[0], kv[1], torch.zeros_like(kv[0]), valid)
 
 
 @dataclasses.dataclass
@@ -971,7 +1019,14 @@ class LocalExecutor:
 
     def _pull_feeds(self, k: int) -> Tuple[RecordBatch, ...]:
         """k steps' worth of records from every feed reader as stacked
-        ``[k, P, B]`` batches: one pinned, non-blocking upload per feed.
+        ``[k, P, B]`` batches: one non-blocking upload per feed of keys,
+        values and per-step counts, from which the card builds the valid
+        plane. On a card the readers' arrays are packed straight into
+        pinned memory that the caching host allocator hands back from
+        block to block (``feed.pack``'s ``pinned`` is 1), and the copy is
+        enqueued from there; a block rank 0 scatters is packed on the host
+        and each piece uploaded through :func:`device.upload` (``pinned``
+        0, as on the CPU, where each block has a buffer of its own).
 
         On a mesh a rank pulls only the lanes it runs (``[k, hi - lo,
         B]``); a feed vertex whose parallelism does not split is pulled
@@ -994,17 +1049,24 @@ class LocalExecutor:
                 hosts.append(None)
                 continue
             host = None
+            # Packed straight into pinned memory on a card, unless rank 0
+            # scatters the block to the other ranks from the host.
+            pinned = (self.device.type == "cuda"
+                      and vid not in self._single_feeds)
             try:
                 # The reader's calls (with any wait for arrivals), then
                 # the staging array: two spans.
                 with tr.span("feed.pull", vertex=vid):
                     pulled = [reader.pull_block(s, b, k)
                               for s in range(lo, hi)]
-                with tr.span("feed.pack", vertex=vid):
-                    host = np.zeros((3, k, hi - lo, b), np.int32)
-                    for i, (ks, vs, cnt) in enumerate(pulled):
-                        host[0, :, i], host[1, :, i] = ks, vs
-                        host[2, :, i] = np.arange(b)[None, :] < cnt[:, None]
+                with tr.span("feed.pack", vertex=vid,
+                             pinned=int(pinned)) as sp:
+                    allocs = (_device.cuda_allocs(self.device)
+                              if tr.enabled and pinned else None)
+                    host = _pack_feed(pulled, k, b, pinned)
+                    if allocs is not None:
+                        sp.args["cuda_allocs"] = (
+                            _device.cuda_allocs(self.device) - allocs)
             except Exception as e:          # settled below, on every rank
                 err = e
             hosts.append(host)
@@ -1017,27 +1079,32 @@ class LocalExecutor:
         feeds = []
         for vid, host in zip(comp.feed_vertices, hosts):
             lo, hi = comp.vblock[vid]
+            b = self.job.vertices[vid].operator.batch_size
             if vid in self._single_feeds:
                 p = self.job.vertices[vid].parallelism
                 host = dist_.scatter_object(
-                    [host[:, :, slice(*_block(p, comp.n_shards, r))]
+                    [_feed_lanes(host, k, p, b,
+                                 *_block(p, comp.n_shards, r))
                      for r in range(comp.n_shards)] if host is not None
                     else None, self.mesh, comp.task_axis,
                     group=self._host_group)
             if host is None:
-                feeds.append(empty((k, hi - lo, self.job.vertices[vid]
-                                    .operator.batch_size), self.device))
+                feeds.append(empty((k, hi - lo, b), self.device))
                 continue
             with tr.span("feed.upload", vertex=vid,
                          bytes=int(host.nbytes)) as sp:
                 allocs = (_device.cuda_allocs(self.device) if tr.enabled
                           else None)
-                arr = _device.upload(host, self.device)
+                if isinstance(host, np.ndarray):    # a scattered piece
+                    arr = _device.upload(host, self.device)
+                else:
+                    # Pinned: one copy, enqueued. On the CPU the block's
+                    # own buffer, taken as it is.
+                    arr = host.to(self.device, non_blocking=True)
                 if allocs is not None:
                     sp.args["cuda_allocs"] = (
                         _device.cuda_allocs(self.device) - allocs)
-            feeds.append(RecordBatch(arr[0], arr[1], torch.zeros_like(arr[0]),
-                                     arr[2] != 0))
+            feeds.append(_feed_batch(arr, k, hi - lo, b))
         return tuple(feeds)
 
     def _next_block_inputs(self, k: int) -> BlockInputs:

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the hand-written Hopper keyed-histogram kernel
-against its plain version, and a small job's card run against its CPU run.
+against its plain version, a small job's card run against its CPU run,
+and fed blocks staged in pinned memory against the old host packing.
 Tolerance: exact equality (int32/bool).
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
@@ -345,3 +346,56 @@ def test_warm_launches_count_apart_and_first_step_warm(cuda_device):
     assert th.keyed_hist.launches == launches
     assert all(torch.equal(x, y) for x, y in zip(before,
                                                  tree_leaves(ex.carry)))
+
+
+def test_fed_blocks_pack_into_pinned_memory_behind_copies_in_flight(
+        cuda_device):
+    """Fed blocks staged in pinned memory: after two blocks, with the
+    stream held busy, four are pulled back to back, so each one's copy is
+    still queued while the next is packed; after a synchronise every
+    block's batch (keys, values, zero timestamps, valid) equals the zeroed
+    three-plane packing pulled lane by lane from a twin reader, and every
+    ``feed.pack`` span says ``pinned`` 1."""
+    from clonos_tpu_torch import obs
+    from clonos_tpu_torch.api.feeds import ListFeedReader
+    k, p, b = 32, 8, 256
+    rng = np.random.RandomState(9)
+    # Ragged steps; lanes 1 and 2 run dry in the second and fourth blocks.
+    lens = [8 * k * b] + [k * b + 77, 3 * k * b + 5] + [8 * k * b] * (p - 3)
+    parts = [list(zip(rng.randint(-5, 1000, n).tolist(),
+                      rng.randint(-9, 9, n).tolist())) for n in lens]
+    reader = lambda: ListFeedReader(parts, records_per_pull=b - 3)
+    env = StreamEnvironment(name="pinned-feed", num_key_groups=16,
+                            default_edge_capacity=p * b)
+    (env.host_source(batch_size=b, parallelism=p)
+        .key_by().reduce(num_keys=97, parallelism=p).sink(parallelism=p))
+    ex = LocalExecutor(env.build(), steps_per_epoch=k, log_capacity=1 << 10,
+                       max_epochs=8, inflight_ring_steps=2 * k, seed=4,
+                       device=cuda_device)
+    ex.register_feed(0, reader())
+    tr = obs.configure("pinned-feed")
+    try:
+        # Two blocks first, so the pinned pool holds a block and the next
+        # pack needs no new pinned allocation (which may wait for the card).
+        got = [ex._pull_feeds(k)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)       # the copies queue behind it
+        got += [ex._pull_feeds(k)[0] for _ in range(4)]
+        torch.cuda.synchronize()
+        packs = [x for x in tr.records() if x["name"] == "feed.pack"]
+    finally:
+        obs.reset()
+    assert [x["args"]["pinned"] for x in packs] == [1] * 6
+    twin = reader()
+    for batch in got:
+        host = np.zeros((3, k, p, b), np.int32)
+        for i in range(p):
+            ks, vs, cnt = twin.pull_block(i, b, k)
+            host[0, :, i], host[1, :, i] = ks, vs
+            host[2, :, i] = np.arange(b)[None, :] < cnt[:, None]
+        keys, values, ts, valid = (x.cpu().numpy() for x in batch)
+        assert batch.valid.dtype == torch.bool
+        np.testing.assert_array_equal(keys, host[0])
+        np.testing.assert_array_equal(values, host[1])
+        np.testing.assert_array_equal(ts, np.zeros_like(host[0]))
+        np.testing.assert_array_equal(valid, host[2] != 0)

@@ -267,6 +267,93 @@ def test_failover_drill_of_feed_window_and_reduce_leaves_the_carry():
         np.testing.assert_array_equal(b, a)
 
 
+# --- staging a fed block -----------------------------------------------------
+
+SK, SP, SB = 5, 3, 8        # a [k, P, B] block: 5 steps, 3 lanes, batch 8
+
+#: reader kinds, each made twice alike: one the executor pulls, one the
+#: old packing pulls beside it
+STAGE_READERS = {
+    # records_per_pull below B: every step ragged
+    "ragged": lambda: tf.ListFeedReader(_mk(n=200, parts=SP, seed=21),
+                                        records_per_pull=3),
+    # lane 1 runs dry in the first block, lane 2 in the second
+    "dry": lambda: tf.ListFeedReader(
+        [p[:n] for p, n in zip(_mk(n=200, parts=SP, seed=22), (200, 23, 60))],
+        records_per_pull=SB),
+    # the base class's pull_block loop over pull
+    "pull-loop": lambda: _LoopReader(_mk(n=90, parts=SP, seed=23), 5),
+    # whole steps until the partitions run dry in the third block
+    "full": lambda: tf.ListFeedReader(_mk(n=90, parts=SP, seed=24)),
+}
+
+
+def _stage_executor(reader):
+    env = StreamEnvironment(name="stage", num_key_groups=8,
+                            default_edge_capacity=SP * SB)
+    (env.host_source(batch_size=SB, parallelism=SP)
+        .key_by().reduce(num_keys=13, parallelism=SP).sink(parallelism=SP))
+    r = ClusterRunner(env.build(), steps_per_epoch=SK, log_capacity=256,
+                      max_epochs=8, inflight_ring_steps=16, seed=6,
+                      device="cpu")
+    r.executor.register_feed(0, reader)
+    return r.executor
+
+
+def _old_packing(twin):
+    """A block as ``_pull_feeds`` staged it before it packed counts: a
+    zeroed ``[3, k, P, B]`` int32 array of keys, values and the valid
+    plane, pulled lane by lane from ``twin``."""
+    host = np.zeros((3, SK, SP, SB), np.int32)
+    for i in range(SP):
+        ks, vs, cnt = twin.pull_block(i, SB, SK)
+        host[0, :, i], host[1, :, i] = ks, vs
+        host[2, :, i] = np.arange(SB)[None, :] < cnt[:, None]
+    return host
+
+
+def _assert_block_is(batch, host):
+    keys, values, ts, valid = (x.cpu().numpy() for x in batch)
+    assert keys.dtype == values.dtype == ts.dtype == np.int32
+    assert valid.dtype == np.bool_
+    np.testing.assert_array_equal(keys, host[0])
+    np.testing.assert_array_equal(values, host[1])
+    np.testing.assert_array_equal(ts, np.zeros_like(host[0]))
+    np.testing.assert_array_equal(valid, host[2] != 0)
+
+
+@pytest.fixture
+def feed_tracer():
+    from clonos_tpu_torch import obs
+    yield obs.configure("feeds")
+    obs.reset()
+
+
+@pytest.mark.parametrize("kind", list(STAGE_READERS))
+def test_pulled_blocks_equal_the_old_three_plane_packing(kind, feed_tracer):
+    """``_pull_feeds``' batches (keys, values, zero timestamps, valid)
+    equal the zeroed three-plane packing element for element, block after
+    block, as readers run ragged and dry; on the CPU ``feed.pack`` packs
+    into no pinned memory."""
+    ex = _stage_executor(STAGE_READERS[kind]())
+    twin = STAGE_READERS[kind]()
+    for _ in range(3):
+        (batch,) = ex._pull_feeds(SK)
+        _assert_block_is(batch, _old_packing(twin))
+    packs = [x for x in feed_tracer.records() if x["name"] == "feed.pack"]
+    assert [x["args"]["pinned"] for x in packs] == [0, 0, 0]
+
+
+def test_a_pulled_block_keeps_its_records_after_later_pulls():
+    """Three blocks pulled in a row: each block's tensors still hold its
+    own records after the third pull (no buffer reused under them)."""
+    ex = _stage_executor(STAGE_READERS["ragged"]())
+    twin = STAGE_READERS["ragged"]()
+    got = [ex._pull_feeds(SK)[0] for _ in range(3)]
+    for batch in got:
+        _assert_block_is(batch, _old_packing(twin))
+
+
 def _line_server(lines, n_clients):
     """A TCP server on 127.0.0.1 that sends ``lines`` to each of
     ``n_clients`` connections and closes them."""

@@ -75,8 +75,9 @@ def _inside(child, parent):
 def test_fed_block_spans_nest_the_feed_spans():
     """Each block: ``block.inputs`` holds ``feed.pull``, ``feed.pack`` and
     ``feed.upload`` in that order; ``block.run`` carries its steps,
-    ``feed.upload`` its bytes; ``block.listeners`` follows the run. Off
-    a card no ``cuda_allocs`` is read."""
+    ``feed.upload`` its bytes, ``feed.pack`` whether it packed into
+    pinned memory; ``block.listeners`` follows the run. Off a card no
+    ``cuda_allocs`` is read and nothing is pinned."""
     tr = obs.configure("runner")
     r = _fed_runner(block_steps=4)
     r.run_epoch()
@@ -94,9 +95,12 @@ def test_fed_block_spans_nest_the_feed_spans():
             assert x["args"]["vertex"] == 0
         assert _end(pull) <= pack["ts"] + EPS
         assert _end(pack) <= up["ts"] + EPS
-        # [keys, values, valid] x 4 steps x 2 lanes x batch 4, int32
-        assert up["args"]["bytes"] == 3 * 4 * 2 * 4 * 4
+        # [keys, values] x 4 steps x 2 lanes x batch 4, then the
+        # [4 steps, 2 lanes] counts, int32
+        assert up["args"]["bytes"] == (2 * 4 * 2 * 4 + 4 * 2) * 4
+        assert pack["args"]["pinned"] == 0              # the CPU's own
         assert "cuda_allocs" not in up["args"]
+        assert "cuda_allocs" not in pack["args"]
     runs = named("block.run")
     assert [x["args"]["steps"] for x in runs] == [4, 4]
     listeners = named("block.listeners")
