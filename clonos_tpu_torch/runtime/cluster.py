@@ -292,8 +292,9 @@ class _RecoverySpans:
     ``phases`` (the report's ``phase_ms``) sums each phase's span
     durations; with the tracer off the same intervals are read on the
     monotonic clock. With the tracer on, ``recovery`` carries
-    ``cuda_allocs``: the caching allocators' trips to CUDA over it. Used
-    around the whole recovery: one that raises closes what it opened."""
+    ``cuda_allocs``: the caching allocators' trips to CUDA over it, and
+    :meth:`count` adds counters to the open phase's span. Used around
+    the whole recovery: one that raises closes what it opened."""
 
     def __init__(self, drill: bool, device):
         self._tracer = get_tracer()
@@ -341,6 +342,14 @@ class _RecoverySpans:
         """Close the open phase and open ``name``."""
         self.stop()
         self._open = (name, self._start(name))
+
+    def count(self, counts: Dict[str, int]) -> None:
+        """Add ``counts`` to the open phase's span (tracer on only)."""
+        if not self._tracer.enabled or self._open is None:
+            return
+        args = self._open[1].span.args
+        for k, v in counts.items():
+            args[k] = args.get(k, 0) + int(v)
 
     def stop(self, exc=(None, None, None)) -> float:
         """Close the open phase; returns now on the monotonic clock."""
@@ -1750,7 +1759,12 @@ class ClusterRunner:
                 start = clean_start
             else:
                 rows, start = mgr.merged_determinants()
-            total_dets += clean_n if clean_n is not None else len(rows)
+            n_rows = clean_n if clean_n is not None else len(rows)
+            total_dets += n_rows
+            # ``host_rows``: fetched to the host (a replica's body, a
+            # mirror's rows) for the replay to parse there.
+            ph.count({"rows": n_rows, "host_rows": 0 if (
+                det_device is not None or synthesized) else n_rows})
             ph.enter("inputs")
 
             # Lost inputs: the checkpointed edge buffer + the upstream
@@ -1787,6 +1801,10 @@ class ClusterRunner:
             result = mgr.run_replay(plan, self.device, defer_sync=fast)
             if not result.deferred:
                 total_records += result.records_replayed
+            ph.count({"steps": n_steps, "inputs": len(in_edges),
+                      "rows": (n_rows if det_device is not None
+                               else len(result.rebuilt_log_rows)),
+                      "async": len(result.async_events)})
             # Recovered timers re-run their callbacks (the rows are back
             # in the rebuilt log already).
             svc = self.timer_services.get(flat)

@@ -310,23 +310,39 @@ def _window_job(env_cls):
     return env.build()
 
 
-def _record_key(rec):
-    args = rec.get("args") or {}
+#: counters the port adds to two recovery phase spans; the reference's
+#: spans carry none
+PORT_COUNTERS = {"recovery.fetch_determinants": ("rows", "host_rows"),
+                 "recovery.replay": ("steps", "rows", "async", "inputs")}
+
+
+def _record_key(rec, strip=()):
+    args = {k: v for k, v in (rec.get("args") or {}).items()
+            if k not in strip}
     ints = tuple(sorted(
         (k, tuple(v) if isinstance(v, list) else v)
         for k, v in args.items() if isinstance(v, (int, list))))
     return (rec["name"], rec["ph"], tuple(sorted(args)), ints)
 
 
-def _traced_run(mod, runner):
+def _traced_run(mod, runner, counters=None):
+    """The records' keys, with the ``counters`` (span name -> arg names)
+    left out, and the recovery's report."""
     tr = mod.configure("runner")
+    counters = counters or {}
     try:
         runner.run_epoch(complete_checkpoint=True)
         runner.run_epoch(complete_checkpoint=False)
         runner.inject_failure([2 + 1])
         report = runner.recover()
         runner.run_epoch(complete_checkpoint=True)
-        return collections.Counter(_record_key(r) for r in tr.records()), \
+        recs = tr.records()
+        for name, keys in counters.items():
+            # Each phase's span for the failed subtask carries them.
+            assert any(set(keys) <= set(r.get("args") or {})
+                       for r in recs if r["name"] == name), name
+        return collections.Counter(
+            _record_key(r, counters.get(r["name"], ())) for r in recs), \
             report
     finally:
         mod.reset()
@@ -339,15 +355,17 @@ def test_trace_records_match_reference(tmp_path, overlap):
     disk), one window subtask recovered across a pending checkpoint: of
     the names the reference emits, the port emits exactly the
     reference's records — spans, instants, their arg keys and integer
-    arg values, each as often. Its other records are its own spans at
-    the block and patch boundaries."""
+    arg values, each as often — but for the row and step counters it
+    adds to ``recovery.fetch_determinants`` and ``recovery.replay``. Its
+    other records are its own spans at the block and patch
+    boundaries."""
     port = ClusterRunner(_window_job(StreamEnvironment), device="cpu",
                          audit=True, overlap_recovery=overlap,
                          checkpoint_dir=str(tmp_path / "port"), **KW)
     ref = JaxRunner(_window_job(JaxEnv), heartbeat_timeout_s=600.0,
                     audit=True, overlap_recovery=overlap,
                     checkpoint_dir=str(tmp_path / "ref"), **KW)
-    got, report = _traced_run(obs, port)
+    got, report = _traced_run(obs, port, PORT_COUNTERS)
     want, _ = _traced_run(jobs, ref)
     ref_names = {k[0] for k in want}
     assert collections.Counter(
