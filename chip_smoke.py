@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper kernel from ``clonos_tpu_torch/ops/csrc``
-at first use, holds it against its plain PyTorch version at the main
+Builds the hand-written Hopper kernels from ``clonos_tpu_torch/ops/csrc``
+at first use, holds each against its plain PyTorch version at the main
 path's shapes, drives the job of ``bench.py``'s headline ("bench-allround":
 8 sources -> keyBy -> 8 tumbling windows -> keyBy -> 8 reduces -> 8
 sinks, 128 records per source subtask per step, 997 keys, edge capacity
@@ -20,6 +20,9 @@ Phases:
      events, CUPTI device time, host time per call) against the bound,
      the plain version and ``scatter_add_``, at the paths' shapes, a
      one-launch floor, two skewed-key rows and an unaligned view;
+     then the interval join's keyed-rank kernel at config #5's replay
+     and fill shapes, bit for bit, timed against its bound, its plain
+     version and the one-hot ``torch.cumsum`` (``[keyed-rank]`` lines);
   3. the card's run of two blocks equals the CPU's, bit for bit; a third
      block on the card under torch.profiler (where the time goes);
   4. the main path: 3 epochs + 256 steps, counting kernel launches;
@@ -329,6 +332,14 @@ def phase_build() -> float:
         log(f"[build] {line}")
     log(f"[build] shared-memory budget per block: "
         f"{hist.smem_budget(torch.device('cuda'))} bytes")
+    from clonos_tpu_torch.ops import keyrank
+    t0 = time.monotonic()
+    keyrank._lib()
+    info = cuda_build.BUILD_INFO.get(keyrank._SOURCE, {})
+    log(f"[build] {keyrank._SOURCE}: {time.monotonic() - t0:.3f} s "
+        f"(nvcc {info.get('seconds', 0.0):.3f} s)")
+    for line in str(info.get("log", "")).splitlines():
+        log(f"[build] {line}")
     return build_s
 
 
@@ -687,6 +698,59 @@ def phase_kernels():
     return rows
 
 
+#: (label, P, G, B, nk): config #5's join at its replay and fill shapes
+RANK_SHAPES = (("join-replay", 1, 64, 256, 211),
+               ("join-fill", 32, 4, 256, 211))
+
+
+def phase_keyed_rank():
+    """The join's keyed-rank kernel at config #5's shapes: bit for bit
+    against the plain version, then CUDA events paired with the library
+    yardstick (``torch.cumsum`` over the one-hot, built outside the
+    timing; the port never calls it), host time, the plain version's
+    time, the bound (bytes once at 3.35 TB/s) and the profiler's device
+    times. One ``[keyed-rank]`` line a shape."""
+    from clonos_tpu_torch.ops import keyrank
+    dev = torch.device("cuda")
+    rows = []
+    for i, (label, p, g, b, nk) in enumerate(RANK_SHAPES):
+        rng = np.random.RandomState(300 + i)
+        keys = torch.from_numpy(
+            rng.randint(0, nk, (p, g * b)).astype(np.int32)).to(dev)
+        valid = torch.from_numpy(rng.rand(p, g * b) < 0.7).to(dev)
+        rank, through = keyrank.keyed_rank_cuda(keys, valid, g, b, nk)
+        want = keyrank.keyed_rank_plain(keys, valid, g, b, nk)
+        sync()
+        if not (torch.equal(rank, want[0]) and torch.equal(through, want[1])):
+            raise AssertionError(f"keyed_rank kernel != plain at {label}")
+        onehot = (valid[..., None] & (keys.to(torch.int64)[..., None]
+                                      == torch.arange(nk, device=dev))
+                  ).to(torch.int32)
+
+        def kernel(keys=keys, valid=valid, g=g, b=b, nk=nk):
+            return keyrank.keyed_rank_cuda(keys, valid, g, b, nk)
+
+        def library(onehot=onehot):
+            return torch.cumsum(onehot, dim=1, dtype=torch.int32)
+
+        nbytes = p * g * b * (4 + 1 + 8) + p * g * nk * 4
+        row = dict(label=label, P=p, G=g, B=b, nk=nk, bit_identical=True,
+                   plan=keyrank.plan(b, nk), bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        row["ms"], row["library_ms"] = _time_pair_ms(kernel, library)
+        row["host_us"] = _host_us(kernel)
+        row["plain_ms"] = _time_ms(
+            lambda: keyrank.keyed_rank_plain(keys, valid, g, b, nk))
+        rows.append((row, kernel, library))
+    out = []
+    for row, kernel, library in rows:
+        row["device_ms"] = _device_ms(kernel, "rank_")
+        row["library_device_ms"] = _device_ms(library, None)
+        log(f"[keyed-rank] {json.dumps(row)}")
+        out.append(row)
+    return out
+
+
 def _check_verify_shapes(hist, dev):
     """``_verify_shapes()`` against the plain version, bit for bit, on
     seeded inputs drawn on the card (there are hundreds); one summary
@@ -827,10 +891,12 @@ def _judge(rows):
             f"{skew['skew-hot'] / skew['window']:.3f} (device time)")
 
 
-def kernels_line(rows, by_path):
-    """The kernels JSON line; ``launches`` is the main path's count and
-    ``launches_by_path`` holds every path's, each counted from 0 just
-    before its path ran."""
+def kernels_line(rows, by_path, rank_rows):
+    """The kernels JSON line; ``launches`` is the count of the path the
+    kernel serves (``path``: the main path for the histogram, config #5's
+    join recovery for the keyed rank) and ``launches_by_path`` holds every
+    path's that counted it, each counted from 0 just before its path
+    ran."""
     src = "clonos_tpu_torch/ops/csrc/keyed_hist.cu"
     out = []
     for name, counts, replaces, head in (
@@ -844,7 +910,7 @@ def kernels_line(rows, by_path):
         top = next(r for r in mine if r["label"] == head)
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
+            "replaces": replaces, "path": "main",
             "launches": by_path["main"][name],
             "launches_by_path": {k: p[name] for k, p in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -862,7 +928,33 @@ def kernels_line(rows, by_path):
                                           "library_ms", "library_device_ms",
                                           "bound_ms", "bound_by")}
                        for r in mine]})
+    out.append(rank_kernel_entry(rank_rows, by_path))
     return {"kernels": out}
+
+
+def rank_kernel_entry(rank_rows, by_path):
+    """The keyed-rank kernel's entry of the kernels line, from
+    :func:`phase_keyed_rank`'s rows (the replay shape first) and the
+    paths' counts."""
+    top = rank_rows[0]
+    return {
+        "name": "keyed_rank", "route": "cuda",
+        "source": "clonos_tpu_torch/ops/csrc/keyed_rank.cu",
+        "replaces": None, "path": "join_recovery",
+        "launches": by_path["join_recovery"]["keyed_rank"],
+        "launches_by_path": {k: p["keyed_rank"] for k, p in by_path.items()
+                             if "keyed_rank" in p},
+        "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": "bytes",
+        "library_ms": top["library_ms"],
+        "shape": {k: top[k] for k in ("P", "G", "B", "nk")},
+        "bit_identical": all(r["bit_identical"] for r in rank_rows),
+        "device_ms": top["device_ms"],
+        "shapes": [{k: r[k] for k in ("label", "P", "G", "B", "nk", "ms",
+                                      "host_us", "device_ms", "plain_ms",
+                                      "library_ms", "library_device_ms",
+                                      "bound_ms")}
+                   for r in rank_rows]}
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -994,11 +1086,13 @@ def _assert_same(golden, faulted, what):
 
 def phase_main_path(dev_line):
     from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.ops.keyrank import keyed_rank
     from clonos_tpu_torch.runtime.cluster import ClusterRunner
     golden = ClusterRunner(build_job(), device=DEVICE, **runner_kw())
     sync()
     keyed_hist.launches = 0
     keyed_hist.launches_counts = 0
+    keyed_rank.launches = 0
     epoch_s = []
     epoch_records = []
     for _ in range(3):
@@ -1013,8 +1107,9 @@ def phase_main_path(dev_line):
     sync()
     launches = {"keyed_hist": keyed_hist.launches_counts,
                 "keyed_hist_sums": (keyed_hist.launches
-                                    - keyed_hist.launches_counts)}
-    if keyed_hist.launches == 0 or min(launches.values()) == 0:
+                                    - keyed_hist.launches_counts),
+                "keyed_rank": keyed_rank.launches}
+    if keyed_hist.launches == 0 or _hist_silent(launches):
         raise AssertionError(f"main path launched no kernel: {launches}")
     violations = golden.executor.check_overflow()
     if violations:
@@ -1104,18 +1199,31 @@ def _sync_count(fn, this_thread=False):
     return out, len(sites)
 
 
+#: the histogram kernel's two forms, which every path of the headline
+#: jobs launches (the keyed-rank kernel runs only in the interval join)
+HIST_KERNELS = ("keyed_hist", "keyed_hist_sums")
+
+
+def _hist_silent(launches) -> bool:
+    """Whether a path left one of the histogram's forms unlaunched."""
+    return min(launches[k] for k in HIST_KERNELS) == 0
+
+
 def _counted(fn, count_syncs=False):
-    """Run ``fn`` with the kernel's launch counts at 0 just before it;
+    """Run ``fn`` with the kernels' launch counts at 0 just before it;
     returns (result, {kernel: launches}, synchronising calls or None)."""
     from clonos_tpu_torch.ops.histogram import keyed_hist
+    from clonos_tpu_torch.ops.keyrank import keyed_rank
     sync()
     keyed_hist.launches = 0
     keyed_hist.launches_counts = 0
+    keyed_rank.launches = 0
     out, syncs = _sync_count(fn) if count_syncs else (fn(), None)
     sync()
     counts = {"keyed_hist": keyed_hist.launches_counts,
               "keyed_hist_sums": (keyed_hist.launches
-                                  - keyed_hist.launches_counts)}
+                                  - keyed_hist.launches_counts),
+              "keyed_rank": keyed_rank.launches}
     return out, counts, syncs
 
 
@@ -1181,7 +1289,7 @@ def phase_recovery(golden, dev_line):
                 raise AssertionError(
                     "window recovery did not take the device-resident "
                     "determinant stream")
-            if min(launches.values()) == 0:
+            if _hist_silent(launches):
                 raise AssertionError(
                     f"window recovery launched no kernel: {launches}")
     # A checkpoint left pending: the kill lands EXTRA_STEPS into the next
@@ -1216,7 +1324,7 @@ def phase_recovery(golden, dev_line):
                  device=dev_line)
     log(f"[recovery] drill left the carry unchanged: {json.dumps(drill)}")
     readings.append(drill)
-    if min(total.values()) == 0:
+    if _hist_silent(total):
         raise AssertionError(f"recovery paths launched no kernel: {total}")
     return readings, total
 
@@ -1251,7 +1359,7 @@ def phase_audit(dev_line):
     stats = card.last_audit.stats
     if stats != {"match": 1, "divergence": 0, "missing": 0}:
         raise AssertionError(f"audit after recovery: {stats}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         raise AssertionError(
             f"audited window recovery launched no kernel: {launches}")
     log(f"[audit] card ledger == CPU ledger over epochs "
@@ -1378,7 +1486,7 @@ def phase_overlap(dev_line, root):
     if torch.device(DEVICE).type == "cuda" and any(syncs):
         raise AssertionError(f"(a) capture windows synchronised: {syncs} "
                              f"at {SYNC_SITES}")
-    if min(by_path["pipelined"].values()) == 0:
+    if _hist_silent(by_path["pipelined"]):
         raise AssertionError(f"(a) no kernel launch: {by_path}")
     snap = ovl.metrics.snapshot()
     lat = snap[f"job.{ovl.job.name}.latency-ms"]
@@ -1449,7 +1557,7 @@ def phase_overlap(dev_line, root):
         if r.last_audit.stats != {"match": 1, "divergence": 0,
                                   "missing": 0}:
             raise AssertionError(f"(c) audit {r.last_audit.stats}")
-    if min(by_path["overlap_recovery"].values()) == 0:
+    if _hist_silent(by_path["overlap_recovery"]):
         raise AssertionError(f"(c) no kernel launch: {by_path}")
 
     def residual(pm):
@@ -1487,7 +1595,7 @@ def phase_overlap(dev_line, root):
     hits = (ovl._route_cache_hits, fin._route_cache_hits)
     if min(hits) <= 0:
         raise AssertionError(f"(d) route cache hits {hits}")
-    if min(by_path["route_cache"].values()) == 0:
+    if _hist_silent(by_path["route_cache"]):
         raise AssertionError(f"(d) no kernel launch: {by_path}")
     ovl.drain_fence()
     problems = diff_ledgers(seq.coordinator.read_ledger(),
@@ -1522,7 +1630,7 @@ def phase_overlap(dev_line, root):
     _assert_same(seq, rebuilt, "(e) bootstrap at the mirrored fence")
     if rep_b.steps_replayed != STEPS_PER_EPOCH:
         raise AssertionError(f"(e) replayed {rep_b.steps_replayed}")
-    if min(by_path["bootstrap"].values()) == 0:
+    if _hist_silent(by_path["bootstrap"]):
         raise AssertionError(f"(e) no kernel launch: {by_path}")
     for r in (seq, rebuilt):
         r.run_epoch(complete_checkpoint=True)
@@ -1699,7 +1807,7 @@ def phase_spill(dev_line, root):
         else:
             _assert_same(off, r, f"(a) spill {mode} vs spill off")
         if policy is not None:
-            if min(launches.values()) == 0:
+            if _hist_silent(launches):
                 raise AssertionError(f"(a) {policy}: no kernel launch")
             by_path.setdefault(f"spill_{policy}", launches)
             shutil.rmtree(os.path.join(root, policy), ignore_errors=True)
@@ -1755,7 +1863,7 @@ def phase_spill(dev_line, root):
                              f"not past the {SPILL_BACKLOG_RING}-step ring")
     if moved.get("disk_hits", 0) <= 0 or moved.get("write_errors"):
         raise AssertionError(f"(b) refill movement {moved}")
-    if min(by_path["spill_recovery"].values()) == 0:
+    if _hist_silent(by_path["spill_recovery"]):
         raise AssertionError(f"(b) no kernel launch: {by_path}")
     del control
     log("[spill] (b) deep-backlog recovery == no-spill control (ledger "
@@ -1842,7 +1950,7 @@ def phase_spill(dev_line, root):
     if torch.device(DEVICE).type == "cuda" and any(capture):
         raise AssertionError(f"(d) capture windows synchronised: {capture} "
                              f"at {SYNC_SITES}")
-    if min(by_path["incremental_recovery"].values()) == 0:
+    if _hist_silent(by_path["incremental_recovery"]):
         raise AssertionError(f"(d) no kernel launch: {by_path}")
     sizes = st.delta_bytes_on_disk()
     triggers = len(chain)
@@ -2047,7 +2155,7 @@ def phase_feeds(dev_line):
             or faulted.timer_services[wbase + 3].pending != 1:
         raise AssertionError(f"(a) timers: golden {fired['golden']}, "
                              f"faulted {fired['faulted']}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         raise AssertionError(f"(a) no kernel launch: {launches}")
     # The ring holds one epoch and the pending checkpoint was ignored, so
     # the run ends here (as bench.py's does): checkpoint 0's offsets, the
@@ -2157,7 +2265,10 @@ def phase_join(dev_line):
         raise AssertionError(f"(b) services: {len(serial)} SERIALIZABLE "
                              f"rows, replayed {again}, external calls "
                              f"{len(calls['faulted'])}")
-    if report.steps_replayed != span or min(launches.values()) == 0:
+    # The replay ranks its left records once a group of 64 steps
+    # (``IntervalJoinOperator.group_size``'s cap, which one lane admits).
+    if report.steps_replayed != span or _hist_silent(launches) \
+            or launches["keyed_rank"] != span // 64:
         raise AssertionError(f"(b) replayed {report.steps_replayed} steps, "
                              f"launches {launches}")
     for r in runs.values():
@@ -2301,7 +2412,7 @@ def phase_egress(dev_line, root):
             raise AssertionError(f"(c) {kind}: capture {capture} / block "
                                  f"{blocks} windows synchronised at "
                                  f"{SYNC_SITES}")
-        if min(launches.values()) == 0 and kind == "tumbling":
+        if _hist_silent(launches) and kind == "tumbling":
             raise AssertionError(f"(c) no kernel launch: {launches}")
         for k in launches_all:
             launches_all[k] += launches[k]
@@ -2528,7 +2639,7 @@ def phase_observability(dev_line, root):
     if torch.device(DEVICE).type == "cuda" and any(syncs):
         raise AssertionError(f"(c) traced capture windows synchronised: "
                              f"{syncs} at {SYNC_SITES}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         raise AssertionError(f"observability path launched no kernel: "
                              f"{launches}")
     summary = chrome.summarize(records)
@@ -2704,7 +2815,7 @@ def phase_socket_wordcount(dev_line):
         raise AssertionError(f"(a) source records {source} != lines sent "
                              f"{SOCKET_LINES}")
     if report.steps_replayed != SOCKET_KILL_AT or \
-            min(launches.values()) == 0:
+            _hist_silent(launches):
         raise AssertionError(f"(a) replayed {report.steps_replayed} steps, "
                              f"launches {launches}")
     log("[socket] config #1 drained and recovered, digest equal: "
@@ -2840,7 +2951,7 @@ def phase_host_loss(dev_line, root):
         if report.steps_replayed != runner.global_step \
                 - runner._fence_step[report.from_epoch] \
                 or report.determinants_replayed <= 0 \
-                or min(rebuild_launches.values()) == 0:
+                or _hist_silent(rebuild_launches):
             raise AssertionError(f"(b) rebuild replayed "
                                  f"{report.steps_replayed} steps, launches "
                                  f"{rebuild_launches}")
@@ -3069,7 +3180,7 @@ def phase_serve_reads(dev_line):
             any(window_syncs) or len(window_syncs) != n_batches):
         problems.append(f"serve windows synchronised: {window_syncs} at "
                         f"{SYNC_SITES}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         problems.append(f"no kernel launch: {launches}")
     if problems:
         raise AssertionError("(a) " + "; ".join(problems))
@@ -3211,7 +3322,7 @@ def phase_serve_ingest(dev_line):
                                                 or any(syncs_off)):
         problems.append(f"capture windows synchronised: {syncs_on} / "
                         f"{syncs_off} at {SYNC_SITES}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         problems.append(f"no kernel launch: {launches}")
     if problems:
         raise AssertionError("(b) " + "; ".join(problems))
@@ -3610,7 +3721,7 @@ def phase_spanning(dev_line, root):
                                         ListFeedReader([recs.tolist()]))
             return _epochs_of(ctrl, SPAN_EPOCHS, SPAN_COMPLETE_EVERY)
         ctrl_digests, launches, _ = _counted(control)
-        if min(launches.values()) == 0:
+        if _hist_silent(launches):
             raise AssertionError(f"(a) control launches {launches}")
         fences_a = [s for s in seen_a if s.get("group") == 1]
         for s in seen_b + fences_a + [dep]:
@@ -3863,7 +3974,7 @@ def phase_multitenant(dev_line, root):
             ctrl = ClusterRunner(sub, device=DEVICE, **MT_RUNNER_KW)
             return _epochs_of(ctrl, max(MT_TARGETS.values()), 2)
         ctrl_digests, launches, _ = _counted(control)
-        if min(launches.values()) == 0:
+        if _hist_silent(launches):
             raise AssertionError(f"(b) control launches {launches}")
         for jid in MT_TARGETS:
             for events in (ea, eb):
@@ -4065,7 +4176,7 @@ def phase_planes_cost(dev_line, root):
             raise AssertionError(f"(a) turn {i} ({turn}): lineage "
                                  f"{t['lineage']}, observe ms "
                                  f"{t['observe']}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         raise AssertionError(f"(a) no kernel launch: {launches}")
     n = len(PLANES_TURNS)
     rounds = [{t["turn"]: t for t in turns[r * n:(r + 1) * n]}
@@ -4262,7 +4373,7 @@ def phase_planes_failover(dev_line, root):
         bundles = mgr.bundles()
         _reset_planes()
     launches = {k: launches[k] + run_on_launches[k] for k in launches}
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         raise AssertionError(f"(b) no kernel launch: {launches}")
 
     # The merged timeline, through the CLI as an operator reads it.
@@ -4635,7 +4746,7 @@ def phase_rescale_restore(dev_line, rows):
                  grid=r["grid"])
              for r in (rows or []) if r["label"] in RESCALE_LABELS
              and "ms" in r}
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         raise AssertionError(f"(a) no kernel launch in the re-cuts: "
                              f"{launches}")
     log("[rescale] (a) restore_rescaled from a completed checkpoint, sink "
@@ -4972,7 +5083,7 @@ def phase_rescale_live(dev_line, root):
         twice.append(c3.log.to_bytes())
     if twice[0] != twice[1] or twice[0] != ctl_as.log.to_bytes():
         problems.append("(d) the same trace logged different bytes")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         problems.append(f"no kernel launch: {launches}")
     if problems:
         raise AssertionError("; ".join(problems))
@@ -5416,7 +5527,7 @@ def phase_soak(dev_line, root, rows=None):
         torch.cuda.empty_cache()
 
     _, launches, _ = _counted(run)
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         problems.append(f"no kernel launch: {launches}")
     for part in ("a", "b", "c", "d"):
         if part in readings:
@@ -6151,7 +6262,7 @@ def _p18_check(name, res, ctl, golden_b, row_of):
             if r[sub]["digest"] != ctl[sub]["digest"]:
                 problems.append(f"{name} rank {r['rank']} ({sub}): state "
                                 f"digest differs from the control's")
-            if min(r[sub]["launches"].values()) == 0:
+            if _hist_silent(r[sub]["launches"]):
                 problems.append(f"{name} rank {r['rank']} ({sub}): a kernel "
                                 f"was not launched: {r[sub]['launches']}")
     # (a) committed feed offsets: each lane's from the rank that pulls it.
@@ -6597,7 +6708,7 @@ def _p19_check(name, res, ctl, row_of):
             if r[sub]["digest"] != ctl[sub]["digest"]:
                 problems.append(f"{name} rank {r['rank']} ({sub}): state "
                                 f"digest differs from the control's")
-            if min(r[sub]["launches"].values()) == 0:
+            if _hist_silent(r[sub]["launches"]):
                 problems.append(f"{name} rank {r['rank']} ({sub}): a kernel "
                                 f"was not launched: {r[sub]['launches']}")
     for r in res:
@@ -7065,7 +7176,7 @@ def phase_verify(dev_line, root, rows, rate):
     if rows is not None and missing:
         problems.append(f"(e) launch shapes without a phase 2 row: "
                         f"{missing}")
-    if min(launches.values()) == 0:
+    if _hist_silent(launches):
         problems.append(f"no kernel launch: {launches}")
     readings["e"] = dict(launch_shapes=[list(x) for x in shapes],
                          launches=launches)
@@ -7263,7 +7374,7 @@ def phase_analysis(dev_line, verdict_census):
         problems.append(f"(b) the twin's warm-up epoch against "
                         f"keyed_hist_plain: {plain}")
     for tag, launches in (("real", launches_real), ("twin", launches_twin)):
-        if min(launches.values()) == 0:
+        if _hist_silent(launches):
             problems.append(f"(b) {tag}: no kernel launch: {launches}")
     measured = max(0.0, (t_real - t_twin) / t_real) if t_real else 0.0
     census = build_census(_repo_contexts(("clonos_tpu_torch",)))
@@ -7524,7 +7635,7 @@ def phase_compile_cache(dev_line, root):
     cuda = torch.device(DEVICE).type == "cuda"
     if plain["max_abs_err"] != 0 or not plain["calls"] or (cuda and (
             plain["kernel_calls"] != plain["calls"]
-            or min(warm_launches.values()) == 0)):
+            or _hist_silent(warm_launches))):
         problems.append(f"(b) the warm's launches against keyed_hist_plain "
                         f"{plain}, counted {warm_launches}")
     # No build and no load inside a recovery.
@@ -7591,6 +7702,7 @@ def main() -> int:
     log(f"[config] {REDUCTIONS}")
     phase_build()
     rows = phase_kernels()
+    rank_rows = phase_keyed_rank()
     phase_card_vs_cpu()
     golden, launches = phase_main_path(dev_line)
     _, recovery_launches = phase_recovery(golden, dev_line)
@@ -7736,7 +7848,7 @@ def main() -> int:
         "rescale_live": live_launches, "soak": soak_launches,
         **mesh_launches, **mesh_storage_launches,
         **mesh_rebuild_launches, "verify": verify_launches,
-        "ablation": analysis_launches, **cache_launches})))
+        "ablation": analysis_launches, **cache_launches}, rank_rows)))
     print(dev_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

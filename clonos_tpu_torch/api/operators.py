@@ -30,6 +30,7 @@ import torch
 
 from clonos_tpu_torch.api.records import RecordBatch, zero_invalid
 from clonos_tpu_torch.ops.histogram import keyed_hist
+from clonos_tpu_torch.ops.keyrank import keyed_rank
 from clonos_tpu_torch.ops.matops import onehot_gather_rows
 from clonos_tpu_torch.parallel import routing
 
@@ -865,13 +866,12 @@ class IntervalJoinOperator(TwoInputOperator):
             # order, the sequential insert order.
             lg = RecordBatch(*(x[g0:g0 + G].transpose(0, 1) for x in left))
             rg = RecordBatch(*(x[g0:g0 + G].transpose(0, 1) for x in right))
-            lk = lg.keys.clamp(0, nk - 1).reshape(P, n).to(torch.int64)
-            lvalid = lg.valid.reshape(P, n)
-            oh = lvalid[..., None] & (lk[..., None] == ks)        # [P, n, nk]
-            cum = torch.cumsum(oh.to(torch.int32), dim=1, dtype=torch.int32)
-            rank = torch.gather(cum, 2, lk[..., None])[..., 0] - 1
-            rank = torch.where(lvalid, rank, n).to(torch.int64)  # n = spare
-            total = cum[:, -1]                                    # [P, nk]
+            lk32 = lg.keys.clamp(0, nk - 1).reshape(P, n)
+            # rank: [P, n], n = spare; through: [P, G, nk] inclusive.
+            rank, through = keyed_rank(lk32, lg.valid.reshape(P, n), G, B,
+                                       nk)
+            total = through[:, -1]                                # [P, nk]
+            lk = lk32.to(torch.int64)
             tidx = lk * (n + 1) + rank
 
             def table(src):
@@ -881,7 +881,6 @@ class IntervalJoinOperator(TwoInputOperator):
                     P, nk, n + 1)[:, :, :n]
 
             Tv, Tt = table(lg.values), table(lg.timestamps)
-            through = cum.reshape(P, G, B, nk)[:, :, -1]          # [P, G, nk]
             rk = rg.keys.clamp(0, nk - 1).to(torch.int64)         # [P, G, B2]
             hi = torch.gather(through, 2, rk)
             c0 = torch.gather(cur, 1, rk.reshape(P, G * B2)).reshape(

@@ -267,7 +267,7 @@ def keyed_hist_cuda(keys: torch.Tensor, vals: torch.Tensor,
             f"keyed_hist kernel launch failed: "
             f"{_lib().keyed_hist_error_string(err).decode()} (cuda error "
             f"{err}) at R={r} B={b} nk={nk} counts={want_counts}, {plan}")
-    if getattr(_warming, "on", False):
+    if warming():
         keyed_hist.warm_launches += 1
         if want_counts:
             keyed_hist.warm_launches_counts += 1
@@ -287,12 +287,18 @@ _warming = threading.local()
 @contextlib.contextmanager
 def counting_as_warm():
     """Count this thread's kernel launches as warm launches while open."""
-    prev = getattr(_warming, "on", False)
+    prev = warming()
     _warming.on = True
     try:
         yield
     finally:
         _warming.on = prev
+
+
+def warming() -> bool:
+    """Whether this thread is inside :func:`counting_as_warm` (every
+    kernel wrapper counts its launches by it)."""
+    return getattr(_warming, "on", False)
 
 
 def keyed_hist(keys: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor,

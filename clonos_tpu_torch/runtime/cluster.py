@@ -96,6 +96,7 @@ from clonos_tpu_torch.obs import profile as _prof
 from clonos_tpu_torch.obs.timeline import get_timeline
 from clonos_tpu_torch.obs.trace import configure as configure_tracer
 from clonos_tpu_torch.obs.trace import get_tracer
+from clonos_tpu_torch.ops import launch_counts
 from clonos_tpu_torch.parallel import routing
 from clonos_tpu_torch.runtime import checkpoint as cp
 from clonos_tpu_torch.runtime.timers import ProcessingTimeService
@@ -1798,13 +1799,18 @@ class ClusterRunner:
             restore_bytes += rec.plan_restore_nbytes(plan)
             # Fast path: dispatch only; verification and the consumed
             # total ride the final packed read.
+            launches0 = launch_counts()
             result = mgr.run_replay(plan, self.device, defer_sync=fast)
             if not result.deferred:
                 total_records += result.records_replayed
+            # Each registered kernel's launches in the replay (0 on the
+            # CPU, which takes the plain versions): ``rank_launches``.
             ph.count({"steps": n_steps, "inputs": len(in_edges),
                       "rows": (n_rows if det_device is not None
                                else len(result.rebuilt_log_rows)),
-                      "async": len(result.async_events)})
+                      "async": len(result.async_events),
+                      **{k: v - launches0[k]
+                         for k, v in launch_counts().items()}})
             # Recovered timers re-run their callbacks (the rows are back
             # in the rebuilt log already).
             svc = self.timer_services.get(flat)

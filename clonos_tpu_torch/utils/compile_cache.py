@@ -73,11 +73,13 @@ def enable_compile_cache(cache_dir: str, mesh: Optional[Any] = None,
 
 def load_kernels(device) -> None:
     """Build (or find in the cache) and load every kernel library a run
-    on ``device`` launches: the keyed histogram on a card; none on the
-    CPU, where every kernel takes its plain version."""
+    on ``device`` launches: the keyed histogram and the join's keyed rank
+    on a card; none on the CPU, where every kernel takes its plain
+    version."""
     if torch.device(device).type == "cuda":
-        from clonos_tpu_torch.ops import histogram
+        from clonos_tpu_torch.ops import histogram, keyrank
         histogram._lib()
+        keyrank._lib()
 
 
 def aot_lower_first_step(executor, metric_group: Optional[Any] = None

@@ -497,17 +497,20 @@ def test_port_analyzes_clean(port_analysis):
 def test_no_waivers_shows_the_thirteen_findings(port_analysis):
     """Without waivers the analysis reports what this slice answered:
     seven join-discipline findings on the epoch tracker's and the
-    checkpoint coordinator's listener lists and six nondet-reach chains
-    from step functions to the nvcc temp name's ``os.getpid``."""
+    checkpoint coordinator's listener lists and seven nondet-reach chains
+    from step functions to the nvcc temp name's ``os.getpid`` (six
+    through the keyed histogram, one through the join's keyed rank)."""
     _res, raw = port_analysis
     got = sorted((f.rule, f.path) for f in raw.errors)
     assert got == sorted(
         [("join-discipline", "clonos_tpu_torch/causal/epoch.py")] * 3
         + [("join-discipline", "clonos_tpu_torch/runtime/checkpoint.py")]
-        * 4 + [("nondet-reach", "clonos_tpu_torch/ops/cuda_build.py")] * 6)
+        * 4 + [("nondet-reach", "clonos_tpu_torch/ops/cuda_build.py")] * 7)
     reach = [f for f in raw.errors if f.rule == NONDET_REACH]
     assert any("KeyedReduceOperator.process" in f.message
                and "keyed_hist_cuda" in f.message for f in reach)
+    assert any("IntervalJoinOperator.process_block" in f.message
+               and "keyed_rank_cuda" in f.message for f in reach)
 
 
 def test_port_fingerprints_equal_the_port_pins(port_analysis):
@@ -702,7 +705,7 @@ def test_cli_analyze_expect_census_pin_and_drift(memo_analysis, capsys):
     rc = cli.main(["analyze", "--no-waivers", "--report", "json",
                    "--no-census"])
     doc = json.loads(capsys.readouterr().out.strip())
-    assert rc == 1 and doc["errors"] == 13
+    assert rc == 1 and doc["errors"] == 14
 
 
 def test_cli_analyze_verb_on_the_tree_exits_zero_with_pins():

@@ -399,3 +399,134 @@ def test_fed_blocks_pack_into_pinned_memory_behind_copies_in_flight(
         np.testing.assert_array_equal(values, host[1])
         np.testing.assert_array_equal(ts, np.zeros_like(host[0]))
         np.testing.assert_array_equal(valid, host[2] != 0)
+
+
+# --- the interval join's keyed rank (ops/csrc/keyed_rank.cu) ----------------
+
+def _rank_inputs(seed, P, G, B, nk, kind="mixed"):
+    rng = np.random.RandomState(seed)
+    keys = rng.randint(0, nk, (P, G * B)).astype(np.int32)
+    valid = rng.rand(P, G * B) < 0.7
+    if kind == "one-key":
+        keys[:] = nk - 1
+    elif kind == "all-invalid":
+        valid[:] = False
+    return keys, valid
+
+
+def _check_rank(keys, valid, G, B, nk):
+    """The kernel's rank and through equal the plain version's, bit for
+    bit, after a synchronise; one call counted."""
+    from clonos_tpu_torch.ops import keyrank
+    before = keyrank.keyed_rank.launches
+    rank, through = keyrank.keyed_rank(keys, valid, G, B, nk)
+    torch.cuda.synchronize()
+    assert keyrank.keyed_rank.launches == before + 1
+    want_rank, want_through = keyrank.keyed_rank_plain(
+        keys.cpu(), valid.cpu(), G, B, nk)
+    assert rank.dtype == torch.int64 and through.dtype == torch.int32
+    assert torch.equal(rank.cpu(), want_rank)
+    assert torch.equal(through.cpu(), want_through)
+
+
+@pytest.mark.parametrize("P,G,B", [(1, 64, 256), (32, 4, 256)],
+                         ids=["replay", "fill"])
+def test_keyed_rank_equals_plain_at_the_join_cell_shapes(cuda_device, P, G,
+                                                         B):
+    keys, valid = _rank_inputs(P * G, P, G, B, 211)
+    _check_rank(*_on_card((keys, valid), cuda_device), G, B, 211)
+
+
+@pytest.mark.parametrize("P,G,B,nk,kind", [
+    (2, 8, 256, 211, "all-invalid"),
+    (2, 8, 256, 211, "one-key"),
+    (3, 4, 64, 1, "mixed"),
+    (2, 4, 256, 30000, "mixed"),      # the table in global scratch
+    (1, 8, 256, 70000, "one-key"),
+    (3, 5, 100, 211, "mixed"),        # a ragged step
+    (2, 3, 2500, 4096, "mixed"),      # three tiles of a step
+    (5, 1, 256, 211, "mixed"),
+], ids=["all-invalid", "one-key", "nk1", "nk30000", "nk70000-one-key",
+        "ragged-B100", "B2500", "G1"])
+def test_keyed_rank_edge_cases(cuda_device, P, G, B, nk, kind):
+    keys, valid = _rank_inputs(B + nk, P, G, B, nk, kind)
+    _check_rank(*_on_card((keys, valid), cuda_device), G, B, nk)
+
+
+def test_keyed_rank_on_views_at_an_odd_offset(cuda_device):
+    keys, valid = _rank_inputs(9, 2, 8, 256, 211)
+    k, v = (torch.cat([a.reshape(-1)[:1], a.reshape(-1)])[1:].view(a.shape)
+            for a in _on_card((keys, valid), cuda_device))
+    assert k.data_ptr() % 16 != 0
+    _check_rank(k, v, 8, 256, 211)
+
+
+def test_keyed_rank_refuses_a_shape_outside_its_extents(cuda_device):
+    from clonos_tpu_torch.ops import keyrank
+    keys, valid = _on_card(_rank_inputs(1, 2, 4, 16, 11), cuda_device)
+    with pytest.raises(ValueError):
+        keyrank.keyed_rank_cuda(keys, valid, 4, 17, 11)
+    with pytest.raises(ValueError):
+        keyrank.keyed_rank_cuda(keys, valid, 4, 16, 0)
+
+
+def _join_side(rng, K, P, B, nk):
+    keys = rng.randint(-1, nk + 1, (K, P, B)).astype(np.int32)
+    vals = rng.randint(-50, 50, (K, P, B)).astype(np.int32)
+    ts = (np.arange(K)[:, None, None] * 3
+          + rng.randint(-4, 5, (K, P, B))).astype(np.int32)
+    valid = rng.rand(K, P, B) < 0.7
+    keys, vals, ts = (np.where(valid, x, 0) for x in (keys, vals, ts))
+    return keys, vals, ts, valid
+
+
+def test_join_grouped_block_on_card_equals_cpu_and_counts_groups(
+        cuda_device):
+    """``IntervalJoinOperator.process_block`` on the card equals the same
+    call on the CPU, and launches the rank kernel once a group of G
+    steps; under ``counting_as_warm`` its calls count apart."""
+    from clonos_tpu_torch.api import operators as to
+    from clonos_tpu_torch.api.records import RecordBatch
+    from clonos_tpu_torch.ops import keyrank
+    K, P, B, nk = 128, 4, 64, 211
+    op = to.IntervalJoinOperator(num_keys=nk, window=4, interval=1 << 30,
+                                 capacity=64)
+    G = op.group_size(K, P, B)
+    assert 1 < G < K and K % G == 0
+    rng = np.random.RandomState(11)
+    blocks = [(_join_side(rng, K, P, B, nk), _join_side(rng, K, P, B, nk))
+              for _ in range(2)]
+
+    def run(dev):
+        ctx = to.BlockContext(
+            times=torch.arange(K, dtype=torch.int32, device=dev),
+            rng_bits=torch.zeros((K,), dtype=torch.int32, device=dev),
+            epoch=torch.zeros((), dtype=torch.int32, device=dev),
+            step0=torch.zeros((), dtype=torch.int32, device=dev),
+            subtask=torch.arange(P, dtype=torch.int32, device=dev))
+        state, outs = op.init_state(P, dev), []
+        for left, right in blocks:
+            side = lambda s: RecordBatch(*(torch.from_numpy(x).to(dev)
+                                           for x in s))
+            state, out = op.process_block(state, (side(left), side(right)),
+                                          ctx)
+            outs.append(out)
+        return state, outs
+
+    before = (keyrank.keyed_rank.launches, keyrank.keyed_rank.warm_launches)
+    card_state, card_outs = run(cuda_device)
+    torch.cuda.synchronize()
+    assert (keyrank.keyed_rank.launches - before[0],
+            keyrank.keyed_rank.warm_launches - before[1]) == (2 * K // G, 0)
+    cpu_state, cpu_outs = run(torch.device("cpu"))
+    for k in cpu_state:
+        assert torch.equal(card_state[k].cpu(), cpu_state[k]), k
+    for a, b in zip(card_outs, cpu_outs):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+    launches = keyrank.keyed_rank.launches
+    with th.counting_as_warm():
+        run(cuda_device)
+    torch.cuda.synchronize()
+    assert keyrank.keyed_rank.launches == launches
+    assert keyrank.keyed_rank.warm_launches - before[1] == 2 * K // G

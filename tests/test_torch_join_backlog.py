@@ -121,6 +121,8 @@ def test_backlog_recovery_equals_the_reference(kill, calls):
             name = VERTICES[[v for v in range(4)
                              if job.subtask_base(v) <= f][-1]]
             assert ra["steps"] == SPE * PENDING
+            # The CPU takes the rank's plain version: no kernel call.
+            assert ra["rank_launches"] == 0
             assert ra["inputs"] == {"source-r": 0, "join": 2, "sink": 1}[name]
             if name != "sink":
                 # A sink's rows are re-synthesised: it has no replica.

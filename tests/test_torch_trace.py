@@ -313,7 +313,8 @@ def _window_job(env_cls):
 #: counters the port adds to two recovery phase spans; the reference's
 #: spans carry none
 PORT_COUNTERS = {"recovery.fetch_determinants": ("rows", "host_rows"),
-                 "recovery.replay": ("steps", "rows", "async", "inputs")}
+                 "recovery.replay": ("steps", "rows", "async", "inputs",
+                                     "rank_launches")}
 
 
 def _record_key(rec, strip=()):
